@@ -8,22 +8,28 @@ It runs every phase, in order; any failure exits non-zero:
 1. device   -- require CUDA; print the card's nvidia-smi name and power limit.
 2. build    -- build the kernels of ``ligero_tpu_torch/csrc`` with nvcc.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
-               the 2^20-gate shapes; bit-equal (tolerance 0: exact field
-               arithmetic), both times printed.
-4. parity   -- port proofs on the card byte-equal to the JAX package's
-               numpy golden path (x^3 example, 2^8 and 2^10 gates), and
-               verified both ways.
-5. main     -- a 2^20-gate synthetic circuit through ``LigeroCircuit.prove``
-               and ``verify``: two byte-identical proofs, verify True,
-               tampered witness and flipped byte rejected, every kernel
-               launched on this path.
+               the 2^20-gate shapes of both paths (plain and zk); bit-equal
+               (tolerance 0: exact integer arithmetic), both times printed,
+               and the least time the card could take for the same work
+               (bytes over the memory rate, or integer operations over the
+               instruction rate) beside them.
+4. parity   -- port proofs on the card byte-equal to the port's proofs on
+               the CPU (plain versions) and to SHA-256 digests of the JAX
+               package's proofs kept in ``testdata/golden_proofs.json``:
+               x^3, 2^8 and 2^10 gates, and 2^8 and 2^10 gates with zk.
+5. main     -- the 2^20-gate synthetic circuit through ``LigeroCircuit``'s
+               ``prove`` and ``verify``, first plain, then with ``zk=True``:
+               two byte-identical proofs, verify True, tampered witness and
+               flipped byte rejected, every kernel launched on each path.
 
 The last two stdout lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  JAX is never imported.
+``{"ok": true, "device": {...}}``.  Neither JAX nor the JAX package
+``ligero_tpu`` is ever imported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -31,9 +37,24 @@ import sys
 import time
 import warnings
 
-sys.modules["jax"] = None  # the port must run without JAX: make any import fail
+# the port must run without JAX and without the JAX package: make any import
+# of either fail
+sys.modules["jax"] = None
+sys.modules["ligero_tpu"] = None
 
 LOG2_GATES, SEED = 20, 0  # BASELINE.json config #5, the repo's headline size
+ZK_SEED = bytes(range(32))
+# NVIDIA H100 SXM data sheet: device memory rate; 32-bit integer rate taken
+# as a quarter of the 67 TFLOP/s float32 figure (that one counts two
+# operations per FMA on 128 lanes per SM; integer has 64 lanes, one each)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.75e12
+# 32-bit integer operations: one 8-word CIOS Montgomery product (64 products
+# and 64 reduction multiply-adds with their carries); one Blake2s block
+# (10 rounds x 8 G x 14 operations, plus state set-up); one SHA-256
+# two-to-one (128 rounds x ~24, plus 48 schedule words x 13)
+MONT_MUL_OPS, BLAKE2S_BLOCK_OPS, SHA256_NODE_OPS = 160, 1160, 3700
+ELEM = 64  # bytes of one field element as 16 int32 limbs
 KERNELS = {
     # name: (wrapper module, source, TPU kernel replaced)
     "ntt": ("cuda_ntt", "ligero_tpu_torch/csrc/ntt.cu",
@@ -44,6 +65,8 @@ KERNELS = {
                      "ligero_tpu/engine/pallas_hash.py:39"),
     "row_combine": ("cuda_lc", "ligero_tpu_torch/csrc/row_combine.cu",
                     "ligero_tpu/engine/mxu_lc.py:137"),
+    "sha256_tree": ("cuda_tree", "ligero_tpu_torch/csrc/sha256_tree.cu",
+                    "ligero_tpu/engine/pallas_tree.py:77"),
 }
 
 
@@ -70,9 +93,11 @@ def nvidia_smi_line() -> str:
 
 
 def wrappers():
-    from ligero_tpu_torch.engine import cuda_hash, cuda_lc, cuda_mont, cuda_ntt
+    from ligero_tpu_torch.engine import (cuda_hash, cuda_lc, cuda_mont,
+                                         cuda_ntt, cuda_tree)
     mods = {"cuda_ntt": cuda_ntt, "cuda_mont": cuda_mont,
-            "cuda_hash": cuda_hash, "cuda_lc": cuda_lc}
+            "cuda_hash": cuda_hash, "cuda_lc": cuda_lc,
+            "cuda_tree": cuda_tree}
     return {name: mods[spec[0]] for name, spec in KERNELS.items()}
 
 
@@ -110,14 +135,46 @@ def _time_once(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_kernels(torch, field, dims) -> dict:
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it) for work that must
+    move ``nbytes`` and do ``ops`` 32-bit integer operations."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def ntt_work(rows: int, w: int, n: int, epilogue: bool):
+    """Bytes and operations of a batched NTT: w-wide rows and the twiddles
+    in, n-wide rows out; n/2 log2 n butterflies a row, one product each."""
+    products = rows * ((n // 2) * (n.bit_length() - 1) + (n if epilogue else 0))
+    return (rows * (w + n) * ELEM + (n // 2) * ELEM // 2,
+            products * MONT_MUL_OPS)
+
+
+def blake2s_work(rows: int, cols: int):
+    blocks = -(-(8 + 32 * rows) // 64)
+    return rows * cols * ELEM + cols * 32, cols * blocks * BLAKE2S_BLOCK_OPS
+
+
+def row_combine_work(rows: int, k: int):
+    return (rows * k + rows + k) * ELEM, rows * k * (MONT_MUL_OPS + 10)
+
+
+def tree_work(n: int):
+    return n * 32 + (2 * n - 1) * 32, (n - 1) * SHA256_NODE_OPS
+
+
+def phase_kernels(torch, field, dims, zk_dims) -> dict:
     """Each kernel on the card vs its plain version, same inputs, at the
-    main path's shapes (dims = m, k, n, nnz of A).  Returns per-kernel
-    results."""
+    shapes of both main paths (dims = m, k, n, nnz of A; zk_dims = b, d2).
+    Returns per-kernel results; the first case of a kernel gives its
+    reported times and bound."""
     from ligero_tpu_torch.engine import (cuda_hash, cuda_lc, cuda_mont,
-                                         cuda_ntt, fieldops, hashops, ntt)
+                                         cuda_ntt, cuda_tree, fieldops,
+                                         hashops, ntt)
     m, k, n, nnz = dims
-    rows = 4 * m
+    b, d2 = zk_dims
+    rows, kb = 4 * m, k + b
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
     mm = lambda a, b: cuda_mont.mont_mul(field, a, b)  # noqa: E731
@@ -128,32 +185,56 @@ def phase_kernels(torch, field, dims) -> dict:
     def pair(f, g):
         return lambda: (f(), g())
 
+    def leaves(count):
+        return lambda: torch.randint(-2**31, 2**31, (count, 8), generator=gen,
+                                     dtype=torch.int64,
+                                     device="cuda").to(torch.int32)
+
+    def ntt_case(label, batch, w, size, inverse=False, canon=False):
+        return ("ntt", f"{label}, {batch} x {w} -> {size}", elems(batch, w),
+                lambda x: cuda_ntt.ntt(field, x, size, inverse, canon),
+                lambda x: ntt.ntt_ref(field, x, size, inverse, canon),
+                ntt_work(batch, w, size, inverse or canon))
+
     cases = [
-        # (kernel, label, input maker, kernel call, plain call)
-        ("ntt", f"NTT_n n={n} canon_out, 256 x {k} -> {n}", elems(256, k),
-         lambda x: cuda_ntt.ntt(field, x, n, canon_out=True),
-         lambda x: ntt.ntt_ref(field, x, n, canon_out=True)),
-        ("ntt", f"iNTT_k k={k}, {rows} rows", elems(rows, k),
-         lambda x: cuda_ntt.ntt(field, x, k, inverse=True),
-         lambda x: ntt.ntt_ref(field, x, k, inverse=True)),
-        ("ntt", f"NTT_2k 2k={2 * k}, {rows} x {k} -> {2 * k}", elems(rows, k),
-         lambda x: cuda_ntt.ntt(field, x, 2 * k),
-         lambda x: ntt.ntt_ref(field, x, 2 * k)),
-        ("ntt", f"iNTT_2k 2k={2 * k}, 1 row", elems(1, 2 * k),
-         lambda x: cuda_ntt.ntt(field, x, 2 * k, inverse=True),
-         lambda x: ntt.ntt_ref(field, x, 2 * k, inverse=True)),
+        # (kernel, label, input maker, kernel call, plain call, (bytes, ops))
+        ntt_case(f"NTT_n n={n} canon_out", 256, k, n, canon=True),
+        ntt_case(f"iNTT_k k={k}", rows, k, k, inverse=True),
+        ntt_case(f"NTT_2k 2k={2 * k}", rows, k, 2 * k),
+        ntt_case(f"iNTT_2k 2k={2 * k}", 1, 2 * k, 2 * k, inverse=True),
+        # zk shapes: the encode from d2-wide rows, a width that is not a
+        # power of two, the products' d2 domain
+        ntt_case(f"zk NTT_n n={n} canon_out", 256, d2, n, canon=True),
+        ntt_case(f"zk NTT_n n={n} canon_out, w = k + b", 256, kb, n, canon=True),
+        ntt_case(f"zk NTT_d2 d2={d2} of k + b", rows, kb, d2),
+        ntt_case(f"zk NTT_d2 d2={d2} of k", rows, k, d2),
+        ntt_case(f"zk iNTT_d2 d2={d2}", 1, d2, d2, inverse=True),
         ("mont_mul", f"mont_mul a<R x b<p, nnz={nnz}",
          pair(elems(nnz, below_r=True), elems(nnz)),
-         lambda ab: mm(*ab), lambda ab: fieldops.mont_mul(field, *ab)),
+         lambda ab: mm(*ab), lambda ab: fieldops.mont_mul(field, *ab),
+         (3 * nnz * ELEM, nnz * MONT_MUL_OPS)),
         ("blake2s_cols", f"Blake2s columns {rows} x 1024", elems(rows, 1024),
-         cuda_hash.blake2s_columns, hashops.blake2s_columns_ref),
+         cuda_hash.blake2s_columns, hashops.blake2s_columns_ref,
+         blake2s_work(rows, 1024)),
+        ("blake2s_cols", f"zk Blake2s columns {rows + 3} x 256 (odd row count)",
+         elems(rows + 3, 256),
+         cuda_hash.blake2s_columns, hashops.blake2s_columns_ref,
+         blake2s_work(rows + 3, 256)),
         ("row_combine", f"row_combine {rows} x {k}",
          pair(elems(rows), elems(rows, k)),
          lambda rm: cuda_lc.row_combine(field, *rm),
-         lambda rm: cuda_lc.row_combine_ref(field, *rm)),
+         lambda rm: cuda_lc.row_combine_ref(field, *rm),
+         row_combine_work(rows, k)),
+        ("row_combine", f"zk row_combine {rows} x {kb}",
+         pair(elems(rows), elems(rows, kb)),
+         lambda rm: cuda_lc.row_combine(field, *rm),
+         lambda rm: cuda_lc.row_combine_ref(field, *rm),
+         row_combine_work(rows, kb)),
+        ("sha256_tree", f"SHA-256 tree n={n}", leaves(n),
+         cuda_tree.tree_flat, hashops.tree_flat, tree_work(n)),
     ]
     results: dict = {}
-    for name, label, make, kern, plain in cases:
+    for name, label, make, kern, plain, work in cases:
         inp = make()
         got, _ = _time_once(torch, lambda: kern(inp))
         want, plain_ms = _time_once(torch, lambda: plain(inp))
@@ -162,105 +243,168 @@ def phase_kernels(torch, field, dims) -> dict:
                 f"{tuple(want.shape)} {want.dtype}")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         ms = _time_cuda(torch, lambda: kern(inp), iters=5)
-        log(f"kernel {label}: max_abs_err={err} kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+        bound_ms, bound_by = bound(*work)
+        log(f"kernel {label}: max_abs_err={err} kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}")
         require(err == 0, f"{label}: kernel disagrees with its plain version")
-        res = results.setdefault(name, {"max_abs_err": 0, "ms": ms,
-                                        "plain_ms": plain_ms})
+        res = results.setdefault(name, {
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by})
         res["max_abs_err"] = max(res["max_abs_err"], err)
         del got, want, inp
         torch.cuda.empty_cache()
-    # the commit's full-width NTT_n and column hash (all 4m rows, all n
-    # columns), kernel only
-    x = _rand_elems(torch, gen, (rows, k), field)
-    ms = _time_cuda(torch, lambda: cuda_ntt.ntt(field, x, n, canon_out=True),
-                    iters=3)
-    log(f"kernel NTT_n n={n} canon_out, full {rows} x {k} -> {n}: {ms:.3f} ms")
-    u = cuda_ntt.ntt(field, x, n, canon_out=True)
-    del x
-    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u), iters=3)
-    log(f"kernel Blake2s columns, full {rows} x {n}: {ms:.3f} ms")
-    del u
-    torch.cuda.empty_cache()
+    tree_bit_equality(torch, gen)
+    # the commit's full-width NTT_n, column hash and tree (all rows, all n
+    # columns; zk: 4m + 3 rows from d2-wide coefficients), kernel only
+    for label, nrows, w in (("", rows, k), ("zk ", rows + 3, d2)):
+        x = _rand_elems(torch, gen, (nrows, w), field)
+        ms = _time_cuda(torch, lambda: cuda_ntt.ntt(field, x, n, canon_out=True),
+                        iters=3)
+        log(f"kernel {label}NTT_n n={n} canon_out, full {nrows} x {w} -> {n}: "
+            f"{ms:.3f} ms, bound "
+            "%.3f ms by %s" % bound(*ntt_work(nrows, w, n, True)))
+        u = cuda_ntt.ntt(field, x, n, canon_out=True)
+        del x
+        ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u), iters=3)
+        log(f"kernel {label}Blake2s columns, full {nrows} x {n}: {ms:.3f} ms, "
+            "bound %.3f ms by %s" % bound(*blake2s_work(nrows, n)))
+        del u
+        torch.cuda.empty_cache()
+    # context only: the host's hashlib over the same n - 1 two-to-one hashes
+    digests = [os.urandom(32) for _ in range(n)]
+    t0 = time.perf_counter()
+    while len(digests) > 1:
+        digests = [hashlib.sha256(digests[i] + digests[i + 1]).digest()
+                   for i in range(0, len(digests), 2)]
+    log(f"context: host hashlib, {n - 1} SHA-256 two-to-one hashes: "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
     return results
 
 
+def tree_bit_equality(torch, gen) -> None:
+    """The tree kernel against the plain SHA-256 levels at small, split and
+    large n, 20 fresh inputs each.  The plain levels run over the 20 trees
+    side by side (pairs never cross a tree: n is a power of two)."""
+    from ligero_tpu_torch.engine import cuda_tree, hashops
+    reps = 20
+    for n in (2, 4, 512, 1024, 2048, 65536):
+        forest = torch.randint(-2**31, 2**31, (reps, n, 8), generator=gen,
+                               dtype=torch.int64, device="cuda").to(torch.int32)
+        got = [cuda_tree.tree_flat(forest[r]) for r in range(reps)]
+        level = hashops._byteswap(hashops._words64(forest.reshape(-1, 8)))
+        off, width = 8 * n, n
+        for r in range(reps):
+            require(torch.equal(got[r][:off], forest[r].reshape(-1)),
+                    f"sha256_tree n={n}: leaves not copied (input {r})")
+        while width > 1:
+            level = hashops.sha256_two_to_one(level[0::2], level[1::2])
+            width //= 2
+            want = hashops._to_i32(level).reshape(reps, width * 8)
+            for r in range(reps):
+                require(torch.equal(got[r][off:off + 8 * width], want[r]),
+                        f"sha256_tree n={n}: level of {width} nodes differs "
+                        f"(input {r})")
+            off += 8 * width
+        log(f"kernel SHA-256 tree n={n}: bit-equal on {reps} fresh inputs")
+
+
 # ---------------------------------------------------------------------------
-# phase 4: byte parity with the JAX package's numpy golden path
+# phase 4: byte parity: card = CPU = the JAX package's recorded digests
 # ---------------------------------------------------------------------------
+
+def golden_circuit(field, entry):
+    """(circuit, outputs, prove call) of one ``golden_proofs.json`` entry."""
+    from ligero_tpu_torch import ArithmeticCircuit
+    from ligero_tpu_torch.synthetic import generate_random_circuit
+    kw = {"zk_seed": bytes.fromhex(entry["zk_seed"])} if entry["zk"] else {}
+    if entry["circuit"] == "cube":
+        c = ArithmeticCircuit(field)
+        x = c.new_variable_with_label("x")
+        c.add(c.pow(x, 3), c.constant(-26))
+        return c, [c.last()], lambda lig, sp: lig.prove_with_labels(
+            [("x", 3)], sp, **kw)
+    circ, outs, vars_ = generate_random_circuit(
+        field, entry["gates"], num_vars=entry["num_vars"], seed=entry["seed"])
+    return circ, outs, lambda lig, sp: lig.prove(vars_, sp, **kw)
+
 
 def phase_parity(field) -> None:
-    from ligero_tpu.circuit import ArithmeticCircuit
-    from ligero_tpu.ligero import LigeroCircuit as RefCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_tpu_torch import LigeroCircuit, test_sponge
 
-    from ligero_tpu_torch import LigeroCircuit
-
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ligero_tpu_torch", "testdata", "golden_proofs.json")
+    with open(path) as f:
+        entries = json.load(f)["proofs"]
+    require(len(entries) >= 5, "golden_proofs.json holds too few cases")
     sponge = test_sponge(field)
-    c = ArithmeticCircuit(field)
-    x = c.new_variable_with_label("x")
-    c.add(c.pow(x, 3), c.constant(-26))
-    cases = [("x^3 - 26 == 1", c, [c.last()], None, [("x", 3)])]
-    for lg in (8, 10):
-        circ, outs, vars_ = generate_random_circuit(field, 1 << lg, seed=lg)
-        cases.append((f"2^{lg} gates", circ, outs, vars_, None))
-    for label, circ, outs, vars_, labels in cases:
-        ref = RefCircuit(circ, outs)
-        port = LigeroCircuit(circ, outs, device="cuda")
-        if labels is not None:
-            want = ref.prove_with_labels(labels, sponge.clone())
-            got = port.prove_with_labels(labels, sponge.clone())
-        else:
-            want = ref.prove(vars_, sponge.clone())
-            got = port.prove(vars_, sponge.clone())
-        same = got.to_bytes(field) == want.to_bytes(field)
-        ok_port = port.verify(want, sponge.clone())
-        ok_ref = ref.verify(got, sponge.clone())
-        log(f"parity {label}: bytes equal={same}, port verifies JAX proof="
-            f"{ok_port}, JAX verifies port proof={ok_ref}")
-        require(same and ok_port and ok_ref, f"parity failed: {label}")
+    for entry in entries:
+        circ, outs, prove = golden_circuit(field, entry)
+        kw = dict(lambda_=entry["lambda"], zk=entry["zk"])
+        on_card = LigeroCircuit(circ, outs, device="cuda", **kw)
+        on_cpu = LigeroCircuit(circ, outs, device="cpu", **kw)
+        got = prove(on_card, sponge.clone())
+        data = got.to_bytes(field)
+        same = data == prove(on_cpu, sponge.clone()).to_bytes(field)
+        golden = (len(data) == entry["length"]
+                  and hashlib.sha256(data).hexdigest() == entry["sha256"])
+        ok_cpu = on_cpu.verify(got, sponge.clone())
+        ok_card = on_card.verify(got, sponge.clone())
+        log(f"parity {entry['name']}: card bytes = CPU bytes: {same}, = the "
+            f"JAX package's digest: {golden}, CPU verifies: {ok_cpu}, card "
+            f"verifies: {ok_card}")
+        require(same and golden and ok_cpu and ok_card,
+                f"parity failed: {entry['name']}")
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path at 2^20 gates
+# phase 5: the main paths at 2^20 gates
 # ---------------------------------------------------------------------------
 
-def build_instance(field, log2_gates: int, seed: int):
-    """The main path's instance: a synthetic circuit compiled for the card."""
-    from ligero_tpu.synthetic import generate_random_circuit
-
-    from ligero_tpu_torch import LigeroCircuit
-    from ligero_tpu_torch.utils.profiling import PhaseTimer
-
+def make_circuit(field, log2_gates: int, seed: int):
+    from ligero_tpu_torch.synthetic import generate_random_circuit
     t0 = time.perf_counter()
     circ, outs, vars_ = generate_random_circuit(field, 1 << log2_gates,
                                                 seed=seed)
     log(f"circuit 2^{log2_gates} gates generated "
         f"({time.perf_counter() - t0:.1f} s, {circ.num_nodes()} nodes)")
+    return circ, outs, vars_
+
+
+def build_instance(circ, outs, zk: bool):
+    """A main path's instance: the synthetic circuit compiled for the card
+    (no ``device`` given: the card is the default)."""
+    from ligero_tpu_torch import LigeroCircuit
+    from ligero_tpu_torch.utils.profiling import PhaseTimer
+
     t0 = time.perf_counter()
-    lig = LigeroCircuit(circ, outs, device="cuda",
-                        timer=PhaseTimer(enabled=True))
-    log(f"LigeroCircuit built ({time.perf_counter() - t0:.1f} s): m={lig.m} "
-        f"k={lig.k} n={lig.n} t={lig.t}, U is {4 * lig.m} x {lig.n}, "
+    lig = LigeroCircuit(circ, outs, zk=zk, timer=PhaseTimer(enabled=True))
+    require(lig.device.type == "cuda", "the default device is not the card")
+    log(f"LigeroCircuit(zk={zk}) built ({time.perf_counter() - t0:.1f} s): "
+        f"m={lig.m} k={lig.k} n={lig.n} t={lig.t} b={lig.blind_t} "
+        f"d2={lig.d2}, U is {lig.num_rows} x {lig.n}, "
         f"nnz(A)={len(lig.state.a_vals)}")
-    return lig, vars_
+    return lig
 
 
 def phase_main(torch, field, lig, vars_) -> dict:
-    from ligero_tpu.ligero import LigeroProof
-    from ligero_tpu.sponge import test_sponge
+    """Drive one main path (plain or zk, as ``lig`` was compiled); returns
+    the kernels' launch counts of its first prove + verify."""
+    from ligero_tpu_torch import LigeroProof, test_sponge
 
     timer = lig.timer
     sponge = test_sponge(field)
     wraps = wrappers()
+    tag = "zk " if lig.zk else ""
+    kw = {"zk_seed": ZK_SEED} if lig.zk else {}
 
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    timer.reset()
     for mod in wraps.values():
         mod.launches.reset()
     t0 = time.perf_counter()
-    proof = lig.prove(vars_, sponge.clone())
+    proof = lig.prove(vars_, sponge.clone(), **kw)
     prove_s = time.perf_counter() - t0
     prove_phases = dict(timer.totals)
     timer.reset()
@@ -270,34 +414,36 @@ def phase_main(torch, field, lig, vars_) -> dict:
     launches = {name: mod.launches.count for name, mod in wraps.items()}
     verify_phases = dict(timer.totals)
     peak = torch.cuda.max_memory_allocated()
-    log(f"prove #1: {prove_s:.3f} s; verify: {ok} ({verify_s:.3f} s); "
+    log(f"{tag}prove #1: {prove_s:.3f} s; verify: {ok} ({verify_s:.3f} s); "
         f"peak device memory {peak / 2**30:.2f} GiB")
     for name, secs in sorted(prove_phases.items(), key=lambda kv: -kv[1]):
-        log(f"  prove  {name:22s} {secs * 1e3:10.1f} ms")
+        log(f"  {tag}prove  {name:22s} {secs * 1e3:10.1f} ms")
     for name, secs in sorted(verify_phases.items(), key=lambda kv: -kv[1]):
-        log(f"  verify {name:22s} {secs * 1e3:10.1f} ms")
-    log(f"kernel launches on the main path: {launches}")
+        log(f"  {tag}verify {name:22s} {secs * 1e3:10.1f} ms")
+    log(f"kernel launches on the {tag}main path: {launches}")
     require(ok, "verify rejected the honest proof")
     require(all(v > 0 for v in launches.values()),
-            f"a kernel was not launched on the main path: {launches}")
+            f"a kernel was not launched on the {tag}main path: {launches}")
 
     timer.reset()
     t0 = time.perf_counter()
-    proof2 = lig.prove(vars_, sponge.clone())
-    log(f"prove #2: {time.perf_counter() - t0:.3f} s")
+    proof2 = lig.prove(vars_, sponge.clone(), **kw)
+    log(f"{tag}prove #2: {time.perf_counter() - t0:.3f} s")
     for name, secs in sorted(timer.totals.items(), key=lambda kv: -kv[1]):
-        log(f"  prove #2 {name:20s} {secs * 1e3:10.1f} ms")
+        log(f"  {tag}prove #2 {name:20s} {secs * 1e3:10.1f} ms")
     data = proof.to_bytes(field)
     require(proof2.to_bytes(field) == data, "two proofs differ")
-    log(f"two proofs byte-identical ({len(data)} bytes)")
+    log(f"two {tag}proofs byte-identical ({len(data)} bytes)")
+    del proof2
 
     bad_vars = [(vars_[0][0], (vars_[0][1] + 1) % field.p)] + vars_[1:]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        bad = lig.prove(bad_vars, sponge.clone())
+        bad = lig.prove(bad_vars, sponge.clone(), **kw)
     bad_ok = lig.verify(bad, sponge.clone())
-    log(f"tampered witness: verify={bad_ok} (expect False)")
+    log(f"{tag}tampered witness: verify={bad_ok} (expect False)")
     require(not bad_ok, "a proof of a tampered witness verified")
+    del bad
 
     flipped = bytearray(data)
     flipped[8 + 32 + 8] ^= 1  # low byte of the first interleaved lc element
@@ -305,9 +451,9 @@ def phase_main(torch, field, lig, vars_) -> dict:
         flip_ok = lig.verify(LigeroProof.from_bytes(bytes(flipped), field),
                              sponge.clone())
     except ValueError as e:
-        log(f"flipped byte: deserializer rejects ({e})")
+        log(f"{tag}flipped byte: deserializer rejects ({e})")
         flip_ok = False
-    log(f"flipped byte: verify={flip_ok} (expect False)")
+    log(f"{tag}flipped byte: verify={flip_ok} (expect False)")
     require(not flip_ok, "a proof with a flipped byte verified")
     return launches
 
@@ -318,7 +464,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ligero_tpu.fields import BN254_FR
+    from ligero_tpu_torch import BN254_FR
     from ligero_tpu_torch.engine import cuda_build
 
     field = BN254_FR
@@ -336,19 +482,33 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log("ptxas: " + line.strip())
 
-    lig, vars_ = build_instance(field, LOG2_GATES, SEED)
+    circ, outs, vars_ = make_circuit(field, LOG2_GATES, SEED)
+    lig = build_instance(circ, outs, zk=False)
+    zk_dims = (3 * lig.t, max(2 * lig.k, 1 << (
+        2 * (lig.k + 3 * lig.t) - 2).bit_length()))
     results = phase_kernels(torch, field, (lig.m, lig.k, lig.n,
-                                           len(lig.state.a_vals)))
+                                           len(lig.state.a_vals)), zk_dims)
     phase_parity(field)
     launches = phase_main(torch, field, lig, vars_)
-    require("jax" not in sys.modules or sys.modules["jax"] is None,
-            "JAX was imported")
+    del lig
+    torch.cuda.empty_cache()
+    lig = build_instance(circ, outs, zk=True)
+    require((lig.blind_t, lig.d2) == zk_dims, "zk kernel shapes were not the "
+            f"zk path's: {zk_dims} vs {(lig.blind_t, lig.d2)}")
+    zk_launches = phase_main(torch, field, lig, vars_)
+    for mod in ("jax", "ligero_tpu"):
+        require(sys.modules.get(mod) is None, f"{mod} was imported")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
+         "launches": launches[name] + zk_launches[name],
+         "launches_by_path": {"plain": launches[name], "zk": zk_launches[name]},
          "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+         "bound_ms": results[name]["bound_ms"],
+         "bound_by": results[name]["bound_by"],
+         # no single PyTorch call computes any of these functions
+         "library_ms": None}
         for name, (_, src, rep) in KERNELS.items()]}
     print(smi, flush=True)
     print(json.dumps(record), flush=True)

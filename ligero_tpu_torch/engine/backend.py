@@ -1,15 +1,15 @@
-"""``TorchBackend``: the bulk protocol steps of the non-zk prover and
-verifier on one PyTorch device.
+"""``TorchBackend``: the bulk protocol steps of the prover and verifier
+(plain and zk) on one PyTorch device.
 
-The counterpart of ``ligero_tpu.engine.backend.Backend`` for the methods
-the single-device non-zk prove -> verify path calls; names and layouts
+The counterpart of ``Backend`` in ``ligero_tpu/engine/backend.py`` for the
+methods the single-device prove -> verify path calls; names and layouts
 follow it.  Limb arrays are ``(..., L)`` int32 tensors of 16-bit limbs.
-Every bulk step runs on ``device``: on a CUDA device the four
+Every bulk step runs on ``device``: on a CUDA device the five
 hand-written kernels carry the transforms (``cuda_ntt``), Montgomery
-products (``cuda_mont``), column hashing (``cuda_hash``) and row
-combinations (``cuda_lc``); the SHA-256 tree levels, ChaCha20, modular
-add/sub, gathers and segment sums are PyTorch ops.  On the CPU the same
-calls take the kernels' plain versions.
+products (``cuda_mont``), column hashing (``cuda_hash``), the SHA-256
+Merkle tree (``cuda_tree``) and row combinations (``cuda_lc``); ChaCha20,
+modular add/sub, gathers and segment sums are PyTorch ops.  On the CPU the
+same calls take the kernels' plain versions.
 
 Only the "direct" mode exists: the whole codeword matrix U is one device
 tensor.  An instance too large for the device's memory raises
@@ -21,10 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ligero_tpu.engine.backend import Backend as _RefBackend
-from ligero_tpu.fields import FieldSpec
-
-from . import cuda_hash, cuda_lc, cuda_mont, cuda_ntt, devsampler, fieldops, hashops
+from ..fields import FieldSpec
+from . import (cuda_hash, cuda_lc, cuda_mont, cuda_ntt, cuda_tree, devsampler,
+               fieldops, hashops)
 
 
 class DeviceMemoryError(RuntimeError):
@@ -32,7 +31,9 @@ class DeviceMemoryError(RuntimeError):
 
 
 def resolve_device(device) -> torch.device:
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` is the CUDA device: an entry point runs on the card unless
+    the caller asks for ``"cpu"``, and raises where there is no card."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch.cuda is not "
@@ -106,17 +107,35 @@ class TorchBackend:
             return torch.cuda.get_device_properties(self.device).total_memory
         return 1 << 62
 
-    def check_direct_fits(self, rows: int, k: int, n: int, nnz: int) -> None:
-        """Raise unless the prover's larger live set fits the device: the
-        encode (message, coefficient and codeword matrices and the packed
-        NTT scratch) or the linear phase (U, coefficients and message, A's
-        COO, r, the gathered r and its product in int32 and int64, the
-        int64 column sums and one fold part)."""
+    def check_direct_fits(self, rows: int, k: int, n: int, nnz: int,
+                          blind_t: int = 0, d2: int | None = None) -> None:
+        """Raise unless the prover's largest live set fits the device.
+        ``rows`` counts the committed rows (4m, or 4m + 3 under zk).
+
+        Non-zk: the encode (message, coefficient and codeword matrices and
+        the packed NTT scratch) or the linear phase (U, coefficients and
+        message, A's COO, r, the gathered r and its product in int32 and
+        int64, the int64 column sums and one fold part).
+
+        zk (``blind_t`` > 0): the encode holds the message, the (k + b)-wide
+        coefficients, the d2-wide row matrix, U and its packed scratch; the
+        linear phase holds U, the coefficients, the sparse product's
+        transients as above, and two (4m, d2, L) evaluation matrices with
+        one packed scratch."""
         L = self.L
+        d2 = 2 * k if d2 is None else d2
         u, msg = rows * n * L * 4, rows * k * L * 4
-        encode = 2 * msg + u + u // 2
-        linear = (u + 3 * msg + nnz * (L * 4 + 16) + 2 * nnz * L * 4
-                  + nnz * L * 8 + 4 * msg)
+        coeffs = rows * (k + blind_t) * L * 4
+        coo = nnz * (L * 4 + 16)         # stays on the device between proofs
+        sparse = 2 * nnz * L * 4 + nnz * L * 8 + 4 * msg
+        if blind_t:
+            wide = rows * d2 * L * 4
+            encode = msg + coeffs + wide + u + u // 2
+            linear = u + coeffs + coo + max(sparse,
+                                            msg + 2 * wide + wide // 2)
+        else:
+            encode = 2 * msg + u + u // 2
+            linear = u + 3 * msg + coo + sparse
         need = max(encode, linear)
         budget = self.memory_budget()
         if need > budget:
@@ -143,7 +162,42 @@ class TorchBackend:
         """(B, k, L) -> (coeffs, canonical codewords (B, n, L)); the
         from-Montgomery epilogue is fused into the NTT_n."""
         coeffs = self.intt(preenc, k)
-        return coeffs, cuda_ntt.ntt(self.field, coeffs, n, canon_out=True)
+        return coeffs, self.ntt_and_canon(coeffs, n)
+
+    def ntt_and_canon(self, coeffs, n: int):
+        """(B, w, L) coefficient rows (w <= n, zero-extended) -> (B, n, L)
+        canonical codewords.  The zk prover's encode: blinded rows are in
+        coefficient space already."""
+        return cuda_ntt.ntt(self.field, self.asarray(coeffs), n,
+                            canon_out=True)
+
+    def zk_blind_rows(self, preenc, rows_seed: bytes, blind_t: int, d2: int,
+                      mask3):
+        """Blinding and committed-row assembly on the device.
+
+        ``preenc`` (4m, k, L) message rows, ``mask3`` (3, d2, L) the three
+        mask rows' coefficients, all Montgomery.  Each data row becomes
+        u_i = msg_i + (x^k - 1) s_i with msg_i = iNTT_k(preenc_i) and
+        s_i the next ``blind_t`` draws of ``F::rand`` from ``rows_seed``
+        (the host stream, bit for bit).  Returns ``(coeffs (4m, k + b, L),
+        rows (4m + 3, d2, L))``: the coefficient rows, and the same rows
+        zero-extended to d2 with the mask rows below them."""
+        rows4, k, L = preenc.shape
+        b = blind_t
+        msg = self.intt(preenc, k)
+        s = self.rand_field_mont(rows4 * b, rows_seed).reshape(rows4, b, L)
+        # +x^k s occupies [k, k + b) and -s occupies [0, b); the regions
+        # overlap when b > k (small instances), so subtract from the
+        # concatenated layout
+        coeffs = torch.cat([msg, s], dim=1)
+        del msg
+        coeffs[:, :b] = self.sub(coeffs[:, :b], s)
+        del s
+        rows = torch.zeros((rows4 + 3, d2, L), dtype=torch.int32,
+                           device=self.device)
+        rows[:rows4, :k + b] = coeffs
+        rows[rows4:] = self.asarray(mask3)
+        return coeffs, rows
 
     def ntt_columns(self, coeffs, n: int, js) -> torch.Tensor:
         """All rows' n-point NTTs, keeping only columns ``js``:
@@ -159,16 +213,15 @@ class TorchBackend:
         return cuda_hash.blake2s_columns(u_canon)
 
     def _tree_flat(self, leaves_le) -> torch.Tensor:
-        return hashops.tree_flat(self.asarray(leaves_le))
-
-    # the JAX package's host packing of the flat transfer into ark-layout
-    # byte lists, run on this backend's _tree_flat and to_numpy
-    _digest_lists = _RefBackend._digest_lists
+        return cuda_tree.tree_flat(self.asarray(leaves_le))
 
     def commit_columns(self, u_canon):
         """Blake2s column leaves + SHA-256 levels ->
-        ``(leaves: list[bytes], inner_levels: list[list[bytes]])``."""
-        return self._digest_lists(self._column_leaves_device(u_canon))
+        ``(leaves: list[bytes], inner_levels: list[list[bytes]])``: two
+        kernels, one transfer of the flat tree, host unpacking."""
+        leaves_le = self._column_leaves_device(u_canon)
+        flat = self.to_numpy(self._tree_flat(leaves_le))
+        return hashops.digest_lists(flat, leaves_le.shape[0])
 
     def gather_columns(self, u_canon, js) -> np.ndarray:
         """Columns ``js`` of (rows, n, L) -> (rows, len(js), L) host uint32."""
@@ -203,21 +256,23 @@ class TorchBackend:
         del prod
         return fieldops.fold_wide(self.field, sums, mul=cuda_mont.mont_mul)
 
-    def linear_combination_poly(self, u_coeffs, r_coeffs, two_k: int):
-        """q = sum_i r_i(X) u_i(X) by pointwise products on the 2k domain:
-        (2k, L) Montgomery coefficients of q."""
-        eu = self.ntt(u_coeffs, two_k)
-        er = self.ntt(r_coeffs, two_k)
+    def linear_combination_poly(self, u_coeffs, r_coeffs, d2: int):
+        """q = sum_i r_i(X) u_i(X) by pointwise products on the d2 domain
+        (2k without zk): (d2, L) Montgomery coefficients of q.  The rows
+        may be of any widths <= d2 (k + b and k under zk); d2 must exceed
+        deg q."""
+        eu = self.ntt(u_coeffs, d2)
+        er = self.ntt(r_coeffs, d2)
         total = cuda_lc.row_combine(self.field, er, eu)
         del eu, er
-        return self.intt(total[None], two_k)[0]
+        return self.intt(total[None], d2)[0]
 
-    def quadratic_combination_poly(self, xyz_coeffs, r_quad, two_k: int):
-        """p0 = sum_i r_i (x_i y_i - z_i) on the 2k domain: (2k, L)
+    def quadratic_combination_poly(self, xyz_coeffs, r_quad, d2: int):
+        """p0 = sum_i r_i (x_i y_i - z_i) on the d2 domain: (d2, L)
         Montgomery coefficients."""
         m = xyz_coeffs.shape[0] // 3
-        ev = self.ntt(xyz_coeffs, two_k)
+        ev = self.ntt(xyz_coeffs, d2)
         term = self.sub(self.mont_mul(ev[:m], ev[m:2 * m]), ev[2 * m:])
         del ev
         total = self.row_combine(r_quad, term)
-        return self.intt(total[None], two_k)[0]
+        return self.intt(total[None], d2)[0]

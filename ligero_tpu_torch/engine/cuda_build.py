@@ -1,10 +1,11 @@
 """Build and load the port's hand-written Hopper kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds).  The library is built at first use and cached by a hash of
-the sources and flags, as ``ligero_tpu.native`` does for the host kernels.
-The build directory is ``ligero_tpu_torch/_build/`` (git-ignored).
+All ``csrc/*.cu`` sources compile with ``nvcc`` (one process per source, all
+started together) into one shared library with a plain C interface, loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The library
+is built at first use and cached by a hash of the sources and flags, as
+``native`` does for the host kernels.  The build directory is
+``ligero_tpu_torch/_build/`` (git-ignored).
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on a non-zero code.  Pointers and the stream travel as
@@ -32,7 +33,7 @@ _HASH_PATH = LIB_PATH + ".srchash"
 
 #: nvcc command line (part of the cache key)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures of the entry points (all return an int cudaError_t)
@@ -41,6 +42,7 @@ _SIGNATURES = {
     "lt_ntt": [_vp, _i, _vp, _vp, _vp, _ll, _i, _vp, _i, _vp],
     "lt_blake2s_cols": [_vp, _ll, _ll, _vp, _vp],
     "lt_row_combine": [_vp, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _i, _vp],
+    "lt_sha256_tree": [_vp, _ll, _vp, _vp],
 }
 
 _lock = threading.Lock()
@@ -77,14 +79,35 @@ def source_hash() -> str:
 
 def _build(want: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    nvcc, pid = _nvcc(), os.getpid()
     cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(p)}.{pid}.o")
+            for p in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+            for src, obj in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    tmp = f"{LIB_PATH}.{pid}.tmp"
+    link = [nvcc, "-shared", "-o", tmp, *objs]
+    failed = [(cmd, err) for cmd, proc, (_, err) in zip(cmds, procs, outs)
+              if proc.returncode != 0]
+    res = None if failed else subprocess.run(link, capture_output=True,
+                                             text=True)
     with open(LOG_PATH, "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        for cmd, (out, err) in zip(cmds, outs):
+            f.write(" ".join(cmd) + "\n" + out + err)
+        if res is not None:
+            f.write(" ".join(link) + "\n" + res.stdout + res.stderr)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        cmd, err = failed[0]
+        raise CudaKernelError(f"nvcc failed: {' '.join(cmd)}\n{err[-4000:]}")
     if res.returncode != 0:
-        raise CudaKernelError(f"nvcc failed ({res.returncode}):\n"
+        raise CudaKernelError(f"nvcc link failed ({res.returncode}):\n"
                               f"{res.stderr[-4000:]}")
     os.replace(tmp, LIB_PATH)
     with open(_HASH_PATH, "w") as f:

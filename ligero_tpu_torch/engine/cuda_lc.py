@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ligero_tpu.fields import FieldSpec
+from ..fields import FieldSpec
 
 from . import cuda_build, fieldops
 from .cuda_mont import require_bn254

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ligero_tpu.fields import BN254_FR, FieldSpec
+from ..fields import BN254_FR, FieldSpec
 
 from . import cuda_build, fieldops
 

@@ -21,7 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ligero_tpu.fields import FieldSpec
+from ..fields import FieldSpec
 
 from . import cuda_build
 from .cuda_mont import require_bn254

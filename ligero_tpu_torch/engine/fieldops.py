@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ligero_tpu.fields import FieldSpec
+from ..fields import FieldSpec
 
 MASK = 0xFFFF
 

@@ -1,19 +1,21 @@
 """Plain PyTorch Blake2s-256 column hashing and SHA-256 Merkle levels.
 
-The counterpart of ``ligero_tpu.engine.hashops.HashKernel`` and of the
-commit helpers of ``ligero_tpu.engine.backend.Backend``
-(``_column_leaves_device``, ``_tree_flat``).  32-bit
+The counterpart of ``ligero_tpu/engine/hashops.py`` (``HashKernel``) and of
+the commit helpers of ``ligero_tpu/engine/backend.py``
+(``_column_leaves_device``, ``_tree_flat``, ``_digest_lists``).  32-bit
 words live in int64 tensors (masked to 32 bits after every add and shift:
 PyTorch's CPU build has no unsigned 32-bit arithmetic), and come back as
 int32 bit patterns.
 
 :func:`blake2s_columns_ref` is the plain version the CUDA column kernel
-(``cuda_hash``) is held against.  The SHA-256 tree levels stay PyTorch ops
-on every device: the JAX package never wrote them in Pallas either.
+(``cuda_hash``) is held against, :func:`tree_flat` the plain version of the
+CUDA tree kernel (``cuda_tree``).  :func:`digest_lists` is host code: it
+unpacks the flat tree transfer into byte lists.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -177,8 +179,8 @@ def _byteswap(x: torch.Tensor) -> torch.Tensor:
 
 def tree_flat(leaves_le: torch.Tensor) -> torch.Tensor:
     """(n, 8) LE leaf digest words -> one flat int32 vector: the leaves' LE
-    words, then every SHA-256 level's BE words bottom-up (the layout of
-    ``Backend._tree_flat``)."""
+    words, then every SHA-256 level's BE words bottom-up (the layout of the
+    JAX package's ``Backend._tree_flat``)."""
     lv = _words64(leaves_le)
     parts = [lv.reshape(-1)]
     level = _byteswap(lv)
@@ -187,3 +189,25 @@ def tree_flat(leaves_le: torch.Tensor) -> torch.Tensor:
         parts.append(level.reshape(-1))
     return _to_i32(torch.cat(parts))
 
+
+
+def tree_root(leaves_le: torch.Tensor) -> torch.Tensor:
+    """The Merkle root's 8 BE words as int32 bits."""
+    return tree_flat(leaves_le)[-8:]
+
+
+def digest_lists(flat: np.ndarray, n: int) -> tuple[list[bytes], list[list[bytes]]]:
+    """:func:`tree_flat`'s vector on the host (uint32 words) -> ark-layout
+    ``(leaves, inner levels bottom-up)`` byte lists, as the JAX package's
+    ``Backend._digest_lists`` builds them."""
+    flat = np.ascontiguousarray(flat).view(np.uint32)
+    leaves_raw = flat[:n * 8].astype("<u4").tobytes()
+    leaves = [leaves_raw[i * 32:(i + 1) * 32] for i in range(n)]
+    inner_raw = flat[n * 8:].astype(">u4").tobytes()
+    inner, off, size = [], 0, n // 2
+    while size >= 1:
+        inner.append([inner_raw[(off + i) * 32:(off + i + 1) * 32]
+                      for i in range(size)])
+        off += size
+        size //= 2
+    return leaves, inner

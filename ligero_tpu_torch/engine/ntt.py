@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from ligero_tpu.fields import FIELDS, FieldSpec
+from ..fields import FIELDS, FieldSpec
 
 from . import fieldops
 

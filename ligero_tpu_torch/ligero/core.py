@@ -1,44 +1,54 @@
-"""The Ligero SNARK's non-zk prover and verifier on a PyTorch device.
+"""The Ligero SNARK's prover and verifier, plain and zk, on a PyTorch device.
 
-The port's counterpart of ``ligero_tpu.ligero.core.LigeroCircuit`` for the
-single-device, non-zk path with the default commitment (Blake2s column
+The port's counterpart of ``LigeroCircuit`` in ``ligero_tpu/ligero/core.py``
+for the single-device path with the default commitment (Blake2s column
 leaves, SHA-256 Merkle tree) in "direct" mode: the whole codeword matrix U
 lives on ``device`` as one tensor.  The host keeps what the JAX package
-keeps on the host: the circuit compile (taken from the JAX package, see
-``convert``), witness evaluation, the Fiat-Shamir transcript (Poseidon
-sponge), Merkle paths and column hashes of the opened columns.  Every
-bulk step runs through :class:`TorchBackend`.
+keeps on the host: the circuit compile (``compile``), witness evaluation
+(``witness``), the Fiat-Shamir transcript (Poseidon sponge), Merkle paths
+and column hashes of the opened columns.  Every bulk step runs through
+:class:`TorchBackend`.
 
-Proofs are byte-identical to the JAX package's: the Fiat-Shamir order is
-the bit-exactness contract, and every absorb/squeeze below carries the
-JAX package's annotation (FS #1-#10).
+zk mode (``zk=True``; an extension of the JAX package, the Rust reference
+is non-zk): every data row's codeword polynomial is blinded by
+``(x^k - 1) s_i`` with s_i random of degree < b = 3t, which vanishes on the
+embedded message domain, so the constraint system is untouched and any
+<= 3t opened off-domain columns are uniform; three extra committed mask
+rows one-time-pad the three revealed objects (interleaved lc, linear q,
+quadratic p0); column sampling avoids the k message-domain points.
+
+Proofs are byte-identical to the JAX package's (for the same ``zk_seed``
+under zk): the Fiat-Shamir order is the bit-exactness contract, and every
+absorb/squeeze below carries the JAX package's annotation (FS #1-#10).
 """
 
 from __future__ import annotations
 
+import hashlib
+import secrets
+
 import numpy as np
 import torch
 
-from ligero_tpu import native
-from ligero_tpu.hashes import column_hash
-from ligero_tpu.ligero.proof import (
+from ..engine.backend import TorchBackend
+from ..hashes import column_hash
+from ..merkle import MerkleTree
+from ..sampling import (
+    get_distinct_indices_excluding,
+    get_distinct_indices_from_prng,
+    rand_field_elements,
+    rand_field_elements_limbs,
+)
+from ..utils.profiling import PhaseTimer
+from .compile import (CHACHA_SEED_BYTES, DEFAULT_SECURITY_LEVEL,
+                      CompiledInstance, compile_circuit)
+from .proof import (
     InterleavedProof,
     LigeroProof,
     LinearConstraintsProof,
     QuadraticConstraintsProof,
 )
-from ligero_tpu.merkle import MerkleTree
-from ligero_tpu.sampling import (
-    get_distinct_indices_from_prng,
-    rand_field_elements_limbs,
-)
-
-from ..convert import CompiledInstance, compile_reference, compiled_state
-from ..engine.backend import TorchBackend
-from ..utils.profiling import PhaseTimer
-
-DEFAULT_SECURITY_LEVEL = 128
-CHACHA_SEED_BYTES = 32
+from .witness import WitnessEvaluator
 
 
 def _trim(coeffs: list[int]) -> list[int]:
@@ -53,21 +63,29 @@ def _poly_degree(coeffs: list[int]) -> int:
     return max(len(coeffs) - 1, 0)
 
 
+def _add_mask(values: list[int], mask: list[int] | None, p: int) -> list[int]:
+    """values + mask coefficient-wise mod p (mask no longer than values);
+    values unchanged without a mask."""
+    if mask is None:
+        return values
+    return [(a + (mask[i] if i < len(mask) else 0)) % p
+            for i, a in enumerate(values)]
+
+
 class LigeroCircuit:
     """Compiled Ligero instance whose bulk work runs on ``device``.
 
-    ``device`` is ``"cpu"`` (the kernels' plain PyTorch versions) or
-    ``"cuda"``/``"cuda:i"`` (the hand-written kernels; BN254 Fr only).
-    Asking for CUDA where it is absent raises.  ``zk=True`` raises
-    ``NotImplementedError``."""
+    ``device`` is ``None`` or ``"cuda"``/``"cuda:i"`` (the hand-written
+    kernels; BN254 Fr only) or ``"cpu"`` (the kernels' plain PyTorch
+    versions).  The default is the CUDA device; where there is none the
+    constructor raises.  ``zk=True`` compiles the zero-knowledge variant;
+    a circuit too small for it at this rate raises ``ValueError``."""
 
     def __init__(self, circuit, outputs: list[int],
                  lambda_: int = DEFAULT_SECURITY_LEVEL, rate_inv: int = 8,
                  zk: bool = False, device=None, timer: PhaseTimer | None = None):
-        if zk:
-            raise NotImplementedError("zk proving is not ported yet")
-        ref = compile_reference(circuit, outputs, lambda_, rate_inv)
-        self._setup(compiled_state(ref), device, timer)
+        self._setup(compile_circuit(circuit, outputs, lambda_, rate_inv, zk),
+                    device, timer)
 
     @classmethod
     def from_compiled(cls, state: CompiledInstance, device=None,
@@ -84,31 +102,55 @@ class LigeroCircuit:
         self.timer = timer or PhaseTimer()
         self.circuit, self.outputs = st.circuit, st.outputs
         self.m, self.k, self.n, self.t = st.m, st.k, st.n, st.t
-        self.num_rows = 4 * self.m
-        self.lin_bound = self.quad_bound = 2 * self.k - 1
+        self.zk, self.blind_t, self.d2 = st.zk, st.blind_t, st.d2
+        self.blind_len, self.num_rows = st.blind_len, st.num_rows
+        self.lin_bound, self.quad_bound = st.lin_bound, st.quad_bound
         self.backend.check_direct_fits(self.num_rows, self.k, self.n,
-                                       len(st.a_vals))
+                                       len(st.a_vals), self.blind_t, self.d2)
+        self._witness = WitnessEvaluator(st)
         self._coo = None
 
     # ------------------------------------------------------------------
     # prover
     # ------------------------------------------------------------------
-    def prove(self, var_assignment: list[tuple[int, int]], sponge) -> LigeroProof:
-        bumped = [(self.state.ref._bump_index(i), v) for i, v in var_assignment]
-        return self._prove_inner(bumped, sponge)
+    def prove(self, var_assignment: list[tuple[int, int]], sponge,
+              zk_seed: bytes | None = None) -> LigeroProof:
+        bumped = [(self.state.bump_index(i), v) for i, v in var_assignment]
+        return self._prove_inner(bumped, sponge, zk_seed)
 
     def prove_with_labels(self, var_assignment: list[tuple[str, int]],
-                          sponge) -> LigeroProof:
+                          sponge, zk_seed: bytes | None = None) -> LigeroProof:
         indexed = [(self.circuit.variables[lbl], v) for lbl, v in var_assignment]
-        return self._prove_inner(indexed, sponge)
+        return self._prove_inner(indexed, sponge, zk_seed)
 
-    def _prove_inner(self, var_assignment, sponge) -> LigeroProof:
+    def _prove_inner(self, var_assignment, sponge,
+                     zk_seed: bytes | None = None) -> LigeroProof:
+        """One Fiat-Shamir schedule for both modes.  Without zk the
+        interleaved reveal is the message-space combination and the
+        products run on the 2k domain; under zk the committed rows are
+        blinded, the reveal is in coefficient space (the message-space one
+        would strip the blinding), the products run on the d2 domain, and
+        each revealed object is padded by its mask row."""
         be, ph = self.backend, self.timer.phase
-        m, k, n = self.m, self.k, self.n
+        m, p = self.m, self.field.p
         with ph("witness+preenc"):
-            preenc = be.asarray(self._preenc(var_assignment))
-        with ph("rs_encode"):
-            u_coeffs, u_canon = be.rs_encode_and_canon(preenc, k, n)
+            preenc = be.asarray(self._witness.preenc(var_assignment))
+        if self.zk:
+            with ph("zk_blind"):
+                mask0, maskq, maskp, mask3, rows_seed = self._zk_masks(zk_seed)
+                coeffs, rows = be.zk_blind_rows(preenc, rows_seed,
+                                                self.blind_t, self.d2, mask3)
+                lc_rows = coeffs
+            with ph("rs_encode"):
+                u_canon = be.ntt_and_canon(rows, self.n)
+                del rows
+        else:
+            mask0 = maskq = maskp = None
+            lc_rows = preenc
+            with ph("rs_encode"):
+                coeffs, u_canon = be.rs_encode_and_canon(preenc, self.k,
+                                                         self.n)
+        del preenc
         with ph("commit"):
             leaves, levels = be.commit_columns(u_canon)
             tree = MerkleTree(leaves, inner_levels=levels)
@@ -117,8 +159,9 @@ class LigeroCircuit:
         with ph("interleaved"):
             seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)       # FS #2
             r = self._expand_field(4 * m, seed)
-            lc = be.mont_to_ints(be.row_combine(r, preenc))
-            del preenc
+            lc = _add_mask(be.mont_to_ints(be.row_combine(r, lc_rows)),
+                           mask0, p)
+            del lc_rows
             sponge.absorb_field_elems(lc)                        # FS #3
             idx1 = self._sample_indices(
                 sponge.squeeze_bytes(CHACHA_SEED_BYTES))         # FS #4
@@ -127,9 +170,10 @@ class LigeroCircuit:
             seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)       # FS #5
             r_coeffs = self._r_a_coeff_rows(seed)
             with ph("linear.polyprod"):
-                q_mont = be.linear_combination_poly(u_coeffs, r_coeffs, 2 * k)
+                q_mont = be.linear_combination_poly(coeffs, r_coeffs, self.d2)
             del r_coeffs
-            q = _trim(be.canon_limbs_to_ints(be.from_mont(q_mont)))
+            q = _trim(_add_mask(
+                be.canon_limbs_to_ints(be.from_mont(q_mont)), maskq, p))
             sponge.absorb_field_elems(q)                         # FS #6
             idx2 = self._sample_indices(
                 sponge.squeeze_bytes(CHACHA_SEED_BYTES))         # FS #7
@@ -137,9 +181,10 @@ class LigeroCircuit:
         with ph("quadratic"):
             seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)       # FS #8
             r_quad = self._expand_field(m, seed)
-            p0_mont = be.quadratic_combination_poly(u_coeffs[:3 * m], r_quad,
-                                                    2 * k)
-            p0 = _trim(be.canon_limbs_to_ints(be.from_mont(p0_mont)))
+            p0_mont = be.quadratic_combination_poly(coeffs[:3 * m], r_quad,
+                                                    self.d2)
+            p0 = _trim(_add_mask(
+                be.canon_limbs_to_ints(be.from_mont(p0_mont)), maskp, p))
             sponge.absorb_field_elems(p0)                        # FS #9
             idx3 = self._sample_indices(
                 sponge.squeeze_bytes(CHACHA_SEED_BYTES))         # FS #10
@@ -152,16 +197,32 @@ class LigeroCircuit:
                            LinearConstraintsProof(q, *o2),
                            QuadraticConstraintsProof(p0, *o3))
 
-    def _preenc(self, var_assignment) -> np.ndarray:
-        """The witness's (4m, k, L) Montgomery pre-encoding matrix x | y |
-        z | w, built on the host by the JAX package's own host code: its
-        g++ circuit evaluator, or Python where that does not build."""
-        ref = self.state.ref
-        if native.available():
-            return ref._preenc_mont_limbs_native(var_assignment)
-        x, y, z, w = ref._solution_vectors(var_assignment)
-        return self.field.ints_to_mont_limbs(x + y + z + w).reshape(
-            4 * self.m, self.k, -1)
+    def _zk_masks(self, zk_seed: bytes | None):
+        """The three mask polynomials (canonical ints), their (3, d2, L)
+        Montgomery coefficient rows, and the seed of the row blinding, all
+        derived from ``zk_seed`` (fresh randomness when None).  Small host
+        work: k + b, 2k + b - 1 and k + 2b - 1 draws."""
+        field, k, b, p = self.field, self.k, self.blind_t, self.field.p
+        if zk_seed is None:
+            zk_seed = secrets.token_bytes(CHACHA_SEED_BYTES)
+
+        def sub_seed(tag: bytes) -> bytes:
+            return hashlib.blake2s(zk_seed + tag).digest()
+
+        mask0 = rand_field_elements(field, k + b, sub_seed(b"mask0"))
+        maskq = rand_field_elements(field, 2 * k + b - 1, sub_seed(b"maskq"))
+        # the sum over the k-point domain is k * sum(coeffs at j = 0 mod k);
+        # force it to zero so the verifier's linear sum check survives
+        maskq[0] = (-sum(maskq[j] for j in range(k, len(maskq), k))) % p
+        rho = rand_field_elements(field, k + 2 * b - 1, sub_seed(b"maskp"))
+        maskp = [0] * (2 * (k + b) - 1)   # (x^k - 1) * rho: vanishes on
+        for j, rv in enumerate(rho):      # the message domain
+            maskp[j + k] = (maskp[j + k] + rv) % p
+            maskp[j] = (maskp[j] - rv) % p
+        mask3 = np.zeros((3, self.d2, field.num_limbs), np.uint32)
+        for row, mask in enumerate((mask0, maskq, maskp)):
+            mask3[row, :len(mask)] = field.ints_to_mont_limbs(mask)
+        return mask0, maskq, maskp, mask3, sub_seed(b"rows")
 
     def _expand_field(self, count: int, seed: bytes) -> torch.Tensor:
         """Short challenge vectors (4m, m): host ChaCha20, then upload."""
@@ -169,6 +230,11 @@ class LigeroCircuit:
             rand_field_elements_limbs(self.field, count, seed))
 
     def _sample_indices(self, seed: bytes) -> list[int]:
+        if self.zk:
+            # exclude the k embedded message-domain points, where the zk
+            # blinding vanishes and a column would leak witness values
+            return get_distinct_indices_excluding(self.n, self.t, seed,
+                                                  self.n // self.k)
         return get_distinct_indices_from_prng(self.n, self.t, seed)
 
     def _device_coo(self):
@@ -230,7 +296,7 @@ class LigeroCircuit:
 
     def _well_formed(self, proof: LigeroProof) -> bool:
         """Structural validation of an untrusted proof."""
-        if len(proof.interleaved.preenc_u_lc) != self.k:
+        if len(proof.interleaved.preenc_u_lc) != self.blind_len:
             return False
         for sub in (proof.interleaved, proof.linear, proof.quadratic):
             if len(sub.columns) != len(sub.paths):
@@ -258,12 +324,25 @@ class LigeroCircuit:
         return self.backend.asarray(arr.transpose(1, 0, 2))
 
     def _evals(self, poly: list[int]) -> list[int]:
-        """n-point evaluations (canonical ints) of a polynomial of degree
-        < 2k given by canonical coefficients."""
+        """n-point evaluations (canonical ints) of a polynomial given by
+        at most n canonical coefficients."""
         be = self.backend
-        limbs = be.ints_to_mont(poly + [0] * (2 * self.k - len(poly)))
-        return be.mont_to_ints(be.ntt(limbs.reshape(1, 2 * self.k, -1),
+        poly = poly or [0]
+        limbs = be.ints_to_mont(poly)
+        return be.mont_to_ints(be.ntt(limbs.reshape(1, len(poly), -1),
                                       self.n)[0])
+
+    def _spot_matches(self, evals: list[int], proof, sums: list[int],
+                      mask_row: int) -> bool:
+        """evals[j] == sums[i] (+ the mask row's entry of column i under
+        zk) at every opened column j."""
+        p = self.field.p
+        for path, col, sv in zip(proof.paths, proof.columns, sums):
+            if self.zk:
+                sv = (sv + col[4 * self.m + mask_row]) % p
+            if evals[path.leaf_index] != sv:
+                return False
+        return True
 
     def _verify_interleaved(self, proof: InterleavedProof, u_root,
                             sponge) -> bool:
@@ -274,15 +353,19 @@ class LigeroCircuit:
         if not self._verify_column_openings(proof.columns, proof.paths,
                                             u_root, sponge):     # FS #4
             return False
-        # w = RS(preenc_u_lc); spot check w[j] == <r, U[:, j]>
-        lc = be.ints_to_mont(proof.preenc_u_lc).reshape(1, self.k, -1)
-        _, w_evals = be.rs_encode_rows(lc, self.k, self.n)
-        w = be.mont_to_ints(w_evals[0])
+        if self.zk:
+            # the zk reveal is in coefficient space (deg < k + 3t): check
+            # w(omega^j) == <r, U[:4m, j]> + U[mask0, j]
+            w = self._evals(proof.preenc_u_lc)
+        else:
+            # w = RS(preenc_u_lc); spot check w[j] == <r, U[:, j]>
+            lc = be.ints_to_mont(proof.preenc_u_lc).reshape(1, self.k, -1)
+            _, w_evals = be.rs_encode_rows(lc, self.k, self.n)
+            w = be.mont_to_ints(w_evals[0])
         # mont r x canonical columns = canonical sums
         rhs = be.canon_limbs_to_ints(be.row_combine(
             r, self._columns_limbs(proof.columns, 4 * self.m)))
-        return all(w[path.leaf_index] == rv
-                   for path, rv in zip(proof.paths, rhs))
+        return self._spot_matches(w, proof, rhs, 0)
 
     def _verify_linear(self, proof: LinearConstraintsProof, u_root,
                        sponge) -> bool:
@@ -290,8 +373,9 @@ class LigeroCircuit:
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #5
         if _poly_degree(proof.polynomial) >= self.lin_bound:
             return False
-        # one n-point NTT of q gives the 2k-domain sum check (the 2k grid
-        # is the n grid at stride n/2k) and q at every opened column
+        # one n-point NTT of q gives the message-domain sum check (the k
+        # message points are the n grid at stride n/k) and q at every
+        # opened column
         q_evals = self._evals(proof.polynomial)
         if sum(q_evals[0::self.n // k]) % p != 0:
             return False
@@ -308,8 +392,7 @@ class LigeroCircuit:
         with self.timer.phase("v.spot"):
             lhs = be.canon_limbs_to_ints(be.row_combine(
                 r_evals, self._columns_limbs(proof.columns, 4 * self.m)))
-        return all(lv == q_evals[path.leaf_index]
-                   for path, lv in zip(proof.paths, lhs))
+        return self._spot_matches(q_evals, proof, lhs, 1)
 
     def _verify_quadratic(self, proof: QuadraticConstraintsProof, u_root,
                           sponge) -> bool:
@@ -332,6 +415,5 @@ class LigeroCircuit:
             term = be.sub(be.mont_mul(be.to_mont(cols[:m]), cols[m:2 * m]),
                           cols[2 * m:])
             rhs = be.canon_limbs_to_ints(be.row_combine(r_quad, term))
-        return all(p0_evals[path.leaf_index] == rv
-                   for path, rv in zip(proof.paths, rhs))
+        return self._spot_matches(p0_evals, proof, rhs, 2)
 

@@ -2,9 +2,11 @@
 """Where the PyTorch/CUDA port's prove and verify spend their time.
 
     python3 scripts/profile_torch_port.py [--log2-gates 20] [--device cuda]
-                                          [--out FILE]
+                                          [--zk] [--lambda 128] [--out FILE]
 
-Builds the synthetic circuit of ``--log2-gates`` gates (seed 0), then for
+Builds the synthetic circuit of ``--log2-gates`` gates (seed 0), compiled
+with ``zk=True`` under ``--zk`` (proofs then share one fixed ``zk_seed``;
+small circuits need a reduced ``--lambda`` to fit the blinding), then for
 each of prove and verify: one warm-up call, three unprofiled walls,
 one call under the phase timer (CUDA synchronised at phase boundaries) and
 one call under ``torch.profiler``.  From the profiled call's device events
@@ -15,8 +17,8 @@ profiler adds host time to every launch, so the share against the
 profiled wall overstates idleness; the share against the unprofiled wall
 pairs a busy time and a wall from different calls.  Both are printed.
 
-Prints one JSON object (also written to ``--out``).  JAX is never
-imported.
+Prints one JSON object (also written to ``--out``).  Neither JAX nor the
+JAX package is ever imported.
 """
 
 from __future__ import annotations
@@ -29,12 +31,16 @@ import subprocess
 import sys
 import time
 
-sys.modules["jax"] = None  # the port runs without JAX: make any import fail
+# the port runs without JAX and without the JAX package: make any import fail
+sys.modules["jax"] = None
+sys.modules["ligero_tpu"] = None
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 REPEATS = 3
 PORT_KERNELS = ("ntt_tile_kernel", "ntt_stage_kernel", "blake2s_cols_kernel",
-                "mont_mul_kernel", "row_combine_partial", "row_combine_finish")
+                "sha256_tree_levels_kernel", "mont_mul_kernel",
+                "row_combine_partial", "row_combine_finish")
+ZK_SEED = bytes(range(32))
 
 
 def _sync(torch, device) -> None:
@@ -126,34 +132,45 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2-gates", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--zk", action="store_true")
+    ap.add_argument("--lambda", dest="lambda_", type=int, default=128)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
     import torch
 
-    from ligero_tpu.fields import BN254_FR
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
-    from ligero_tpu_torch import LigeroCircuit
+    from ligero_tpu_torch import BN254_FR, LigeroCircuit, test_sponge
+    from ligero_tpu_torch.synthetic import generate_random_circuit
     from ligero_tpu_torch.utils.profiling import PhaseTimer
 
     field = BN254_FR
     circ, outs, vars_ = generate_random_circuit(field, 1 << args.log2_gates,
                                                 seed=0)
-    lig = LigeroCircuit(circ, outs, device=args.device, timer=PhaseTimer())
+    lig = LigeroCircuit(circ, outs, lambda_=args.lambda_, zk=args.zk,
+                        device=args.device, timer=PhaseTimer())
     device = lig.device
     sponge = test_sponge(field)
-    proof = lig.prove(vars_, sponge.clone())  # includes the one-time COO upload
+    kw = {"zk_seed": ZK_SEED} if args.zk else {}
+
+    def prove():
+        return lig.prove(vars_, sponge.clone(), **kw)
+
+    proof = prove()  # includes the one-time COO upload
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     record = {
-        "log2_gates": args.log2_gates, "m": lig.m, "k": lig.k, "n": lig.n,
-        "t": lig.t, "device": str(device),
+        "log2_gates": args.log2_gates, "zk": args.zk, "m": lig.m, "k": lig.k,
+        "n": lig.n, "t": lig.t, "blind_t": lig.blind_t, "d2": lig.d2,
+        "device": str(device),
         "nvidia_smi": nvidia_smi_line() if device.type == "cuda" else None,
         "torch": torch.__version__,
-        "prove": profile_call(torch, device, lig,
-                              lambda: lig.prove(vars_, sponge.clone())),
+        "prove": profile_call(torch, device, lig, prove),
         "verify": profile_call(torch, device, lig,
                                lambda: lig.verify(proof, sponge.clone())),
     }
+    if device.type == "cuda":
+        record["peak_device_memory_gib"] = (
+            torch.cuda.max_memory_allocated(device) / 2**30)
     if not lig.verify(proof, sponge.clone()):
         print("profile_torch_port: the honest proof did not verify",
               file=sys.stderr)

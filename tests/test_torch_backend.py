@@ -13,6 +13,17 @@ from ligero_tpu.sampling import rand_field_elements_limbs
 from ligero_tpu.synthetic import generate_random_circuit
 from ligero_tpu_torch import convert
 from ligero_tpu_torch.engine.backend import DeviceMemoryError, TorchBackend
+from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
+
+# the suite runs in several worker processes that share the host's cores, and
+# these tests run many small tensor ops: one intra-op thread each, or the
+# workers' thread pools spin against each other
+torch.set_num_threads(1)
+
+
+def pf(field):
+    """The port's own FieldSpec for a JAX-package one."""
+    return PORT_FIELDS[field.name]
 
 F = BN254_FR
 
@@ -42,7 +53,7 @@ def rand_mont(rng, shape):
 def test_rs_encode_and_canon_matches_backend(instance):
     ref, preenc = instance
     want_c, want_u = Backend(F).rs_encode_and_canon(preenc, ref.k, ref.n)
-    be = TorchBackend(F, "cpu")
+    be = TorchBackend(pf(F), "cpu")
     got_c, got_u = be.rs_encode_and_canon(be.asarray(preenc), ref.k, ref.n)
     assert np.array_equal(be.to_numpy(got_c), want_c)
     assert np.array_equal(be.to_numpy(got_u), want_u)
@@ -51,7 +62,7 @@ def test_rs_encode_and_canon_matches_backend(instance):
 def test_commit_and_gather_match_backend(instance):
     ref, preenc = instance
     _, u = Backend(F).rs_encode_and_canon(preenc, ref.k, ref.n)
-    be = TorchBackend(F, "cpu")
+    be = TorchBackend(pf(F), "cpu")
     assert be.commit_columns(be.asarray(u)) == Backend(F).commit_columns(u)
     js = [0, 5, ref.n - 1]
     assert np.array_equal(be.gather_columns(be.asarray(u), js),
@@ -67,7 +78,7 @@ def test_sparse_ra_matches_backend(instance):
     r = rand_field_elements_limbs(F, four_mk, seed)
     want = Backend(F).sparse_rA_mont(np.asarray(rows), np.asarray(cols),
                                      vals_mont, r, four_mk)
-    be = TorchBackend(F, "cpu")
+    be = TorchBackend(pf(F), "cpu")
     r_dev = be.rand_field_mont(four_mk, seed)
     got = be.sparse_rA_mont(torch.as_tensor(np.asarray(rows, np.int64)),
                             torch.as_tensor(np.asarray(cols, np.int64)),
@@ -79,7 +90,7 @@ def test_row_combine_and_polys_match_backend(instance):
     ref, preenc = instance
     m, k = ref.m, ref.k
     rng = np.random.default_rng(9)
-    np_be, be = Backend(F), TorchBackend(F, "cpu")
+    np_be, be = Backend(F), TorchBackend(pf(F), "cpu")
     coeffs = np.asarray(np_be.intt(preenc, k))
     r = rand_mont(rng, (4 * m,))
     assert np.array_equal(be.to_numpy(be.row_combine(r, preenc)),
@@ -98,7 +109,7 @@ def test_row_combine_and_polys_match_backend(instance):
 
 def test_ntt_columns_and_from_mont_match_backend(instance):
     ref, preenc = instance
-    np_be, be = Backend(F), TorchBackend(F, "cpu")
+    np_be, be = Backend(F), TorchBackend(pf(F), "cpu")
     coeffs = np.asarray(np_be.intt(preenc, ref.k))
     js = np.asarray([1, 2, 40, ref.n - 2])
     assert np.array_equal(
@@ -109,7 +120,7 @@ def test_ntt_columns_and_from_mont_match_backend(instance):
 
 
 def test_direct_mode_budget_raises(monkeypatch):
-    be = TorchBackend(F, "cpu")
+    be = TorchBackend(pf(F), "cpu")
     monkeypatch.setattr(be, "memory_budget", lambda: 1 << 30)
     be.check_direct_fits(8, 64, 512, 1000)
     with pytest.raises(DeviceMemoryError):
@@ -124,20 +135,23 @@ def test_compiled_state_carries_instance(instance):
     rows, cols, vals = ref._a_fast.to_coo()
     assert np.array_equal(st.a_rows, rows) and np.array_equal(st.a_cols, cols)
     assert st.a_vals == list(vals)
-    assert st.ref is ref
+    assert (st.zk, st.blind_t, st.d2) == (ref.zk, ref.blind_t, ref.d2)
+    assert st.circuit.nodes == ref.circuit.nodes
+    assert type(st.circuit).__module__.startswith("ligero_tpu_torch.")
+    assert type(st.field).__module__.startswith("ligero_tpu_torch.")
 
 
 def test_cuda_request_without_device_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        TorchBackend(F, "cuda")
+        TorchBackend(pf(F), "cuda")
 
 
 @pytest.mark.cuda
 def test_backend_on_cuda_matches_cpu(cuda, instance):
     ref, preenc = instance
-    cpu, dev = TorchBackend(F, "cpu"), TorchBackend(F, cuda)
+    cpu, dev = TorchBackend(pf(F), "cpu"), TorchBackend(pf(F), cuda)
     c1, u1 = cpu.rs_encode_and_canon(cpu.asarray(preenc), ref.k, ref.n)
     c2, u2 = dev.rs_encode_and_canon(dev.asarray(preenc), ref.k, ref.n)
     assert torch.equal(c1, c2.cpu()) and torch.equal(u1, u2.cpu())

@@ -13,6 +13,17 @@ from ligero_tpu.fields import BN254_FR
 from ligero_tpu.hashes import column_hash
 from ligero_tpu_torch.engine import cuda_hash, hashops
 from ligero_tpu_torch.engine.backend import TorchBackend
+from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
+
+# the suite runs in several worker processes that share the host's cores, and
+# these tests run many small tensor ops: one intra-op thread each, or the
+# workers' thread pools spin against each other
+torch.set_num_threads(1)
+
+
+def pf(field):
+    """The port's own FieldSpec for a JAX-package one."""
+    return PORT_FIELDS[field.name]
 
 
 @pytest.fixture
@@ -71,8 +82,9 @@ def test_tree_flat_and_digest_lists_match_backend(n):
     leaves_t = torch.from_numpy(leaves.view(np.int32))
     flat = hashops.tree_flat(leaves_t).numpy()
     assert np.array_equal(flat.view(np.uint32), np.asarray(be._tree_flat(leaves)))
-    port = TorchBackend(BN254_FR, "cpu")
-    assert port._digest_lists(leaves_t) == be._digest_lists(leaves)
+    port = TorchBackend(pf(BN254_FR), "cpu")
+    assert hashops.digest_lists(port.to_numpy(port._tree_flat(leaves_t)),
+                                n) == be._digest_lists(leaves)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

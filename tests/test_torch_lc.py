@@ -10,6 +10,17 @@ from ligero_tpu.engine.fieldops import FieldKernel
 from ligero_tpu.engine.mxu_lc import mxu_lc_numpy
 from ligero_tpu.fields import BN254_FR
 from ligero_tpu_torch.engine import cuda_lc
+from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
+
+# the suite runs in several worker processes that share the host's cores, and
+# these tests run many small tensor ops: one intra-op thread each, or the
+# workers' thread pools spin against each other
+torch.set_num_threads(1)
+
+
+def pf(field):
+    """The port's own FieldSpec for a JAX-package one."""
+    return PORT_FIELDS[field.name]
 
 
 @pytest.fixture
@@ -33,7 +44,7 @@ def t(a):
 def test_row_combine_matches_mxu_oracle(rows, k):
     rng = np.random.default_rng(rows + k)
     mat, r = rand_mont(rng, (rows, k)), rand_mont(rng, (rows,))
-    got = cuda_lc.row_combine(BN254_FR, t(r), t(mat))
+    got = cuda_lc.row_combine(pf(BN254_FR), t(r), t(mat))
     assert np.array_equal(got.numpy(), mxu_lc_numpy(BN254_FR, mat, r))
 
 
@@ -41,7 +52,7 @@ def test_row_combine_per_element_matches_fieldkernel():
     rng = np.random.default_rng(21)
     fk = FieldKernel(BN254_FR, np)
     mat, r = rand_mont(rng, (50, 9)), rand_mont(rng, (50, 9))
-    got = cuda_lc.row_combine(BN254_FR, t(r), t(mat))
+    got = cuda_lc.row_combine(pf(BN254_FR), t(r), t(mat))
     assert np.array_equal(got.numpy(), fk.sum_mod(fk.mont_mul(r, mat), axis=0))
 
 
@@ -49,8 +60,8 @@ def test_wrapper_takes_plain_version_on_cpu():
     rng = np.random.default_rng(22)
     mat, r = t(rand_mont(rng, (4, 8))), t(rand_mont(rng, (4,)))
     before = cuda_lc.launches.count
-    assert torch.equal(cuda_lc.row_combine(BN254_FR, r, mat),
-                       cuda_lc.row_combine_ref(BN254_FR, r, mat))
+    assert torch.equal(cuda_lc.row_combine(pf(BN254_FR), r, mat),
+                       cuda_lc.row_combine_ref(pf(BN254_FR), r, mat))
     assert cuda_lc.launches.count == before
 
 
@@ -60,5 +71,5 @@ def test_row_combine_kernel_matches_plain(cuda, rows, k):
     rng = np.random.default_rng(rows)
     mat = t(rand_mont(rng, (rows, k)))
     for r in (t(rand_mont(rng, (rows,))), t(rand_mont(rng, (rows, k)))):
-        got = cuda_lc.row_combine(BN254_FR, r.to(cuda), mat.to(cuda))
-        assert torch.equal(got.cpu(), cuda_lc.row_combine_ref(BN254_FR, r, mat))
+        got = cuda_lc.row_combine(pf(BN254_FR), r.to(cuda), mat.to(cuda))
+        assert torch.equal(got.cpu(), cuda_lc.row_combine_ref(pf(BN254_FR), r, mat))

@@ -11,6 +11,17 @@ from ligero_tpu.engine.mxu_ntt import mxu_ntt_numpy
 from ligero_tpu.engine.ntt import DomainOps
 from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
 from ligero_tpu_torch.engine import cuda_ntt, ntt
+from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
+
+# the suite runs in several worker processes that share the host's cores, and
+# these tests run many small tensor ops: one intra-op thread each, or the
+# workers' thread pools spin against each other
+torch.set_num_threads(1)
+
+
+def pf(field):
+    """The port's own FieldSpec for a JAX-package one."""
+    return PORT_FIELDS[field.name]
 
 
 @pytest.fixture
@@ -37,15 +48,15 @@ def test_ntt_ref_matches_domainops(n):
     fk = FieldKernel(field, np)
     dom = DomainOps(fk, n)
     x = rand_mont(field, rng, (2, n))
-    assert np.array_equal(ntt.ntt_ref(field, t(x), n).numpy(), dom.fft(x))
-    assert np.array_equal(ntt.ntt_ref(field, t(x), n, inverse=True).numpy(),
+    assert np.array_equal(ntt.ntt_ref(pf(field), t(x), n).numpy(), dom.fft(x))
+    assert np.array_equal(ntt.ntt_ref(pf(field), t(x), n, inverse=True).numpy(),
                           dom.ifft(x))
     assert np.array_equal(
-        ntt.ntt_ref(field, t(x), n, inverse=True, canon_out=True).numpy(),
+        ntt.ntt_ref(pf(field), t(x), n, inverse=True, canon_out=True).numpy(),
         fk.from_mont(dom.ifft(x)))
     short = x[:, :max(1, n // 8)]
     assert np.array_equal(
-        ntt.ntt_ref(field, t(short), n, canon_out=True).numpy(),
+        ntt.ntt_ref(pf(field), t(short), n, canon_out=True).numpy(),
         fk.from_mont(dom.fft_padded(short)))
 
 
@@ -57,7 +68,7 @@ def test_ntt_ref_matches_mxu_oracle(n, inverse, canon_out):
     rng = np.random.default_rng(7)
     x = rand_mont(field, rng, (2, n))
     want = mxu_ntt_numpy(field, x, n, inverse=inverse, canon_out=canon_out)
-    got = ntt.ntt_ref(field, t(x), n, inverse=inverse, canon_out=canon_out)
+    got = ntt.ntt_ref(pf(field), t(x), n, inverse=inverse, canon_out=canon_out)
     assert np.array_equal(got.numpy(), want)
 
 
@@ -65,24 +76,24 @@ def test_ntt_ref_other_field_and_roundtrip():
     field = BLS12_377_FQ
     rng = np.random.default_rng(8)
     x = rand_mont(field, rng, (3, 32))
-    fwd = ntt.ntt_ref(field, t(x), 32)
+    fwd = ntt.ntt_ref(pf(field), t(x), 32)
     assert np.array_equal(fwd.numpy(), DomainOps(FieldKernel(field, np), 32).fft(x))
-    assert np.array_equal(ntt.ntt_ref(field, fwd, 32, inverse=True).numpy(), x)
+    assert np.array_equal(ntt.ntt_ref(pf(field), fwd, 32, inverse=True).numpy(), x)
 
 
 def test_size_checks_and_epilogue_constants():
     f = BN254_FR
     with pytest.raises(ValueError):
-        ntt.check_size(f, 12)
+        ntt.check_size(pf(f), 12)
     with pytest.raises(ValueError):
-        ntt.check_size(f, 1 << 29)
+        ntt.check_size(pf(f), 1 << 29)
     n_inv = pow(64, -1, f.p)
-    assert ntt.epilogue_const(f, 64, False, False) is None
-    assert ntt.epilogue_const(f, 64, False, True) == 1
-    assert ntt.epilogue_const(f, 64, True, False) == n_inv * f.R % f.p
-    assert ntt.epilogue_const(f, 64, True, True) == n_inv
+    assert ntt.epilogue_const(pf(f), 64, False, False) is None
+    assert ntt.epilogue_const(pf(f), 64, False, True) == 1
+    assert ntt.epilogue_const(pf(f), 64, True, False) == n_inv * f.R % f.p
+    assert ntt.epilogue_const(pf(f), 64, True, True) == n_inv
     with pytest.raises(ValueError):
-        ntt.ntt_ref(f, torch.zeros((1, 16, 16), dtype=torch.int32), 8)
+        ntt.ntt_ref(pf(f), torch.zeros((1, 16, 16), dtype=torch.int32), 8)
 
 
 def test_packed_twiddles_layout():
@@ -99,9 +110,9 @@ def test_ntt_kernel_matches_plain(cuda, n):
     x = t(rand_mont(BN254_FR, rng, (3, n)))
     for inverse in (False, True):
         for canon in (False, True):
-            want = ntt.ntt_ref(BN254_FR, x, n, inverse, canon)
-            got = cuda_ntt.ntt(BN254_FR, x.to(cuda), n, inverse, canon)
+            want = ntt.ntt_ref(pf(BN254_FR), x, n, inverse, canon)
+            got = cuda_ntt.ntt(pf(BN254_FR), x.to(cuda), n, inverse, canon)
             assert torch.equal(got.cpu(), want)
     short = x[:, :max(1, n // 8)].contiguous()
-    assert torch.equal(cuda_ntt.ntt(BN254_FR, short.to(cuda), n).cpu(),
-                       ntt.ntt_ref(BN254_FR, short, n))
+    assert torch.equal(cuda_ntt.ntt(pf(BN254_FR), short.to(cuda), n).cpu(),
+                       ntt.ntt_ref(pf(BN254_FR), short, n))
