@@ -12,7 +12,12 @@ It runs every phase, in order; any failure exits non-zero:
                (tolerance 0: exact integer arithmetic), both times printed,
                and the least time the card could take for the same work
                (bytes over the memory rate, or integer operations over the
-               instruction rate) beside them.
+               instruction rate) beside them.  Then the NTT at the edges of
+               every route (one pass, cosets, two passes; each with inverse
+               and canon_out on and off, the route printed), the tree at
+               the sizes around its 64-node groups and 100 times on one
+               input, and the tree's chain floor from a timed chain of
+               dependent hashes.
 4. parity   -- port proofs on the card byte-equal to the port's proofs on
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
@@ -191,7 +196,9 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
                                      device="cuda").to(torch.int32)
 
     def ntt_case(label, batch, w, size, inverse=False, canon=False):
-        return ("ntt", f"{label}, {batch} x {w} -> {size}", elems(batch, w),
+        return ("ntt", f"{label}, {batch} x {w} -> {size} "
+                f"[route {route_text(cuda_ntt.route(w, size, batch))}]",
+                elems(batch, w),
                 lambda x: cuda_ntt.ntt(field, x, size, inverse, canon),
                 lambda x: ntt.ntt_ref(field, x, size, inverse, canon),
                 ntt_work(batch, w, size, inverse or canon))
@@ -253,7 +260,10 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
         res["max_abs_err"] = max(res["max_abs_err"], err)
         del got, want, inp
         torch.cuda.empty_cache()
+    results["ntt"]["max_abs_err"] = max(
+        results["ntt"]["max_abs_err"], ntt_route_cases(torch, field, gen))
     tree_bit_equality(torch, gen)
+    results["sha256_tree"]["chain_floor_ms"] = tree_chain_floor(torch, n)
     # the commit's full-width NTT_n, column hash and tree (all rows, all n
     # columns; zk: 4m + 3 rows from d2-wide coefficients), kernel only
     for label, nrows, w in (("", rows, k), ("zk ", rows + 3, d2)):
@@ -281,13 +291,75 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
     return results
 
 
+def route_text(rt) -> str:
+    """An NTT route in a few words: its name, cosets and sub-transforms."""
+    split = " x ".join(str(1 << l) for l in (rt.l0, rt.l1, rt.l2) if l)
+    return f"{rt.name}, {1 << rt.lc} coset(s) of {split or 1}"
+
+
+def ntt_route_cases(torch, field, gen) -> int:
+    """The NTT kernel against its plain version where its routes meet: w = n
+    and w < n at n = 2, 1024, 2048, 4096 (one pass, cosets); w = 1, w = s,
+    w = s + 1 and a width that is no power of two at n = 16384 (cosets);
+    n = 8192, 65536 and 2^17 (two passes), alone and under cosets; single
+    rows, which take two passes at any size.  Small batches, every
+    combination of inverse and canon_out.  Returns the
+    largest absolute difference seen (0 or the run fails)."""
+    from ligero_tpu_torch.engine import cuda_ntt, ntt
+    shapes = [(5, 2, 2), (5, 1, 2), (5, 1024, 1024), (5, 100, 1024),
+              (5, 2048, 2048), (5, 1500, 2048), (5, 4096, 4096),
+              (5, 2049, 4096), (5, 1, 16384), (5, 2048, 16384),
+              (5, 2049, 16384), (5, 1000, 16384), (2, 8192, 8192),
+              (2, 5000, 16384), (2, 65536, 65536), (1, 1 << 17, 1 << 17),
+              (1, 40000, 1 << 17),
+              # single rows: split in two passes so that they fill the card
+              (1, 2048, 2048), (1, 2048, 4096), (1, 4095, 16384)]
+    worst = 0
+    for batch, w, size in shapes:
+        x = _rand_elems(torch, gen, (batch, w), field)
+        errs = []
+        for inverse in (False, True):
+            for canon in (False, True):
+                got = cuda_ntt.ntt(field, x, size, inverse, canon)
+                want = ntt.ntt_ref(field, x, size, inverse, canon)
+                errs.append(int((got.to(torch.int64)
+                                 - want.to(torch.int64)).abs().max()))
+        worst = max(worst, *errs)
+        log(f"kernel NTT {batch} x {w} -> {size}, inverse x canon_out: "
+            f"max_abs_err={max(errs)} [route "
+            f"{route_text(cuda_ntt.route(w, size, batch))}]")
+        require(max(errs) == 0, f"NTT {batch} x {w} -> {size}: kernel "
+                "disagrees with its plain version")
+    return worst
+
+
+def tree_chain_floor(torch, n: int) -> float:
+    """The least a tree of n leaves can take on this card, in ms: its
+    log2 n levels are a chain of dependent two-to-one hashes, timed here
+    as one warp hashing its own output over and over (the difference of a
+    long and a short chain, so that the launch cancels)."""
+    from ligero_tpu_torch.engine import cuda_tree
+    dev = torch.device("cuda")
+    short, long_ = 16, 272
+    per_hash = (min(cuda_tree.chain_probe_ms(long_, dev) for _ in range(3))
+                - min(cuda_tree.chain_probe_ms(short, dev) for _ in range(3))
+                ) / (long_ - short)
+    levels = n.bit_length() - 1
+    log(f"kernel SHA-256 tree n={n}: chain floor {levels * per_hash:.4f} ms "
+        f"({levels} levels x {per_hash * 1e3:.3f} us a dependent two-to-one "
+        f"hash, {per_hash * 1e6 / 128:.2f} ns a round)")
+    return levels * per_hash
+
+
 def tree_bit_equality(torch, gen) -> None:
     """The tree kernel against the plain SHA-256 levels at small, split and
-    large n, 20 fresh inputs each.  The plain levels run over the 20 trees
+    large n and around its 64-node groups, 20 fresh inputs each, then 100
+    times on one input at n = 16384 (a wrong last-block handshake would
+    show as a rare stale read).  The plain levels run over the 20 trees
     side by side (pairs never cross a tree: n is a power of two)."""
     from ligero_tpu_torch.engine import cuda_tree, hashops
     reps = 20
-    for n in (2, 4, 512, 1024, 2048, 65536):
+    for n in (2, 4, 32, 64, 128, 512, 1024, 2048, 4096, 8192, 65536):
         forest = torch.randint(-2**31, 2**31, (reps, n, 8), generator=gen,
                                dtype=torch.int64, device="cuda").to(torch.int32)
         got = [cuda_tree.tree_flat(forest[r]) for r in range(reps)]
@@ -305,7 +377,17 @@ def tree_bit_equality(torch, gen) -> None:
                         f"sha256_tree n={n}: level of {width} nodes differs "
                         f"(input {r})")
             off += 8 * width
-        log(f"kernel SHA-256 tree n={n}: bit-equal on {reps} fresh inputs")
+        log(f"kernel SHA-256 tree n={n}: bit-equal on {reps} fresh inputs "
+            f"({len(cuda_tree.tree_steps(n))} step(s) in one launch)")
+    n = 16384
+    leaves = torch.randint(-2**31, 2**31, (n, 8), generator=gen,
+                           dtype=torch.int64, device="cuda").to(torch.int32)
+    want = hashops.tree_flat(leaves)
+    for rep in range(100):
+        require(torch.equal(cuda_tree.tree_flat(leaves), want),
+                f"sha256_tree n={n}: run {rep} of 100 on one input differs")
+    log(f"kernel SHA-256 tree n={n}: 100 runs on one input all bit-equal to "
+        "the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -508,7 +590,9 @@ def main() -> int:
          "bound_ms": results[name]["bound_ms"],
          "bound_by": results[name]["bound_by"],
          # no single PyTorch call computes any of these functions
-         "library_ms": None}
+         "library_ms": None,
+         **({"chain_floor_ms": results[name]["chain_floor_ms"]}
+            if "chain_floor_ms" in results[name] else {})}
         for name, (_, src, rep) in KERNELS.items()]}
     print(smi, flush=True)
     print(json.dumps(record), flush=True)

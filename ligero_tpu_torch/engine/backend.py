@@ -112,29 +112,34 @@ class TorchBackend:
         """Raise unless the prover's largest live set fits the device.
         ``rows`` counts the committed rows (4m, or 4m + 3 under zk).
 
-        Non-zk: the encode (message, coefficient and codeword matrices and
-        the packed NTT scratch) or the linear phase (U, coefficients and
-        message, A's COO, r, the gathered r and its product in int32 and
-        int64, the int64 column sums and one fold part).
+        Non-zk: the encode (message, coefficient and codeword matrices;
+        its transforms take routes without scratch) or the linear phase (U,
+        coefficients and message, A's COO, r, the gathered r and its
+        product in int32 and int64, the int64 column sums and one fold
+        part).
 
         zk (``blind_t`` > 0): the encode holds the message, the (k + b)-wide
-        coefficients, the d2-wide row matrix, U and its packed scratch; the
-        linear phase holds U, the coefficients, the sparse product's
-        transients as above, and two (4m, d2, L) evaluation matrices with
-        one packed scratch."""
+        coefficients, the d2-wide row matrix, U and the packed intermediate
+        of its two-pass transform; the linear phase holds U, the
+        coefficients, the sparse product's transients as above, and two
+        (4m, d2, L) evaluation matrices.  NTT scratch is counted as
+        :func:`cuda_ntt.scratch_bytes` gives it for each shape."""
         L = self.L
         d2 = 2 * k if d2 is None else d2
         u, msg = rows * n * L * 4, rows * k * L * 4
         coeffs = rows * (k + blind_t) * L * 4
         coo = nnz * (L * 4 + 16)         # stays on the device between proofs
         sparse = 2 * nnz * L * 4 + nnz * L * 8 + 4 * msg
+        scratch = cuda_ntt.scratch_bytes
         if blind_t:
             wide = rows * d2 * L * 4
-            encode = msg + coeffs + wide + u + u // 2
-            linear = u + coeffs + coo + max(sparse,
-                                            msg + 2 * wide + wide // 2)
+            # (an estimate takes any sizes; a transform needs w <= n)
+            encode = msg + coeffs + wide + u + scratch(rows, min(d2, n), n)
+            linear = u + coeffs + coo + max(
+                sparse, msg + 2 * wide + scratch(rows, min(k + blind_t, d2),
+                                                 d2))
         else:
-            encode = 2 * msg + u + u // 2
+            encode = 2 * msg + u + max(scratch(rows, k, k), scratch(rows, k, n))
             linear = u + 3 * msg + coo + sparse
         need = max(encode, linear)
         budget = self.memory_budget()

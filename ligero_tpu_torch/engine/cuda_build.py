@@ -39,10 +39,13 @@ _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures of the entry points (all return an int cudaError_t)
 _SIGNATURES = {
     "lt_mont_mul": [_vp, _vp, _vp, _ll, _i, _vp],
-    "lt_ntt": [_vp, _i, _vp, _vp, _vp, _ll, _i, _vp, _i, _vp],
+    "lt_ntt_pass": [_i, _vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
+                    _i, _i, _i, _vp],
+    "lt_ntt_stage": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
     "lt_blake2s_cols": [_vp, _ll, _ll, _vp, _vp],
     "lt_row_combine": [_vp, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _i, _vp],
-    "lt_sha256_tree": [_vp, _ll, _vp, _vp],
+    "lt_sha256_tree": [_vp, _ll, _vp, _vp, _i, _vp],
+    "lt_sha256_chain_probe": [_vp, _i, _vp],
 }
 
 _lock = threading.Lock()

@@ -37,9 +37,11 @@ sys.modules["ligero_tpu"] = None
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 REPEATS = 3
-PORT_KERNELS = ("ntt_tile_kernel", "ntt_stage_kernel", "blake2s_cols_kernel",
-                "sha256_tree_levels_kernel", "mont_mul_kernel",
-                "row_combine_partial", "row_combine_finish")
+# every __global__ function of ligero_tpu_torch/csrc (tests/test_torch_imports.py
+# holds this list against the sources)
+PORT_KERNELS = ("ntt_pass_kernel", "ntt_stage_kernel", "blake2s_cols_kernel",
+                "sha256_tree_kernel", "sha256_chain_probe_kernel",
+                "mont_mul_kernel", "row_combine_partial", "row_combine_finish")
 ZK_SEED = bytes(range(32))
 
 

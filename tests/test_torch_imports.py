@@ -104,7 +104,8 @@ IMPORT_LINE = re.compile(
 
 def port_sources() -> list[str]:
     paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "profile_torch_port.py")]
+             os.path.join(REPO, "scripts", "profile_torch_port.py"),
+             os.path.join(REPO, "scripts", "compare_kernels_with_parent.py")]
     for dirpath, _, files in os.walk(os.path.join(REPO, "ligero_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -121,6 +122,22 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert IMPORT_LINE.findall("import os\nfrom ligero_tpu.fields import X\n")
     assert IMPORT_LINE.findall("    import jax\n")
     assert not IMPORT_LINE.findall("from ligero_tpu_torch import X\n")
+
+
+def test_profiler_groups_name_every_kernel_of_the_sources():
+    """A renamed __global__ function must not fall into the profiler's
+    "torch ops" group: its list of the port's kernels is the sources'."""
+    csrc = os.path.join(REPO, "ligero_tpu_torch", "csrc")
+    found = set()
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name)) as f:
+            found |= set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
+                f.read()))
+    with open(os.path.join(REPO, "scripts", "profile_torch_port.py")) as f:
+        listed = re.search(r"PORT_KERNELS = \((.*?)\)", f.read(), re.S).group(1)
+    assert len(found) >= 8
+    assert found == set(re.findall(r'"(\w+)"', listed))
 
 
 def test_default_device_is_the_card_and_raises_without_one():

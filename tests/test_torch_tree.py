@@ -116,17 +116,92 @@ def test_kernel_source_constants_match_the_schedule():
     assert hashops._PAD_SCHEDULE[:16] == [0x80000000] + [0] * 14 + [512]
 
 
+def tree_by_steps(leaves: np.ndarray) -> np.ndarray:
+    """The flat tree built the kernel's way on the host: by
+    cuda_tree.tree_steps' schedule, every group of nodes (64, or a wide
+    tree's 128 or 256 leaves) reduced on its own, every level written at
+    cuda_tree.level_offset."""
+    n = leaves.shape[0]
+    hk = HashKernel(np)
+    out = np.zeros(8 * (2 * n - 1), dtype=np.uint32)
+    out[:8 * n] = leaves.reshape(-1)
+    counters = np.zeros(cuda_tree.counter_words(n), dtype=np.int64)
+    for level, groups, cnt, base in cuda_tree.tree_steps(n):
+        for g in range(groups):
+            if level == 0:
+                nodes = leaves[g * cnt:(g + 1) * cnt].astype("<u4").view(
+                    np.uint8).view(">u4").astype(np.uint32).reshape(cnt, 8)
+            else:
+                off = cuda_tree.level_offset(n, level) + 8 * g * cnt
+                nodes = out[off:off + 8 * cnt].reshape(cnt, 8)
+                counters[base + g] += cnt      # one ticket per input root
+            lv, wd = level, cnt
+            while wd > 1:
+                nodes = np.asarray(hk.sha256_two_to_one(nodes[0::2], nodes[1::2]),
+                                   dtype=np.uint32)
+                lv, wd = lv + 1, wd // 2
+                off = cuda_tree.level_offset(n, lv) + 8 * g * wd
+                assert not out[off:off + 8 * wd].any()   # written once
+                out[off:off + 8 * wd] = nodes.reshape(-1)
+    # every counter drew exactly its group's tickets
+    want = [cnt for level, groups, cnt, _ in cuda_tree.tree_steps(n) if level
+            for _ in range(groups)]
+    assert counters.tolist()[:len(want)] == want
+    return out
+
+
+@pytest.mark.parametrize("log_n", range(1, 19))
+def test_kernel_schedule_and_offsets_give_the_flat_layout(log_n):
+    n = 1 << log_n
+    steps = cuda_tree.tree_steps(n)
+    # levels: offsets are the running sum of the level widths
+    for lv in range(log_n + 1):
+        assert cuda_tree.level_offset(n, lv) == 8 * sum(
+            n >> j for j in range(lv))
+    # the steps' levels chain up to the root: 64 J leaves a block (J = 1 up
+    # to 32768 leaves, then 2, then 4), 64 nodes a group above, until the last
+    passes = cuda_tree.leaf_passes(n)
+    assert passes == {15: 1, 16: 2}.get(log_n, 1 if log_n < 15 else 4)
+    assert steps[0][:3] == (0, max(1, n // (64 * passes)), min(n, 64 * passes))
+    level = 0
+    for lv, groups, cnt, base in steps:
+        assert lv == level and groups * cnt == n >> level
+        assert cnt == min(n >> level, 64 * (1 if level else passes))
+        level += cnt.bit_length() - 1
+    assert level == log_n and steps[-1][1] == 1
+    if log_n <= 12 or log_n == 16:    # the host emulation hashes every node
+        leaves = rand_leaves(log_n, n)
+        assert np.array_equal(
+            tree_by_steps(leaves),
+            hashops.tree_flat(t(leaves)).numpy().view(np.uint32))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 4, 512, 1024, 2048, 16384, 65536])
+@pytest.mark.parametrize("n", [2, 4, 32, 64, 128, 512, 1024, 2048, 4096, 8192,
+                               16384, 32768, 65536, 131072])
 def test_tree_kernel_matches_plain(cuda, n):
     before = cuda_tree.launches.count
-    for rep in range(20):
+    reps = 20 if n <= 65536 else 3
+    for rep in range(reps):
         leaves = t(rand_leaves(1000 * rep + n, n))
         got = cuda_tree.tree_flat(leaves.to(cuda))
         assert torch.equal(got.cpu(), hashops.tree_flat(leaves)), (n, rep)
-    assert cuda_tree.launches.count == before + 20
+    assert cuda_tree.launches.count == before + reps
     assert torch.equal(cuda_tree.tree_root(leaves.to(cuda)).cpu(),
                        hashops.tree_root(leaves))
+
+
+@pytest.mark.cuda
+def test_tree_kernel_same_input_100_times(cuda):
+    """A wrong last-block handshake shows as a rare stale read: the same
+    leaves give the same tree 100 times running, and the ticket counters
+    are back at 0 after every launch."""
+    leaves = t(rand_leaves(5, 16384))
+    want = hashops.tree_flat(leaves).to(cuda)
+    dev = leaves.to(cuda)
+    for rep in range(100):
+        assert torch.equal(cuda_tree.tree_flat(dev), want), rep
+    assert not bool(cuda_tree._counters(16384, cuda).any())
 
 
 @pytest.mark.cuda
