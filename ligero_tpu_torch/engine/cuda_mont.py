@@ -3,9 +3,11 @@
 Replaces ``ligero_tpu/engine/pallas_kernels.py:_mont_mul_kernel_factory``
 (``mont_mul_pallas``), which the JAX package runs inside the sparse r^T A
 product of the linear phase.  On this card the kernel is bound by device
-memory (64 bytes in per operand, 64 out per element, ~150 integer
-multiply-adds); its design is one thread per element with the limbs packed
-into 32-bit words in registers, so every operand crosses memory once.
+memory (64 bytes in per operand, 64 out per element, ~200 instructions of
+arithmetic); its design is one thread per element with the limbs packed
+into 32-bit words in registers, so every operand crosses memory once, and
+a warp's results staged through shared memory so that they leave as whole
+512-byte runs.
 
 A tensor on the CPU takes the plain version (:func:`fieldops.mont_mul`); a
 CUDA tensor launches the kernel or raises.

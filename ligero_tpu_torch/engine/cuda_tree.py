@@ -69,13 +69,15 @@ def counter_words(n: int) -> int:
     return max(1, sum(groups for level, groups, _, _ in tree_steps(n) if level))
 
 
-def _counters(n: int, device) -> torch.Tensor:
+def _counters(n: int, device, stream: int) -> torch.Tensor:
     """Zeroed ticket counters on ``device``; the kernel leaves them zeroed,
-    so one tensor serves every launch on a stream."""
-    have = _COUNTERS.get(str(device))
+    so one tensor serves every launch on a stream (trees on two streams may
+    run side by side, so each stream has its own)."""
+    key = (str(device), stream)
+    have = _COUNTERS.get(key)
     if have is None or have.numel() < counter_words(n):
         have = torch.zeros(counter_words(n), dtype=torch.int32, device=device)
-        _COUNTERS[str(device)] = have
+        _COUNTERS[key] = have
     return have
 
 
@@ -92,13 +94,13 @@ def tree_flat(leaves_le: torch.Tensor) -> torch.Tensor:
     leaves_le = leaves_le.contiguous()
     out = torch.empty(8 * (2 * n - 1), dtype=torch.int32,
                       device=leaves_le.device)
-    counters = _counters(n, leaves_le.device)
+    stream = cuda_build.stream_handle(leaves_le.device)
+    counters = _counters(n, leaves_le.device, stream)
     cuda_build.require_cuda_tensors("tree_flat", leaves_le, out, counters)
     lib = cuda_build.library()
     cuda_build.check(lib.lt_sha256_tree(leaves_le.data_ptr(), n, out.data_ptr(),
                                         counters.data_ptr(), leaf_passes(n),
-                                        cuda_build.stream_handle(leaves_le.device)),
-                     "lt_sha256_tree")
+                                        stream), "lt_sha256_tree")
     launches.add()
     return out
 

@@ -11,7 +11,7 @@ import torch
 
 from ligero_tpu.engine.fieldops import FieldKernel
 from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
-from ligero_tpu_torch.engine import cuda_mont, fieldops
+from ligero_tpu_torch.engine import cuda_build, cuda_mont, fieldops
 from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
 
 # the suite runs in several worker processes that share the host's cores, and
@@ -327,6 +327,28 @@ def test_mont_mul_kernel_matches_plain(cuda):
     assert torch.equal(got.cpu(), want)
     got_b = cuda_mont.mont_mul(pf(BN254_FR), t(a).to(cuda), t(b[0]).to(cuda))
     assert torch.equal(got_b.cpu(), fieldops.mont_mul(pf(BN254_FR), t(a), t(b[0])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [1, 31, 32, 33, 255, 256, 257, 8191])
+def test_mont_mul_kernel_partial_warps(cuda, count):
+    """The kernel stores a warp's results as one run: counts that end inside
+    a warp or a block write their own elements and nothing past them."""
+    rng = np.random.default_rng(count)
+    a = t(rng.integers(0, 1 << 16, size=(count + 2, 16)).astype(np.int32))
+    b = t(rand_reduced(BN254_FR, rng, (count + 2,)))
+    want = fieldops.mont_mul(pf(BN254_FR), a[:count], b[:count])
+    assert torch.equal(
+        cuda_mont.mont_mul(pf(BN254_FR), a[:count].to(cuda), b[:count].to(cuda)).cpu(),
+        want)
+    # the C entry point on a longer output: the two rows past count stay
+    out = torch.full((count + 2, 16), -1, dtype=torch.int32, device=cuda)
+    ad, bd = a.to(cuda), b.to(cuda)
+    cuda_build.check(cuda_build.library().lt_mont_mul(
+        ad.data_ptr(), bd.data_ptr(), out.data_ptr(), count, 0,
+        cuda_build.stream_handle(out.device)), "lt_mont_mul")
+    assert torch.equal(out[:count].cpu(), want)
+    assert bool((out[count:] == -1).all())
 
 
 @pytest.mark.cuda

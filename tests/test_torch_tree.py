@@ -201,7 +201,27 @@ def test_tree_kernel_same_input_100_times(cuda):
     dev = leaves.to(cuda)
     for rep in range(100):
         assert torch.equal(cuda_tree.tree_flat(dev), want), rep
-    assert not bool(cuda_tree._counters(16384, cuda).any())
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not bool(cuda_tree._counters(16384, cuda, stream).any())
+
+
+@pytest.mark.cuda
+def test_tree_kernel_on_two_streams_at_once(cuda):
+    """Each stream draws its tickets from counters of its own, so trees that
+    run side by side do not take each other's."""
+    leaves = [t(rand_leaves(40 + i, 16384)) for i in range(2)]
+    want = [hashops.tree_flat(x).to(cuda) for x in leaves]
+    dev = [x.to(cuda) for x in leaves]
+    streams = [torch.cuda.Stream(device=cuda) for _ in range(2)]
+    torch.cuda.synchronize(cuda)
+    got = [[], []]
+    for rep in range(50):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(cuda_tree.tree_flat(dev[i]))
+    torch.cuda.synchronize(cuda)
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i]), i
 
 
 @pytest.mark.cuda
