@@ -17,7 +17,10 @@ It runs every phase, in order; any failure exits non-zero:
                and canon_out on and off, the route printed), the tree at
                the sizes around its 64-node groups and 100 times on one
                input, and the tree's chain floor from a timed chain of
-               dependent hashes.
+               dependent hashes.  Then the serving path's pieces: the spot
+               evaluation against the NTT route and its plain version, the
+               batched Blake2s and row_combine launches (B = 3) against
+               their per-proof plain versions, three trees on one stream.
 4. parity   -- port proofs on the card byte-equal to the port's proofs on
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
@@ -26,6 +29,19 @@ It runs every phase, in order; any failure exits non-zero:
                ``prove`` and ``verify``, first plain, then with ``zk=True``:
                two byte-identical proofs, verify True, tampered witness and
                flipped byte rejected, every kernel launched on each path.
+               After each: the batch path at the same size (B = 3 plain,
+               B = 2 zk): ``prove_batch`` byte-equal to sequential ``prove``
+               calls, ``verify_batch`` over honest, tampered, flipped and
+               truncated proofs equal to sequential ``verify``, walls of
+               both and the peak device memory.
+6. serve    -- a repeated-squaring ``.r1cs`` (2^14 squarings) and its
+               witness written here; the port's HTTP service in a thread on
+               an ephemeral port with no device named (it must take the
+               card): /health, /circuits, /warmup, /prove (one and three
+               witnesses), /verify (one and a batch with a corrupted
+               proof); then ``python -m ligero_tpu_torch prove`` and
+               ``verify`` as subprocesses on the same files, proof bytes
+               equal to the service's.
 
 The last two stdout lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Neither JAX nor the JAX package
@@ -37,9 +53,13 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 import warnings
 
 # the port must run without JAX and without the JAX package: make any import
@@ -60,6 +80,9 @@ INT32_OPS_PER_S = 16.75e12
 # two-to-one (128 rounds x ~24, plus 48 schedule words x 13)
 MONT_MUL_OPS, BLAKE2S_BLOCK_OPS, SHA256_NODE_OPS = 160, 1160, 3700
 ELEM = 64  # bytes of one field element as 16 int32 limbs
+INT8_OPS_PER_S = 1.979e15  # the data sheet's dense int8 tensor-core rate
+BATCH, ZK_BATCH = 3, 2     # proofs a batch on the plain and the zk path
+LOG2_SQUARINGS = 14        # the serve phase's repeated-squaring circuit
 KERNELS = {
     # name: (wrapper module, source, TPU kernel replaced)
     "ntt": ("cuda_ntt", "ligero_tpu_torch/csrc/ntt.cu",
@@ -177,7 +200,7 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
     from ligero_tpu_torch.engine import (cuda_hash, cuda_lc, cuda_mont,
                                          cuda_ntt, cuda_tree, fieldops,
                                          hashops, ntt)
-    m, k, n, nnz = dims
+    m, k, n, nnz, t = dims
     b, d2 = zk_dims
     rows, kb = 4 * m, k + b
     gen = torch.Generator(device="cuda")
@@ -280,6 +303,8 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
             "bound %.3f ms by %s" % bound(*blake2s_work(nrows, n)))
         del u
         torch.cuda.empty_cache()
+    batch_kernel_cases(torch, field, gen, results, rows, k, b, n)
+    spot_cases(torch, field, gen, rows, k, n, t)
     # context only: the host's hashlib over the same n - 1 two-to-one hashes
     digests = [os.urandom(32) for _ in range(n)]
     t0 = time.perf_counter()
@@ -289,6 +314,118 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
     log(f"context: host hashlib, {n - 1} SHA-256 two-to-one hashes: "
         f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
     return results
+
+
+def batch_kernel_cases(torch, field, gen, results, rows, k, b, n) -> None:
+    """The batched launches of the serving path, B = 3, against their
+    per-proof plain versions, bit-equal: Blake2s over three stacked matrices
+    (4m rows, and the zk path's odd 4m + 3), row_combine over three
+    (4m, k) matrices with their own challenges, three trees on one stream
+    (at n and at 64 leaves: what B launches cost).  The batched times and
+    bounds go into ``results`` beside the single launches'."""
+    from ligero_tpu_torch.engine import cuda_hash, cuda_lc, cuda_tree, hashops
+    B, cols = BATCH, 256
+
+    def check(label, got, want):
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"{label}: kernel disagrees with its per-proof plain version")
+
+    for nrows in (rows, rows + 3):
+        u = _rand_elems(torch, gen, (B * nrows, cols), field)
+        got = cuda_hash.blake2s_columns(u, B)
+        # the plain version hashes columns side by side: the three matrices'
+        # columns as one (nrows, B cols) matrix are the per-proof digests
+        side = u.reshape(B, nrows, cols, 16).permute(1, 0, 2, 3).reshape(
+            nrows, B * cols, 16)
+        want, plain_ms = _time_once(
+            torch, lambda: hashops.blake2s_columns_ref(side))
+        check(f"batched Blake2s {B} x {nrows} x {cols}", got, want)
+        ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, B), 5)
+        one = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u[:nrows]), 5)
+        bound_ms, by = bound(*[B * w for w in blake2s_work(nrows, cols)])
+        log(f"kernel batched Blake2s {B} x {nrows} x {cols}: max_abs_err=0 "
+            f"kernel {ms:.4f} ms (one matrix {one:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {by}")
+        results["blake2s_cols"].setdefault("batched", {
+            "shape": f"{B} x {nrows} x {cols}", "ms": ms, "one_ms": one,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by})
+        del u, side, got, want
+    r = _rand_elems(torch, gen, (B, rows), field)
+    mats = _rand_elems(torch, gen, (B, rows, k), field)
+    got = cuda_lc.row_combine_batch(field, r, mats)
+    want, plain_ms = _time_once(
+        torch, lambda: cuda_lc.row_combine_batch_ref(field, r, mats))
+    check(f"batched row_combine {B} x {rows} x {k}", got, want)
+    ms = _time_cuda(torch, lambda: cuda_lc.row_combine_batch(field, r, mats), 5)
+    one = _time_cuda(torch, lambda: cuda_lc.row_combine(field, r[0], mats[0]), 5)
+    bound_ms, by = bound(*[B * w for w in row_combine_work(rows, k)])
+    log(f"kernel batched row_combine {B} x {rows} x {k}: max_abs_err=0 kernel "
+        f"{ms:.4f} ms (one {one:.4f} ms), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by {by}")
+    results["row_combine"]["batched"] = {
+        "shape": f"{B} x {rows} x {k}", "ms": ms, "one_ms": one,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
+    del r, mats, got, want
+    for leaves_n in (n, 64):
+        forest = torch.randint(-2**31, 2**31, (B, leaves_n, 8), generator=gen,
+                               dtype=torch.int64, device="cuda").to(torch.int32)
+        got = cuda_tree.forest_flat(forest)
+        for i in range(B):
+            check(f"{B} trees n={leaves_n}", got[i], hashops.tree_flat(forest[i]))
+        ms = _time_cuda(torch, lambda: cuda_tree.forest_flat(forest), 20)
+        one = _time_cuda(torch, lambda: cuda_tree.tree_flat(forest[0]), 20)
+        log(f"kernel {B} SHA-256 trees n={leaves_n} in {B} launches on one "
+            f"stream: bit-equal, {ms:.4f} ms (one tree {one:.4f} ms)")
+        results["sha256_tree"].setdefault("forest", {})[str(leaves_n)] = {
+            "trees": B, "ms": ms, "one_ms": one}
+    torch.cuda.empty_cache()
+
+
+def spot_cases(torch, field, gen, rows, k, n, t) -> None:
+    """The verifier's spot evaluation (int8 tensor-core products around the
+    port's own limb split, regroup and fold; no TPU kernel behind it) at the
+    linear phase's shape: bit-equal to the NTT route on all rows and to its
+    plain version (the plain full transform, then a gather) on 256 rows,
+    Montgomery and canonical output; then a row longer than K_MAX, which
+    contracts in chunks.  Times of both routes and the spot route's bound
+    (the int8 multiply-adds over the tensor cores' rate, or its bytes)."""
+    from ligero_tpu_torch.engine import cuda_ntt, spot
+    js = torch.randperm(n, generator=gen, device="cuda")[:t].cpu().numpy()
+    idx = torch.as_tensor(js, device="cuda")
+    shapes = [(rows, k), (64, 2 * spot.K_MAX + 40)]
+    for nrows, w in shapes:
+        x = _rand_elems(torch, gen, (nrows, w), field)
+        for canon in (False, True):
+            got = spot.spot_eval(field, x, js, n, canon_out=canon)
+            via_ntt = cuda_ntt.ntt(field, x, n, canon_out=canon).index_select(
+                1, idx)
+            want = spot.spot_ref(field, x[:256], js, n, canon_out=canon)
+            ok = torch.equal(got, via_ntt) and torch.equal(got[:256], want)
+            log(f"spot {nrows} x {w} at {t} of {n} columns, canon_out={canon}: "
+                f"bit-equal to the NTT route and the plain version: {ok}")
+            require(ok, f"spot_eval {nrows} x {w} canon_out={canon} disagrees")
+            del got, via_ntt, want
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = _time_cuda(torch, lambda: spot.spot_eval(field, x, js, n), 3)
+        spot_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ntt_ms = _time_cuda(torch, lambda: cuda_ntt.ntt(
+            field, x, n).index_select(1, idx), 3)
+        ntt_peak = torch.cuda.max_memory_allocated() - base
+        macs = spot.L7 * spot.L7 * nrows * w * t
+        by_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+        by_bytes = nrows * (w + t) * ELEM / HBM_BYTES_PER_S * 1e3
+        log(f"spot {nrows} x {w} at {t} of {n} columns: spot route {ms:.3f} ms "
+            f"(transients {spot_peak / 2**30:.2f} GiB), NTT route "
+            f"{ntt_ms:.3f} ms (transients {ntt_peak / 2**30:.2f} GiB); bound "
+            f"{max(by_ops, by_bytes):.3f} ms by "
+            f"{'operations' if by_ops >= by_bytes else 'bytes'} "
+            f"({macs:.3e} int8 multiply-adds)")
+        del x
+        torch.cuda.empty_cache()
 
 
 def route_text(rt) -> str:
@@ -468,6 +605,31 @@ def build_instance(circ, outs, zk: bool):
     return lig
 
 
+def reset_counts(torch, wraps) -> None:
+    """Every launch count to 0, just before a path is driven."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in wraps.values():
+        mod.launches.reset()
+
+
+def read_counts(wraps, path: str) -> dict:
+    """The launch counts just after a path was driven; every kernel must
+    have been launched on it."""
+    launches = {name: mod.launches.count for name, mod in wraps.items()}
+    log(f"kernel launches on the {path} path: {launches}")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel was not launched on the {path} path: {launches}")
+    return launches
+
+
+def flip_byte(data: bytes) -> bytes:
+    flipped = bytearray(data)
+    flipped[8 + 32 + 8] ^= 1  # low byte of the first interleaved lc element
+    return bytes(flipped)
+
+
 def phase_main(torch, field, lig, vars_) -> dict:
     """Drive one main path (plain or zk, as ``lig`` was compiled); returns
     the kernels' launch counts of its first prove + verify."""
@@ -479,12 +641,8 @@ def phase_main(torch, field, lig, vars_) -> dict:
     tag = "zk " if lig.zk else ""
     kw = {"zk_seed": ZK_SEED} if lig.zk else {}
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    reset_counts(torch, wraps)
     timer.reset()
-    for mod in wraps.values():
-        mod.launches.reset()
     t0 = time.perf_counter()
     proof = lig.prove(vars_, sponge.clone(), **kw)
     prove_s = time.perf_counter() - t0
@@ -493,19 +651,21 @@ def phase_main(torch, field, lig, vars_) -> dict:
     t0 = time.perf_counter()
     ok = lig.verify(proof, sponge.clone())
     verify_s = time.perf_counter() - t0
-    launches = {name: mod.launches.count for name, mod in wraps.items()}
+    launches = read_counts(wraps, f"{tag}main")
     verify_phases = dict(timer.totals)
     peak = torch.cuda.max_memory_allocated()
+    estimate = lig.backend.direct_bytes(
+        lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t, lig.d2)
     log(f"{tag}prove #1: {prove_s:.3f} s; verify: {ok} ({verify_s:.3f} s); "
-        f"peak device memory {peak / 2**30:.2f} GiB")
+        f"peak device memory {peak / 2**30:.2f} GiB (the direct-mode "
+        f"estimate: {estimate / 2**30:.2f} GiB)")
+    require(estimate >= peak, "the direct-mode memory estimate lies below "
+            "the measured peak")
     for name, secs in sorted(prove_phases.items(), key=lambda kv: -kv[1]):
         log(f"  {tag}prove  {name:22s} {secs * 1e3:10.1f} ms")
     for name, secs in sorted(verify_phases.items(), key=lambda kv: -kv[1]):
         log(f"  {tag}verify {name:22s} {secs * 1e3:10.1f} ms")
-    log(f"kernel launches on the {tag}main path: {launches}")
     require(ok, "verify rejected the honest proof")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel was not launched on the {tag}main path: {launches}")
 
     timer.reset()
     t0 = time.perf_counter()
@@ -527,16 +687,223 @@ def phase_main(torch, field, lig, vars_) -> dict:
     require(not bad_ok, "a proof of a tampered witness verified")
     del bad
 
-    flipped = bytearray(data)
-    flipped[8 + 32 + 8] ^= 1  # low byte of the first interleaved lc element
     try:
-        flip_ok = lig.verify(LigeroProof.from_bytes(bytes(flipped), field),
+        flip_ok = lig.verify(LigeroProof.from_bytes(flip_byte(data), field),
                              sponge.clone())
     except ValueError as e:
         log(f"{tag}flipped byte: deserializer rejects ({e})")
         flip_ok = False
     log(f"{tag}flipped byte: verify={flip_ok} (expect False)")
     require(not flip_ok, "a proof with a flipped byte verified")
+    return launches
+
+
+def phase_batch(torch, field, lig, vars_) -> dict:
+    """The batch path at the main path's size: ``prove_batch`` of B
+    witnesses (plain: honest, one changed input, honest; zk: the honest
+    witness under two seeds) against B sequential ``prove`` calls, byte for
+    byte; ``verify_batch`` over [honest, honest, tampered witness, flipped
+    byte, truncated column list] against sequential ``verify``.  Returns
+    the launch counts of the batched prove + verify."""
+    from ligero_tpu_torch import LigeroProof, test_sponge
+
+    sponge = test_sponge(field)
+    wraps = wrappers()
+    tag = "zk " if lig.zk else ""
+    bad_vars = [(vars_[0][0], (vars_[0][1] + 1) % field.p)] + vars_[1:]
+    if lig.zk:
+        witnesses, seeds = [vars_] * ZK_BATCH, [ZK_SEED, ZK_SEED[::-1]]
+    else:
+        witnesses, seeds = [vars_, bad_vars, vars_], None
+    B = len(witnesses)
+    fits = lig.backend.max_batch(lig.num_rows, lig.k, lig.n,
+                                 len(lig.state.a_vals), lig.blind_t, lig.d2)
+    require(fits >= B, f"only {fits} proofs fit the card together")
+
+    def single(i, assignment):
+        kw = {"zk_seed": seeds[i]} if seeds else {}
+        return lig.prove(assignment, sponge.clone(), **kw)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # the changed input, by design
+        reset_counts(torch, wraps)
+        t0 = time.perf_counter()
+        proofs = lig.prove_batch(witnesses, sponge, zk_seeds=seeds)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        proving = {name: mod.launches.count for name, mod in wraps.items()}
+        t0 = time.perf_counter()
+        sequential = [single(i, w) for i, w in enumerate(witnesses)]
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        blobs = [p.to_bytes(field) for p in proofs]
+        require(blobs == [p.to_bytes(field) for p in sequential],
+                "prove_batch differs from sequential prove calls")
+        del sequential
+        bad = proofs[1] if not lig.zk else single(0, bad_vars)
+    honest = [proofs[0], proofs[-1]]
+    short = LigeroProof.from_bytes(blobs[0], field)
+    short.linear.columns = short.linear.columns[:-1]
+    batch = honest + [bad, LigeroProof.from_bytes(flip_byte(blobs[0]), field),
+                      short]
+    log(f"{tag}prove_batch of {B}: byte-equal to {B} sequential proves; "
+        f"{batch_s:.3f} s ({B / batch_s:.3f} proofs/s) against {seq_s:.3f} s "
+        f"sequential ({B / seq_s:.3f} proofs/s); peak device memory "
+        f"{peak / 2**30:.2f} GiB ({fits} such proofs fit the estimate)")
+    # the sequential proves above were the comparison: they do not count
+    reset_counts(torch, wraps)
+    for name, mod in wraps.items():
+        mod.launches.count = proving[name]
+    lig.timer.reset()
+    t0 = time.perf_counter()
+    verdicts = lig.verify_batch(batch, sponge)
+    torch.cuda.synchronize()
+    vbatch_s = time.perf_counter() - t0
+    vpeak = torch.cuda.max_memory_allocated()
+    launches = read_counts(wraps, f"{tag}batch")
+    for name in ("v.replay", "v.ntt_cols"):
+        log(f"  {tag}verify_batch {name:18s} "
+            f"{lig.timer.totals.get(name, 0.0) * 1e3:10.1f} ms")
+    t0 = time.perf_counter()
+    one_by_one = [lig.verify(p, sponge.clone()) for p in batch]
+    torch.cuda.synchronize()
+    vseq_s = time.perf_counter() - t0
+    log(f"{tag}verify_batch of {len(batch)}: {verdicts} in {vbatch_s:.3f} s "
+        f"against {vseq_s:.3f} s sequential; peak device memory "
+        f"{vpeak / 2**30:.2f} GiB")
+    require(verdicts == [True, True, False, False, False],
+            f"verify_batch verdicts {verdicts}")
+    require(verdicts == one_by_one, "verify_batch differs from sequential "
+            f"verify calls: {one_by_one}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the entry points: HTTP service and command line
+# ---------------------------------------------------------------------------
+
+def write_r1cs(path: str, cs) -> None:
+    """A constraint system -> circom's binary ``.r1cs`` (iden3 layout:
+    header, constraints, wire-to-label map)."""
+    p, fs = cs.field.p, 32
+    n_wires = cs.num_instance + cs.num_witness
+    header = (struct.pack("<I", fs) + p.to_bytes(fs, "little")
+              + struct.pack("<IIII", n_wires, cs.num_instance - 1, 0,
+                            cs.num_witness)
+              + struct.pack("<QI", n_wires, cs.num_constraints))
+    body = bytearray()
+    for rows in zip(cs.a, cs.b, cs.c):
+        for row in rows:
+            body += struct.pack("<I", len(row))
+            for coeff, wire in row:
+                body += struct.pack("<I", wire) + (coeff % p).to_bytes(fs, "little")
+    labels = b"".join(struct.pack("<Q", i) for i in range(n_wires))
+    with open(path, "wb") as f:
+        f.write(b"r1cs" + struct.pack("<II", 1, 3))
+        for kind, data in ((1, header), (2, bytes(body)), (3, labels)):
+            f.write(struct.pack("<IQ", kind, len(data)) + data)
+
+
+def write_wtns(path: str, p: int, values) -> None:
+    """A witness vector -> circom's binary ``.wtns``."""
+    header = struct.pack("<I", 32) + p.to_bytes(32, "little") + struct.pack(
+        "<I", len(values))
+    data = b"".join(v.to_bytes(32, "little") for v in values)
+    with open(path, "wb") as f:
+        f.write(b"wtns" + struct.pack("<II", 2, 2))
+        for kind, blob in ((1, header), (2, data)):
+            f.write(struct.pack("<IQ", kind, len(blob)) + blob)
+
+
+def phase_serve(torch, field) -> dict:
+    """The serving path through its entry points; returns the launch counts
+    of the service's requests (the CLI's run in other processes)."""
+    from http.server import HTTPServer
+
+    from ligero_tpu_torch.circuit.r1cs import (
+        repeated_squaring_constraint_system, repeated_squaring_witness)
+    from ligero_tpu_torch.server import ProverService, make_handler
+
+    squarings = 1 << LOG2_SQUARINGS
+    wraps = wrappers()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        r1cs = os.path.join(tmp, "squarings.r1cs")
+        wtns = os.path.join(tmp, "witness.wtns")
+        proof_path = os.path.join(tmp, "proof.bin")
+        write_r1cs(r1cs, repeated_squaring_constraint_system(field, squarings))
+        witnesses = [repeated_squaring_witness(field, x, squarings)
+                     for x in (3, 4, 5)]
+        write_wtns(wtns, field.p, witnesses[0])
+
+        httpd = HTTPServer(("127.0.0.1", 0), make_handler(ProverService()))
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+
+        def call(path, body=None):
+            data = None if body is None else json.dumps(body).encode()
+            req = urllib.request.Request(
+                url + path, data, {"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                out = json.loads(r.read())
+            log(f"serve {'POST' if body is not None else 'GET'} {path}: "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+            return out
+
+        try:
+            health = call("/health")
+            require(health["status"] == "ok"
+                    and health["device"].startswith("cuda"),
+                    f"the service does not run on the card: {health}")
+            info = call("/circuits", {"name": "sq", "r1cs": r1cs})
+            require(info["constraints"] == squarings, f"/circuits: {info}")
+            log(f"serve circuit: {info}")
+            call("/warmup", {"name": "sq"})
+            reset_counts(torch, wraps)
+            as_text = [[str(v) for v in w] for w in witnesses]
+            one = call("/prove", {"name": "sq", "witness": as_text[0]})
+            many = call("/prove", {"name": "sq", "witnesses": as_text})
+            require(many["proofs"][0] == one["proof"] and len(set(
+                many["proofs"])) == 3, "/prove: the batch differs from the "
+                "single proof")
+            require(call("/verify", {"name": "sq", "proof": one["proof"]})
+                    ["verified"] is True, "/verify rejected the honest proof")
+            corrupted = flip_byte(bytes.fromhex(many["proofs"][1])).hex()
+            verdicts = call("/verify", {"name": "sq", "proofs": [
+                many["proofs"][0], corrupted, many["proofs"][2]]})["verified"]
+            require(verdicts == [True, False, True],
+                    f"/verify of a batch: {verdicts}")
+            launches = read_counts(wraps, "serve")
+            require("sq" in call("/health")["circuits"], "/health lost the "
+                    "circuit")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+
+        env = dict(os.environ, PYTHONPATH=root)
+        for verb, args in (("prove", ["--witness", wtns, "--out", proof_path]),
+                           ("verify", ["--proof", proof_path])):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "ligero_tpu_torch", verb, "--r1cs",
+                 r1cs, *args], cwd=root, env=env, capture_output=True,
+                text=True, timeout=600)
+            require(res.returncode == 0, f"CLI {verb} failed: "
+                    f"{res.stderr[-2000:]}")
+            out = json.loads(res.stdout.strip().splitlines()[-1])
+            log(f"CLI {verb}: {out} ({time.perf_counter() - t0:.1f} s with "
+                "the interpreter's start)")
+            require(out.get("device", "cuda").startswith("cuda"),
+                    "the CLI did not run on the card")
+        require(out["verified"] is True, "CLI verify rejected the proof")
+        with open(proof_path, "rb") as f:
+            require(f.read().hex() == one["proof"], "the CLI's proof differs "
+                    "from the service's")
+        log("serve: the CLI's proof bytes equal the service's")
     return launches
 
 
@@ -569,30 +936,38 @@ def main() -> int:
     zk_dims = (3 * lig.t, max(2 * lig.k, 1 << (
         2 * (lig.k + 3 * lig.t) - 2).bit_length()))
     results = phase_kernels(torch, field, (lig.m, lig.k, lig.n,
-                                           len(lig.state.a_vals)), zk_dims)
+                                           len(lig.state.a_vals), lig.t),
+                            zk_dims)
     phase_parity(field)
-    launches = phase_main(torch, field, lig, vars_)
+    by_path = {"plain": phase_main(torch, field, lig, vars_),
+               "batch": phase_batch(torch, field, lig, vars_)}
     del lig
     torch.cuda.empty_cache()
     lig = build_instance(circ, outs, zk=True)
     require((lig.blind_t, lig.d2) == zk_dims, "zk kernel shapes were not the "
             f"zk path's: {zk_dims} vs {(lig.blind_t, lig.d2)}")
-    zk_launches = phase_main(torch, field, lig, vars_)
+    by_path["zk"] = phase_main(torch, field, lig, vars_)
+    by_path["zk batch"] = phase_batch(torch, field, lig, vars_)
+    del lig
+    torch.cuda.empty_cache()
+    by_path["serve"] = phase_serve(torch, field)
     for mod in ("jax", "ligero_tpu"):
         require(sys.modules.get(mod) is None, f"{mod} was imported")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name] + zk_launches[name],
-         "launches_by_path": {"plain": launches[name], "zk": zk_launches[name]},
+         "launches": sum(counts[name] for counts in by_path.values()),
+         "launches_by_path": {path: counts[name]
+                              for path, counts in by_path.items()},
          "max_abs_err": results[name]["max_abs_err"],
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"],
          "bound_by": results[name]["bound_by"],
          # no single PyTorch call computes any of these functions
          "library_ms": None,
-         **({"chain_floor_ms": results[name]["chain_floor_ms"]}
-            if "chain_floor_ms" in results[name] else {})}
+         **{key: results[name][key]
+            for key in ("chain_floor_ms", "batched", "forest")
+            if key in results[name]}}
         for name, (_, src, rep) in KERNELS.items()]}
     print(smi, flush=True)
     print(json.dumps(record), flush=True)

@@ -13,6 +13,12 @@ against the JAX package's by the tests.
     lig = LigeroCircuit(circuit, outputs, zk=True, device="cpu")
     proof = lig.prove_with_labels([("x", 3)], sponge.clone())
     assert lig.verify(proof, sponge.clone())
+    proofs = lig.prove_batch(witnesses, sponge)      # B proofs, shared bulk work
+    verdicts = lig.verify_batch(proofs, sponge)
+
+``python -m ligero_tpu_torch info | prove | verify | warmup | serve`` (``cli``,
+``server``) drive the same path from circom ``.r1cs`` files
+(``circuit.r1cs``).
 """
 
 from .fields import BLS12_377_FQ, BN254_FR, FIELDS, FieldSpec

@@ -10,7 +10,11 @@
 // int32 matrix; nothing is re-laid out in memory first.  Because of the
 // 8-byte prefix, 64-byte block b holds the last two words of row 2b-1, all
 // of row 2b and the first six words of row 2b+1; the two trailing words of
-// each odd row are carried into the next block.  Any n is accepted.
+// each odd row are carried into the next block.  Any n is accepted.  A batch
+// of B matrices of one shape, stacked as (B * rows, n, 16), hashes in one
+// launch: thread c < B n takes column c % n of matrix c / n, and every
+// column's message opens with its own matrix's row count, so the digests are
+// those of B separate launches.
 //
 // Cost on the card: 10 rounds x 8 G functions per 64-byte block, i.e. about
 // 1000 dependent 32-bit operations per block and 2 element loads, so the
@@ -89,9 +93,12 @@ __device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16],
 
 __global__ void blake2s_cols_kernel(const int32_t* __restrict__ u,
                                     long long rows, long long n,
+                                    long long batch,
                                     int32_t* __restrict__ out) {
-  long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= n) return;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= batch * n) return;
+  const long long col = idx % n;
+  u += (idx / n) * rows * n * fr::L;
   uint32_t h[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] = blake_iv(i);
@@ -121,19 +128,21 @@ __global__ void blake2s_cols_kernel(const int32_t* __restrict__ u,
     compress(h, m, t, last);
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[col * 8 + i] = (int32_t)h[i];
+  for (int i = 0; i < 8; ++i) out[idx * 8 + i] = (int32_t)h[i];
 }
 
 }  // namespace
 
-// u: (rows, n, 16) int32 canonical limbs; out: (n, 8) int32 digest words.
+// u: (batch * rows, n, 16) int32 canonical limbs; out: (batch * n, 8) int32
+// digest words.
 extern "C" int lt_blake2s_cols(const void* u, long long rows, long long n,
-                               void* out, void* stream) {
-  if (n > 0) {
+                               long long batch, void* out, void* stream) {
+  const long long total = batch * n;
+  if (total > 0) {
     const int threads = 128;
-    blake2s_cols_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                          (cudaStream_t)stream>>>((const int32_t*)u, rows, n,
-                                                  (int32_t*)out);
+    blake2s_cols_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
+                          0, (cudaStream_t)stream>>>((const int32_t*)u, rows, n,
+                                                     batch, (int32_t*)out);
   }
   return (int)cudaGetLastError();
 }

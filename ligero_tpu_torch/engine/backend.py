@@ -14,6 +14,12 @@ same calls take the kernels' plain versions.
 Only the "direct" mode exists: the whole codeword matrix U is one device
 tensor.  An instance too large for the device's memory raises
 :class:`DeviceMemoryError` before any allocation.
+
+The ``*_batch`` methods serve ``LigeroCircuit.prove_batch`` and
+``verify_batch``: B proofs of one circuit share one launch per bulk step
+(:meth:`TorchBackend.max_batch` says how many fit the device).  The
+verifier's codewords at the opened columns come from the spot route
+(``spot.spot_eval``), which never builds the (4m, n, L) transform.
 """
 
 from __future__ import annotations
@@ -23,7 +29,11 @@ import torch
 
 from ..fields import FieldSpec
 from . import (cuda_hash, cuda_lc, cuda_mont, cuda_ntt, cuda_tree, devsampler,
-               fieldops, hashops)
+               fieldops, hashops, spot)
+
+#: on the whole estimate of :meth:`TorchBackend.direct_bytes`: twiddle and
+#: twist tables, the tree, index vectors and the allocator's rounding
+ESTIMATE_MARGIN = 1.03
 
 
 class DeviceMemoryError(RuntimeError):
@@ -107,47 +117,88 @@ class TorchBackend:
             return torch.cuda.get_device_properties(self.device).total_memory
         return 1 << 62
 
-    def check_direct_fits(self, rows: int, k: int, n: int, nnz: int,
-                          blind_t: int = 0, d2: int | None = None) -> None:
-        """Raise unless the prover's largest live set fits the device.
-        ``rows`` counts the committed rows (4m, or 4m + 3 under zk).
+    def direct_bytes(self, rows: int, k: int, n: int, nnz: int,
+                     blind_t: int = 0, d2: int | None = None,
+                     batch: int = 1) -> int:
+        """Estimate of the prover's largest live set in direct mode, for
+        ``batch`` proofs proved together.  ``rows`` counts the committed
+        rows (4m, or 4m + 3 under zk).
 
-        Non-zk: the encode (message, coefficient and codeword matrices;
-        its transforms take routes without scratch) or the linear phase (U,
-        coefficients and message, A's COO, r, the gathered r and its
-        product in int32 and int64, the int64 column sums and one fold
-        part).
+        Non-zk: the encode (message, coefficient and codeword matrices of
+        all the batch; its transforms take routes without scratch) or the
+        linear phase (every proof's U and coefficients, A's COO, and one
+        proof's transients, see below).
 
-        zk (``blind_t`` > 0): the encode holds the message, the (k + b)-wide
-        coefficients, the d2-wide row matrix, U and the packed intermediate
-        of its two-pass transform; the linear phase holds U, the
-        coefficients, the sparse product's transients as above, and two
-        (4m, d2, L) evaluation matrices.  NTT scratch is counted as
-        :func:`cuda_ntt.scratch_bytes` gives it for each shape."""
+        zk (``blind_t`` > 0): the encode holds each proof's (k + b)-wide
+        coefficients and d2-wide row matrix, U and the packed intermediate
+        of its two-pass transform, and one proof's message; the linear
+        phase holds every U and coefficient matrix, A's COO and one
+        proof's transients, or its two (4m, d2, L) evaluation matrices.
+        NTT scratch is counted as :func:`cuda_ntt.scratch_bytes` gives it
+        for each shape.
+
+        One proof's linear-phase transients, the largest of three: the
+        challenge sampler's int64 words (the ChaCha20 stream, the
+        candidates, the accepted words and their two halves, stacked); the
+        sparse product (r, the gathered r and the products in int32, the
+        products in int64, the int64 column sums); and the fold of those
+        sums (``fieldops.fold_wide``: r, the sums, a part, a term, the
+        running sum, and the modular add's int64 operands, sum, carry copy
+        and selection)."""
         L = self.L
         d2 = 2 * k if d2 is None else d2
         u, msg = rows * n * L * 4, rows * k * L * 4
         coeffs = rows * (k + blind_t) * L * 4
         coo = nnz * (L * 4 + 16)         # stays on the device between proofs
-        sparse = 2 * nnz * L * 4 + nnz * L * 8 + 4 * msg
+        nz = nnz * L * 4
+        words = self.field.num_u64_limbs * 2 * 8
+        sampler = (2 * devsampler.plan_attempts(self.field, rows * k) * words
+                   + 5 * rows * k * words + msg)
+        segment = 3 * msg + 3 * nz
+        fold = 12 * msg + msg // 4
+        linear = max(sampler, segment, fold)
         scratch = cuda_ntt.scratch_bytes
         if blind_t:
             wide = rows * d2 * L * 4
             # (an estimate takes any sizes; a transform needs w <= n)
-            encode = msg + coeffs + wide + u + scratch(rows, min(d2, n), n)
-            linear = u + coeffs + coo + max(
-                sparse, msg + 2 * wide + scratch(rows, min(k + blind_t, d2),
-                                                 d2))
+            encode = msg + batch * (coeffs + wide + u) + scratch(
+                batch * rows, min(d2, n), n)
+            products = msg + 2 * wide + scratch(
+                rows, min(k + blind_t, d2), d2)
+            later = batch * (u + coeffs) + coo + max(linear, products)
         else:
-            encode = 2 * msg + u + max(scratch(rows, k, k), scratch(rows, k, n))
-            linear = u + 3 * msg + coo + sparse
-        need = max(encode, linear)
+            encode = batch * (2 * msg + u) + max(
+                scratch(batch * rows, k, k), scratch(batch * rows, k, n))
+            later = batch * (u + coeffs) + coo + linear
+        return int(max(encode, later) * ESTIMATE_MARGIN)
+
+    def check_direct_fits(self, rows: int, k: int, n: int, nnz: int,
+                          blind_t: int = 0, d2: int | None = None) -> None:
+        """Raise unless one proof's largest live set
+        (:meth:`direct_bytes`) fits the device."""
+        need = self.direct_bytes(rows, k, n, nnz, blind_t, d2)
         budget = self.memory_budget()
         if need > budget:
             raise DeviceMemoryError(
                 f"instance needs ~{need / 2**30:.1f} GiB on {self.device} in "
                 f"direct mode (budget {budget / 2**30:.1f} GiB); resident and "
                 "streaming modes are not ported yet")
+
+    def max_batch(self, rows: int, k: int, n: int, nnz: int,
+                  blind_t: int = 0, d2: int | None = None,
+                  limit: int = 1 << 16) -> int:
+        """The largest number of proofs (at most ``limit``) whose joint live
+        set (:meth:`direct_bytes`) fits the device; below 2 the caller
+        proves one at a time."""
+        budget = self.memory_budget()
+        lo, hi = 0, limit
+        while lo < hi:                   # the estimate grows with the batch
+            mid = (lo + hi + 1) // 2
+            if self.direct_bytes(rows, k, n, nnz, blind_t, d2, mid) <= budget:
+                lo = mid
+            else:
+                hi = mid - 1
+        return lo
 
     # ------------------------------------------------------------------
     # transforms
@@ -205,33 +256,56 @@ class TorchBackend:
         return coeffs, rows
 
     def ntt_columns(self, coeffs, n: int, js) -> torch.Tensor:
-        """All rows' n-point NTTs, keeping only columns ``js``:
-        (B, k, L) -> (B, len(js), L) on the device."""
-        idx = torch.as_tensor(np.asarray(js, dtype=np.int64), device=self.device)
+        """All rows' n-point NTTs at the columns ``js`` only: (B, k, L) ->
+        (B, len(js), L) Montgomery limbs on the device.  Where
+        :func:`spot.use_spot` admits the shape the values come from the spot
+        evaluation, which never forms the (B, n, L) transform; otherwise
+        from the full transform and a gather.  Bit-equal either way."""
+        coeffs = self.asarray(coeffs)
+        js = np.asarray(js, dtype=np.int64)
+        if spot.use_spot(self.field, n, len(js)):
+            return spot.spot_eval(self.field, coeffs, js, n)
+        idx = torch.from_numpy(js).to(self.device)
         return self.ntt(coeffs, n).index_select(1, idx)
+
+    def ntt_columns_batch(self, coeffs_b, n: int, idx) -> torch.Tensor:
+        """Per-proof :meth:`ntt_columns`: B coefficient blocks (rows, w, L)
+        and ``idx`` (B, t) -> (B, rows, t, L).  Every proof has its own
+        columns, hence its own weights, so the proofs go one by one."""
+        return torch.stack([self.ntt_columns(c, n, j)
+                            for c, j in zip(coeffs_b, idx)])
 
     # ------------------------------------------------------------------
     # commitment
     # ------------------------------------------------------------------
-    def _column_leaves_device(self, u_canon) -> torch.Tensor:
-        """(rows, n, L) canonical limbs -> (n, 8) LE Blake2s digest words."""
-        return cuda_hash.blake2s_columns(u_canon)
-
-    def _tree_flat(self, leaves_le) -> torch.Tensor:
-        return cuda_tree.tree_flat(self.asarray(leaves_le))
-
     def commit_columns(self, u_canon):
         """Blake2s column leaves + SHA-256 levels ->
-        ``(leaves: list[bytes], inner_levels: list[list[bytes]])``: two
-        kernels, one transfer of the flat tree, host unpacking."""
-        leaves_le = self._column_leaves_device(u_canon)
-        flat = self.to_numpy(self._tree_flat(leaves_le))
-        return hashops.digest_lists(flat, leaves_le.shape[0])
+        ``(leaves: list[bytes], inner_levels: list[list[bytes]])``."""
+        return self.commit_columns_batch(u_canon, 1)[0]
+
+    def commit_columns_batch(self, u_canon, batch: int):
+        """(batch * rows, n, L) canonical limbs, the proofs' matrices
+        stacked -> per-proof ``(leaves, inner_levels)``: one Blake2s launch
+        over all batch * n columns, one tree launch per proof on one
+        stream, one transfer of the flat trees, host unpacking."""
+        n = u_canon.shape[1]
+        leaves_le = cuda_hash.blake2s_columns(u_canon, batch)
+        flat = self.to_numpy(cuda_tree.forest_flat(
+            leaves_le.reshape(batch, n, 8)))
+        return [hashops.digest_lists(flat[b], n) for b in range(batch)]
+
+    def gather_columns_batch(self, u_canon, idx) -> np.ndarray:
+        """Per-proof openings: (B * rows, n, L) and ``idx`` (B, t) ->
+        (B, rows, t, L) host uint32: proof b's columns ``idx[b]``."""
+        idx = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(self.device)
+        batch, t = idx.shape
+        u4 = u_canon.reshape(batch, -1, *u_canon.shape[1:])
+        index = idx[:, None, :, None].expand(batch, u4.shape[1], t, u4.shape[3])
+        return self.to_numpy(torch.gather(u4, 2, index))
 
     def gather_columns(self, u_canon, js) -> np.ndarray:
         """Columns ``js`` of (rows, n, L) -> (rows, len(js), L) host uint32."""
-        idx = torch.as_tensor(np.asarray(js, dtype=np.int64), device=self.device)
-        return self.to_numpy(u_canon.index_select(1, idx))
+        return self.gather_columns_batch(u_canon, [js])[0]
 
     # ------------------------------------------------------------------
     # interleaved / linear / quadratic phases
@@ -240,6 +314,12 @@ class TorchBackend:
         """sum_i r_i M_i for M (B, k, L) and r (B, L) or (B, k, L) ->
         (k, L) (Montgomery when both are, canonical when M is)."""
         return cuda_lc.row_combine(self.field, self.asarray(r), self.asarray(mat))
+
+    def row_combine_batch(self, r, mats):
+        """Per-proof combinations: r (B, rows, L) x mats (B, rows, k, L) ->
+        (B, k, L), each as :meth:`row_combine` gives it."""
+        return cuda_lc.row_combine_batch(self.field, self.asarray(r),
+                                         self.asarray(mats))
 
     def rand_field_mont(self, count: int, seed: bytes) -> torch.Tensor:
         """``F::rand`` expansion on the device, bit-identical to

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "lt_ntt_pass": [_i, _vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
                     _i, _i, _i, _vp],
     "lt_ntt_stage": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
-    "lt_blake2s_cols": [_vp, _ll, _ll, _vp, _vp],
-    "lt_row_combine": [_vp, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _i, _vp],
+    "lt_blake2s_cols": [_vp, _ll, _ll, _ll, _vp, _vp],
+    "lt_row_combine": [_vp, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _ll, _i, _vp],
     "lt_sha256_tree": [_vp, _ll, _vp, _vp, _i, _vp],
     "lt_sha256_chain_probe": [_vp, _i, _vp],
 }

@@ -7,7 +7,8 @@ kernel gives each thread one column and a chunk of rows, so the card fills
 even at a few thousand columns, and a second launch adds the per-chunk
 partials.  Modular adds make the sum exact in any order.  The same kernel
 serves the per-element form sum_i r_i[c] M_i[c] (linear phase, verifier
-spot sums).
+spot sums).  :func:`row_combine_batch` runs B combinations of one shape in
+the same two launches (the batch on the grid's third axis).
 
 A tensor on the CPU takes the plain version (:func:`row_combine_ref`); a
 CUDA tensor launches the kernel or raises.
@@ -36,6 +37,41 @@ def row_combine_ref(field: FieldSpec, r: torch.Tensor,
     return fieldops.sum_mod(field, fieldops.mont_mul(field, rr, mat), 0)
 
 
+def row_combine_batch_ref(field: FieldSpec, r: torch.Tensor,
+                          mats: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`row_combine_batch`: :func:`row_combine_ref`
+    of each pair in turn."""
+    return torch.stack([row_combine_ref(field, r[b], mats[b])
+                        for b in range(mats.shape[0])])
+
+
+def _launch(name: str, r: torch.Tensor, mats: torch.Tensor,
+            per_column: bool) -> torch.Tensor:
+    """(B, rows, k, L) x r -> (B, k, L) on the kernel, counted once."""
+    batch, rows, k, L = mats.shape
+    out = torch.zeros((batch, k, L), dtype=torch.int32, device=mats.device)
+    if rows == 0 or k == 0 or batch == 0:
+        return out
+    if batch > MAX_CHUNKS:
+        raise ValueError(f"{name}: at most {MAX_CHUNKS} combinations a launch")
+    r, mats = r.contiguous(), mats.contiguous()
+    chunks = min(MAX_CHUNKS, -(-rows // ROWS_PER_CHUNK))
+    rows_per_chunk = -(-rows // chunks)
+    chunks = -(-rows // rows_per_chunk)
+    partial = torch.empty((batch, chunks, k, L // 2), dtype=torch.int32,
+                          device=mats.device)
+    cuda_build.require_cuda_tensors(name, r, mats, partial, out)
+    lib = cuda_build.library()
+    cuda_build.check(
+        lib.lt_row_combine(mats.data_ptr(), r.data_ptr(), partial.data_ptr(),
+                           out.data_ptr(), batch, rows, k, chunks,
+                           rows_per_chunk, int(per_column),
+                           cuda_build.stream_handle(mats.device)),
+        "lt_row_combine")
+    launches.add()
+    return out
+
+
 def row_combine(field: FieldSpec, r: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     """(rows, k, L) x r (rows, L) or (rows, k, L) -> (k, L) int32 limbs of
     sum_i REDC(r_i M_i) mod p (Montgomery when both are Montgomery,
@@ -47,21 +83,17 @@ def row_combine(field: FieldSpec, r: torch.Tensor, mat: torch.Tensor) -> torch.T
     per_column = r.dim() == 3
     if r.shape != ((rows, k, L) if per_column else (rows, L)):
         raise ValueError(f"row_combine: r {tuple(r.shape)} vs M {tuple(mat.shape)}")
-    out = torch.zeros((k, L), dtype=torch.int32, device=mat.device)
-    if rows == 0 or k == 0:
-        return out
-    r, mat = r.contiguous(), mat.contiguous()
-    chunks = min(MAX_CHUNKS, -(-rows // ROWS_PER_CHUNK))
-    rows_per_chunk = -(-rows // chunks)
-    chunks = -(-rows // rows_per_chunk)
-    partial = torch.empty((chunks, k, L // 2), dtype=torch.int32,
-                          device=mat.device)
-    cuda_build.require_cuda_tensors("row_combine", r, mat, partial, out)
-    lib = cuda_build.library()
-    cuda_build.check(
-        lib.lt_row_combine(mat.data_ptr(), r.data_ptr(), partial.data_ptr(),
-                           out.data_ptr(), rows, k, chunks, rows_per_chunk,
-                           int(per_column), cuda_build.stream_handle(mat.device)),
-        "lt_row_combine")
-    launches.add()
-    return out
+    return _launch("row_combine", r[None], mat[None], per_column)[0]
+
+
+def row_combine_batch(field: FieldSpec, r: torch.Tensor,
+                      mats: torch.Tensor) -> torch.Tensor:
+    """B combinations of one shape: (B, rows, k, L) x r (B, rows, L) ->
+    (B, k, L), each as :func:`row_combine` gives it."""
+    if r.device.type == "cpu" and mats.device.type == "cpu":
+        return row_combine_batch_ref(field, r, mats)
+    require_bn254(field, "row_combine_batch")
+    if mats.dim() != 4 or r.shape != mats.shape[:2] + mats.shape[3:]:
+        raise ValueError(f"row_combine_batch: r {tuple(r.shape)} vs M "
+                         f"{tuple(mats.shape)}")
+    return _launch("row_combine_batch", r, mats, False)

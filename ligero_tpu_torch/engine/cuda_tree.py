@@ -105,6 +105,13 @@ def tree_flat(leaves_le: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def forest_flat(leaves_le: torch.Tensor) -> torch.Tensor:
+    """(B, n, 8) leaf digest words of B trees -> (B, 8 (2 n - 1)): one
+    :func:`tree_flat` launch per tree, all on the current stream, where each
+    finds the ticket counters zeroed by the one before."""
+    return torch.stack([tree_flat(leaves) for leaves in leaves_le])
+
+
 def tree_root(leaves_le: torch.Tensor) -> torch.Tensor:
     """The Merkle root's 8 BE words as int32 bits."""
     return tree_flat(leaves_le)[-8:]

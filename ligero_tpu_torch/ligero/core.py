@@ -20,16 +20,26 @@ quadratic p0); column sampling avoids the k message-domain points.
 Proofs are byte-identical to the JAX package's (for the same ``zk_seed``
 under zk): the Fiat-Shamir order is the bit-exactness contract, and every
 absorb/squeeze below carries the JAX package's annotation (FS #1-#10).
+
+``prove_batch`` and ``verify_batch`` serve B witnesses or proofs of one
+circuit at once: each proof keeps its own transcript, so proofs and
+verdicts are those of B single calls, while the encode, the column
+hashes, the interleaved combinations, the openings and the verifier's
+transforms run once for the whole batch.  One schedule serves a single
+proof and a batch: ``prove`` is a batch of one.
 """
 
 from __future__ import annotations
 
 import hashlib
 import secrets
+import time
+import warnings
 
 import numpy as np
 import torch
 
+from ..engine import cuda_build
 from ..engine.backend import TorchBackend
 from ..hashes import column_hash
 from ..merkle import MerkleTree
@@ -123,79 +133,156 @@ class LigeroCircuit:
         indexed = [(self.circuit.variables[lbl], v) for lbl, v in var_assignment]
         return self._prove_inner(indexed, sponge, zk_seed)
 
+    def prove_batch(self, assignments: list[list[tuple[int, int]]], sponge,
+                    zk_seeds: list[bytes] | None = None) -> list[LigeroProof]:
+        """Prove B witnesses of this circuit with the bulk device work
+        shared.  Each proof gets its own clone of ``sponge``, and the
+        proofs are byte-identical to B ``prove(a, sponge.clone())`` calls
+        (under zk: with ``zk_seed=zk_seeds[i]``; fresh seeds when None).
+        A batch larger than the device holds (``TorchBackend.max_batch``)
+        is proved in parts; where not even two proofs fit together, one at
+        a time."""
+        if not assignments:
+            return []
+        if not self.zk:
+            zk_seeds = [None] * len(assignments)
+        elif zk_seeds is None:
+            zk_seeds = [secrets.token_bytes(CHACHA_SEED_BYTES)
+                        for _ in assignments]
+        elif len(zk_seeds) != len(assignments):
+            raise ValueError("prove_batch: one zk seed per witness")
+        bumped = [[(self.state.bump_index(i), v) for i, v in a]
+                  for a in assignments]
+        part = self._max_batch(len(bumped))
+        out: list[LigeroProof] = []
+        for i in range(0, len(bumped), part):
+            group = bumped[i:i + part]
+            out.extend(self._prove_many(group, [sponge.clone() for _ in group],
+                                        zk_seeds[i:i + part]))
+        return out
+
+    def _max_batch(self, limit: int) -> int:
+        """Proofs of this instance that fit the device together (at most
+        ``limit``; 1 where two do not fit)."""
+        fits = self.backend.max_batch(self.num_rows, self.k, self.n,
+                                      len(self.state.a_vals), self.blind_t,
+                                      self.d2, limit=limit)
+        return fits if fits >= 2 else 1
+
     def _prove_inner(self, var_assignment, sponge,
                      zk_seed: bytes | None = None) -> LigeroProof:
-        """One Fiat-Shamir schedule for both modes.  Without zk the
-        interleaved reveal is the message-space combination and the
-        products run on the 2k domain; under zk the committed rows are
-        blinded, the reveal is in coefficient space (the message-space one
-        would strip the blinding), the products run on the d2 domain, and
-        each revealed object is padded by its mask row."""
+        return self._prove_many([var_assignment], [sponge], [zk_seed])[0]
+
+    def _prove_many(self, assignments, sponges, zk_seeds) -> list[LigeroProof]:
+        """One Fiat-Shamir schedule for both modes and any number B of
+        witnesses, proof i on ``sponges[i]``.  Without zk the interleaved
+        reveal is the message-space combination and the products run on
+        the 2k domain; under zk the committed rows are blinded, the reveal
+        is in coefficient space (the message-space one would strip the
+        blinding), the products run on the d2 domain, and each revealed
+        object is padded by its mask row.  The encode, the commit, the
+        interleaved combinations and the openings take all B proofs in one
+        call each; the linear and quadratic phases go proof by proof
+        (their challenges hang on each proof's own transcript, and their
+        transients are the instance's largest)."""
         be, ph = self.backend, self.timer.phase
-        m, p = self.m, self.field.p
+        m, p, B = self.m, self.field.p, len(assignments)
+        every = range(B)
+
+        def stack(parts):                # no copy for a single proof
+            return parts[0][None] if B == 1 else torch.stack(parts)
+
         with ph("witness+preenc"):
-            preenc = be.asarray(self._witness.preenc(var_assignment))
+            preenc = stack([be.asarray(self._witness.preenc(a))
+                            for a in assignments])       # (B, 4m, k, L)
         if self.zk:
             with ph("zk_blind"):
-                mask0, maskq, maskp, mask3, rows_seed = self._zk_masks(zk_seed)
-                coeffs, rows = be.zk_blind_rows(preenc, rows_seed,
-                                                self.blind_t, self.d2, mask3)
+                masks = [self._zk_masks(seed) for seed in zk_seeds]
+                blinded = [be.zk_blind_rows(preenc[i], masks[i][4],
+                                            self.blind_t, self.d2, masks[i][3])
+                           for i in every]
+                coeffs = stack([c for c, _ in blinded])
+                rows = (blinded[0][1] if B == 1
+                        else torch.cat([r for _, r in blinded]))
+                del blinded
                 lc_rows = coeffs
             with ph("rs_encode"):
                 u_canon = be.ntt_and_canon(rows, self.n)
                 del rows
         else:
-            mask0 = maskq = maskp = None
+            masks = [(None, None, None)] * B
             lc_rows = preenc
             with ph("rs_encode"):
-                coeffs, u_canon = be.rs_encode_and_canon(preenc, self.k,
-                                                         self.n)
+                coeffs, u_canon = be.rs_encode_and_canon(
+                    preenc.reshape(B * 4 * m, self.k, -1), self.k, self.n)
+                coeffs = coeffs.reshape(B, 4 * m, self.k, -1)
         del preenc
         with ph("commit"):
-            leaves, levels = be.commit_columns(u_canon)
-            tree = MerkleTree(leaves, inner_levels=levels)
-        sponge.absorb_bytes(tree.root)                           # FS #1
+            trees = [MerkleTree(leaves, inner_levels=levels) for leaves, levels
+                     in be.commit_columns_batch(u_canon, B)]
 
         with ph("interleaved"):
-            seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)       # FS #2
-            r = self._expand_field(4 * m, seed)
-            lc = _add_mask(be.mont_to_ints(be.row_combine(r, lc_rows)),
-                           mask0, p)
-            del lc_rows
-            sponge.absorb_field_elems(lc)                        # FS #3
-            idx1 = self._sample_indices(
-                sponge.squeeze_bytes(CHACHA_SEED_BYTES))         # FS #4
+            rs = []
+            for i in every:
+                sponges[i].absorb_bytes(trees[i].root)           # FS #1
+                seed = sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)   # FS #2
+                rs.append(self._expand_field(4 * m, seed))
+            lc_mont = be.row_combine_batch(stack(rs), lc_rows)
+            del lc_rows, rs
+            lcs, idx1 = [], []
+            for i in every:
+                lc = _add_mask(be.mont_to_ints(lc_mont[i]), masks[i][0], p)
+                lcs.append(lc)
+                sponges[i].absorb_field_elems(lc)                # FS #3
+                idx1.append(self._sample_indices(
+                    sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)))    # FS #4
 
         with ph("linear"):
-            seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)       # FS #5
-            r_coeffs = self._r_a_coeff_rows(seed)
-            with ph("linear.polyprod"):
-                q_mont = be.linear_combination_poly(coeffs, r_coeffs, self.d2)
-            del r_coeffs
-            q = _trim(_add_mask(
-                be.canon_limbs_to_ints(be.from_mont(q_mont)), maskq, p))
-            sponge.absorb_field_elems(q)                         # FS #6
-            idx2 = self._sample_indices(
-                sponge.squeeze_bytes(CHACHA_SEED_BYTES))         # FS #7
+            qs, idx2 = [], []
+            for i in every:
+                seed = sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)   # FS #5
+                r_coeffs = self._r_a_coeff_rows(seed)
+                with ph("linear.polyprod"):
+                    q_mont = be.linear_combination_poly(coeffs[i], r_coeffs,
+                                                        self.d2)
+                del r_coeffs
+                q = _trim(_add_mask(be.canon_limbs_to_ints(
+                    be.from_mont(q_mont)), masks[i][1], p))
+                qs.append(q)
+                sponges[i].absorb_field_elems(q)                 # FS #6
+                idx2.append(self._sample_indices(
+                    sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)))    # FS #7
 
         with ph("quadratic"):
-            seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)       # FS #8
-            r_quad = self._expand_field(m, seed)
-            p0_mont = be.quadratic_combination_poly(coeffs[:3 * m], r_quad,
-                                                    self.d2)
-            p0 = _trim(_add_mask(
-                be.canon_limbs_to_ints(be.from_mont(p0_mont)), maskp, p))
-            sponge.absorb_field_elems(p0)                        # FS #9
-            idx3 = self._sample_indices(
-                sponge.squeeze_bytes(CHACHA_SEED_BYTES))         # FS #10
+            p0s, idx3 = [], []
+            for i in every:
+                seed = sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)   # FS #8
+                r_quad = self._expand_field(m, seed)
+                p0_mont = be.quadratic_combination_poly(coeffs[i, :3 * m],
+                                                        r_quad, self.d2)
+                p0 = _trim(_add_mask(be.canon_limbs_to_ints(
+                    be.from_mont(p0_mont)), masks[i][2], p))
+                p0s.append(p0)
+                sponges[i].absorb_field_elems(p0)                # FS #9
+                idx3.append(self._sample_indices(
+                    sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)))    # FS #10
 
         # opened columns are proof data, never absorbed: one gather for
-        # all three index sets (each squeezed at its FS position above)
+        # all three index sets of all proofs (each set squeezed at its FS
+        # position above)
         with ph("open"):
-            o1, o2, o3 = self._open_columns(u_canon, tree, (idx1, idx2, idx3))
-        return LigeroProof(tree.root, InterleavedProof(lc, *o1),
-                           LinearConstraintsProof(q, *o2),
-                           QuadraticConstraintsProof(p0, *o3))
+            with ph("open.gather"):
+                cols = be.gather_columns_batch(
+                    u_canon, [idx1[i] + idx2[i] + idx3[i] for i in every])
+            proofs = []
+            for i in every:
+                o1, o2, o3 = self._opened(cols[i], trees[i],
+                                          (idx1[i], idx2[i], idx3[i]))
+                proofs.append(LigeroProof(
+                    trees[i].root, InterleavedProof(lcs[i], *o1),
+                    LinearConstraintsProof(qs[i], *o2),
+                    QuadraticConstraintsProof(p0s[i], *o3)))
+        return proofs
 
     def _zk_masks(self, zk_seed: bytes | None):
         """The three mask polynomials (canonical ints), their (3, d2, L)
@@ -262,10 +349,9 @@ class LigeroCircuit:
         with ph("linear.intt"):
             return be.intt(r_a.reshape(4 * self.m, self.k, -1), self.k)
 
-    def _open_columns(self, u_canon, tree, idx_sets):
-        all_idx = [j for idx in idx_sets for j in idx]
-        with self.timer.phase("open.gather"):
-            cols = self.backend.gather_columns(u_canon, all_idx)
+    def _opened(self, cols: np.ndarray, tree, idx_sets):
+        """One proof's gathered columns (rows, sum of the sets, L) ->
+        ``(columns, paths)`` per index set."""
         out, off = [], 0
         for idx in idx_sets:
             columns = [self.field.limbs_to_ints(cols[:, off + i, :])
@@ -293,6 +379,122 @@ class LigeroCircuit:
             return False
         with self.timer.phase("v.quadratic"):
             return self._verify_quadratic(proof.quadratic, proof.u_root, sponge)
+
+    def verify_batch(self, proofs: list[LigeroProof], sponge) -> list[bool]:
+        """Verdicts of B proofs of this circuit, each on its own clone of
+        ``sponge``: what B ``verify`` calls return.  A malformed proof is
+        False and does not fail the batch.  The transforms are shared: the
+        B interleaved reveals take one encode, the 2 B polynomials q and
+        p0 one NTT, and the B blocks of r_i coefficients stay on the
+        device for their codewords at each proof's opened columns
+        (``TorchBackend.ntt_columns_batch``)."""
+        if len(proofs) <= 1:
+            return [self.verify(p, sponge.clone()) for p in proofs]
+        part = max(2, self._max_batch(len(proofs)))
+        out: list[bool] = []
+        for i in range(0, len(proofs), part):
+            out.extend(self._verify_many(proofs[i:i + part], sponge))
+        return out
+
+    def _verify_many(self, proofs, sponge) -> list[bool]:
+        """:meth:`verify_batch` of one part, in three passes."""
+        be = self.backend
+        # pass 1: replay each live proof's transcript (host sponge work,
+        # the order of ``_prove_many``) for the linear phase's challenge
+        # seed and opened columns.  A proof whose q or p0 is too long is
+        # rejected as ``verify`` rejects it, and kept out of the stacks.
+        pre: dict[int, tuple] = {}
+        for i, pf in enumerate(proofs):
+            if (not self._well_formed(pf)
+                    or _poly_degree(pf.linear.polynomial) >= self.lin_bound
+                    or _poly_degree(pf.quadratic.polynomial) >= self.quad_bound):
+                continue
+            with self.timer.phase("v.replay"):
+                sp = sponge.clone()
+                sp.absorb_bytes(pf.u_root)                           # FS #1
+                sp.squeeze_bytes(CHACHA_SEED_BYTES)                  # FS #2
+                sp.absorb_field_elems(pf.interleaved.preenc_u_lc)    # FS #3
+                sp.squeeze_bytes(CHACHA_SEED_BYTES)                  # FS #4
+                seed5 = sp.squeeze_bytes(CHACHA_SEED_BYTES)          # FS #5
+                sp.absorb_field_elems(pf.linear.polynomial)          # FS #6
+                idx2 = self._sample_indices(
+                    sp.squeeze_bytes(CHACHA_SEED_BYTES))             # FS #7
+            pre[i] = (self._r_a_coeff_rows(seed5), idx2)
+        live = sorted(pre)
+
+        # pass 2: one call per heavy transform across the live proofs
+        inject: dict[int, tuple] = {}
+        if live:
+            lc = be.ints_to_mont(
+                [c for i in live for c in proofs[i].interleaved.preenc_u_lc]
+            ).reshape(len(live), self.blind_len, -1)
+            w_evals = (be.ntt(lc, self.n) if self.zk
+                       else be.rs_encode_rows(lc, self.k, self.n)[1])
+            d2 = self.d2
+            polys = ([proofs[i].linear.polynomial for i in live]
+                     + [proofs[i].quadratic.polynomial for i in live])
+            qp = be.ints_to_mont(
+                [c for poly in polys for c in poly + [0] * (d2 - len(poly))]
+            ).reshape(2 * len(live), d2, -1)
+            qp_evals = be.ntt(qp, self.n)
+            with self.timer.phase("v.ntt_cols"):
+                r_evals = be.ntt_columns_batch(
+                    [pre[i][0] for i in live], self.n,
+                    [pre[i][1] for i in live])           # (B, 4m, t, L)
+            pre.clear()                                  # the r_i coefficients
+            for j, i in enumerate(live):
+                inject[i] = (be.mont_to_ints(w_evals[j]), r_evals[j],
+                             be.mont_to_ints(qp_evals[j]),
+                             be.mont_to_ints(qp_evals[len(live) + j]))
+
+        # pass 3: the staged verification of ``verify``, values injected
+        out: list[bool] = []
+        for i, pf in enumerate(proofs):
+            if i not in inject:
+                out.append(False)
+                continue
+            w, r_evals_i, q_evals, p0_evals = inject.pop(i)
+            sp = sponge.clone()
+            sp.absorb_bytes(pf.u_root)                           # FS #1
+            out.append(
+                self._verify_interleaved(pf.interleaved, pf.u_root, sp, w)
+                and self._verify_linear(pf.linear, pf.u_root, sp,
+                                        (r_evals_i, q_evals))
+                and self._verify_quadratic(pf.quadratic, pf.u_root, sp,
+                                           p0_evals))
+        return out
+
+    def warmup(self) -> dict:
+        """Everything a first request would otherwise pay for: the kernel
+        library (built where the sources changed), A's one-time upload,
+        the transforms' tables and the spot route's power table, by one
+        throwaway prove and verify of the all-ones witness.  That witness
+        satisfies only the interleaved test, so the linear phase's
+        ``ntt_columns`` shape, which the failing checks cut short, runs
+        on its own.  Returns the two times."""
+        from ..sponge import test_sponge
+
+        sponge = test_sponge(self.field)
+        if self.device.type == "cuda":
+            cuda_build.library()
+        self._device_coo()
+        ones = [(i, 1) for i in sorted(set(self.circuit.variables.values()))]
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")      # a garbage witness, by design
+            proof = self._prove_inner(ones, sponge.clone())
+        prove_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sp = sponge.clone()
+        sp.absorb_bytes(proof.u_root)
+        self._verify_interleaved(proof.interleaved, proof.u_root, sp)
+        self._verify_linear(proof.linear, proof.u_root, sp)
+        self._verify_quadratic(proof.quadratic, proof.u_root, sp)
+        r_coeffs = self._r_a_coeff_rows(bytes(CHACHA_SEED_BYTES))
+        self.backend.to_numpy(self.backend.ntt_columns(
+            r_coeffs, self.n, [path.leaf_index for path in proof.linear.paths]))
+        return {"prove_s": round(prove_s, 3),
+                "verify_s": round(time.perf_counter() - t0, 3)}
 
     def _well_formed(self, proof: LigeroProof) -> bool:
         """Structural validation of an untrusted proof."""
@@ -344,8 +546,10 @@ class LigeroCircuit:
                 return False
         return True
 
-    def _verify_interleaved(self, proof: InterleavedProof, u_root,
-                            sponge) -> bool:
+    def _verify_interleaved(self, proof: InterleavedProof, u_root, sponge,
+                            w: list[int] | None = None) -> bool:
+        """``w``: the reveal's n codeword values where ``verify_batch``
+        computed them already (the same values as below)."""
         be = self.backend
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #2
         r = self._expand_field(4 * self.m, seed)
@@ -353,11 +557,11 @@ class LigeroCircuit:
         if not self._verify_column_openings(proof.columns, proof.paths,
                                             u_root, sponge):     # FS #4
             return False
-        if self.zk:
+        if w is None and self.zk:
             # the zk reveal is in coefficient space (deg < k + 3t): check
             # w(omega^j) == <r, U[:4m, j]> + U[mask0, j]
             w = self._evals(proof.preenc_u_lc)
-        else:
+        elif w is None:
             # w = RS(preenc_u_lc); spot check w[j] == <r, U[:, j]>
             lc = be.ints_to_mont(proof.preenc_u_lc).reshape(1, self.k, -1)
             _, w_evals = be.rs_encode_rows(lc, self.k, self.n)
@@ -367,8 +571,12 @@ class LigeroCircuit:
             r, self._columns_limbs(proof.columns, 4 * self.m)))
         return self._spot_matches(w, proof, rhs, 0)
 
-    def _verify_linear(self, proof: LinearConstraintsProof, u_root,
-                       sponge) -> bool:
+    def _verify_linear(self, proof: LinearConstraintsProof, u_root, sponge,
+                       pre: tuple | None = None) -> bool:
+        """``pre``: ``(r_evals, q_evals)`` where ``verify_batch`` computed
+        them from this proof's replayed transcript (the same values as
+        below; ``r_evals`` belongs to the replayed column set, so it is
+        read only after the openings passed for that very set)."""
         be, p, k = self.backend, self.field.p, self.k
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #5
         if _poly_degree(proof.polynomial) >= self.lin_bound:
@@ -376,32 +584,38 @@ class LigeroCircuit:
         # one n-point NTT of q gives the message-domain sum check (the k
         # message points are the n grid at stride n/k) and q at every
         # opened column
-        q_evals = self._evals(proof.polynomial)
+        q_evals = pre[1] if pre else self._evals(proof.polynomial)
         if sum(q_evals[0::self.n // k]) % p != 0:
             return False
         sponge.absorb_field_elems(proof.polynomial)              # FS #6
         if not self._verify_column_openings(proof.columns, proof.paths,
                                             u_root, sponge):     # FS #7
             return False
-        # the r_i codewords at the opened columns (full NTT, then take)
-        r_coeffs = self._r_a_coeff_rows(seed)
-        js = [path.leaf_index for path in proof.paths]
-        with self.timer.phase("v.ntt_cols"):
-            r_evals = be.ntt_columns(r_coeffs, self.n, js)       # (4m, t, L)
-        del r_coeffs
+        # the r_i codewords at the opened columns only
+        if pre:
+            r_evals = pre[0]
+        else:
+            r_coeffs = self._r_a_coeff_rows(seed)
+            js = [path.leaf_index for path in proof.paths]
+            with self.timer.phase("v.ntt_cols"):
+                r_evals = be.ntt_columns(r_coeffs, self.n, js)   # (4m, t, L)
+            del r_coeffs
         with self.timer.phase("v.spot"):
             lhs = be.canon_limbs_to_ints(be.row_combine(
                 r_evals, self._columns_limbs(proof.columns, 4 * self.m)))
         return self._spot_matches(q_evals, proof, lhs, 1)
 
     def _verify_quadratic(self, proof: QuadraticConstraintsProof, u_root,
-                          sponge) -> bool:
+                          sponge, p0_evals: list[int] | None = None) -> bool:
+        """``p0_evals``: p0's n values where ``verify_batch`` computed them
+        already (the same values as below)."""
         be, k, m = self.backend, self.k, self.m
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #8
         r_quad = self._expand_field(m, seed)
         if _poly_degree(proof.polynomial) >= self.quad_bound:
             return False
-        p0_evals = self._evals(proof.polynomial)
+        if p0_evals is None:
+            p0_evals = self._evals(proof.polynomial)
         if any(p0_evals[(self.n // k) * c] != 0 for c in range(k)):
             return False
         sponge.absorb_field_elems(proof.polynomial)              # FS #9

@@ -2,7 +2,8 @@
 """Where the PyTorch/CUDA port's prove and verify spend their time.
 
     python3 scripts/profile_torch_port.py [--log2-gates 20] [--device cuda]
-                                          [--zk] [--lambda 128] [--out FILE]
+                                          [--zk] [--lambda 128] [--batch B]
+                                          [--out FILE]
 
 Builds the synthetic circuit of ``--log2-gates`` gates (seed 0), compiled
 with ``zk=True`` under ``--zk`` (proofs then share one fixed ``zk_seed``;
@@ -16,6 +17,13 @@ against both the profiled wall and the median unprofiled wall.  The
 profiler adds host time to every launch, so the share against the
 profiled wall overstates idleness; the share against the unprofiled wall
 pairs a busy time and a wall from different calls.  Both are printed.
+
+The verifier is profiled twice: as it runs (its r_i codewords at the opened
+columns from the spot evaluation) and with the spot route switched off (the
+full NTT_n, then a gather), each with its own peak device memory.  With
+``--batch B`` the same measurements are taken of ``prove_batch`` over B
+copies of the witness (under zk: B different seeds) and of ``verify_batch``
+over the B proofs, with proofs per second beside the single calls'.
 
 Prints one JSON object (also written to ``--out``).  Neither JAX nor the
 JAX package is ever imported.
@@ -105,6 +113,8 @@ def device_breakdown(prof) -> tuple[float | None, dict]:
 
 def profile_call(torch, device, lig, fn) -> dict:
     fn()  # warm-up
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     walls = [_wall(torch, device, fn) for _ in range(REPEATS)]
     lig.timer.reset()
     lig.timer.enabled = True
@@ -123,7 +133,10 @@ def profile_call(torch, device, lig, fn) -> dict:
     def idle(wall_s):
         return None if busy_ms is None else 1.0 - busy_ms / (wall_s * 1e3)
 
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else None)
     return {"walls_s": walls, "median_wall_s": median, "phases_ms": phases,
+            "peak_device_memory_gib": peak,
             "profiled_wall_s": wall_prof, "device_busy_ms": busy_ms,
             "idle_share_vs_profiled_wall": idle(wall_prof),
             "idle_share_vs_median_wall": idle(median),
@@ -136,12 +149,15 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--zk", action="store_true")
     ap.add_argument("--lambda", dest="lambda_", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="also profile prove_batch and verify_batch of B")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
     import torch
 
     from ligero_tpu_torch import BN254_FR, LigeroCircuit, test_sponge
+    from ligero_tpu_torch.engine import spot
     from ligero_tpu_torch.synthetic import generate_random_circuit
     from ligero_tpu_torch.utils.profiling import PhaseTimer
 
@@ -158,8 +174,6 @@ def main() -> int:
         return lig.prove(vars_, sponge.clone(), **kw)
 
     proof = prove()  # includes the one-time COO upload
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     record = {
         "log2_gates": args.log2_gates, "zk": args.zk, "m": lig.m, "k": lig.k,
         "n": lig.n, "t": lig.t, "blind_t": lig.blind_t, "d2": lig.d2,
@@ -170,9 +184,34 @@ def main() -> int:
         "verify": profile_call(torch, device, lig,
                                lambda: lig.verify(proof, sponge.clone())),
     }
-    if device.type == "cuda":
-        record["peak_device_memory_gib"] = (
-            torch.cuda.max_memory_allocated(device) / 2**30)
+    record["peak_device_memory_gib"] = (
+        max(record[call]["peak_device_memory_gib"]
+            for call in ("prove", "verify")) if device.type == "cuda" else None)
+    # the same verify with the spot route off: the full NTT_n, then a gather
+    use_spot, spot.use_spot = spot.use_spot, lambda field, n, t: False
+    try:
+        record["verify_ntt_route"] = profile_call(
+            torch, device, lig, lambda: lig.verify(proof, sponge.clone()))
+    finally:
+        spot.use_spot = use_spot
+    if args.batch:
+        B = args.batch
+        seeds = [bytes([i]) * 32 for i in range(B)] if args.zk else None
+        proofs = lig.prove_batch([vars_] * B, sponge, zk_seeds=seeds)
+        record["batch"] = B
+        record["prove_batch"] = profile_call(
+            torch, device, lig,
+            lambda: lig.prove_batch([vars_] * B, sponge, zk_seeds=seeds))
+        record["verify_batch"] = profile_call(
+            torch, device, lig, lambda: lig.verify_batch(proofs, sponge))
+        for single, batched in (("prove", "prove_batch"),
+                                ("verify", "verify_batch")):
+            record[batched]["per_second"] = B / record[batched]["median_wall_s"]
+            record[single]["per_second"] = 1 / record[single]["median_wall_s"]
+        if lig.verify_batch(proofs, sponge) != [True] * B:
+            print("profile_torch_port: verify_batch rejected an honest proof",
+                  file=sys.stderr)
+            return 1
     if not lig.verify(proof, sponge.clone()):
         print("profile_torch_port: the honest proof did not verify",
               file=sys.stderr)

@@ -127,6 +127,36 @@ def test_direct_mode_budget_raises(monkeypatch):
         be.check_direct_fits(4100, 2048, 16384, 9_000_000)
 
 
+def test_direct_estimate_is_not_below_the_recorded_peaks():
+    """The live-set estimate at the 2^20-gate shapes against the peaks of
+    ``torch.cuda.max_memory_allocated()`` recorded on an H100 (PERF.md §5:
+    11.49 GiB plain, 11.61 GiB zk): an estimate below a measured peak would
+    let ``max_batch`` pack more proofs than the card holds."""
+    be = TorchBackend(pf(F), "cpu")
+    rows, k, n, nnz = 4100, 2048, 16384, 9_443_331
+    plain = be.direct_bytes(rows, k, n, nnz) / 2**30
+    zk = be.direct_bytes(rows + 3, k, n, nnz, blind_t=468, d2=8192) / 2**30
+    assert 11.49 <= plain < 11.49 * 1.1
+    assert 11.61 <= zk < 11.61 * 1.1
+
+
+def test_max_batch_follows_the_budget(monkeypatch):
+    be = TorchBackend(pf(F), "cpu")
+    shape = (4100, 2048, 16384, 9_443_331)
+    for budget_gib, want in ((8, 0), (12, 1), (80, None)):
+        monkeypatch.setattr(be, "memory_budget", lambda: budget_gib << 30)
+        got = be.max_batch(*shape)
+        if want is not None:
+            assert got == want
+        assert be.direct_bytes(*shape, batch=max(got, 1)) <= (
+            budget_gib << 30) or got == 0
+        assert be.direct_bytes(*shape, batch=got + 1) > budget_gib << 30
+    assert be.max_batch(*shape, limit=3) == 3
+    # every further proof costs at least its U and its coefficients
+    step = be.direct_bytes(*shape, batch=3) - be.direct_bytes(*shape, batch=2)
+    assert step >= 4100 * (16384 + 2048) * 64
+
+
 def test_compiled_state_carries_instance(instance):
     ref, _ = instance
     st = convert.compiled_state(ref)

@@ -11,7 +11,7 @@ import torch
 from ligero_tpu.engine.backend import Backend
 from ligero_tpu.fields import BN254_FR
 from ligero_tpu.hashes import column_hash
-from ligero_tpu_torch.engine import cuda_hash, hashops
+from ligero_tpu_torch.engine import cuda_hash, cuda_tree, hashops
 from ligero_tpu_torch.engine.backend import TorchBackend
 from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
 
@@ -83,7 +83,7 @@ def test_tree_flat_and_digest_lists_match_backend(n):
     flat = hashops.tree_flat(leaves_t).numpy()
     assert np.array_equal(flat.view(np.uint32), np.asarray(be._tree_flat(leaves)))
     port = TorchBackend(pf(BN254_FR), "cpu")
-    assert hashops.digest_lists(port.to_numpy(port._tree_flat(leaves_t)),
+    assert hashops.digest_lists(port.to_numpy(cuda_tree.tree_flat(leaves_t)),
                                 n) == be._digest_lists(leaves)
 
 

@@ -19,7 +19,7 @@ torch.set_num_threads(1)
 MODULES = ["fields", "chacha", "sampling", "hashes", "merkle", "sponge",
            "native", "matrices", "synthetic", "wasm_interp",
            "circuit", "circuit.arithmetic", "circuit.expression",
-           "circuit.witness", "ligero.proof", "ligero.types"]
+           "circuit.witness", "circuit.r1cs", "ligero.proof", "ligero.types"]
 
 
 def namespace(pkg: str) -> types.SimpleNamespace:
@@ -320,6 +320,55 @@ def case_wasm_interpreter(ns, fname):
     mod = ns.wasm_interp.WasmModule(ADD_WASM, {})
     return [mod.invoke("add", 2, 3), mod.invoke("add", 0xFFFFFFFF, 2),
             ns.circuit_witness._fnv1a_64("in"), ns.circuit_witness._fnv1a_64("")]
+
+
+def case_r1cs_files(ns, fname):
+    """An ``.r1cs`` that needs normalising, a ``.wtns`` and a witness
+    ``.json``, written here, through each package's readers."""
+    import os
+    import tempfile
+
+    from torch_circom_files import r1cs_bytes, wtns_bytes
+    f = ns.fields.FIELDS[fname]
+    rows = dict(num_instance=2, num_witness=3,
+                a=[[(5, 3), (2, 1), (7, 3)], [(1, 2), (f.p - 1, 2), (3, 4)]],
+                b=[[(1, 0)], [(f.p - 1, 4), (3, 0)]],
+                c=[[(4, 2)], [(1, 1), (1, 1)]])
+    values = rand_ints(12, 5, f.p)
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {ext: os.path.join(tmp, "f." + ext)
+                 for ext in ("r1cs", "wtns", "json")}
+        with open(paths["r1cs"], "wb") as fh:
+            fh.write(r1cs_bytes(f.p, **rows))
+        with open(paths["wtns"], "wb") as fh:
+            fh.write(wtns_bytes(f.p, values))
+        with open(paths["json"], "w") as fh:
+            fh.write(str([str(v + f.p) for v in values]).replace("'", '"'))
+        cs = ns.circuit_r1cs.parse_r1cs(paths["r1cs"], f)
+        out += [cs.num_instance, cs.num_witness, cs.num_constraints,
+                cs.a, cs.b, cs.c,
+                ns.circuit_r1cs.load_witness_wtns(paths["wtns"], f),
+                ns.circuit_r1cs.load_witness_json(paths["json"], f)]
+        circ, outs = ns.circuit_arithmetic.ArithmeticCircuit.\
+            from_constraint_system(cs, f)
+        out += [circ.nodes, outs]
+        for bad in (b"", b"r1cs" + b"\x00" * 9):
+            with open(paths["r1cs"], "wb") as fh:
+                fh.write(bad)
+            with pytest.raises(ValueError):
+                ns.circuit_r1cs.parse_r1cs(paths["r1cs"], f)
+    return out
+
+
+def case_r1cs_repeated_squaring(ns, fname):
+    f = ns.fields.FIELDS[fname]
+    out = []
+    for squarings in (1, 3, 10):
+        cs = ns.circuit_r1cs.repeated_squaring_constraint_system(f, squarings)
+        out += [cs.num_instance, cs.num_witness, cs.a, cs.b, cs.c,
+                ns.circuit_r1cs.repeated_squaring_witness(f, 5, squarings)]
+    return out
 
 
 CASES = {name[5:]: fn for name, fn in sorted(globals().items())

@@ -45,7 +45,10 @@ def port_modules() -> list[str]:
 
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     names = port_modules()
-    assert len(names) >= 30 and "ligero_tpu_torch.engine.cuda_tree" in names
+    assert len(names) >= 35 and "ligero_tpu_torch.engine.cuda_tree" in names
+    for new in ("engine.spot", "circuit.r1cs", "cli", "server", "__main__"):
+        assert f"ligero_tpu_torch.{new}" in names
+    names.remove("ligero_tpu_torch.__main__")    # importing it runs the CLI
     out = run_blocked(
         "import importlib\n"
         f"for name in {names!r}:\n"
@@ -98,6 +101,51 @@ def test_zk_proves_and_verifies_with_both_blocked():
     assert "zk ok" in out
 
 
+def test_batch_proves_and_verifies_with_both_blocked():
+    out = run_blocked(
+        PROVE +
+        "c, outs, vs = generate_random_circuit(F, 96, num_vars=4, seed=3)\n"
+        "lig = LigeroCircuit(c, outs, lambda_=10, device='cpu')\n"
+        "proofs = lig.prove_batch([vs, vs], sp)\n"
+        "assert proofs[0].to_bytes(F) == lig.prove(vs, sp.clone()).to_bytes(F)\n"
+        "assert lig.verify_batch(proofs, sp) == [True, True]\n"
+        "print('batch ok')\n")
+    assert "batch ok" in out
+
+
+def test_cli_and_service_run_with_both_blocked(tmp_path):
+    """``python -m ligero_tpu_torch info --cpu`` and a service round trip,
+    on a repeated-squaring ``.r1cs`` written through the port's own
+    constraint system, with ``jax`` and ``ligero_tpu`` unimportable."""
+    from torch_circom_files import write_cs
+    from ligero_tpu_torch.circuit.r1cs import (
+        repeated_squaring_constraint_system, repeated_squaring_witness)
+    from ligero_tpu_torch.fields import BN254_FR
+    path = write_cs(tmp_path / "sq.r1cs",
+                    repeated_squaring_constraint_system(BN254_FR, 4))
+    wit = repeated_squaring_witness(BN254_FR, 3, 4)
+    out = run_blocked(
+        "import io, json, runpy, contextlib\n"
+        f"sys.argv = ['ligero_tpu_torch', 'info', '--r1cs', {path!r}, '--cpu']\n"
+        "buf = io.StringIO()\n"
+        "try:\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        runpy.run_module('ligero_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "info = json.loads(buf.getvalue())\n"
+        "assert info['constraints'] == 4 and info['device'] == 'cpu'\n"
+        "from ligero_tpu_torch.server import ProverService\n"
+        "svc = ProverService(device='cpu')\n"
+        f"svc.register('sq', {path!r})\n"
+        f"res = svc.prove('sq', witness={wit!r})\n"
+        "assert svc.verify('sq', res['proof'])['verified'] is True\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ligero_tpu')\n"
+        "               for m in sys.modules)\n"
+        "print('entry points ok')\n")
+    assert "entry points ok" in out
+
+
 IMPORT_LINE = re.compile(
     r"^\s*(?:import|from)\s+(jax|jaxlib|ligero_tpu)(?:\.|\s|$)", re.M)
 
@@ -113,7 +161,8 @@ def port_sources() -> list[str]:
 
 def test_no_source_imports_jax_or_the_jax_package():
     paths = port_sources()
-    assert len(paths) >= 35
+    assert len(paths) >= 40
+    assert any(path.endswith("server.py") for path in paths)
     for path in paths:
         with open(path) as f:
             found = IMPORT_LINE.findall(f.read())

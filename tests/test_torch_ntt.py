@@ -266,14 +266,20 @@ def test_plan_rejects_bad_shapes():
 def test_direct_fit_counts_scratch_by_route(monkeypatch):
     """check_direct_fits counts NTT scratch as the routes allocate it: none
     on the plain path, one packed intermediate of U's shape for the zk
-    encode, none for the zk products."""
-    from ligero_tpu_torch.engine.backend import DeviceMemoryError, TorchBackend
+    encode, none for the zk products.  The linear phase's transients are
+    those of ``TorchBackend.direct_bytes``: at these shapes the fold of the
+    sparse product's int64 sums."""
+    from ligero_tpu_torch.engine.backend import (ESTIMATE_MARGIN,
+                                                 DeviceMemoryError,
+                                                 TorchBackend)
     be = TorchBackend(pf(BN254_FR), "cpu")
     rows, k, n, nnz, L = 4100, 2048, 16384, 9_443_331, 16
     u, msg = rows * n * L * 4, rows * k * L * 4
-    linear = (u + 3 * msg + nnz * (L * 4 + 16)
-              + 2 * nnz * L * 4 + nnz * L * 8 + 4 * msg)
+    fold = 12 * msg + msg // 4
+    assert fold > 3 * msg + 3 * nnz * L * 4          # the segment sums
+    linear = int((u + msg + nnz * (L * 4 + 16) + fold) * ESTIMATE_MARGIN)
     assert 2 * msg + u < linear       # the encode holds no scratch now
+    assert be.direct_bytes(rows, k, n, nnz) == linear
     monkeypatch.setattr(be, "memory_budget", lambda: linear)
     be.check_direct_fits(rows, k, n, nnz)
     monkeypatch.setattr(be, "memory_budget", lambda: linear - 1)
@@ -288,12 +294,15 @@ def test_direct_fit_counts_scratch_by_route(monkeypatch):
     assert cuda_ntt.scratch_bytes(zrows, d2, n) == zu // 2
     assert cuda_ntt.scratch_bytes(zrows, k + b, d2) == 0
     encode = zmsg + coeffs + wide + zu + zu // 2
-    zlinear = zu + coeffs + nnz * (L * 4 + 16) + max(
-        2 * nnz * L * 4 + nnz * L * 8 + 4 * zmsg, zmsg + 2 * wide)
-    need = max(encode, zlinear)
+    zfold = 12 * zmsg + zmsg // 4
+    zlinear = zu + coeffs + nnz * (L * 4 + 16) + max(zfold, zmsg + 2 * wide)
+    need = int(max(encode, zlinear) * ESTIMATE_MARGIN)
+    assert be.direct_bytes(zrows, k, n, nnz, blind_t=b, d2=d2) == need
     monkeypatch.setattr(be, "memory_budget", lambda: need - 1)
     with pytest.raises(DeviceMemoryError):
         be.check_direct_fits(zrows, k, n, nnz, blind_t=b, d2=d2)
+    monkeypatch.setattr(be, "memory_budget", lambda: need)
+    be.check_direct_fits(zrows, k, n, nnz, blind_t=b, d2=d2)
     monkeypatch.setattr(be, "memory_budget", lambda: need)
     be.check_direct_fits(zrows, k, n, nnz, blind_t=b, d2=d2)
 
