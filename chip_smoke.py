@@ -399,10 +399,12 @@ def spot_cases(torch, field, gen, rows, k, n, t) -> None:
             got = spot.spot_eval(field, x, js, n, canon_out=canon)
             via_ntt = cuda_ntt.ntt(field, x, n, canon_out=canon).index_select(
                 1, idx)
-            want = spot.spot_ref(field, x[:256], js, n, canon_out=canon)
+            want, plain_ms = _time_once(torch, lambda: spot.spot_ref(
+                field, x[:256], js, n, canon_out=canon))
             ok = torch.equal(got, via_ntt) and torch.equal(got[:256], want)
             log(f"spot {nrows} x {w} at {t} of {n} columns, canon_out={canon}: "
-                f"bit-equal to the NTT route and the plain version: {ok}")
+                f"bit-equal to the NTT route and the plain version: {ok} "
+                f"(plain, {min(nrows, 256)} rows: {plain_ms:.3f} ms)")
             require(ok, f"spot_eval {nrows} x {w} canon_out={canon} disagrees")
             del got, via_ntt, want
         torch.cuda.empty_cache()
@@ -733,6 +735,7 @@ def phase_batch(torch, field, lig, vars_) -> dict:
         batch_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         proving = {name: mod.launches.count for name, mod in wraps.items()}
+        torch.cuda.empty_cache()   # as before the batch: both start cold
         t0 = time.perf_counter()
         sequential = [single(i, w) for i, w in enumerate(witnesses)]
         torch.cuda.synchronize()
@@ -762,9 +765,9 @@ def phase_batch(torch, field, lig, vars_) -> dict:
     vbatch_s = time.perf_counter() - t0
     vpeak = torch.cuda.max_memory_allocated()
     launches = read_counts(wraps, f"{tag}batch")
-    for name in ("v.replay", "v.ntt_cols"):
-        log(f"  {tag}verify_batch {name:18s} "
-            f"{lig.timer.totals.get(name, 0.0) * 1e3:10.1f} ms")
+    log(f"  {tag}verify_batch v.ntt_cols "
+        f"{lig.timer.totals.get('v.ntt_cols', 0.0) * 1e3:10.1f} ms")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     one_by_one = [lig.verify(p, sponge.clone()) for p in batch]
     torch.cuda.synchronize()

@@ -397,72 +397,62 @@ class LigeroCircuit:
         return out
 
     def _verify_many(self, proofs, sponge) -> list[bool]:
-        """:meth:`verify_batch` of one part, in three passes."""
-        be = self.backend
-        # pass 1: replay each live proof's transcript (host sponge work,
-        # the order of ``_prove_many``) for the linear phase's challenge
-        # seed and opened columns.  A proof whose q or p0 is too long is
-        # rejected as ``verify`` rejects it, and kept out of the stacks.
-        pre: dict[int, tuple] = {}
-        for i, pf in enumerate(proofs):
-            if (not self._well_formed(pf)
-                    or _poly_degree(pf.linear.polynomial) >= self.lin_bound
-                    or _poly_degree(pf.quadratic.polynomial) >= self.quad_bound):
-                continue
-            with self.timer.phase("v.replay"):
-                sp = sponge.clone()
-                sp.absorb_bytes(pf.u_root)                           # FS #1
-                sp.squeeze_bytes(CHACHA_SEED_BYTES)                  # FS #2
-                sp.absorb_field_elems(pf.interleaved.preenc_u_lc)    # FS #3
-                sp.squeeze_bytes(CHACHA_SEED_BYTES)                  # FS #4
-                seed5 = sp.squeeze_bytes(CHACHA_SEED_BYTES)          # FS #5
-                sp.absorb_field_elems(pf.linear.polynomial)          # FS #6
-                idx2 = self._sample_indices(
-                    sp.squeeze_bytes(CHACHA_SEED_BYTES))             # FS #7
-            pre[i] = (self._r_a_coeff_rows(seed5), idx2)
-        live = sorted(pre)
+        """:meth:`verify_batch` of one part.  Every proof runs the stages
+        of :meth:`verify` in their order on its one transcript; the
+        stages stop twice, so that what all proofs need next is computed
+        in one call.  A proof that fails a stage is done, at the cost
+        :meth:`verify` would have spent on it."""
+        be, n = self.backend, self.n
+        verdicts = [False] * len(proofs)
+        # q and p0 too long are rejected as ``verify`` rejects them, and
+        # kept out of the stacks
+        live = [i for i, pf in enumerate(proofs) if self._well_formed(pf)
+                and _poly_degree(pf.linear.polynomial) < self.lin_bound
+                and _poly_degree(pf.quadratic.polynomial) < self.quad_bound]
+        if not live:
+            return verdicts
+        # the transforms of proof data, which hang on no transcript
+        lc = be.ints_to_mont(
+            [c for i in live for c in proofs[i].interleaved.preenc_u_lc]
+        ).reshape(len(live), self.blind_len, -1)
+        w_evals = (be.ntt(lc, n) if self.zk
+                   else be.rs_encode_rows(lc, self.k, n)[1])
+        polys = ([proofs[i].linear.polynomial for i in live]
+                 + [proofs[i].quadratic.polynomial for i in live])
+        qp_evals = be.ntt(be.ints_to_mont(
+            [c for poly in polys for c in poly + [0] * (self.d2 - len(poly))]
+        ).reshape(2 * len(live), self.d2, -1), n)
 
-        # pass 2: one call per heavy transform across the live proofs
-        inject: dict[int, tuple] = {}
-        if live:
-            lc = be.ints_to_mont(
-                [c for i in live for c in proofs[i].interleaved.preenc_u_lc]
-            ).reshape(len(live), self.blind_len, -1)
-            w_evals = (be.ntt(lc, self.n) if self.zk
-                       else be.rs_encode_rows(lc, self.k, self.n)[1])
-            d2 = self.d2
-            polys = ([proofs[i].linear.polynomial for i in live]
-                     + [proofs[i].quadratic.polynomial for i in live])
-            qp = be.ints_to_mont(
-                [c for poly in polys for c in poly + [0] * (d2 - len(poly))]
-            ).reshape(2 * len(live), d2, -1)
-            qp_evals = be.ntt(qp, self.n)
-            with self.timer.phase("v.ntt_cols"):
-                r_evals = be.ntt_columns_batch(
-                    [pre[i][0] for i in live], self.n,
-                    [pre[i][1] for i in live])           # (B, 4m, t, L)
-            pre.clear()                                  # the r_i coefficients
-            for j, i in enumerate(live):
-                inject[i] = (be.mont_to_ints(w_evals[j]), r_evals[j],
-                             be.mont_to_ints(qp_evals[j]),
-                             be.mont_to_ints(qp_evals[len(live) + j]))
-
-        # pass 3: the staged verification of ``verify``, values injected
-        out: list[bool] = []
-        for i, pf in enumerate(proofs):
-            if i not in inject:
-                out.append(False)
-                continue
-            w, r_evals_i, q_evals, p0_evals = inject.pop(i)
-            sp = sponge.clone()
+        # each proof up to its linear phase's openings: FS #1-#7
+        pending = []     # (proof index, stack index, sponge, r_i rows, q values)
+        for j, i in enumerate(live):
+            pf, sp = proofs[i], sponge.clone()
             sp.absorb_bytes(pf.u_root)                           # FS #1
-            out.append(
-                self._verify_interleaved(pf.interleaved, pf.u_root, sp, w)
-                and self._verify_linear(pf.linear, pf.u_root, sp,
-                                        (r_evals_i, q_evals))
-                and self._verify_quadratic(pf.quadratic, pf.u_root, sp,
-                                           p0_evals))
-        return out
+            if not self._verify_interleaved(pf.interleaved, pf.u_root, sp,
+                                            be.mont_to_ints(w_evals[j])):
+                continue
+            opened = self._verify_linear_open(pf.linear, pf.u_root, sp,
+                                              be.mont_to_ints(qp_evals[j]))
+            if opened is not None:
+                pending.append((i, j, sp, *opened))
+        if not pending:
+            return verdicts
+        # the r_i codewords at the columns each proof opened (its
+        # transcript's columns: the openings passed)
+        with self.timer.phase("v.ntt_cols"):
+            r_evals = be.ntt_columns_batch(
+                [entry[3] for entry in pending], n,
+                [[path.leaf_index for path in proofs[entry[0]].linear.paths]
+                 for entry in pending])                  # (B, 4m, t, L)
+        # the rest of each proof: the linear spot check, FS #8-#10
+        for slot, (i, j, sp, _, q_evals) in enumerate(pending):
+            pf = proofs[i]
+            verdicts[i] = (
+                self._verify_linear_spot(pf.linear, r_evals[slot], q_evals)
+                and self._verify_quadratic(
+                    pf.quadratic, pf.u_root, sp,
+                    be.mont_to_ints(qp_evals[len(live) + j])))
+        return verdicts
 
     def warmup(self) -> dict:
         """Everything a first request would otherwise pay for: the kernel
@@ -571,35 +561,46 @@ class LigeroCircuit:
             r, self._columns_limbs(proof.columns, 4 * self.m)))
         return self._spot_matches(w, proof, rhs, 0)
 
-    def _verify_linear(self, proof: LinearConstraintsProof, u_root, sponge,
-                       pre: tuple | None = None) -> bool:
-        """``pre``: ``(r_evals, q_evals)`` where ``verify_batch`` computed
-        them from this proof's replayed transcript (the same values as
-        below; ``r_evals`` belongs to the replayed column set, so it is
-        read only after the openings passed for that very set)."""
-        be, p, k = self.backend, self.field.p, self.k
+    def _verify_linear(self, proof: LinearConstraintsProof, u_root,
+                       sponge) -> bool:
+        opened = self._verify_linear_open(proof, u_root, sponge)
+        if opened is None:
+            return False
+        r_coeffs, q_evals = opened
+        js = [path.leaf_index for path in proof.paths]
+        with self.timer.phase("v.ntt_cols"):
+            r_evals = self.backend.ntt_columns(r_coeffs, self.n, js)
+        del r_coeffs
+        return self._verify_linear_spot(proof, r_evals, q_evals)
+
+    def _verify_linear_open(self, proof: LinearConstraintsProof, u_root,
+                            sponge, q_evals: list[int] | None = None):
+        """The linear phase up to its openings (FS #5-#7): ``(the r_i
+        coefficient rows on the device, q's n values)``, or None where the
+        proof is rejected.  ``q_evals``: q's values where ``verify_batch``
+        computed them already (the same values as below)."""
+        p, k = self.field.p, self.k
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #5
         if _poly_degree(proof.polynomial) >= self.lin_bound:
-            return False
+            return None
         # one n-point NTT of q gives the message-domain sum check (the k
         # message points are the n grid at stride n/k) and q at every
         # opened column
-        q_evals = pre[1] if pre else self._evals(proof.polynomial)
+        if q_evals is None:
+            q_evals = self._evals(proof.polynomial)
         if sum(q_evals[0::self.n // k]) % p != 0:
-            return False
+            return None
         sponge.absorb_field_elems(proof.polynomial)              # FS #6
         if not self._verify_column_openings(proof.columns, proof.paths,
                                             u_root, sponge):     # FS #7
-            return False
-        # the r_i codewords at the opened columns only
-        if pre:
-            r_evals = pre[0]
-        else:
-            r_coeffs = self._r_a_coeff_rows(seed)
-            js = [path.leaf_index for path in proof.paths]
-            with self.timer.phase("v.ntt_cols"):
-                r_evals = be.ntt_columns(r_coeffs, self.n, js)   # (4m, t, L)
-            del r_coeffs
+            return None
+        return self._r_a_coeff_rows(seed), q_evals
+
+    def _verify_linear_spot(self, proof: LinearConstraintsProof, r_evals,
+                            q_evals: list[int]) -> bool:
+        """The linear phase's spot check: ``r_evals`` (4m, t, L), the r_i
+        codewords at the opened columns only."""
+        be = self.backend
         with self.timer.phase("v.spot"):
             lhs = be.canon_limbs_to_ints(be.row_combine(
                 r_evals, self._columns_limbs(proof.columns, 4 * self.m)))

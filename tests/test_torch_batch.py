@@ -179,8 +179,7 @@ def test_verify_batch_in_parts_and_all_dead(proved, monkeypatch):
 
 def test_verify_batch_reads_injected_codewords_only_after_the_openings(proved):
     """A proof opened at other columns than its transcript asks for is
-    rejected by the openings, before the precomputed r_i codewords (made for
-    the transcript's columns) are read."""
+    rejected by the openings: no r_i codewords are made for it or read."""
     _, _, port, _, port_seq, _ = proved
     sp = test_sponge(F)
     swapped = tampered([LigeroProof.from_bytes(b, PF)
@@ -200,6 +199,31 @@ def test_verify_batch_reads_injected_codewords_only_after_the_openings(proved):
     # only the interleaved phase's (4m, L) challenge was combined: the
     # linear phase's (4m, t, L) codewords never were
     assert read and all(len(shape) == 2 for shape in read)
+
+
+def test_verify_batch_stops_a_rejected_proof_where_verify_stops_it(
+        proved, monkeypatch):
+    """The r_i coefficient rows (the verifier's dearest step) are made only
+    for proofs that passed everything before them, as in ``verify``."""
+    _, _, port, _, port_seq, _ = proved
+    sp = test_sponge(F)
+    proofs = [LigeroProof.from_bytes(b, PF) for b in port_seq[:2]]
+    flipped, short, swapped, long_q, rooted = tampered(proofs, PF)
+    calls = []
+    real = port._r_a_coeff_rows
+
+    def counted(seed):
+        calls.append(seed)
+        return real(seed)
+
+    monkeypatch.setattr(port, "_r_a_coeff_rows", counted)
+    batch = [flipped, proofs[0], short, swapped, long_q, rooted]
+    assert port.verify_batch(batch, sp) == [False, True] + [False] * 4
+    assert len(calls) == 1
+    calls.clear()
+    assert [port.verify(pf, sp.clone()) for pf in batch] == [
+        False, True] + [False] * 4
+    assert len(calls) == 1
 
 
 def test_warmup_proves_and_verifies_once(proved):
