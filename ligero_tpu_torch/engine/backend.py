@@ -129,9 +129,9 @@ class TorchBackend:
         linear phase (every proof's U and coefficients, A's COO, and one
         proof's transients, see below).
 
-        zk (``blind_t`` > 0): the encode holds each proof's (k + b)-wide
-        coefficients and d2-wide row matrix, U and the packed intermediate
-        of its two-pass transform, and one proof's message; the linear
+        zk (``blind_t`` > 0): the encode holds each proof's message,
+        (k + b)-wide coefficients and d2-wide row matrix, U and the packed
+        intermediate of its two-pass transform; the linear
         phase holds every U and coefficient matrix, A's COO and one
         proof's transients, or its two (4m, d2, L) evaluation matrices.
         NTT scratch is counted as :func:`cuda_ntt.scratch_bytes` gives it
@@ -161,7 +161,7 @@ class TorchBackend:
         if blind_t:
             wide = rows * d2 * L * 4
             # (an estimate takes any sizes; a transform needs w <= n)
-            encode = msg + batch * (coeffs + wide + u) + scratch(
+            encode = batch * (msg + coeffs + wide + u) + scratch(
                 batch * rows, min(d2, n), n)
             products = msg + 2 * wide + scratch(
                 rows, min(k + blind_t, d2), d2)
