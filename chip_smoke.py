@@ -750,10 +750,17 @@ def phase_batch(torch, field, lig, vars_) -> dict:
     short.linear.columns = short.linear.columns[:-1]
     batch = honest + [bad, LigeroProof.from_bytes(flip_byte(blobs[0]), field),
                       short]
+    estimate = lig.backend.direct_bytes(
+        lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t,
+        lig.d2, batch=B)
+    require(estimate >= peak, f"the estimate for a batch of {B}, "
+            f"{estimate / 2**30:.2f} GiB, lies below the measured peak, "
+            f"{peak / 2**30:.2f} GiB")
     log(f"{tag}prove_batch of {B}: byte-equal to {B} sequential proves; "
         f"{batch_s:.3f} s ({B / batch_s:.3f} proofs/s) against {seq_s:.3f} s "
         f"sequential ({B / seq_s:.3f} proofs/s); peak device memory "
-        f"{peak / 2**30:.2f} GiB ({fits} such proofs fit the estimate)")
+        f"{peak / 2**30:.2f} GiB (estimate {estimate / 2**30:.2f} GiB; {fits} "
+        "such proofs fit it)")
     # the sequential proves above were the comparison: they do not count
     reset_counts(torch, wraps)
     for name, mod in wraps.items():

@@ -124,12 +124,13 @@ class TorchBackend:
         ``batch`` proofs proved together.  ``rows`` counts the committed
         rows (4m, or 4m + 3 under zk).
 
-        Non-zk: the encode (message, coefficient and codeword matrices of
-        all the batch; its transforms take routes without scratch) or the
+        Non-zk: the encode (A's COO, which stays on the device between
+        proofs; message, coefficient and codeword matrices of all the
+        batch; its transforms take routes without scratch) or the
         linear phase (every proof's U and coefficients, A's COO, and one
         proof's transients, see below).
 
-        zk (``blind_t`` > 0): the encode holds each proof's message,
+        zk (``blind_t`` > 0): the encode holds A's COO, each proof's message,
         (k + b)-wide coefficients and d2-wide row matrix, U and the packed
         intermediate of its two-pass transform; the linear
         phase holds every U and coefficient matrix, A's COO and one
@@ -161,13 +162,13 @@ class TorchBackend:
         if blind_t:
             wide = rows * d2 * L * 4
             # (an estimate takes any sizes; a transform needs w <= n)
-            encode = batch * (msg + coeffs + wide + u) + scratch(
+            encode = coo + batch * (msg + coeffs + wide + u) + scratch(
                 batch * rows, min(d2, n), n)
             products = msg + 2 * wide + scratch(
                 rows, min(k + blind_t, d2), d2)
             later = batch * (u + coeffs) + coo + max(linear, products)
         else:
-            encode = batch * (2 * msg + u) + max(
+            encode = coo + batch * (2 * msg + u) + max(
                 scratch(batch * rows, k, k), scratch(batch * rows, k, n))
             later = batch * (u + coeffs) + coo + linear
         return int(max(encode, later) * ESTIMATE_MARGIN)

@@ -201,6 +201,7 @@ class LigeroCircuit:
                 blinded = [be.zk_blind_rows(preenc[i], masks[i][4],
                                             self.blind_t, self.d2, masks[i][3])
                            for i in every]
+                del preenc
                 coeffs = stack([c for c, _ in blinded])
                 rows = (blinded[0][1] if B == 1
                         else torch.cat([r for _, r in blinded]))
@@ -216,7 +217,7 @@ class LigeroCircuit:
                 coeffs, u_canon = be.rs_encode_and_canon(
                     preenc.reshape(B * 4 * m, self.k, -1), self.k, self.n)
                 coeffs = coeffs.reshape(B, 4 * m, self.k, -1)
-        del preenc
+            del preenc                   # lives on as lc_rows
         with ph("commit"):
             trees = [MerkleTree(leaves, inner_levels=levels) for leaves, levels
                      in be.commit_columns_batch(u_canon, B)]

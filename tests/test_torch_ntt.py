@@ -293,7 +293,7 @@ def test_direct_fit_counts_scratch_by_route(monkeypatch):
     coeffs = zrows * (k + b) * L * 4
     assert cuda_ntt.scratch_bytes(zrows, d2, n) == zu // 2
     assert cuda_ntt.scratch_bytes(zrows, k + b, d2) == 0
-    encode = zmsg + coeffs + wide + zu + zu // 2
+    encode = nnz * (L * 4 + 16) + zmsg + coeffs + wide + zu + zu // 2
     zfold = 12 * zmsg + zmsg // 4
     zlinear = zu + coeffs + nnz * (L * 4 + 16) + max(zfold, zmsg + 2 * wide)
     need = int(max(encode, zlinear) * ESTIMATE_MARGIN)
