@@ -17,23 +17,25 @@ It runs every phase, in order; any failure exits non-zero:
                and canon_out on and off, the route printed), the tree at
                the sizes around its 64-node groups and 100 times on one
                input, and the tree's chain floor from a timed chain of
-               dependent hashes.  Then the serving path's pieces: the spot
-               evaluation against the NTT route and its plain version, the
+               dependent hashes.  Then the serving path's pieces: the
                batched Blake2s and row_combine launches (B = 3) against
-               their per-proof plain versions, three trees on one stream.
+               their per-proof plain versions, three trees on one stream;
+               and the spot evaluation (``engine/spot.py``, which the
+               verifier does not call yet) against the NTT kernel and its
+               plain version.
 4. parity   -- port proofs on the card byte-equal to the port's proofs on
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
                x^3, 2^8 and 2^10 gates, and 2^8 and 2^10 gates with zk.
 5. main     -- the 2^20-gate synthetic circuit through ``LigeroCircuit``'s
                ``prove`` and ``verify``, first plain, then with ``zk=True``:
-               two byte-identical proofs, verify True, tampered witness and
-               flipped byte rejected, every kernel launched on each path.
-               After each: the batch path at the same size (B = 3 plain,
-               B = 2 zk): ``prove_batch`` byte-equal to sequential ``prove``
-               calls, ``verify_batch`` over honest, tampered, flipped and
-               truncated proofs equal to sequential ``verify``, walls of
-               both and the peak device memory.
+               verify True, tampered witness and flipped byte rejected,
+               every kernel launched on each path; plain: a second proof,
+               byte-identical.  After each: the batch path at the same size
+               (B = 3 plain, B = 2 zk): ``prove_batch`` byte-equal to
+               sequential ``prove`` calls with their walls, ``verify_batch``
+               over honest, tampered, flipped and truncated proofs, and the
+               peak device memory.
 6. serve    -- a repeated-squaring ``.r1cs`` (2^14 squarings) and its
                witness written here; the port's HTTP service in a thread on
                an ephemeral port with no device named (it must take the
@@ -246,10 +248,6 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
         ("blake2s_cols", f"Blake2s columns {rows} x 1024", elems(rows, 1024),
          cuda_hash.blake2s_columns, hashops.blake2s_columns_ref,
          blake2s_work(rows, 1024)),
-        ("blake2s_cols", f"zk Blake2s columns {rows + 3} x 256 (odd row count)",
-         elems(rows + 3, 256),
-         cuda_hash.blake2s_columns, hashops.blake2s_columns_ref,
-         blake2s_work(rows + 3, 256)),
         ("row_combine", f"row_combine {rows} x {k}",
          pair(elems(rows), elems(rows, k)),
          lambda rm: cuda_lc.row_combine(field, *rm),
@@ -303,7 +301,7 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
             "bound %.3f ms by %s" % bound(*blake2s_work(nrows, n)))
         del u
         torch.cuda.empty_cache()
-    batch_kernel_cases(torch, field, gen, results, rows, k, b, n)
+    batch_kernel_cases(torch, field, gen, results, rows, k, n)
     spot_cases(torch, field, gen, rows, k, n, t)
     # context only: the host's hashlib over the same n - 1 two-to-one hashes
     digests = [os.urandom(32) for _ in range(n)]
@@ -316,40 +314,62 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
     return results
 
 
-def batch_kernel_cases(torch, field, gen, results, rows, k, b, n) -> None:
-    """The batched launches of the serving path, B = 3, against their
-    per-proof plain versions, bit-equal: Blake2s over three stacked matrices
-    (4m rows, and the zk path's odd 4m + 3), row_combine over three
-    (4m, k) matrices with their own challenges, three trees on one stream
-    (at n and at 64 leaves: what B launches cost).  The batched times and
-    bounds go into ``results`` beside the single launches'."""
+def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
+    """The batched launches of the serving path, B = 3, bit-equal to their
+    per-proof versions: Blake2s over three stacked matrices of the zk
+    path's odd 4m + 3 rows against the plain version (and one matrix of
+    them in a single launch, the zk main path's case), then over three
+    full (4m, n) matrices, whose element offsets pass 2^31, against three
+    single launches (held against the plain version at that row count
+    above); row_combine over three (4m, k) matrices with their own
+    challenges; three trees on one stream (at n and at 64 leaves: what B
+    launches cost).  The batched times and bounds go into ``results``
+    beside the single launches'."""
     from ligero_tpu_torch.engine import cuda_hash, cuda_lc, cuda_tree, hashops
-    B, cols = BATCH, 256
+    B, cols, nrows = BATCH, 256, rows + 3
 
     def check(label, got, want):
         require(got.shape == want.shape and torch.equal(got, want),
-                f"{label}: kernel disagrees with its per-proof plain version")
+                f"{label}: kernel disagrees with its per-proof version")
 
-    for nrows in (rows, rows + 3):
-        u = _rand_elems(torch, gen, (B * nrows, cols), field)
-        got = cuda_hash.blake2s_columns(u, B)
-        # the plain version hashes columns side by side: the three matrices'
-        # columns as one (nrows, B cols) matrix are the per-proof digests
-        side = u.reshape(B, nrows, cols, 16).permute(1, 0, 2, 3).reshape(
-            nrows, B * cols, 16)
-        want, plain_ms = _time_once(
-            torch, lambda: hashops.blake2s_columns_ref(side))
-        check(f"batched Blake2s {B} x {nrows} x {cols}", got, want)
-        ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, B), 5)
-        one = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u[:nrows]), 5)
-        bound_ms, by = bound(*[B * w for w in blake2s_work(nrows, cols)])
-        log(f"kernel batched Blake2s {B} x {nrows} x {cols}: max_abs_err=0 "
-            f"kernel {ms:.4f} ms (one matrix {one:.4f} ms), plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {by}")
-        results["blake2s_cols"].setdefault("batched", {
-            "shape": f"{B} x {nrows} x {cols}", "ms": ms, "one_ms": one,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by})
-        del u, side, got, want
+    u = _rand_elems(torch, gen, (B * nrows, cols), field)
+    # the plain version hashes columns side by side: the three matrices'
+    # columns as one (nrows, B cols) matrix are the per-proof digests
+    side = u.reshape(B, nrows, cols, 16).permute(1, 0, 2, 3).reshape(
+        nrows, B * cols, 16)
+    want, plain_ms = _time_once(
+        torch, lambda: hashops.blake2s_columns_ref(side))
+    check(f"batched Blake2s {B} x {nrows} x {cols}",
+          cuda_hash.blake2s_columns(u, B), want)
+    check(f"zk Blake2s columns {nrows} x {cols} (odd row count)",
+          cuda_hash.blake2s_columns(u[:nrows]), want[:cols])
+    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, B), 5)
+    one = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u[:nrows]), 5)
+    bound_ms, by = bound(*[B * w for w in blake2s_work(nrows, cols)])
+    log(f"kernel batched Blake2s {B} x {nrows} x {cols} (odd row count): "
+        f"max_abs_err=0, and one matrix alone; kernel {ms:.4f} ms (one matrix "
+        f"{one:.4f} ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+        f"{by}")
+    results["blake2s_cols"]["batched"] = {
+        "shape": f"{B} x {nrows} x {cols}", "ms": ms, "one_ms": one,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
+    del u, side, want
+    torch.cuda.empty_cache()
+    u = _rand_elems(torch, gen, (B * rows, n), field)
+    got = cuda_hash.blake2s_columns(u, B)
+    for i in range(B):
+        check(f"batched Blake2s {B} x {rows} x {n}, matrix {i}",
+              got[i * n:(i + 1) * n],
+              cuda_hash.blake2s_columns(u[i * rows:(i + 1) * rows]))
+    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, B), 3)
+    bound_ms, by = bound(*[B * w for w in blake2s_work(rows, n)])
+    log(f"kernel batched Blake2s, full {B} x {rows} x {n}: bit-equal to {B} "
+        f"single launches; {ms:.3f} ms, bound {bound_ms:.3f} ms by {by}")
+    results["blake2s_cols"]["batched_full"] = {
+        "shape": f"{B} x {rows} x {n}", "ms": ms, "bound_ms": bound_ms,
+        "bound_by": by}
+    del u, got
+    torch.cuda.empty_cache()
     r = _rand_elems(torch, gen, (B, rows), field)
     mats = _rand_elems(torch, gen, (B, rows, k), field)
     got = cuda_lc.row_combine_batch(field, r, mats)
@@ -382,9 +402,10 @@ def batch_kernel_cases(torch, field, gen, results, rows, k, b, n) -> None:
 
 
 def spot_cases(torch, field, gen, rows, k, n, t) -> None:
-    """The verifier's spot evaluation (int8 tensor-core products around the
-    port's own limb split, regroup and fold; no TPU kernel behind it) at the
-    linear phase's shape: bit-equal to the NTT route on all rows and to its
+    """The spot evaluation (int8 tensor-core products around the port's own
+    limb split, regroup and fold; no TPU kernel behind it; not on the
+    verifier's path while it is the slower route) at the linear phase's
+    shape: bit-equal to the NTT route on all rows and to its
     plain version (the plain full transform, then a gather) on 256 rows,
     Montgomery and canonical output; then a row longer than K_MAX, which
     contracts in chunks.  Times of both routes and the spot route's bound
@@ -492,12 +513,12 @@ def tree_chain_floor(torch, n: int) -> float:
 
 def tree_bit_equality(torch, gen) -> None:
     """The tree kernel against the plain SHA-256 levels at small, split and
-    large n and around its 64-node groups, 20 fresh inputs each, then 100
+    large n and around its 64-node groups, 10 fresh inputs each, then 100
     times on one input at n = 16384 (a wrong last-block handshake would
-    show as a rare stale read).  The plain levels run over the 20 trees
+    show as a rare stale read).  The plain levels run over the 10 trees
     side by side (pairs never cross a tree: n is a power of two)."""
     from ligero_tpu_torch.engine import cuda_tree, hashops
-    reps = 20
+    reps = 10
     for n in (2, 4, 32, 64, 128, 512, 1024, 2048, 4096, 8192, 65536):
         forest = torch.randint(-2**31, 2**31, (reps, n, 8), generator=gen,
                                dtype=torch.int64, device="cuda").to(torch.int32)
@@ -616,10 +637,12 @@ def reset_counts(torch, wraps) -> None:
         mod.launches.reset()
 
 
-def read_counts(wraps, path: str) -> dict:
-    """The launch counts just after a path was driven; every kernel must
+def read_counts(wraps, path: str, earlier: dict | None = None) -> dict:
+    """The launch counts just after a path was driven (added to those of
+    its ``earlier`` half, where it was driven in two); every kernel must
     have been launched on it."""
-    launches = {name: mod.launches.count for name, mod in wraps.items()}
+    launches = {name: mod.launches.count + (earlier or {}).get(name, 0)
+                for name, mod in wraps.items()}
     log(f"kernel launches on the {path} path: {launches}")
     require(all(v > 0 for v in launches.values()),
             f"a kernel was not launched on the {path} path: {launches}")
@@ -669,16 +692,17 @@ def phase_main(torch, field, lig, vars_) -> dict:
         log(f"  {tag}verify {name:22s} {secs * 1e3:10.1f} ms")
     require(ok, "verify rejected the honest proof")
 
-    timer.reset()
-    t0 = time.perf_counter()
-    proof2 = lig.prove(vars_, sponge.clone(), **kw)
-    log(f"{tag}prove #2: {time.perf_counter() - t0:.3f} s")
-    for name, secs in sorted(timer.totals.items(), key=lambda kv: -kv[1]):
-        log(f"  {tag}prove #2 {name:20s} {secs * 1e3:10.1f} ms")
     data = proof.to_bytes(field)
-    require(proof2.to_bytes(field) == data, "two proofs differ")
-    log(f"two {tag}proofs byte-identical ({len(data)} bytes)")
-    del proof2
+    if not lig.zk:   # under zk the batch phase proves each seed twice
+        timer.reset()
+        t0 = time.perf_counter()
+        proof2 = lig.prove(vars_, sponge.clone())
+        log(f"prove #2: {time.perf_counter() - t0:.3f} s")
+        for name, secs in sorted(timer.totals.items(), key=lambda kv: -kv[1]):
+            log(f"  prove #2 {name:20s} {secs * 1e3:10.1f} ms")
+        require(proof2.to_bytes(field) == data, "two proofs differ")
+        log(f"two proofs byte-identical ({len(data)} bytes)")
+        del proof2
 
     bad_vars = [(vars_[0][0], (vars_[0][1] + 1) % field.p)] + vars_[1:]
     with warnings.catch_warnings():
@@ -705,8 +729,9 @@ def phase_batch(torch, field, lig, vars_) -> dict:
     witnesses (plain: honest, one changed input, honest; zk: the honest
     witness under two seeds) against B sequential ``prove`` calls, byte for
     byte; ``verify_batch`` over [honest, honest, tampered witness, flipped
-    byte, truncated column list] against sequential ``verify``.  Returns
-    the launch counts of the batched prove + verify."""
+    byte, truncated column list] against the verdicts ``verify`` gives one
+    by one (it gave the first four kinds on the main path).  Returns the
+    launch counts of the batched prove + verify."""
     from ligero_tpu_torch import LigeroProof, test_sponge
 
     sponge = test_sponge(field)
@@ -735,6 +760,7 @@ def phase_batch(torch, field, lig, vars_) -> dict:
         batch_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         proving = {name: mod.launches.count for name, mod in wraps.items()}
+        log(f"kernel launches of {tag}prove_batch: {proving}")
         torch.cuda.empty_cache()   # as before the batch: both start cold
         t0 = time.perf_counter()
         sequential = [single(i, w) for i, w in enumerate(witnesses)]
@@ -759,33 +785,23 @@ def phase_batch(torch, field, lig, vars_) -> dict:
     log(f"{tag}prove_batch of {B}: byte-equal to {B} sequential proves; "
         f"{batch_s:.3f} s ({B / batch_s:.3f} proofs/s) against {seq_s:.3f} s "
         f"sequential ({B / seq_s:.3f} proofs/s); peak device memory "
-        f"{peak / 2**30:.2f} GiB (estimate {estimate / 2**30:.2f} GiB; {fits} "
-        "such proofs fit it)")
+        f"{peak / 2**30:.2f} GiB (estimate {estimate / 2**30:.2f} GiB; batches "
+        f"of up to {fits})")
     # the sequential proves above were the comparison: they do not count
     reset_counts(torch, wraps)
-    for name, mod in wraps.items():
-        mod.launches.count = proving[name]
     lig.timer.reset()
     t0 = time.perf_counter()
     verdicts = lig.verify_batch(batch, sponge)
     torch.cuda.synchronize()
     vbatch_s = time.perf_counter() - t0
     vpeak = torch.cuda.max_memory_allocated()
-    launches = read_counts(wraps, f"{tag}batch")
+    launches = read_counts(wraps, f"{tag}batch", earlier=proving)
     log(f"  {tag}verify_batch v.ntt_cols "
         f"{lig.timer.totals.get('v.ntt_cols', 0.0) * 1e3:10.1f} ms")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    one_by_one = [lig.verify(p, sponge.clone()) for p in batch]
-    torch.cuda.synchronize()
-    vseq_s = time.perf_counter() - t0
-    log(f"{tag}verify_batch of {len(batch)}: {verdicts} in {vbatch_s:.3f} s "
-        f"against {vseq_s:.3f} s sequential; peak device memory "
-        f"{vpeak / 2**30:.2f} GiB")
+    log(f"{tag}verify_batch of {len(batch)}: {verdicts} in {vbatch_s:.3f} s; "
+        f"peak device memory {vpeak / 2**30:.2f} GiB")
     require(verdicts == [True, True, False, False, False],
             f"verify_batch verdicts {verdicts}")
-    require(verdicts == one_by_one, "verify_batch differs from sequential "
-            f"verify calls: {one_by_one}")
     return launches
 
 
@@ -907,7 +923,7 @@ def phase_serve(torch, field) -> dict:
             out = json.loads(res.stdout.strip().splitlines()[-1])
             log(f"CLI {verb}: {out} ({time.perf_counter() - t0:.1f} s with "
                 "the interpreter's start)")
-            require(out.get("device", "cuda").startswith("cuda"),
+            require(out["device"].startswith("cuda"),
                     "the CLI did not run on the card")
         require(out["verified"] is True, "CLI verify rejected the proof")
         with open(proof_path, "rb") as f:
@@ -976,7 +992,7 @@ def main() -> int:
          # no single PyTorch call computes any of these functions
          "library_ms": None,
          **{key: results[name][key]
-            for key in ("chain_floor_ms", "batched", "forest")
+            for key in ("chain_floor_ms", "batched", "batched_full", "forest")
             if key in results[name]}}
         for name, (_, src, rep) in KERNELS.items()]}
     print(smi, flush=True)

@@ -138,7 +138,8 @@ def cmd_verify(args) -> int:
         return 1
     ok = lig.verify(proof, test_sponge(field))
     print(json.dumps({"verified": bool(ok),
-                      "verify_s": round(time.time() - t0, 3)}))
+                      "verify_s": round(time.time() - t0, 3),
+                      "device": str(lig.device)}))
     return 0 if ok else 1
 
 

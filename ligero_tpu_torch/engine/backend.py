@@ -17,9 +17,7 @@ tensor.  An instance too large for the device's memory raises
 
 The ``*_batch`` methods serve ``LigeroCircuit.prove_batch`` and
 ``verify_batch``: B proofs of one circuit share one launch per bulk step
-(:meth:`TorchBackend.max_batch` says how many fit the device).  The
-verifier's codewords at the opened columns come from the spot route
-(``spot.spot_eval``), which never builds the (4m, n, L) transform.
+(:meth:`TorchBackend.max_batch` says how many go together).
 """
 
 from __future__ import annotations
@@ -29,11 +27,15 @@ import torch
 
 from ..fields import FieldSpec
 from . import (cuda_hash, cuda_lc, cuda_mont, cuda_ntt, cuda_tree, devsampler,
-               fieldops, hashops, spot)
+               fieldops, hashops)
 
 #: on the whole estimate of :meth:`TorchBackend.direct_bytes`: twiddle and
 #: twist tables, the tree, index vectors and the allocator's rounding
 ESTIMATE_MARGIN = 1.03
+#: most proofs that go through the bulk steps together.  The host work is
+#: per proof and every proof adds its codeword matrix to the live set, so a
+#: larger batch costs memory and has shown no gain (PERF.md, Findings).
+MAX_BATCH = 3
 
 
 class DeviceMemoryError(RuntimeError):
@@ -186,20 +188,15 @@ class TorchBackend:
                 "streaming modes are not ported yet")
 
     def max_batch(self, rows: int, k: int, n: int, nnz: int,
-                  blind_t: int = 0, d2: int | None = None,
-                  limit: int = 1 << 16) -> int:
-        """The largest number of proofs (at most ``limit``) whose joint live
-        set (:meth:`direct_bytes`) fits the device; below 2 the caller
-        proves one at a time."""
+                  blind_t: int = 0, d2: int | None = None) -> int:
+        """The largest number of proofs, at most :data:`MAX_BATCH`, whose
+        joint live set (:meth:`direct_bytes`) fits the device; 0 where not
+        even one fits."""
         budget = self.memory_budget()
-        lo, hi = 0, limit
-        while lo < hi:                   # the estimate grows with the batch
-            mid = (lo + hi + 1) // 2
-            if self.direct_bytes(rows, k, n, nnz, blind_t, d2, mid) <= budget:
-                lo = mid
-            else:
-                hi = mid - 1
-        return lo
+        for batch in range(MAX_BATCH, 0, -1):
+            if self.direct_bytes(rows, k, n, nnz, blind_t, d2, batch) <= budget:
+                return batch
+        return 0
 
     # ------------------------------------------------------------------
     # transforms
@@ -258,21 +255,15 @@ class TorchBackend:
 
     def ntt_columns(self, coeffs, n: int, js) -> torch.Tensor:
         """All rows' n-point NTTs at the columns ``js`` only: (B, k, L) ->
-        (B, len(js), L) Montgomery limbs on the device.  Where
-        :func:`spot.use_spot` admits the shape the values come from the spot
-        evaluation, which never forms the (B, n, L) transform; otherwise
-        from the full transform and a gather.  Bit-equal either way."""
-        coeffs = self.asarray(coeffs)
-        js = np.asarray(js, dtype=np.int64)
-        if spot.use_spot(self.field, n, len(js)):
-            return spot.spot_eval(self.field, coeffs, js, n)
-        idx = torch.from_numpy(js).to(self.device)
+        (B, len(js), L) Montgomery limbs on the device: the full transform
+        and a gather."""
+        idx = torch.from_numpy(np.asarray(js, dtype=np.int64)).to(self.device)
         return self.ntt(coeffs, n).index_select(1, idx)
 
     def ntt_columns_batch(self, coeffs_b, n: int, idx) -> torch.Tensor:
         """Per-proof :meth:`ntt_columns`: B coefficient blocks (rows, w, L)
-        and ``idx`` (B, t) -> (B, rows, t, L).  Every proof has its own
-        columns, hence its own weights, so the proofs go one by one."""
+        and ``idx`` (B, t) -> (B, rows, t, L).  The proofs go one by one,
+        so that one (rows, n, L) transform is live at a time."""
         return torch.stack([self.ntt_columns(c, n, j)
                             for c, j in zip(coeffs_b, idx)])
 

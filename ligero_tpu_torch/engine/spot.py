@@ -1,8 +1,8 @@
 """Spot-column codeword evaluation: U[:, js] = coeffs x W(js).
 
 The counterpart of ``ligero_tpu/engine/mxu_spot.py``.  The verifier needs
-the 4m r_i codewords only at the t ~ 156 opened columns, so instead of all
-n points of every row it evaluates
+the 4m r_i codewords only at the t ~ 156 opened columns; instead of all
+n points of every row this module evaluates
 
     u[row, j] = sum_c coeffs[row, c] * omega_n^(c * js[j])
 
@@ -25,6 +25,12 @@ representative the NTT route emits, and V R^-2 the canonical one
 
 :func:`spot_ref` (the full transform, then a gather) is the plain version
 the tests and ``chip_smoke.py`` hold :func:`spot_eval` against.
+
+``TorchBackend.ntt_columns`` does not call this module: on an H100 the
+~1,200 small launches around the products make it slower than the NTT
+kernel and a gather at every shape measured (PERF.md, Findings), at a
+quarter of the transients.  It becomes the verifier's route once the limb
+split, the regroup and the fold are one kernel each.
 """
 
 from __future__ import annotations
@@ -47,9 +53,6 @@ K_MAX = 2048
 assert L7 * K_MAX * MASK7 ** 2 < 1 << 31
 #: 16-bit limbs of a chunk's integer: 2 * L7 - 1 columns of 31 bits, 7 apart
 _WIDE = (7 * (2 * L7 - 2) + 31) // 16 + 1
-#: most columns the spot route takes (beyond, the full transform is cheaper)
-T_MAX = 4096
-
 _TABLES: dict = {}
 
 
@@ -57,12 +60,6 @@ def spot_ok(field: FieldSpec, n: int) -> bool:
     """16 x 16-bit-limb fields only (the 7-bit split is laid out for them);
     n a power of two (exponents reduce with ``& (n - 1)``)."""
     return field.num_limbs == 16 and n > 0 and n & (n - 1) == 0
-
-
-def use_spot(field: FieldSpec, n: int, t: int) -> bool:
-    """The route of ``TorchBackend.ntt_columns``: spot evaluation for up to
-    :data:`T_MAX` columns where :func:`spot_ok`, the full NTT otherwise."""
-    return 0 < t <= T_MAX and spot_ok(field, n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -212,13 +209,12 @@ def rows_per_block(rows: int, k: int, t: int, device) -> int:
 
 
 def spot_eval(field: FieldSpec, coeffs: torch.Tensor, js, n: int,
-              canon_out: bool = False,
-              block_rows: int | None = None) -> torch.Tensor:
+              canon_out: bool = False) -> torch.Tensor:
     """(rows, k, L) Montgomery coefficient rows (k <= n, zero-extended) x
     column indices ``js`` (t,) -> (rows, t, L) int32 evaluations
     u[row, j] = sum_c coeffs[row, c] omega_n^(c js[j]): Montgomery form,
-    bit-equal to the NTT route's, or canonical with ``canon_out``.
-    ``block_rows`` overrides :func:`rows_per_block` (tests)."""
+    bit-equal to the NTT route's, or canonical with ``canon_out``.  The rows
+    go in blocks of :func:`rows_per_block`."""
     if not spot_ok(field, n):
         raise ValueError(f"spot_eval: {field.name}, n = {n} is not a shape "
                          "of the spot route")
@@ -237,7 +233,7 @@ def spot_eval(field: FieldSpec, coeffs: torch.Tensor, js, n: int,
     if int(js.min()) < 0 or int(js.max()) >= n:
         raise ValueError("spot_eval: a column index lies outside [0, n)")
     w7 = spot_weights(field, js, k, n)
-    step = block_rows or rows_per_block(rows, k, t, dev)
+    step = rows_per_block(rows, k, t, dev)
     for r0 in range(0, rows, step):
         blk = coeffs[r0:r0 + step]
         total = None

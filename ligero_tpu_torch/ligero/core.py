@@ -139,9 +139,9 @@ class LigeroCircuit:
         shared.  Each proof gets its own clone of ``sponge``, and the
         proofs are byte-identical to B ``prove(a, sponge.clone())`` calls
         (under zk: with ``zk_seed=zk_seeds[i]``; fresh seeds when None).
-        A batch larger than the device holds (``TorchBackend.max_batch``)
-        is proved in parts; where not even two proofs fit together, one at
-        a time."""
+        A batch larger than ``TorchBackend.max_batch`` allows is proved in
+        parts; where not even two proofs fit the device together, one at a
+        time."""
         if not assignments:
             return []
         if not self.zk:
@@ -153,7 +153,7 @@ class LigeroCircuit:
             raise ValueError("prove_batch: one zk seed per witness")
         bumped = [[(self.state.bump_index(i), v) for i, v in a]
                   for a in assignments]
-        part = self._max_batch(len(bumped))
+        part = self._max_batch()
         out: list[LigeroProof] = []
         for i in range(0, len(bumped), part):
             group = bumped[i:i + part]
@@ -161,13 +161,11 @@ class LigeroCircuit:
                                         zk_seeds[i:i + part]))
         return out
 
-    def _max_batch(self, limit: int) -> int:
-        """Proofs of this instance that fit the device together (at most
-        ``limit``; 1 where two do not fit)."""
-        fits = self.backend.max_batch(self.num_rows, self.k, self.n,
-                                      len(self.state.a_vals), self.blind_t,
-                                      self.d2, limit=limit)
-        return fits if fits >= 2 else 1
+    def _max_batch(self) -> int:
+        """Proofs of this instance that go through the device together."""
+        return max(1, self.backend.max_batch(
+            self.num_rows, self.k, self.n, len(self.state.a_vals),
+            self.blind_t, self.d2))
 
     def _prove_inner(self, var_assignment, sponge,
                      zk_seed: bytes | None = None) -> LigeroProof:
@@ -391,7 +389,7 @@ class LigeroCircuit:
         (``TorchBackend.ntt_columns_batch``)."""
         if len(proofs) <= 1:
             return [self.verify(p, sponge.clone()) for p in proofs]
-        part = max(2, self._max_batch(len(proofs)))
+        part = max(2, self._max_batch())
         out: list[bool] = []
         for i in range(0, len(proofs), part):
             out.extend(self._verify_many(proofs[i:i + part], sponge))
@@ -457,9 +455,9 @@ class LigeroCircuit:
 
     def warmup(self) -> dict:
         """Everything a first request would otherwise pay for: the kernel
-        library (built where the sources changed), A's one-time upload,
-        the transforms' tables and the spot route's power table, by one
-        throwaway prove and verify of the all-ones witness.  That witness
+        library (built where the sources changed), A's one-time upload and
+        the transforms' tables, by one throwaway prove and verify of the
+        all-ones witness.  That witness
         satisfies only the interleaved test, so the linear phase's
         ``ntt_columns`` shape, which the failing checks cut short, runs
         on its own.  Returns the two times."""

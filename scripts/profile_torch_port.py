@@ -19,8 +19,8 @@ profiled wall overstates idleness; the share against the unprofiled wall
 pairs a busy time and a wall from different calls.  Both are printed.
 
 The verifier is profiled twice: as it runs (its r_i codewords at the opened
-columns from the spot evaluation) and with the spot route switched off (the
-full NTT_n, then a gather), each with its own peak device memory.  With
+columns from the full NTT_n and a gather) and with ``engine/spot.py``'s spot
+evaluation in that step's place, each with its own peak device memory.  With
 ``--batch B`` the same measurements are taken of ``prove_batch`` over B
 copies of the witness (under zk: B different seeds) and of ``verify_batch``
 over the B proofs, with proofs per second beside the single calls'.
@@ -187,13 +187,14 @@ def main() -> int:
     record["peak_device_memory_gib"] = (
         max(record[call]["peak_device_memory_gib"]
             for call in ("prove", "verify")) if device.type == "cuda" else None)
-    # the same verify with the spot route off: the full NTT_n, then a gather
-    use_spot, spot.use_spot = spot.use_spot, lambda field, n, t: False
+    # the same verify with the spot evaluation as its ntt_columns
+    lig.backend.ntt_columns = lambda coeffs, n, js: spot.spot_eval(
+        lig.field, lig.backend.asarray(coeffs), js, n)
     try:
-        record["verify_ntt_route"] = profile_call(
+        record["verify_spot_eval"] = profile_call(
             torch, device, lig, lambda: lig.verify(proof, sponge.clone()))
     finally:
-        spot.use_spot = use_spot
+        del lig.backend.ntt_columns
     if args.batch:
         B = args.batch
         seeds = [bytes([i]) * 32 for i in range(B)] if args.zk else None

@@ -12,7 +12,8 @@ from ligero_tpu.ligero import LigeroCircuit as RefCircuit
 from ligero_tpu.sampling import rand_field_elements_limbs
 from ligero_tpu.synthetic import generate_random_circuit
 from ligero_tpu_torch import convert
-from ligero_tpu_torch.engine.backend import DeviceMemoryError, TorchBackend
+from ligero_tpu_torch.engine.backend import (MAX_BATCH, DeviceMemoryError,
+                                             TorchBackend)
 from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
 
 # the suite runs in several worker processes that share the host's cores, and
@@ -143,15 +144,14 @@ def test_direct_estimate_is_not_below_the_recorded_peaks():
 def test_max_batch_follows_the_budget(monkeypatch):
     be = TorchBackend(pf(F), "cpu")
     shape = (4100, 2048, 16384, 9_443_331)
-    for budget_gib, want in ((8, 0), (12, 1), (80, None)):
+    for budget_gib, want in ((8, 0), (12, 1), (20, 2), (80, MAX_BATCH)):
         monkeypatch.setattr(be, "memory_budget", lambda: budget_gib << 30)
         got = be.max_batch(*shape)
-        if want is not None:
-            assert got == want
+        assert got == want
         assert be.direct_bytes(*shape, batch=max(got, 1)) <= (
             budget_gib << 30) or got == 0
-        assert be.direct_bytes(*shape, batch=got + 1) > budget_gib << 30
-    assert be.max_batch(*shape, limit=3) == 3
+        assert (got == MAX_BATCH
+                or be.direct_bytes(*shape, batch=got + 1) > budget_gib << 30)
     # every further proof costs at least its U and its coefficients
     step = be.direct_bytes(*shape, batch=3) - be.direct_bytes(*shape, batch=2)
     assert step >= 4100 * (16384 + 2048) * 64

@@ -92,7 +92,8 @@ def test_prove_batch_of_one_and_of_none(proved):
 
 def test_prove_batch_in_parts_through_the_budget(proved, monkeypatch):
     """A budget that holds two proofs: parts of 2, 2 and 1, same bytes; one
-    that holds a single proof: one at a time."""
+    that holds a single proof: one at a time; one that holds them all: parts
+    of ``MAX_BATCH`` at most."""
     zk, _, port, witnesses, port_seq, _ = proved
     be = port.backend
     shape = (port.num_rows, port.k, port.n, len(port.state.a_vals),
@@ -106,7 +107,8 @@ def test_prove_batch_in_parts_through_the_budget(proved, monkeypatch):
 
     monkeypatch.setattr(port, "_prove_many", recorded)
     for budget, want in ((be.direct_bytes(*shape, batch=2), [2, 2, 1]),
-                         (be.direct_bytes(*shape, batch=1), [1] * 5)):
+                         (be.direct_bytes(*shape, batch=1), [1] * 5),
+                         (be.direct_bytes(*shape, batch=5), [3, 2])):
         monkeypatch.setattr(be, "memory_budget", lambda: budget)
         assert be.max_batch(*shape) == want[0]
         sizes.clear()

@@ -92,11 +92,14 @@ def test_spot_eval_dense_operands_at_the_accumulation_bound():
     (3, 8, 16, 16, None),      # every column of a small domain
     (1, 1, 2, 1, None),
 ])
-def test_spot_eval_odd_shapes_and_row_blocks(rows, k, n, t, block):
+def test_spot_eval_odd_shapes_and_row_blocks(rows, k, n, t, block,
+                                             monkeypatch):
+    if block:
+        monkeypatch.setattr(spot, "rows_per_block", lambda *a: block)
     coeffs = rand_coeffs(23, rows, k)
     js = np.random.default_rng(24).choice(n, size=t, replace=False)
     for canon in (False, True):
-        got = spot.spot_eval(PF, tensor(coeffs), js, n, canon, block_rows=block)
+        got = spot.spot_eval(PF, tensor(coeffs), js, n, canon)
         assert np.array_equal(bits(got),
                               mxu_spot_numpy(F, coeffs, js, n, canon_out=canon))
 
@@ -135,9 +138,7 @@ def test_spot_eval_rejects_what_it_does_not_handle():
 def test_route_gate():
     assert spot.spot_ok(PF, 4096) and not spot.spot_ok(PF, 4095)
     assert not spot.spot_ok(PORT_FIELDS[BLS12_377_FQ.name], 4096)
-    assert spot.use_spot(PF, 4096, 1) and spot.use_spot(PF, 4096, spot.T_MAX)
-    assert not spot.use_spot(PF, 4096, 0)
-    assert not spot.use_spot(PF, 8192, spot.T_MAX + 1)
+    assert spot.spot_ok(PF, 1) and not spot.spot_ok(PF, 0)
     assert spot.rows_per_block(4100, 2048, 156, "cpu") == 4100
     assert spot.chunk_bytes_per_row(4096, 156) == spot.chunk_bytes_per_row(
         2048, 156) > spot.chunk_bytes_per_row(64, 156)
@@ -155,21 +156,19 @@ def count_calls(monkeypatch):
     return calls
 
 
-def test_ntt_columns_takes_the_spot_route_and_matches_backend(monkeypatch):
-    calls = count_calls(monkeypatch)
+def test_ntt_columns_takes_the_ntt_route_and_matches_spot_and_backend(
+        monkeypatch):
+    """The verifier's path is the full transform and a gather; the spot
+    evaluation gives the same limbs and is not called."""
     be, ref = TorchBackend(PF, "cpu"), Backend(F)
     coeffs, n = rand_coeffs(37, 5, 32), 256
     js = np.asarray([1, 2, 40, n - 2])
+    want = spot.spot_eval(PF, tensor(coeffs), js, n)
+    calls = count_calls(monkeypatch)
     got = be.ntt_columns(coeffs, n, js)
-    assert len(calls) == 1
+    assert not calls
+    assert torch.equal(got, want)
     assert np.array_equal(be.to_numpy(got), ref.ntt_columns(coeffs, n, js))
-    # beyond T_MAX columns the full transform is taken, with the same values
-    n = 2 * spot.T_MAX
-    js = np.arange(spot.T_MAX + 1)
-    one = rand_coeffs(38, 1, 4)
-    got = be.ntt_columns(one, n, js)
-    assert len(calls) == 1
-    assert torch.equal(got, spot.spot_ref(PF, tensor(one), js, n))
 
 
 def test_ntt_columns_of_a_24_limb_field_takes_the_ntt_route(monkeypatch):
@@ -211,22 +210,22 @@ def test_spot_eval_on_the_card_matches_cpu(cuda, rows, k, n, t):
         want = spot.spot_eval(PF, tensor(coeffs), js, n, canon)
         got = spot.spot_eval(PF, tensor(coeffs, cuda), js, n, canon)
         assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
-        blocked = spot.spot_eval(PF, tensor(coeffs, cuda), js, n, canon,
-                                 block_rows=7)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(spot, "rows_per_block", lambda *a: 7)
+            blocked = spot.spot_eval(PF, tensor(coeffs, cuda), js, n, canon)
         assert torch.equal(blocked.cpu(), want)
 
 
 @pytest.mark.cuda
-def test_ntt_columns_on_the_card_never_builds_the_transform(cuda):
-    """The spot route's peak stays far below the (rows, n, L) transform."""
-    be = TorchBackend(PF, cuda)
+def test_spot_eval_on_the_card_never_builds_the_transform(cuda):
+    """Its peak stays far below the (rows, n, L) transform."""
     rows, k, n = 64, 256, 65536
-    coeffs = be.asarray(rand_coeffs(53, rows, k))
+    coeffs = tensor(rand_coeffs(53, rows, k), cuda)
     js = np.random.default_rng(54).choice(n, size=156, replace=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    got = be.ntt_columns(coeffs, n, js)
+    got = spot.spot_eval(PF, coeffs, js, n)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < rows * n * 64 // 4
     assert torch.equal(got, spot.spot_ref(PF, coeffs, js, n))
