@@ -6,7 +6,8 @@
 It runs every phase, in order; any failure exits non-zero:
 
 1. device   -- require CUDA; print the card's nvidia-smi name and power limit.
-2. build    -- build the kernels of ``ligero_tpu_torch/csrc`` with nvcc.
+2. build    -- build the kernels of ``ligero_tpu_torch/csrc`` with nvcc (both
+               fields' instantiations; ptxas's register and spill lines).
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the 2^20-gate shapes of both paths (plain and zk); bit-equal
                (tolerance 0: exact integer arithmetic), both times printed,
@@ -14,28 +15,33 @@ It runs every phase, in order; any failure exits non-zero:
                (bytes over the memory rate, or integer operations over the
                instruction rate) beside them.  Then the NTT at the edges of
                every route (one pass, cosets, two passes; each with inverse
-               and canon_out on and off, the route printed), the tree at
-               the sizes around its 64-node groups and 100 times on one
-               input, and the tree's chain floor from a timed chain of
-               dependent hashes.  Then the serving path's pieces: the
-               batched Blake2s and row_combine launches (B = 3) against
-               their per-proof plain versions, three trees on one stream;
-               and the spot evaluation (``engine/spot.py``, which the
-               verifier does not call yet) against the NTT kernel and its
-               plain version.
+               and canon_out on and off, the route printed) and the
+               full-width commit kernels.  For BN254 Fr: the tree at the
+               sizes around its 64-node groups and 100 times on one input,
+               the tree's chain floor from a timed chain of dependent
+               hashes; the serving path's pieces: the batched Blake2s and
+               row_combine launches (B = 3) against their per-proof plain
+               versions, three trees on one stream; and the spot evaluation
+               (``engine/spot.py``, which the verifier does not call yet)
+               against the NTT kernel and its plain version.  The same
+               kernel cases run again for BLS12-377 Fq at its instance's
+               shapes, with Blake2s at row counts of every residue mod 4.
 4. parity   -- port proofs on the card byte-equal to the port's proofs on
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
-               x^3, 2^8 and 2^10 gates, and 2^8 and 2^10 gates with zk.
+               x^3, 2^8 and 2^10 gates, and 2^8 and 2^10 gates with zk, over
+               BN254 Fr; 2^8 and 2^10 gates, plain and zk, over BLS12-377.
 5. main     -- the 2^20-gate synthetic circuit through ``LigeroCircuit``'s
                ``prove`` and ``verify``, first plain, then with ``zk=True``:
                verify True, tampered witness and flipped byte rejected,
                every kernel launched on each path; plain: a second proof,
-               byte-identical.  After each: the batch path at the same size
-               (B = 3 plain, B = 2 zk): ``prove_batch`` byte-equal to
-               sequential ``prove`` calls with their walls, ``verify_batch``
-               over honest, tampered, flipped and truncated proofs, and the
-               peak device memory.
+               byte-identical.  Then the batch path at 2^18 gates (B = 3
+               plain, B = 2 zk): ``prove_batch`` byte-equal to sequential
+               ``prove`` calls with their walls, ``verify_batch`` over
+               honest, tampered, flipped and truncated proofs, and the peak
+               device memory.  Then the 2^20-gate circuit over BLS12-377
+               Fq: plain (and a batch of 2, honest and tampered, against
+               sequential proves) and zk.
 6. serve    -- a repeated-squaring ``.r1cs`` (2^14 squarings) and its
                witness written here; the port's HTTP service in a thread on
                an ephemeral port with no device named (it must take the
@@ -43,9 +49,12 @@ It runs every phase, in order; any failure exits non-zero:
                witnesses), /verify (one and a batch with a corrupted
                proof); then ``python -m ligero_tpu_torch prove`` and
                ``verify`` as subprocesses on the same files, proof bytes
-               equal to the service's.
+               equal to the service's.  Then a BLS12-377 service in a
+               thread: /circuits, /prove, /verify on a 2^10-squarings
+               ``.r1cs`` over that field.
 
-The last two stdout lines are the kernels' JSON record and
+The last two stdout lines are the kernels' JSON record (BN254 Fr's numbers
+in each entry, BLS12-377 Fq's under its ``bls12_377_fq`` key) and
 ``{"ok": true, "device": {...}}``.  Neither JAX nor the JAX package
 ``ligero_tpu`` is ever imported.
 """
@@ -70,21 +79,24 @@ sys.modules["jax"] = None
 sys.modules["ligero_tpu"] = None
 
 LOG2_GATES, SEED = 20, 0  # BASELINE.json config #5, the repo's headline size
+# BN254's batch phases run a smaller instance of the same circuit, to keep
+# the run well inside its time limit; their batched launches are held
+# against the plain versions at the 2^20 shapes in the kernels phase
+BATCH_LOG2_GATES = 18
 ZK_SEED = bytes(range(32))
 # NVIDIA H100 SXM data sheet: device memory rate; 32-bit integer rate taken
 # as a quarter of the 67 TFLOP/s float32 figure (that one counts two
 # operations per FMA on 128 lanes per SM; integer has 64 lanes, one each)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.75e12
-# 32-bit integer operations: one 8-word CIOS Montgomery product (64 products
-# and 64 reduction multiply-adds with their carries); one Blake2s block
-# (10 rounds x 8 G x 14 operations, plus state set-up); one SHA-256
-# two-to-one (128 rounds x ~24, plus 48 schedule words x 13)
-MONT_MUL_OPS, BLAKE2S_BLOCK_OPS, SHA256_NODE_OPS = 160, 1160, 3700
-ELEM = 64  # bytes of one field element as 16 int32 limbs
+# 32-bit integer operations: one Blake2s block (10 rounds x 8 G x 14
+# operations, plus state set-up); one SHA-256 two-to-one (128 rounds x ~24,
+# plus 48 schedule words x 13).  A Montgomery product: mont_mul_ops.
+BLAKE2S_BLOCK_OPS, SHA256_NODE_OPS = 1160, 3700
 INT8_OPS_PER_S = 1.979e15  # the data sheet's dense int8 tensor-core rate
 BATCH, ZK_BATCH = 3, 2     # proofs a batch on the plain and the zk path
 LOG2_SQUARINGS = 14        # the serve phase's repeated-squaring circuit
+BLS_LOG2_SQUARINGS = 10    # the BLS12-377 service's circuit
 KERNELS = {
     # name: (wrapper module, source, TPU kernel replaced)
     "ntt": ("cuda_ntt", "ligero_tpu_torch/csrc/ntt.cu",
@@ -98,6 +110,26 @@ KERNELS = {
     "sha256_tree": ("cuda_tree", "ligero_tpu_torch/csrc/sha256_tree.cu",
                     "ligero_tpu/engine/pallas_tree.py:77"),
 }
+
+
+#: the TPU kernel each BLS12-377 instantiation replaces, where it differs:
+#: the JAX package runs every BLS12-377 transform through pallas_ntt
+BLS_REPLACES = {"ntt": "ligero_tpu/engine/pallas_ntt.py:69"}
+
+
+def elem_bytes(field) -> int:
+    """Bytes of one element at the boundary: L int32 limbs (64 or 96)."""
+    return 4 * field.num_limbs
+
+
+def mont_mul_ops(field) -> int:
+    """32-bit integer operations of one W-word CIOS Montgomery product: W^2
+    word products and W^2 reduction multiply-adds, each with its carry
+    (2 W^2), plus ~4 W for the quotient digits, the final add and the
+    conditional subtraction: 160 for BN254 (W = 8), 336 for BLS12-377
+    (W = 12), 2.1 times as many."""
+    W = field.num_limbs // 2
+    return 2 * W * W + 4 * W
 
 
 class SmokeFailure(RuntimeError):
@@ -137,11 +169,12 @@ def wrappers():
 
 def _rand_elems(torch, gen, shape, field, below_r=False):
     """Random limbs < 2^16: below R, or reduced below p (top limb cut)."""
-    limbs = torch.randint(0, 1 << 16, tuple(shape) + (16,), generator=gen,
+    L = field.num_limbs
+    limbs = torch.randint(0, 1 << 16, tuple(shape) + (L,), generator=gen,
                           dtype=torch.int32, device="cuda")
     if not below_r:
-        top = field.p >> (16 * 15)
-        limbs[..., 15] = torch.remainder(limbs[..., 15], top)
+        top = field.p >> (16 * (L - 1))
+        limbs[..., L - 1] = torch.remainder(limbs[..., L - 1], top)
     return limbs
 
 
@@ -173,40 +206,48 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def ntt_work(rows: int, w: int, n: int, epilogue: bool):
+def ntt_work(field, rows: int, w: int, n: int, epilogue: bool):
     """Bytes and operations of a batched NTT: w-wide rows and the twiddles
     in, n-wide rows out; n/2 log2 n butterflies a row, one product each."""
     products = rows * ((n // 2) * (n.bit_length() - 1) + (n if epilogue else 0))
-    return (rows * (w + n) * ELEM + (n // 2) * ELEM // 2,
-            products * MONT_MUL_OPS)
+    elem = elem_bytes(field)
+    return (rows * (w + n) * elem + (n // 2) * elem // 2,
+            products * mont_mul_ops(field))
 
 
-def blake2s_work(rows: int, cols: int):
-    blocks = -(-(8 + 32 * rows) // 64)
-    return rows * cols * ELEM + cols * 32, cols * blocks * BLAKE2S_BLOCK_OPS
+def blake2s_work(field, rows: int, cols: int):
+    """Bytes and operations of the column hash: 2 L-byte canonical elements
+    a block of 64 message bytes after the 8-byte prefix."""
+    blocks = -(-(8 + 2 * field.num_limbs * rows) // 64)
+    return (rows * cols * elem_bytes(field) + cols * 32,
+            cols * blocks * BLAKE2S_BLOCK_OPS)
 
 
-def row_combine_work(rows: int, k: int):
-    return (rows * k + rows + k) * ELEM, rows * k * (MONT_MUL_OPS + 10)
+def row_combine_work(field, rows: int, k: int):
+    """A product and a modular add (W adds and a compare-select, ~W + 2
+    operations) a term."""
+    W = field.num_limbs // 2
+    return ((rows * k + rows + k) * elem_bytes(field),
+            rows * k * (mont_mul_ops(field) + W + 2))
 
 
 def tree_work(n: int):
     return n * 32 + (2 * n - 1) * 32, (n - 1) * SHA256_NODE_OPS
 
 
-def phase_kernels(torch, field, dims, zk_dims) -> dict:
+def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
     """Each kernel on the card vs its plain version, same inputs, at the
-    shapes of both main paths (dims = m, k, n, nnz of A; zk_dims = b, d2).
-    Returns per-kernel results; the first case of a kernel gives its
-    reported times and bound."""
+    shapes of both main paths of ``field`` (dims = m, k, n, nnz of A, t;
+    zk_dims = b, d2), then the NTT at its route edges and the full-width
+    commit kernels.  Returns per-kernel results; the first case of a kernel
+    gives its reported times and bound."""
     from ligero_tpu_torch.engine import (cuda_hash, cuda_lc, cuda_mont,
                                          cuda_ntt, cuda_tree, fieldops,
                                          hashops, ntt)
     m, k, n, nnz, t = dims
     b, d2 = zk_dims
     rows, kb = 4 * m, k + b
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(20)
+    elem = elem_bytes(field)
     mm = lambda a, b: cuda_mont.mont_mul(field, a, b)  # noqa: E731
 
     def elems(*shape, below_r=False):
@@ -226,7 +267,7 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
                 elems(batch, w),
                 lambda x: cuda_ntt.ntt(field, x, size, inverse, canon),
                 lambda x: ntt.ntt_ref(field, x, size, inverse, canon),
-                ntt_work(batch, w, size, inverse or canon))
+                ntt_work(field, batch, w, size, inverse or canon))
 
     cases = [
         # (kernel, label, input maker, kernel call, plain call, (bytes, ops))
@@ -244,20 +285,20 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
         ("mont_mul", f"mont_mul a<R x b<p, nnz={nnz}",
          pair(elems(nnz, below_r=True), elems(nnz)),
          lambda ab: mm(*ab), lambda ab: fieldops.mont_mul(field, *ab),
-         (3 * nnz * ELEM, nnz * MONT_MUL_OPS)),
+         (3 * nnz * elem, nnz * mont_mul_ops(field))),
         ("blake2s_cols", f"Blake2s columns {rows} x 1024", elems(rows, 1024),
          cuda_hash.blake2s_columns, hashops.blake2s_columns_ref,
-         blake2s_work(rows, 1024)),
+         blake2s_work(field, rows, 1024)),
         ("row_combine", f"row_combine {rows} x {k}",
          pair(elems(rows), elems(rows, k)),
          lambda rm: cuda_lc.row_combine(field, *rm),
          lambda rm: cuda_lc.row_combine_ref(field, *rm),
-         row_combine_work(rows, k)),
+         row_combine_work(field, rows, k)),
         ("row_combine", f"zk row_combine {rows} x {kb}",
          pair(elems(rows), elems(rows, kb)),
          lambda rm: cuda_lc.row_combine(field, *rm),
          lambda rm: cuda_lc.row_combine_ref(field, *rm),
-         row_combine_work(rows, kb)),
+         row_combine_work(field, rows, kb)),
         ("sha256_tree", f"SHA-256 tree n={n}", leaves(n),
          cuda_tree.tree_flat, hashops.tree_flat, tree_work(n)),
     ]
@@ -272,8 +313,9 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         ms = _time_cuda(torch, lambda: kern(inp), iters=5)
         bound_ms, bound_by = bound(*work)
-        log(f"kernel {label}: max_abs_err={err} kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+        log(f"kernel [{field.name}] {label}: max_abs_err={err} kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+            f"{bound_by}")
         require(err == 0, f"{label}: kernel disagrees with its plain version")
         res = results.setdefault(name, {
             "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
@@ -283,27 +325,33 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
         torch.cuda.empty_cache()
     results["ntt"]["max_abs_err"] = max(
         results["ntt"]["max_abs_err"], ntt_route_cases(torch, field, gen))
-    tree_bit_equality(torch, gen)
-    results["sha256_tree"]["chain_floor_ms"] = tree_chain_floor(torch, n)
     # the commit's full-width NTT_n, column hash and tree (all rows, all n
     # columns; zk: 4m + 3 rows from d2-wide coefficients), kernel only
-    for label, nrows, w in (("", rows, k), ("zk ", rows + 3, d2)):
+    for label, key, nrows, w in (("", "", rows, k),
+                                 ("zk ", "zk_", rows + 3, d2)):
         x = _rand_elems(torch, gen, (nrows, w), field)
         ms = _time_cuda(torch, lambda: cuda_ntt.ntt(field, x, n, canon_out=True),
                         iters=3)
-        log(f"kernel {label}NTT_n n={n} canon_out, full {nrows} x {w} -> {n}: "
-            f"{ms:.3f} ms, bound "
-            "%.3f ms by %s" % bound(*ntt_work(nrows, w, n, True)))
+        full = bound(*ntt_work(field, nrows, w, n, True))
+        log(f"kernel [{field.name}] {label}NTT_n n={n} canon_out, full "
+            f"{nrows} x {w} -> {n}: {ms:.3f} ms, bound %.3f ms by %s" % full)
+        results["ntt"][f"{key}full_ms"] = ms
+        results["ntt"][f"{key}full_bound_ms"] = full[0]
         u = cuda_ntt.ntt(field, x, n, canon_out=True)
         del x
         ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u), iters=3)
-        log(f"kernel {label}Blake2s columns, full {nrows} x {n}: {ms:.3f} ms, "
-            "bound %.3f ms by %s" % bound(*blake2s_work(nrows, n)))
+        full = bound(*blake2s_work(field, nrows, n))
+        log(f"kernel [{field.name}] {label}Blake2s columns, full {nrows} x "
+            f"{n}: {ms:.3f} ms, bound %.3f ms by %s" % full)
+        results["blake2s_cols"][f"{key}full_ms"] = ms
+        results["blake2s_cols"][f"{key}full_bound_ms"] = full[0]
         del u
         torch.cuda.empty_cache()
-    batch_kernel_cases(torch, field, gen, results, rows, k, n)
-    spot_cases(torch, field, gen, rows, k, n, t)
-    # context only: the host's hashlib over the same n - 1 two-to-one hashes
+    return results
+
+
+def host_hash_context(n: int) -> None:
+    """Context only: the host's hashlib over n - 1 two-to-one hashes."""
     digests = [os.urandom(32) for _ in range(n)]
     t0 = time.perf_counter()
     while len(digests) > 1:
@@ -311,7 +359,46 @@ def phase_kernels(torch, field, dims, zk_dims) -> dict:
                    for i in range(0, len(digests), 2)]
     log(f"context: host hashlib, {n - 1} SHA-256 two-to-one hashes: "
         f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
-    return results
+
+
+def blake2s_residue_cases(torch, field, gen, results, rows, n) -> None:
+    """The column kernel of a 48-byte field, whose message repeats every 3
+    blocks of 4 rows, at row counts of every residue mod 4, one matrix and
+    three stacked in one launch, against the plain version (the plain
+    version's time is per block: the full depth is the kernels phase's
+    4m-row case, and the zk main path hashes 4m + 3 rows); then three full
+    (4m, n) matrices against three single launches."""
+    from ligero_tpu_torch.engine import cuda_hash, hashops
+    cols = 256
+    for nrows in (100, 101, 102, 103):
+        u = _rand_elems(torch, gen, (BATCH * nrows, cols), field)
+        side = u.reshape(BATCH, nrows, cols, field.num_limbs).permute(
+            1, 0, 2, 3).reshape(nrows, BATCH * cols, field.num_limbs)
+        want = hashops.blake2s_columns_ref(side)
+        ok = (torch.equal(cuda_hash.blake2s_columns(u[:nrows]), want[:cols])
+              and torch.equal(cuda_hash.blake2s_columns(u, BATCH), want))
+        log(f"kernel [{field.name}] Blake2s columns {nrows} rows "
+            f"(= {nrows % 4} mod 4) x {cols}, alone and {BATCH} in one "
+            f"launch: bit-equal to the plain version: {ok}")
+        require(ok, f"Blake2s {nrows} rows: kernel disagrees with its plain "
+                "version")
+        del u, side, want
+    u = _rand_elems(torch, gen, (BATCH * rows, n), field)
+    got = cuda_hash.blake2s_columns(u, BATCH)
+    for i in range(BATCH):
+        require(torch.equal(got[i * n:(i + 1) * n], cuda_hash.blake2s_columns(
+            u[i * rows:(i + 1) * rows])), f"batched Blake2s {BATCH} x {rows} "
+            f"x {n}, matrix {i}: differs from its single launch")
+    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, BATCH), 3)
+    bound_ms, by = bound(*[BATCH * w for w in blake2s_work(field, rows, n)])
+    log(f"kernel [{field.name}] batched Blake2s, full {BATCH} x {rows} x {n}: "
+        f"bit-equal to {BATCH} single launches; {ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms by {by}")
+    results["blake2s_cols"]["batched_full"] = {
+        "shape": f"{BATCH} x {rows} x {n}", "ms": ms, "bound_ms": bound_ms,
+        "bound_by": by}
+    del u, got
+    torch.cuda.empty_cache()
 
 
 def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
@@ -345,7 +432,7 @@ def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
           cuda_hash.blake2s_columns(u[:nrows]), want[:cols])
     ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, B), 5)
     one = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u[:nrows]), 5)
-    bound_ms, by = bound(*[B * w for w in blake2s_work(nrows, cols)])
+    bound_ms, by = bound(*[B * w for w in blake2s_work(field, nrows, cols)])
     log(f"kernel batched Blake2s {B} x {nrows} x {cols} (odd row count): "
         f"max_abs_err=0, and one matrix alone; kernel {ms:.4f} ms (one matrix "
         f"{one:.4f} ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
@@ -362,7 +449,7 @@ def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
               got[i * n:(i + 1) * n],
               cuda_hash.blake2s_columns(u[i * rows:(i + 1) * rows]))
     ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, B), 3)
-    bound_ms, by = bound(*[B * w for w in blake2s_work(rows, n)])
+    bound_ms, by = bound(*[B * w for w in blake2s_work(field, rows, n)])
     log(f"kernel batched Blake2s, full {B} x {rows} x {n}: bit-equal to {B} "
         f"single launches; {ms:.3f} ms, bound {bound_ms:.3f} ms by {by}")
     results["blake2s_cols"]["batched_full"] = {
@@ -378,7 +465,7 @@ def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
     check(f"batched row_combine {B} x {rows} x {k}", got, want)
     ms = _time_cuda(torch, lambda: cuda_lc.row_combine_batch(field, r, mats), 5)
     one = _time_cuda(torch, lambda: cuda_lc.row_combine(field, r[0], mats[0]), 5)
-    bound_ms, by = bound(*[B * w for w in row_combine_work(rows, k)])
+    bound_ms, by = bound(*[B * w for w in row_combine_work(field, rows, k)])
     log(f"kernel batched row_combine {B} x {rows} x {k}: max_abs_err=0 kernel "
         f"{ms:.4f} ms (one {one:.4f} ms), plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.4f} ms by {by}")
@@ -440,7 +527,7 @@ def spot_cases(torch, field, gen, rows, k, n, t) -> None:
         ntt_peak = torch.cuda.max_memory_allocated() - base
         macs = spot.L7 * spot.L7 * nrows * w * t
         by_ops = 2 * macs / INT8_OPS_PER_S * 1e3
-        by_bytes = nrows * (w + t) * ELEM / HBM_BYTES_PER_S * 1e3
+        by_bytes = nrows * (w + t) * elem_bytes(field) / HBM_BYTES_PER_S * 1e3
         log(f"spot {nrows} x {w} at {t} of {n} columns: spot route {ms:.3f} ms "
             f"(transients {spot_peak / 2**30:.2f} GiB), NTT route "
             f"{ntt_ms:.3f} ms (transients {ntt_peak / 2**30:.2f} GiB); bound "
@@ -463,8 +550,9 @@ def ntt_route_cases(torch, field, gen) -> int:
     w = s + 1 and a width that is no power of two at n = 16384 (cosets);
     n = 8192, 65536 and 2^17 (two passes), alone and under cosets; single
     rows, which take two passes at any size.  Small batches, every
-    combination of inverse and canon_out.  Returns the
-    largest absolute difference seen (0 or the run fails)."""
+    combination of inverse and canon_out; BLS12-377 up to n = 16384, the
+    largest transform of its paths.  Returns the largest absolute
+    difference seen (0 or the run fails)."""
     from ligero_tpu_torch.engine import cuda_ntt, ntt
     shapes = [(5, 2, 2), (5, 1, 2), (5, 1024, 1024), (5, 100, 1024),
               (5, 2048, 2048), (5, 1500, 2048), (5, 4096, 4096),
@@ -474,6 +562,8 @@ def ntt_route_cases(torch, field, gen) -> int:
               (1, 40000, 1 << 17),
               # single rows: split in two passes so that they fill the card
               (1, 2048, 2048), (1, 2048, 4096), (1, 4095, 16384)]
+    if field.num_limbs != 16:
+        shapes = [sh for sh in shapes if sh[2] <= 16384]
     worst = 0
     for batch, w, size in shapes:
         x = _rand_elems(torch, gen, (batch, w), field)
@@ -485,7 +575,8 @@ def ntt_route_cases(torch, field, gen) -> int:
                 errs.append(int((got.to(torch.int64)
                                  - want.to(torch.int64)).abs().max()))
         worst = max(worst, *errs)
-        log(f"kernel NTT {batch} x {w} -> {size}, inverse x canon_out: "
+        log(f"kernel [{field.name}] NTT {batch} x {w} -> {size}, inverse x "
+            f"canon_out: "
             f"max_abs_err={max(errs)} [route "
             f"{route_text(cuda_ntt.route(w, size, batch))}]")
         require(max(errs) == 0, f"NTT {batch} x {w} -> {size}: kernel "
@@ -554,33 +645,35 @@ def tree_bit_equality(torch, gen) -> None:
 # phase 4: byte parity: card = CPU = the JAX package's recorded digests
 # ---------------------------------------------------------------------------
 
-def golden_circuit(field, entry):
-    """(circuit, outputs, prove call) of one ``golden_proofs.json`` entry."""
-    from ligero_tpu_torch import ArithmeticCircuit
+def golden_circuit(entry):
+    """(field, circuit, outputs, prove call) of one ``golden_proofs.json``
+    entry (its ``field`` key names the field; BN254 Fr where it has none)."""
+    from ligero_tpu_torch import FIELDS, ArithmeticCircuit
     from ligero_tpu_torch.synthetic import generate_random_circuit
+    field = FIELDS[entry.get("field", "bn254_fr")]
     kw = {"zk_seed": bytes.fromhex(entry["zk_seed"])} if entry["zk"] else {}
     if entry["circuit"] == "cube":
         c = ArithmeticCircuit(field)
         x = c.new_variable_with_label("x")
         c.add(c.pow(x, 3), c.constant(-26))
-        return c, [c.last()], lambda lig, sp: lig.prove_with_labels(
+        return field, c, [c.last()], lambda lig, sp: lig.prove_with_labels(
             [("x", 3)], sp, **kw)
     circ, outs, vars_ = generate_random_circuit(
         field, entry["gates"], num_vars=entry["num_vars"], seed=entry["seed"])
-    return circ, outs, lambda lig, sp: lig.prove(vars_, sp, **kw)
+    return field, circ, outs, lambda lig, sp: lig.prove(vars_, sp, **kw)
 
 
-def phase_parity(field) -> None:
+def phase_parity() -> None:
     from ligero_tpu_torch import LigeroCircuit, test_sponge
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "ligero_tpu_torch", "testdata", "golden_proofs.json")
     with open(path) as f:
         entries = json.load(f)["proofs"]
-    require(len(entries) >= 5, "golden_proofs.json holds too few cases")
-    sponge = test_sponge(field)
+    require(len(entries) >= 9, "golden_proofs.json holds too few cases")
     for entry in entries:
-        circ, outs, prove = golden_circuit(field, entry)
+        field, circ, outs, prove = golden_circuit(entry)
+        sponge = test_sponge(field)
         kw = dict(lambda_=entry["lambda"], zk=entry["zk"])
         on_card = LigeroCircuit(circ, outs, device="cuda", **kw)
         on_cpu = LigeroCircuit(circ, outs, device="cpu", **kw)
@@ -591,7 +684,7 @@ def phase_parity(field) -> None:
                   and hashlib.sha256(data).hexdigest() == entry["sha256"])
         ok_cpu = on_cpu.verify(got, sponge.clone())
         ok_card = on_card.verify(got, sponge.clone())
-        log(f"parity {entry['name']}: card bytes = CPU bytes: {same}, = the "
+        log(f"parity [{field.name}] {entry['name']}: card bytes = CPU bytes: {same}, = the "
             f"JAX package's digest: {golden}, CPU verifies: {ok_cpu}, card "
             f"verifies: {ok_card}")
         require(same and golden and ok_cpu and ok_card,
@@ -628,6 +721,14 @@ def build_instance(circ, outs, zk: bool):
     return lig
 
 
+def instance_dims(lig):
+    """The kernels phase's shapes of a plain instance: (m, k, n, nnz of A,
+    t), and the zk path's (b, d2) at the same size."""
+    return ((lig.m, lig.k, lig.n, len(lig.state.a_vals), lig.t),
+            (3 * lig.t, max(2 * lig.k, 1 << (
+                2 * (lig.k + 3 * lig.t) - 2).bit_length())))
+
+
 def reset_counts(torch, wraps) -> None:
     """Every launch count to 0, just before a path is driven."""
     torch.cuda.synchronize()
@@ -655,6 +756,12 @@ def flip_byte(data: bytes) -> bytes:
     return bytes(flipped)
 
 
+def path_tag(field, zk: bool) -> str:
+    """The prefix of a path's name and log lines: "" / "zk " for BN254 Fr,
+    "bls " / "bls zk " for BLS12-377 Fq."""
+    return ("" if field.num_limbs == 16 else "bls ") + ("zk " if zk else "")
+
+
 def phase_main(torch, field, lig, vars_) -> dict:
     """Drive one main path (plain or zk, as ``lig`` was compiled); returns
     the kernels' launch counts of its first prove + verify."""
@@ -663,7 +770,7 @@ def phase_main(torch, field, lig, vars_) -> dict:
     timer = lig.timer
     sponge = test_sponge(field)
     wraps = wrappers()
-    tag = "zk " if lig.zk else ""
+    tag = path_tag(field, lig.zk)
     kw = {"zk_seed": ZK_SEED} if lig.zk else {}
 
     reset_counts(torch, wraps)
@@ -676,7 +783,7 @@ def phase_main(torch, field, lig, vars_) -> dict:
     t0 = time.perf_counter()
     ok = lig.verify(proof, sponge.clone())
     verify_s = time.perf_counter() - t0
-    launches = read_counts(wraps, f"{tag}main")
+    launches = read_counts(wraps, f"{tag or 'plain '}main")
     verify_phases = dict(timer.totals)
     peak = torch.cuda.max_memory_allocated()
     estimate = lig.backend.direct_bytes(
@@ -697,11 +804,11 @@ def phase_main(torch, field, lig, vars_) -> dict:
         timer.reset()
         t0 = time.perf_counter()
         proof2 = lig.prove(vars_, sponge.clone())
-        log(f"prove #2: {time.perf_counter() - t0:.3f} s")
+        log(f"{tag}prove #2: {time.perf_counter() - t0:.3f} s")
         for name, secs in sorted(timer.totals.items(), key=lambda kv: -kv[1]):
-            log(f"  prove #2 {name:20s} {secs * 1e3:10.1f} ms")
+            log(f"  {tag}prove #2 {name:20s} {secs * 1e3:10.1f} ms")
         require(proof2.to_bytes(field) == data, "two proofs differ")
-        log(f"two proofs byte-identical ({len(data)} bytes)")
+        log(f"{tag}two proofs byte-identical ({len(data)} bytes)")
         del proof2
 
     bad_vars = [(vars_[0][0], (vars_[0][1] + 1) % field.p)] + vars_[1:]
@@ -724,24 +831,27 @@ def phase_main(torch, field, lig, vars_) -> dict:
     return launches
 
 
-def phase_batch(torch, field, lig, vars_) -> dict:
+def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
     """The batch path at the main path's size: ``prove_batch`` of B
     witnesses (plain: honest, one changed input, honest; zk: the honest
-    witness under two seeds) against B sequential ``prove`` calls, byte for
-    byte; ``verify_batch`` over [honest, honest, tampered witness, flipped
-    byte, truncated column list] against the verdicts ``verify`` gives one
-    by one (it gave the first four kinds on the main path).  Returns the
-    launch counts of the batched prove + verify."""
+    witness under two seeds; not ``full``: honest, one changed input)
+    against B sequential ``prove`` calls, byte for byte; ``verify_batch``
+    over [honest, honest, tampered witness, flipped byte, truncated column
+    list] (not ``full``: [honest, tampered witness]) against the verdicts
+    ``verify`` gives one by one (it gave the first four kinds on the main
+    path).  Returns the launch counts of the batched prove + verify."""
     from ligero_tpu_torch import LigeroProof, test_sponge
 
     sponge = test_sponge(field)
     wraps = wrappers()
-    tag = "zk " if lig.zk else ""
+    tag = path_tag(field, lig.zk)
     bad_vars = [(vars_[0][0], (vars_[0][1] + 1) % field.p)] + vars_[1:]
     if lig.zk:
         witnesses, seeds = [vars_] * ZK_BATCH, [ZK_SEED, ZK_SEED[::-1]]
-    else:
+    elif full:
         witnesses, seeds = [vars_, bad_vars, vars_], None
+    else:
+        witnesses, seeds = [vars_, bad_vars], None
     B = len(witnesses)
     fits = lig.backend.max_batch(lig.num_rows, lig.k, lig.n,
                                  len(lig.state.a_vals), lig.blind_t, lig.d2)
@@ -771,11 +881,14 @@ def phase_batch(torch, field, lig, vars_) -> dict:
                 "prove_batch differs from sequential prove calls")
         del sequential
         bad = proofs[1] if not lig.zk else single(0, bad_vars)
-    honest = [proofs[0], proofs[-1]]
-    short = LigeroProof.from_bytes(blobs[0], field)
-    short.linear.columns = short.linear.columns[:-1]
-    batch = honest + [bad, LigeroProof.from_bytes(flip_byte(blobs[0]), field),
-                      short]
+    if full:
+        short = LigeroProof.from_bytes(blobs[0], field)
+        short.linear.columns = short.linear.columns[:-1]
+        batch = [proofs[0], proofs[-1], bad,
+                 LigeroProof.from_bytes(flip_byte(blobs[0]), field), short]
+        expected = [True, True, False, False, False]
+    else:
+        batch, expected = [proofs[0], bad], [True, False]
     estimate = lig.backend.direct_bytes(
         lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t,
         lig.d2, batch=B)
@@ -800,8 +913,7 @@ def phase_batch(torch, field, lig, vars_) -> dict:
         f"{lig.timer.totals.get('v.ntt_cols', 0.0) * 1e3:10.1f} ms")
     log(f"{tag}verify_batch of {len(batch)}: {verdicts} in {vbatch_s:.3f} s; "
         f"peak device memory {vpeak / 2**30:.2f} GiB")
-    require(verdicts == [True, True, False, False, False],
-            f"verify_batch verdicts {verdicts}")
+    require(verdicts == expected, f"verify_batch verdicts {verdicts}")
     return launches
 
 
@@ -811,8 +923,9 @@ def phase_batch(torch, field, lig, vars_) -> dict:
 
 def write_r1cs(path: str, cs) -> None:
     """A constraint system -> circom's binary ``.r1cs`` (iden3 layout:
-    header, constraints, wire-to-label map)."""
-    p, fs = cs.field.p, 32
+    header, constraints, wire-to-label map; 32-byte field elements for
+    BN254 Fr, 48 for BLS12-377 Fq)."""
+    p, fs = cs.field.p, 8 * cs.field.num_u64_limbs
     n_wires = cs.num_instance + cs.num_witness
     header = (struct.pack("<I", fs) + p.to_bytes(fs, "little")
               + struct.pack("<IIII", n_wires, cs.num_instance - 1, 0,
@@ -842,14 +955,81 @@ def write_wtns(path: str, p: int, values) -> None:
             f.write(struct.pack("<IQ", kind, len(blob)) + blob)
 
 
+class Serving:
+    """The port's HTTP service for ``service`` in a thread on an ephemeral
+    port; ``call(path, body)`` sends one request (GET without a body)."""
+
+    def __init__(self, service):
+        from http.server import HTTPServer
+
+        from ligero_tpu_torch.server import make_handler
+        self.httpd = HTTPServer(("127.0.0.1", 0), make_handler(service))
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+
+    def call(self, path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(
+            self.url + path, data, {"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = json.loads(r.read())
+        log(f"serve {'POST' if body is not None else 'GET'} {path}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        return out
+
+
+def phase_serve_bls(torch, field) -> dict:
+    """A BLS12-377 Fq service in a thread, no device named: one /circuits,
+    /prove and /verify on a repeated-squaring ``.r1cs`` over the field
+    (48-byte elements) written here; returns the requests' launch counts."""
+    from ligero_tpu_torch.circuit.r1cs import (
+        repeated_squaring_constraint_system, repeated_squaring_witness)
+    from ligero_tpu_torch.server import ProverService
+
+    squarings = 1 << BLS_LOG2_SQUARINGS
+    wraps = wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        r1cs = os.path.join(tmp, "squarings_bls12_377.r1cs")
+        write_r1cs(r1cs, repeated_squaring_constraint_system(field, squarings))
+        witness = [str(v) for v in repeated_squaring_witness(field, 7, squarings)]
+        with Serving(ProverService(field)) as srv:
+            health = srv.call("/health")
+            require(health["device"].startswith("cuda")
+                    and health["field"] == field.name,
+                    f"the {field.name} service does not run on the card: "
+                    f"{health}")
+            reset_counts(torch, wraps)
+            info = srv.call("/circuits", {"name": "sq", "r1cs": r1cs})
+            require(info["constraints"] == squarings, f"/circuits: {info}")
+            one = srv.call("/prove", {"name": "sq", "witness": witness})
+            require(srv.call("/verify", {"name": "sq", "proof": one["proof"]})
+                    ["verified"] is True, f"/verify rejected the honest "
+                    f"{field.name} proof")
+            corrupted = flip_byte(bytes.fromhex(one["proof"])).hex()
+            require(srv.call("/verify", {"name": "sq", "proof": corrupted})
+                    ["verified"] is False, "/verify took a corrupted proof")
+            launches = read_counts(wraps, "bls serve")
+    log(f"serve [{field.name}]: {info}; proof {len(one['proof']) // 2} bytes")
+    return launches
+
+
 def phase_serve(torch, field) -> dict:
     """The serving path through its entry points; returns the launch counts
     of the service's requests (the CLI's run in other processes)."""
-    from http.server import HTTPServer
-
     from ligero_tpu_torch.circuit.r1cs import (
         repeated_squaring_constraint_system, repeated_squaring_witness)
-    from ligero_tpu_torch.server import ProverService, make_handler
+    from ligero_tpu_torch.server import ProverService
 
     squarings = 1 << LOG2_SQUARINGS
     wraps = wrappers()
@@ -863,23 +1043,8 @@ def phase_serve(torch, field) -> dict:
                      for x in (3, 4, 5)]
         write_wtns(wtns, field.p, witnesses[0])
 
-        httpd = HTTPServer(("127.0.0.1", 0), make_handler(ProverService()))
-        url = f"http://127.0.0.1:{httpd.server_address[1]}"
-        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-        thread.start()
-
-        def call(path, body=None):
-            data = None if body is None else json.dumps(body).encode()
-            req = urllib.request.Request(
-                url + path, data, {"Content-Type": "application/json"})
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(req, timeout=600) as r:
-                out = json.loads(r.read())
-            log(f"serve {'POST' if body is not None else 'GET'} {path}: "
-                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-            return out
-
-        try:
+        with Serving(ProverService()) as srv:
+            call = srv.call
             health = call("/health")
             require(health["status"] == "ok"
                     and health["device"].startswith("cuda"),
@@ -905,10 +1070,6 @@ def phase_serve(torch, field) -> dict:
             launches = read_counts(wraps, "serve")
             require("sq" in call("/health")["circuits"], "/health lost the "
                     "circuit")
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-            thread.join(timeout=30)
 
         env = dict(os.environ, PYTHONPATH=root)
         for verb, args in (("prove", ["--witness", wtns, "--out", proof_path]),
@@ -939,7 +1100,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ligero_tpu_torch import BN254_FR
+    from ligero_tpu_torch import BLS12_377_FQ, BN254_FR
     from ligero_tpu_torch.engine import cuda_build
 
     field = BN254_FR
@@ -957,43 +1118,85 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log("ptxas: " + line.strip())
 
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
     circ, outs, vars_ = make_circuit(field, LOG2_GATES, SEED)
     lig = build_instance(circ, outs, zk=False)
-    zk_dims = (3 * lig.t, max(2 * lig.k, 1 << (
-        2 * (lig.k + 3 * lig.t) - 2).bit_length()))
-    results = phase_kernels(torch, field, (lig.m, lig.k, lig.n,
-                                           len(lig.state.a_vals), lig.t),
-                            zk_dims)
-    phase_parity(field)
-    by_path = {"plain": phase_main(torch, field, lig, vars_),
-               "batch": phase_batch(torch, field, lig, vars_)}
+    dims, zk_dims = instance_dims(lig)
+    results = phase_kernels(torch, field, gen, dims, zk_dims)
+    rows = 4 * lig.m
+    tree_bit_equality(torch, gen)
+    results["sha256_tree"]["chain_floor_ms"] = tree_chain_floor(torch, lig.n)
+    batch_kernel_cases(torch, field, gen, results, rows, lig.k, lig.n)
+    spot_cases(torch, field, gen, rows, lig.k, lig.n, lig.t)
+    host_hash_context(lig.n)
+    phase_parity()
+    by_path = {"plain": phase_main(torch, field, lig, vars_)}
     del lig
     torch.cuda.empty_cache()
     lig = build_instance(circ, outs, zk=True)
     require((lig.blind_t, lig.d2) == zk_dims, "zk kernel shapes were not the "
             f"zk path's: {zk_dims} vs {(lig.blind_t, lig.d2)}")
     by_path["zk"] = phase_main(torch, field, lig, vars_)
-    by_path["zk batch"] = phase_batch(torch, field, lig, vars_)
+    del lig, circ, outs, vars_
+    torch.cuda.empty_cache()
+    circ, outs, vars_ = make_circuit(field, BATCH_LOG2_GATES, SEED)
+    for zk, path in ((False, "batch"), (True, "zk batch")):
+        lig = build_instance(circ, outs, zk=zk)
+        by_path[path] = phase_batch(torch, field, lig, vars_)
+        del lig
+        torch.cuda.empty_cache()
+    del circ, outs, vars_
+
+    # the same synthetic circuit over BLS12-377 Fq, the kernels' second field
+    bls = BLS12_377_FQ
+    circ, outs, vars_ = make_circuit(bls, LOG2_GATES, SEED)
+    lig = build_instance(circ, outs, zk=False)
+    bls_dims, zk_dims = instance_dims(lig)
+    bls_results = phase_kernels(torch, bls, gen, bls_dims, zk_dims)
+    blake2s_residue_cases(torch, bls, gen, bls_results, 4 * lig.m, lig.n)
+    by_path["bls plain"] = phase_main(torch, bls, lig, vars_)
+    by_path["bls batch"] = phase_batch(torch, bls, lig, vars_, full=False)
     del lig
     torch.cuda.empty_cache()
+    lig = build_instance(circ, outs, zk=True)
+    require((lig.blind_t, lig.d2) == zk_dims, "zk kernel shapes were not the "
+            f"zk path's: {zk_dims} vs {(lig.blind_t, lig.d2)}")
+    by_path["bls zk"] = phase_main(torch, bls, lig, vars_)
+    del lig, circ, outs, vars_
+    torch.cuda.empty_cache()
+
     by_path["serve"] = phase_serve(torch, field)
+    by_path["bls serve"] = phase_serve_bls(torch, bls)
     for mod in ("jax", "ligero_tpu"):
         require(sys.modules.get(mod) is None, f"{mod} was imported")
 
+    extra = ("chain_floor_ms", "batched", "batched_full", "forest", "full_ms",
+             "zk_full_ms", "full_bound_ms", "zk_full_bound_ms")
+
+    def timings(res: dict) -> dict:
+        return {"max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"],
+                **{key: res[key] for key in extra if key in res}}
+
+    def paths(name: str, bls_paths: bool) -> dict:
+        return {path: counts[name] for path, counts in by_path.items()
+                if path.startswith("bls") == bls_paths}
+
+    # BN254 Fr's numbers at the top level of each entry, BLS12-377 Fq's
+    # beside them; no single PyTorch call computes any of these functions
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts[name] for counts in by_path.values()),
-         "launches_by_path": {path: counts[name]
-                              for path, counts in by_path.items()},
-         "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
-         "bound_ms": results[name]["bound_ms"],
-         "bound_by": results[name]["bound_by"],
-         # no single PyTorch call computes any of these functions
+         "launches_by_path": paths(name, False),
+         **timings(results[name]),
+         "max_abs_err": max(results[name]["max_abs_err"],
+                            bls_results[name]["max_abs_err"]),
          "library_ms": None,
-         **{key: results[name][key]
-            for key in ("chain_floor_ms", "batched", "batched_full", "forest")
-            if key in results[name]}}
+         "bls12_377_fq": {"replaces": BLS_REPLACES.get(name, rep),
+                          "launches_by_path": paths(name, True),
+                          **timings(bls_results[name])}}
         for name, (_, src, rep) in KERNELS.items()]}
     print(smi, flush=True)
     print(json.dumps(record), flush=True)

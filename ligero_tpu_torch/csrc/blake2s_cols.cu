@@ -2,25 +2,35 @@
 //
 // Replaces ligero_tpu/engine/pallas_hash.py:_blake2s_kernel_factory
 // (blake2s_columns_pallas).  Column j's message is the ark serialization of
-// the column: the row count as a u64 LE prefix, then each element's 32
-// canonical little-endian bytes (the packed 16-bit limb pairs).  The digest
-// is emitted as 8 LE words, the layout of blake2s_columns_pallas.
+// the column: the row count as a u64 LE prefix, then each element's 4 W
+// canonical little-endian bytes (the packed 16-bit limb pairs: 32 bytes for
+// BN254 Fr, 48 for BLS12-377 Fq).  The digest is emitted as 8 LE words, the
+// layout of blake2s_columns_pallas.
 //
-// One thread per column streams that column straight from the (rows, n, 16)
+// One thread per column streams that column straight from the (rows, n, L)
 // int32 matrix; nothing is re-laid out in memory first.  Because of the
-// 8-byte prefix, 64-byte block b holds the last two words of row 2b-1, all
-// of row 2b and the first six words of row 2b+1; the two trailing words of
-// each odd row are carried into the next block.  Any n is accepted.  A batch
-// of B matrices of one shape, stacked as (B * rows, n, 16), hashes in one
-// launch: thread c < B n takes column c % n of matrix c / n, and every
-// column's message opens with its own matrix's row count, so the digests are
-// those of B separate launches.
+// 8-byte prefix the message repeats every P blocks of E elements (16 P =
+// E W), each period opening with the last two words of the element before
+// it:
+//   BN254 (W = 8, P = 1, E = 2): block b holds words 6-7 of row 2b - 1, all
+//     of row 2b and words 0-5 of row 2b + 1;
+//   BLS12-377 (W = 12, P = 3, E = 4): block 3q holds words 10-11 of row
+//     4q - 1, all of row 4q and words 0-1 of row 4q + 1; block 3q + 1 words
+//     2-11 of row 4q + 1 and 0-5 of row 4q + 2; block 3q + 2 words 6-11 of
+//     row 4q + 2 and 0-9 of row 4q + 3, whose words 10-11 are carried.
+// A thread loads a period's E elements at once (engine/hashops.py:
+// column_block_words is the same map, held there against the
+// serialization).  Any n is accepted.  A batch of B matrices of one shape,
+// stacked as (B * rows, n, L), hashes in one launch: thread c < B n takes
+// column c % n of matrix c / n, and every column's message opens with its
+// own matrix's row count, so the digests are those of B separate launches.
 //
 // Cost on the card: 10 rounds x 8 G functions per 64-byte block, i.e. about
-// 1000 dependent 32-bit operations per block and 2 element loads, so the
-// kernel is bound by integer issue, not by memory.  With one thread per
-// column a 16384-column matrix fills only ~4 warps per SM; splitting
-// columns across threads needs a tree-free hash and is left to later work.
+// 1000 dependent 32-bit operations per block and 2 (BN254) or 4/3
+// (BLS12-377) element loads, so the kernel is bound by integer issue, not
+// by memory.  With one thread per column a 16384-column matrix fills only
+// ~4 warps per SM; splitting columns across threads needs a tree-free hash
+// and is left to later work.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -91,41 +101,59 @@ __device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16],
   for (int i = 0; i < 8; ++i) h[i] ^= v[i] ^ v[i + 8];
 }
 
+__host__ __device__ constexpr int gcd_int(int a, int b) {
+  return b ? gcd_int(b, a % b) : a;
+}
+
+template <class F>
 __global__ void blake2s_cols_kernel(const int32_t* __restrict__ u,
                                     long long rows, long long n,
                                     long long batch,
                                     int32_t* __restrict__ out) {
+  constexpr int W = F::W;
+  constexpr int P = W / gcd_int(16, W), E = 16 / gcd_int(16, W);  // 16P = EW
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= batch * n) return;
   const long long col = idx % n;
-  u += (idx / n) * rows * n * fr::L;
+  u += (idx / n) * rows * n * F::L;
   uint32_t h[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] = blake_iv(i);
   h[0] ^= 0x01010020u;  // digest 32 bytes, no key, fanout 1, depth 1
 
-  const unsigned long long byte_len = 8ull + 32ull * (unsigned long long)rows;
+  const unsigned long long byte_len =
+      8ull + 4ull * W * (unsigned long long)rows;
   const long long nblocks = (long long)((byte_len + 63) / 64);
   uint32_t carry0 = (uint32_t)rows;  // the u64 LE prefix opens block 0
   uint32_t carry1 = (uint32_t)((unsigned long long)rows >> 32);
-  for (long long b = 0; b < nblocks; ++b) {
-    const long long ra = 2 * b, rb = 2 * b + 1;
-    fr::Fe ea = ra < rows ? fr::load_limbs(u + (ra * n + col) * fr::L)
-                          : fr::fe_zero();
-    fr::Fe eb = rb < rows ? fr::load_limbs(u + (rb * n + col) * fr::L)
-                          : fr::fe_zero();
-    uint32_t m[16];
-    m[0] = carry0;
-    m[1] = carry1;
+  for (long long q = 0; q * P < nblocks; ++q) {
+    typename F::Fe e[E];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) m[2 + i] = ea.w[i];
+    for (int j = 0; j < E; ++j) {
+      const long long r = q * E + j;
+      e[j] = r < rows ? load_limbs<W>(u + (r * n + col) * F::L)
+                      : fe_zero<W>();
+    }
 #pragma unroll
-    for (int i = 0; i < 6; ++i) m[10 + i] = eb.w[i];
-    carry0 = eb.w[6];
-    carry1 = eb.w[7];
-    const bool last = b == nblocks - 1;
-    const unsigned long long t = last ? byte_len : 64ull * (unsigned long long)(b + 1);
-    compress(h, m, t, last);
+    for (int bb = 0; bb < P; ++bb) {
+      const long long b = q * P + bb;
+      if (b < nblocks) {
+        uint32_t m[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int off = 16 * bb + i - 2;  // word of the period's elements
+          m[i] = off == -2   ? carry0
+                 : off == -1 ? carry1
+                             : e[off / W].w[off % W];
+        }
+        const bool last = b == nblocks - 1;
+        const unsigned long long t =
+            last ? byte_len : 64ull * (unsigned long long)(b + 1);
+        compress(h, m, t, last);
+      }
+    }
+    carry0 = e[E - 1].w[W - 2];
+    carry1 = e[E - 1].w[W - 1];
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[idx * 8 + i] = (int32_t)h[i];
@@ -133,16 +161,20 @@ __global__ void blake2s_cols_kernel(const int32_t* __restrict__ u,
 
 }  // namespace
 
-// u: (batch * rows, n, 16) int32 canonical limbs; out: (batch * n, 8) int32
-// digest words.
-extern "C" int lt_blake2s_cols(const void* u, long long rows, long long n,
-                               long long batch, void* out, void* stream) {
-  const long long total = batch * n;
-  if (total > 0) {
-    const int threads = 128;
-    blake2s_cols_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
-                          0, (cudaStream_t)stream>>>((const int32_t*)u, rows, n,
-                                                     batch, (int32_t*)out);
-  }
-  return (int)cudaGetLastError();
+// field: a field id (field.cuh); u: (batch * rows, n, L) int32 canonical
+// limbs; out: (batch * n, 8) int32 digest words.
+extern "C" int lt_blake2s_cols(int field, const void* u, long long rows,
+                               long long n, long long batch, void* out,
+                               void* stream) {
+  return with_field(field, [&](auto f) {
+    const long long total = batch * n;
+    if (total > 0) {
+      const int threads = 128;
+      blake2s_cols_kernel<decltype(f)>
+          <<<(unsigned)((total + threads - 1) / threads), threads, 0,
+             (cudaStream_t)stream>>>((const int32_t*)u, rows, n, batch,
+                                     (int32_t*)out);
+    }
+    return cudaGetLastError();
+  });
 }

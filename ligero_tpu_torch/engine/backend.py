@@ -4,8 +4,9 @@
 The counterpart of ``Backend`` in ``ligero_tpu/engine/backend.py`` for the
 methods the single-device prove -> verify path calls; names and layouts
 follow it.  Limb arrays are ``(..., L)`` int32 tensors of 16-bit limbs.
-Every bulk step runs on ``device``: on a CUDA device the five
-hand-written kernels carry the transforms (``cuda_ntt``), Montgomery
+Every bulk step runs on ``device``: on a CUDA device (BN254 Fr or
+BLS12-377 Fq, the fields the kernels are built for; any other raises) the
+five hand-written kernels carry the transforms (``cuda_ntt``), Montgomery
 products (``cuda_mont``), column hashing (``cuda_hash``), the SHA-256
 Merkle tree (``cuda_tree``) and row combinations (``cuda_lc``); ChaCha20,
 modular add/sub, gathers and segment sums are PyTorch ops.  On the CPU the
@@ -22,12 +23,14 @@ The ``*_batch`` methods serve ``LigeroCircuit.prove_batch`` and
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..fields import FieldSpec
-from . import (cuda_hash, cuda_lc, cuda_mont, cuda_ntt, cuda_tree, devsampler,
-               fieldops, hashops)
+from . import (cuda_build, cuda_hash, cuda_lc, cuda_mont, cuda_ntt, cuda_tree,
+               devsampler, fieldops, hashops)
 
 #: on the whole estimate of :meth:`TorchBackend.direct_bytes`: twiddle and
 #: twist tables, the tree, index vectors and the allocator's rounding
@@ -65,7 +68,7 @@ class TorchBackend:
         self.device = resolve_device(device)
         self.L = field.num_limbs
         if self.device.type == "cuda":
-            cuda_mont.require_bn254(field, "TorchBackend")
+            cuda_build.kernel_field_id(field, "TorchBackend")
 
     # ------------------------------------------------------------------
     # field primitives routed through the kernels on CUDA
@@ -160,7 +163,7 @@ class TorchBackend:
         segment = 3 * msg + 3 * nz
         fold = 12 * msg + msg // 4
         linear = max(sampler, segment, fold)
-        scratch = cuda_ntt.scratch_bytes
+        scratch = functools.partial(cuda_ntt.scratch_bytes, self.field)
         if blind_t:
             wide = rows * d2 * L * 4
             # (an estimate takes any sizes; a transform needs w <= n)

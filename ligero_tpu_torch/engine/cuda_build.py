@@ -9,7 +9,10 @@ is built at first use and cached by a hash of the sources and flags, as
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on a non-zero code.  Pointers and the stream travel as
-``c_void_p``.
+``c_void_p``.  The field kernels (NTT, mont_mul, Blake2s columns,
+row_combine) are templates over the field, built for BN254 Fr and
+BLS12-377 Fq, and take the field's id (:data:`KERNEL_FIELDS`,
+:func:`kernel_field_id`) as their first argument.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import threading
 
 import torch
 
+from ..fields import BLS12_377_FQ, BN254_FR
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -35,15 +40,20 @@ _HASH_PATH = LIB_PATH + ".srchash"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+#: the fields the kernels are built for, and the id of each: the field
+#: argument of the C entry points (the trait ``ID`` of csrc/field.cuh)
+KERNEL_FIELDS = {BN254_FR: 0, BLS12_377_FQ: 1}
+
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures of the entry points (all return an int cudaError_t)
 _SIGNATURES = {
-    "lt_mont_mul": [_vp, _vp, _vp, _ll, _i, _vp],
-    "lt_ntt_pass": [_i, _vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
+    "lt_mont_mul": [_i, _vp, _vp, _vp, _ll, _i, _vp],
+    "lt_ntt_pass": [_i, _i, _vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
                     _i, _i, _i, _vp],
-    "lt_ntt_stage": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
-    "lt_blake2s_cols": [_vp, _ll, _ll, _ll, _vp, _vp],
-    "lt_row_combine": [_vp, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _ll, _i, _vp],
+    "lt_ntt_stage": [_i, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
+    "lt_blake2s_cols": [_i, _vp, _ll, _ll, _ll, _vp, _vp],
+    "lt_row_combine": [_i, _vp, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _ll, _i,
+                       _vp],
     "lt_sha256_tree": [_vp, _ll, _vp, _vp, _i, _vp],
     "lt_sha256_chain_probe": [_vp, _i, _vp],
 }
@@ -137,6 +147,29 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def kernel_field_id(field, name: str) -> int:
+    """The id the field kernels take for ``field``; raises
+    ``NotImplementedError`` for a field they are not built for."""
+    for known, fid in KERNEL_FIELDS.items():
+        if (field.name, field.p) == (known.name, known.p):
+            return fid
+    raise NotImplementedError(
+        f"{name}: the CUDA kernels implement "
+        f"{' and '.join(f.name for f in KERNEL_FIELDS)} only, not {field.name}")
+
+
+def kernel_width_id(limbs: int, name: str) -> int:
+    """The id of the kernel field whose elements are ``limbs`` 16-bit limbs
+    (for a kernel that depends on the width alone); raises ``ValueError``
+    for another width."""
+    for known, fid in KERNEL_FIELDS.items():
+        if known.num_limbs == limbs:
+            return fid
+    raise ValueError(f"{name}: the kernels take elements of "
+                     f"{' or '.join(str(f.num_limbs) for f in KERNEL_FIELDS)} "
+                     f"limbs, not {limbs}")
 
 
 def check(code: int, name: str) -> None:

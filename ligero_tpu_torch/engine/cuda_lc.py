@@ -1,8 +1,9 @@
 """Row combination: the CUDA kernel ``csrc/row_combine.cu`` and its wrapper.
 
 Replaces ``ligero_tpu/engine/mxu_lc.py:_mxu_lc_kernel_factory`` (``mxu_lc``),
-the interleaved phase's lc = sum_i r_i preenc_i.  On this card the pass is
-bound by device memory (one 64-byte element per Montgomery product): the
+the interleaved phase's lc = sum_i r_i preenc_i, for BN254 Fr and BLS12-377
+Fq.  On this card the pass is bound by device memory (one 4 L-byte element
+per Montgomery product: 64 bytes for BN254, 96 for BLS12-377): the
 kernel gives each thread one column and a chunk of rows, so the card fills
 even at a few thousand columns, and a second launch adds the per-chunk
 partials.  Modular adds make the sum exact in any order.  The same kernel
@@ -21,7 +22,6 @@ import torch
 from ..fields import FieldSpec
 
 from . import cuda_build, fieldops
-from .cuda_mont import require_bn254
 
 #: kernel launches by :func:`row_combine`
 launches = cuda_build.LaunchCounter()
@@ -45,9 +45,10 @@ def row_combine_batch_ref(field: FieldSpec, r: torch.Tensor,
                         for b in range(mats.shape[0])])
 
 
-def _launch(name: str, r: torch.Tensor, mats: torch.Tensor,
+def _launch(field: FieldSpec, name: str, r: torch.Tensor, mats: torch.Tensor,
             per_column: bool) -> torch.Tensor:
     """(B, rows, k, L) x r -> (B, k, L) on the kernel, counted once."""
+    fid = cuda_build.kernel_field_id(field, name)
     batch, rows, k, L = mats.shape
     out = torch.zeros((batch, k, L), dtype=torch.int32, device=mats.device)
     if rows == 0 or k == 0 or batch == 0:
@@ -63,9 +64,9 @@ def _launch(name: str, r: torch.Tensor, mats: torch.Tensor,
     cuda_build.require_cuda_tensors(name, r, mats, partial, out)
     lib = cuda_build.library()
     cuda_build.check(
-        lib.lt_row_combine(mats.data_ptr(), r.data_ptr(), partial.data_ptr(),
-                           out.data_ptr(), batch, rows, k, chunks,
-                           rows_per_chunk, int(per_column),
+        lib.lt_row_combine(fid, mats.data_ptr(), r.data_ptr(),
+                           partial.data_ptr(), out.data_ptr(), batch, rows, k,
+                           chunks, rows_per_chunk, int(per_column),
                            cuda_build.stream_handle(mats.device)),
         "lt_row_combine")
     launches.add()
@@ -78,12 +79,11 @@ def row_combine(field: FieldSpec, r: torch.Tensor, mat: torch.Tensor) -> torch.T
     canonical when one is canonical)."""
     if r.device.type == "cpu" and mat.device.type == "cpu":
         return row_combine_ref(field, r, mat)
-    require_bn254(field, "row_combine")
     rows, k, L = mat.shape
     per_column = r.dim() == 3
     if r.shape != ((rows, k, L) if per_column else (rows, L)):
         raise ValueError(f"row_combine: r {tuple(r.shape)} vs M {tuple(mat.shape)}")
-    return _launch("row_combine", r[None], mat[None], per_column)[0]
+    return _launch(field, "row_combine", r[None], mat[None], per_column)[0]
 
 
 def row_combine_batch(field: FieldSpec, r: torch.Tensor,
@@ -92,8 +92,7 @@ def row_combine_batch(field: FieldSpec, r: torch.Tensor,
     (B, k, L), each as :func:`row_combine` gives it."""
     if r.device.type == "cpu" and mats.device.type == "cpu":
         return row_combine_batch_ref(field, r, mats)
-    require_bn254(field, "row_combine_batch")
     if mats.dim() != 4 or r.shape != mats.shape[:2] + mats.shape[3:]:
         raise ValueError(f"row_combine_batch: r {tuple(r.shape)} vs M "
                          f"{tuple(mats.shape)}")
-    return _launch("row_combine_batch", r, mats, False)
+    return _launch(field, "row_combine_batch", r, mats, False)

@@ -2,12 +2,13 @@
 
 Replaces ``ligero_tpu/engine/pallas_kernels.py:_mont_mul_kernel_factory``
 (``mont_mul_pallas``), which the JAX package runs inside the sparse r^T A
-product of the linear phase.  On this card the kernel is bound by device
-memory (64 bytes in per operand, 64 out per element, ~200 instructions of
+product of the linear phase, for BN254 Fr and BLS12-377 Fq.  On this card
+the kernel is bound by device memory (4 L bytes in per operand and out per
+element: 64 for BN254, 96 for BLS12-377; ~200 or ~430 instructions of
 arithmetic); its design is one thread per element with the limbs packed
 into 32-bit words in registers, so every operand crosses memory once, and
-a warp's results staged through shared memory so that they leave as whole
-512-byte runs.
+a warp's results staged through shared memory (:func:`piece_slot`) so that
+they leave as whole 512-byte runs.
 
 A tensor on the CPU takes the plain version (:func:`fieldops.mont_mul`); a
 CUDA tensor launches the kernel or raises.
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..fields import BN254_FR, FieldSpec
+from ..fields import FieldSpec
 
 from . import cuda_build, fieldops
 
@@ -25,10 +26,14 @@ from . import cuda_build, fieldops
 launches = cuda_build.LaunchCounter()
 
 
-def require_bn254(field: FieldSpec, name: str) -> None:
-    if field.name != BN254_FR.name:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels implement BN254 Fr only, not {field.name}")
+def piece_slot(pieces: int, idx: int) -> int:
+    """The kernel's staging swizzle (``piece_slot`` of csrc/mont_mul.cu):
+    where 16-byte piece ``idx`` of a warp's 32 results (piece q of lane l is
+    ``pieces * l + q``; ``pieces`` = L / 4) sits in the warp's staging row.
+    A permutation under which each quarter warp's eight accesses, written in
+    element order or read in run order, fall in eight distinct 16-byte bank
+    groups."""
+    return idx ^ ((idx >> 3) & (3 if pieces == 4 else 1))
 
 
 def mont_mul(field: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -36,7 +41,7 @@ def mont_mul(field: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     broadcast.  Fully reduced for a < R and b < p."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return fieldops.mont_mul(field, a, b)
-    require_bn254(field, "mont_mul")
+    fid = cuda_build.kernel_field_id(field, "mont_mul")
     L = field.num_limbs
     shape = torch.broadcast_shapes(a.shape, b.shape)
     if shape[-1] != L:
@@ -50,8 +55,8 @@ def mont_mul(field: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
         return out
     cuda_build.require_cuda_tensors("mont_mul", a, b, out)
     lib = cuda_build.library()
-    cuda_build.check(lib.lt_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                     count, int(broadcast),
+    cuda_build.check(lib.lt_mont_mul(fid, a.data_ptr(), b.data_ptr(),
+                                     out.data_ptr(), count, int(broadcast),
                                      cuda_build.stream_handle(a.device)),
                      "lt_mont_mul")
     launches.add()

@@ -3,7 +3,9 @@
 Replaces ``ligero_tpu/engine/mxu_ntt.py:_mxu_kernel_factory`` (every BN254
 transform at 2^20 gates on the TPU: iNTT_k, the split NTT_n and the 2k
 products) and ``ligero_tpu/engine/pallas_ntt.py:_ntt_kernel_factory`` (the
-k <= 512 sizes).  On this card the transform is bound by operations: a row
+BN254 k <= 512 sizes, and every BLS12-377 transform: ``mxu_ntt`` takes
+16-limb fields only).  The kernel is built for both fields, with the same
+routes.  On this card the transform is bound by operations: a row
 of the commit is ~100k Montgomery products against 1.2 MB moved, ~7 times
 as long in arithmetic as in bytes.  So the kernel does as few products as
 it can, moves every byte once and runs every butterfly stage in shared
@@ -27,7 +29,6 @@ import torch
 from ..fields import FieldSpec
 
 from . import cuda_build
-from .cuda_mont import require_bn254
 from .ntt import (TILE_LOG, NttRoute, check_size, ntt_plan, ntt_ref,
                   stage_twiddle_limbs, tile_log_for, twist_const, twist_limbs)
 
@@ -70,9 +71,11 @@ def route(w: int, n: int, rows: int | None = None) -> NttRoute:
     return ntt_plan(w, n, tile_log_for(rows, w, n))
 
 
-def scratch_bytes(rows: int, w: int, n: int) -> int:
-    """Bytes of scratch :func:`ntt` allocates for ``rows`` w-wide rows."""
-    return route(w, n, rows).scratch_elements(rows) * 32
+def scratch_bytes(field: FieldSpec, rows: int, w: int, n: int) -> int:
+    """Bytes of scratch :func:`ntt` allocates for ``rows`` w-wide rows: one
+    packed element (2 L bytes) per element of a two-pass route's
+    intermediate."""
+    return route(w, n, rows).scratch_elements(rows) * 2 * field.num_limbs
 
 
 def ntt(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool = False,
@@ -97,7 +100,7 @@ def ntt_routed(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool,
     """:func:`ntt` on a CUDA tensor by a given route (``ntt_plan(w, n,
     tile_log)``; a tile limit below the kernel's own drives every route at
     small sizes)."""
-    require_bn254(field, "ntt")
+    fid = cuda_build.kernel_field_id(field, "ntt")
     logn = check_size(field, n)
     L = field.num_limbs
     lead, w = x.shape[:-2], x.shape[-2]
@@ -132,7 +135,8 @@ def ntt_routed(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool,
 
     def run_pass(mode, pw, sub_log, avail_log):
         cuda_build.check(lib.lt_ntt_pass(
-            mode, x.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            fid, mode, x.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             out.data_ptr(), tws.data_ptr(),
             None if pw is None else pw.data_ptr(), w, B, logn, rt.lc, rt.l0,
             rt.l1, rt.l2, rt.group_log(sub_log, avail_log, tile_log),
@@ -145,7 +149,7 @@ def ntt_routed(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool,
         run_pass(_MODE_PASS2, pw_second, rt.l1, rt.l2)
         for st in range(rt.l1 + rt.l2, rt.ls):
             cuda_build.check(lib.lt_ntt_stage(
-                scratch.data_ptr(), out.data_ptr(), tws.data_ptr(), B, logn,
-                rt.lc, st, int(st == rt.ls - 1), stream), "lt_ntt_stage")
+                fid, scratch.data_ptr(), out.data_ptr(), tws.data_ptr(), B,
+                logn, rt.lc, st, int(st == rt.ls - 1), stream), "lt_ntt_stage")
     launches.add()
     return out.reshape(*lead, n, L)

@@ -8,12 +8,15 @@ PyTorch's CPU build has no unsigned 32-bit arithmetic), and come back as
 int32 bit patterns.
 
 :func:`blake2s_columns_ref` is the plain version the CUDA column kernel
-(``cuda_hash``) is held against, :func:`tree_flat` the plain version of the
+(``cuda_hash``) is held against, :func:`column_block_words` that kernel's
+word map, :func:`tree_flat` the plain version of the
 CUDA tree kernel (``cuda_tree``).  :func:`digest_lists` is host code: it
 unpacks the flat tree transfer into byte lists.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -104,7 +107,7 @@ def _blake2s_compress(h: torch.Tensor, m: torch.Tensor, t: int,
 
 def blake2s_columns_ref(u_canon: torch.Tensor) -> torch.Tensor:
     """(rows, n, L) canonical int32 limbs -> (n, 8) int32 LE digest words
-    of each column's ark serialization (u64 LE row count, then 32-byte LE
+    of each column's ark serialization (u64 LE row count, then 2 L-byte LE
     elements): ``hashes.column_hash`` of every column."""
     rows, n, L = u_canon.shape
     u = u_canon.to(torch.int64)
@@ -123,6 +126,28 @@ def blake2s_columns_ref(u_canon: torch.Tensor) -> torch.Tensor:
         t = byte_len if last else 64 * (blk + 1)
         h = _blake2s_compress(h, msg[:, 16 * blk:16 * blk + 16], t, last)
     return _to_i32(h)
+
+
+def column_block_words(words: int, block: int) -> list[tuple[int, int]]:
+    """The column kernel's word map (csrc/blake2s_cols.cu): the 16 message
+    words of 64-byte block ``block`` of a column whose elements are
+    ``words`` 32-bit words, as (row, word) pairs; row -1 is the u64 row
+    count (word 0 its low half).  The message repeats every P blocks of E
+    elements (16 P = E W); a period's first two words are the last two of
+    the element before it.  Rows past the column's end read as zeros."""
+    g = math.gcd(16, words)
+    period, elems = words // g, 16 // g
+    q, bb = divmod(block, period)
+    out = []
+    for i in range(16):
+        off = 16 * bb + i - 2          # word of the period's elements
+        if off >= 0:
+            out.append((q * elems + off // words, off % words))
+        elif q:
+            out.append((q * elems - 1, words + off))
+        else:
+            out.append((-1, off + 2))
+    return out
 
 
 # ---------------------------------------------------------------------------

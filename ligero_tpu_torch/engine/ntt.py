@@ -144,10 +144,11 @@ def ntt_ref(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool = False,
 # ---------------------------------------------------------------------------
 
 #: log2 of the most elements one block of the kernel holds in shared memory
-#: (4096 packed elements, 128 KB of the 227 KB a block may use)
+#: (4096 packed elements: 132 KB of the 227 KB a block may use for BN254,
+#: 198 KB for BLS12-377; the routes are the same for both fields)
 TILE_LOG = 12
 #: log2 of the tile the kernel fills when the sub-transforms are shorter
-#: (2048 elements, 64 KB: two blocks to an SM)
+#: (2048 elements, 66 or 99 KB: two BN254 blocks to an SM)
 GROUP_TILE_LOG = 11
 
 
@@ -173,7 +174,7 @@ class NttRoute:
         return self.logn - self.lc
 
     def scratch_elements(self, rows: int) -> int:
-        """Packed (32-byte) elements of scratch the route allocates."""
+        """Packed (4 W-byte) elements of scratch the route allocates."""
         return 0 if self.l1 == 0 else rows << self.logn
 
     def group_log(self, sub_log: int, avail_log: int,

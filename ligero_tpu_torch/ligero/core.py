@@ -86,8 +86,9 @@ class LigeroCircuit:
     """Compiled Ligero instance whose bulk work runs on ``device``.
 
     ``device`` is ``None`` or ``"cuda"``/``"cuda:i"`` (the hand-written
-    kernels; BN254 Fr only) or ``"cpu"`` (the kernels' plain PyTorch
-    versions).  The default is the CUDA device; where there is none the
+    kernels, built for BN254 Fr and BLS12-377 Fq; a circuit over another
+    field raises) or ``"cpu"`` (the kernels' plain PyTorch versions, any
+    field).  The default is the CUDA device; where there is none the
     constructor raises.  ``zk=True`` compiles the zero-knowledge variant;
     a circuit too small for it at this rate raises ``ValueError``."""
 

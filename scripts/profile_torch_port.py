@@ -2,10 +2,12 @@
 """Where the PyTorch/CUDA port's prove and verify spend their time.
 
     python3 scripts/profile_torch_port.py [--log2-gates 20] [--device cuda]
-                                          [--zk] [--lambda 128] [--batch B]
+                                          [--field bn254_fr] [--zk]
+                                          [--lambda 128] [--batch B]
                                           [--out FILE]
 
-Builds the synthetic circuit of ``--log2-gates`` gates (seed 0), compiled
+Builds the synthetic circuit of ``--log2-gates`` gates (seed 0) over
+``--field`` (BN254 Fr, or BLS12-377 Fq: the kernels' two fields), compiled
 with ``zk=True`` under ``--zk`` (proofs then share one fixed ``zk_seed``;
 small circuits need a reduced ``--lambda`` to fit the blinding), then for
 each of prove and verify: one warm-up call, three unprofiled walls,
@@ -19,7 +21,8 @@ profiled wall overstates idleness; the share against the unprofiled wall
 pairs a busy time and a wall from different calls.  Both are printed.
 
 The verifier is profiled twice: as it runs (its r_i codewords at the opened
-columns from the full NTT_n and a gather) and with ``engine/spot.py``'s spot
+columns from the full NTT_n and a gather) and, for BN254 Fr (the spot
+evaluation takes 16-limb fields only), with ``engine/spot.py``'s spot
 evaluation in that step's place, each with its own peak device memory.  With
 ``--batch B`` the same measurements are taken of ``prove_batch`` over B
 copies of the witness (under zk: B different seeds) and of ``verify_batch``
@@ -147,6 +150,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2-gates", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--field", default="bn254_fr",
+                    choices=["bn254_fr", "bls12_377_fq"])
     ap.add_argument("--zk", action="store_true")
     ap.add_argument("--lambda", dest="lambda_", type=int, default=128)
     ap.add_argument("--batch", type=int, default=0,
@@ -156,12 +161,12 @@ def main() -> int:
 
     import torch
 
-    from ligero_tpu_torch import BN254_FR, LigeroCircuit, test_sponge
+    from ligero_tpu_torch import FIELDS, LigeroCircuit, test_sponge
     from ligero_tpu_torch.engine import spot
     from ligero_tpu_torch.synthetic import generate_random_circuit
     from ligero_tpu_torch.utils.profiling import PhaseTimer
 
-    field = BN254_FR
+    field = FIELDS[args.field]
     circ, outs, vars_ = generate_random_circuit(field, 1 << args.log2_gates,
                                                 seed=0)
     lig = LigeroCircuit(circ, outs, lambda_=args.lambda_, zk=args.zk,
@@ -175,7 +180,8 @@ def main() -> int:
 
     proof = prove()  # includes the one-time COO upload
     record = {
-        "log2_gates": args.log2_gates, "zk": args.zk, "m": lig.m, "k": lig.k,
+        "field": field.name, "log2_gates": args.log2_gates, "zk": args.zk,
+        "m": lig.m, "k": lig.k,
         "n": lig.n, "t": lig.t, "blind_t": lig.blind_t, "d2": lig.d2,
         "device": str(device),
         "nvidia_smi": nvidia_smi_line() if device.type == "cuda" else None,
@@ -187,14 +193,15 @@ def main() -> int:
     record["peak_device_memory_gib"] = (
         max(record[call]["peak_device_memory_gib"]
             for call in ("prove", "verify")) if device.type == "cuda" else None)
-    # the same verify with the spot evaluation as its ntt_columns
-    lig.backend.ntt_columns = lambda coeffs, n, js: spot.spot_eval(
-        lig.field, lig.backend.asarray(coeffs), js, n)
-    try:
-        record["verify_spot_eval"] = profile_call(
-            torch, device, lig, lambda: lig.verify(proof, sponge.clone()))
-    finally:
-        del lig.backend.ntt_columns
+    if spot.spot_ok(field, lig.n):
+        # the same verify with the spot evaluation as its ntt_columns
+        lig.backend.ntt_columns = lambda coeffs, n, js: spot.spot_eval(
+            lig.field, lig.backend.asarray(coeffs), js, n)
+        try:
+            record["verify_spot_eval"] = profile_call(
+                torch, device, lig, lambda: lig.verify(proof, sponge.clone()))
+        finally:
+            del lig.backend.ntt_columns
     if args.batch:
         B = args.batch
         seeds = [bytes([i]) * 32 for i in range(B)] if args.zk else None

@@ -141,6 +141,22 @@ def test_direct_estimate_is_not_below_the_recorded_peaks():
     assert 11.61 <= zk < 11.61 * 1.1
 
 
+def test_direct_estimate_is_not_below_the_recorded_bls12_377_peaks():
+    """The same for BLS12-377 Fq (96-byte elements) at 2^20 gates, against
+    the peaks chip_smoke.py recorded on an H100 (PERF.md §6: 17.04 GiB
+    plain, 17.21 GiB zk, 23.79 GiB for a plain batch of 2); a CUDA
+    backend takes the field (here on the CPU: the estimate is arithmetic)."""
+    from ligero_tpu_torch.fields import BLS12_377_FQ
+    be = TorchBackend(BLS12_377_FQ, "cpu")
+    rows, k, n, nnz = 4100, 2048, 16384, 9_443_331
+    plain = be.direct_bytes(rows, k, n, nnz) / 2**30
+    zk = be.direct_bytes(rows + 3, k, n, nnz, blind_t=468, d2=8192) / 2**30
+    pair = be.direct_bytes(rows, k, n, nnz, batch=2) / 2**30
+    assert 17.04 <= plain < 17.04 * 1.1
+    assert 17.21 <= zk < 17.21 * 1.1
+    assert 23.79 <= pair < 23.79 * 1.1
+
+
 def test_max_batch_follows_the_budget(monkeypatch):
     be = TorchBackend(pf(F), "cpu")
     shape = (4100, 2048, 16384, 9_443_331)

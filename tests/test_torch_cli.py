@@ -72,6 +72,35 @@ def test_cli_round_trip_and_bytes_equal_the_jax_package(files, tmp_path, capsys)
     capsys.readouterr()
 
 
+def test_cli_bls12_377_field_bytes_equal_the_jax_package(tmp_path, capsys):
+    """``--field bls12_377_fq``: a .r1cs of 48-byte elements, the port's
+    proof equal to the JAX package's CLI, verified, a flipped byte
+    rejected."""
+    from ligero_tpu_torch.fields import BLS12_377_FQ
+    p = BLS12_377_FQ.p
+    r1cs = tmp_path / "mult_bls.r1cs"
+    r1cs.write_bytes(r1cs_bytes(p, **multiplication(p)))
+    wtns = write_wtns(tmp_path / "w.wtns", p, multiplication_witness(2))
+    field = ["--field", "bls12_377_fq"]
+    out, ref_out = tmp_path / "p.bin", tmp_path / "ref.bin"
+    assert main(["prove", "--r1cs", str(r1cs), "--witness", wtns, "--cpu",
+                 "--out", str(out), *field]) == 0
+    assert json.loads(capsys.readouterr().out)["bytes"] == out.stat().st_size
+    assert ref_main(["prove", "--r1cs", str(r1cs), "--witness", wtns,
+                     "--out", str(ref_out), *field]) == 0
+    capsys.readouterr()
+    assert out.read_bytes() == ref_out.read_bytes()
+    assert main(["verify", "--r1cs", str(r1cs), "--cpu", "--proof", str(out),
+                 *field]) == 0
+    assert json.loads(capsys.readouterr().out)["verified"] is True
+    data = bytearray(out.read_bytes())
+    data[8 + 32 + 8] ^= 1
+    out.write_bytes(bytes(data))
+    assert main(["verify", "--r1cs", str(r1cs), "--cpu", "--proof", str(out),
+                 *field]) == 1
+    capsys.readouterr()
+
+
 def test_cli_verify_rejects_tampered_malformed_and_wrong_witness(
         files, tmp_path, capsys):
     r1cs, _, wtns = files

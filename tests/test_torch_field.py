@@ -139,15 +139,23 @@ def _operands(part: str) -> list[str]:
     return exprs
 
 
-def field_header_asm():
+# the fields of csrc/field.cuh: (namespace, field)
+HEADER_FIELDS = [("fr", BN254_FR), ("fq", BLS12_377_FQ)]
+
+
+def field_header_asm(namespace: str = "fr"):
     """{function: [(instructions, output exprs, input exprs), ...]} for every
-    asm statement of csrc/field.cuh, in source order."""
+    asm statement of one field's namespace of csrc/field.cuh, in source
+    order."""
     path = os.path.join(os.path.dirname(cuda_mont.__file__), "..", "csrc",
                         "field.cuh")
     with open(path) as f:
         src = f.read()
+    src = re.search(r"namespace %s \{\n(.*?)\n\}  // namespace %s"
+                    % (namespace, namespace), src, re.S).group(1)
     out = {}
-    for fn in re.finditer(r"__forceinline__ [\w ]+?(\w+)\(", src):
+    for fn in re.finditer(r"^__device__ __forceinline__ [\w ]+?(\w+)\(",
+                          src, re.M):
         end = src.find("\n}\n", fn.end())
         body = src[fn.end():end]
         stmts = []
@@ -166,7 +174,7 @@ def run_asm(stmt, env, wraps=False):
     """Execute one parsed asm statement; ``env`` maps operand expressions to
     [container, key] (mutable) or an int; outputs are written through it.
     A carry out of an instruction that does not keep it fails the test,
-    unless the statement ``wraps`` mod 2^256 by design."""
+    unless the statement ``wraps`` mod 2^(32 W) by design."""
     instrs, outs, ins = stmt
     exprs = outs + ins
 
@@ -209,19 +217,23 @@ def run_asm(stmt, env, wraps=False):
                                                             ins_text)
 
 
-def emulated_field_ops():
-    """fe_mont_mul, fe_add, fe_sub of field.cuh on Python ints: the asm
-    statements as parsed, the C++ around them mirrored here."""
-    asm = field_header_asm()
-    P = [(BN254_FR.p >> (32 * j)) & M32 for j in range(8)]
-    np0 = (-pow(BN254_FR.p, -1, 1 << 32)) & M32
-    words = lambda v: [(v >> (32 * j)) & M32 for j in range(8)]  # noqa: E731
+def emulated_field_ops(namespace: str, field):
+    """fe_mont_mul, fe_add, fe_sub of one namespace of field.cuh on Python
+    ints: the asm statements as parsed, the C++ around them mirrored here
+    (fr forms sums and differences into fresh words, fq in place in a copy
+    of the first operand)."""
+    asm = field_header_asm(namespace)
+    W = field.num_limbs // 2
+    P = [(field.p >> (32 * j)) & M32 for j in range(W)]
+    np0 = (-pow(field.p, -1, 1 << 32)) & M32
+    words = lambda v: [(v >> (32 * j)) & M32 for j in range(W)]  # noqa: E731
     value = lambda w: sum(x << (32 * j) for j, x in enumerate(w))  # noqa: E731
+    in_place = namespace == "fq"
 
     def resolver(**names):
         def env(expr):
             expr = expr.strip()
-            m = re.fullmatch(r"p_word\((\d)\) & (\w+)", expr)
+            m = re.fullmatch(r"p_word\((\d+)\) & (\w+)", expr)
             if m:
                 return P[int(m.group(1))] & names[m.group(2)][0]
             m = re.fullmatch(r"(\w+)(?:\.w)?\[(\d+)\]", expr)
@@ -231,21 +243,21 @@ def emulated_field_ops():
         return env
 
     def sub_p(t):
-        d, borrow = [0] * 8, [0]
+        d, borrow = [0] * W, [0]
         run_asm(asm["sub_p"][0], resolver(d=d, t=t, borrow=borrow))
         return borrow[0] == 0, d
 
     def add(a, b):
-        s = [0] * 8
+        s = words(a) if in_place else [0] * W
         run_asm(asm["fe_add"][0], resolver(s=s, a=words(a), b=words(b)))
         ge, d = sub_p(s)
         return value(d if ge else s)
 
     def sub(a, b):
-        d, borrow = [0] * 8, [0]
+        d, borrow = (words(a) if in_place else [0] * W), [0]
         env = resolver(d=d, a=words(a), b=words(b), borrow=borrow)
         run_asm(asm["fe_sub"][0], env)
-        run_asm(asm["fe_sub"][1], env, wraps=True)   # a - b + 2^256 + p
+        run_asm(asm["fe_sub"][1], env, wraps=True)   # a - b + 2^(32 W) + p
         return value(d)
 
     def step(e, o, v, b):
@@ -260,18 +272,18 @@ def emulated_field_ops():
 
     def mont_mul(a, b):
         aw, bw = words(a), words(b)
-        x, y = [0] * 8, [0] * 8
-        for j in range(0, 8, 2):
+        x, y = [0] * W, [0] * W
+        for j in range(0, W, 2):
             ev, od = bw[j] * aw[0], bw[j + 1] * aw[0]
             x[j], x[j + 1], y[j], y[j + 1] = ev & M32, ev >> 32, od & M32, od >> 32
         reduce(x, y)
-        for i in range(1, 8, 2):
+        for i in range(1, W, 2):
             step(y, x, bw, aw[i])
             reduce(y, x)
-            if i + 1 < 8:
+            if i + 1 < W:
                 step(x, y, bw, aw[i + 1])
                 reduce(x, y)
-        r, top = [0] * 8, [0]
+        r, top = (list(x) if in_place else [0] * W), [0]
         run_asm(asm["fe_mont_mul"][0], resolver(r=r, top=top, x=x, y=y))
         ge, d = sub_p(r)
         return value(d if (top[0] or ge) else r)
@@ -279,17 +291,20 @@ def emulated_field_ops():
     return mont_mul, add, sub
 
 
-def test_field_header_carry_chains_emulated():
+@pytest.mark.parametrize("namespace,field", HEADER_FIELDS,
+                         ids=[ns for ns, _ in HEADER_FIELDS])
+def test_field_header_carry_chains_emulated(namespace, field):
     """The PTX of csrc/field.cuh, instruction for instruction, gives REDC(a b)
     fully reduced for a < R and b < p (no carry lost, at the extremes too),
     and a +- b mod p."""
     import random
-    mont_mul, add, sub = emulated_field_ops()
-    p, R = BN254_FR.p, 1 << 256
+    mont_mul, add, sub = emulated_field_ops(namespace, field)
+    p, R = field.p, 1 << (16 * field.num_limbs)
     r_inv = pow(R, -1, p)
     rnd = random.Random(11)
     pairs = [(R - 1, p - 1), (p - 1, p - 1), (0, 0), (1, 1), (R - 1, 1),
-             (R - 1, 1 << 253), (p, p - 1), (0, p - 1), (R - 1, 0)]
+             (R - 1, 1 << (p.bit_length() - 1)), (p, p - 1), (0, p - 1),
+             (R - 1, 0)]
     pairs += [(rnd.randrange(R), rnd.randrange(p)) for _ in range(300)]
     pairs += [(R - 1 - rnd.randrange(1 << 40), p - 1 - rnd.randrange(1 << 40))
               for _ in range(100)]
@@ -302,11 +317,13 @@ def test_field_header_carry_chains_emulated():
         assert sub(a, b) == (a - b) % p, (hex(a), hex(b))
 
 
-def test_field_header_chains_use_the_modulus_words():
+@pytest.mark.parametrize("namespace,field", HEADER_FIELDS,
+                         ids=[ns for ns, _ in HEADER_FIELDS])
+def test_field_header_chains_use_the_modulus_words(namespace, field):
     """Every word of p stands as an immediate in the reduction chains: the
-    odd words feed o, the even words e, all eight the subtraction."""
-    asm = field_header_asm()
-    P = [(BN254_FR.p >> (32 * j)) & M32 for j in range(8)]
+    odd words feed o, the even words e, all W the subtraction."""
+    asm = field_header_asm(namespace)
+    P = [(field.p >> (32 * j)) & M32 for j in range(field.num_limbs // 2)]
 
     def immediates(stmt):
         return [int(x, 16) for i in stmt[0] for x in re.findall(r"0x[0-9a-f]{8}", i)]
@@ -317,50 +334,111 @@ def test_field_header_chains_use_the_modulus_words():
     assert immediates(asm["sub_p"][0]) == P
 
 
+def test_field_header_constants_match_bls12_377():
+    """The fq namespace's p words, -p^-1 mod 2^32 and widths."""
+    path = os.path.join(os.path.dirname(cuda_mont.__file__), "..", "csrc",
+                        "field.cuh")
+    with open(path) as f:
+        src = f.read()
+    fq = re.search(r"namespace fq \{\n(.*?)\n\}  // namespace fq", src,
+                   re.S).group(1)
+    words = re.search(r"constexpr uint32_t P\[W\] = \{([^}]*)\}", fq).group(1)
+    p_words = [int(w.strip().rstrip("u"), 16) for w in words.split(",")]
+    assert sum(w << (32 * i) for i, w in enumerate(p_words)) == BLS12_377_FQ.p
+    np0 = int(re.search(r"NP0 = (0x[0-9a-fA-F]+)u", fq).group(1), 16)
+    assert np0 == (-pow(BLS12_377_FQ.p, -1, 1 << 32)) % (1 << 32) == M32
+    assert re.search(r"constexpr int W = (\d+);", fq).group(1) == "12"
+    assert re.search(r"constexpr int L = (\d+);", fq).group(1) == "24"
+
+
+def test_kernels_refuse_a_field_they_lack():
+    """The field kernels take BN254 Fr and BLS12-377 Fq by id, the column
+    hash 16 or 24 limbs; anything else raises before a launch."""
+    from ligero_tpu_torch.fields import FieldSpec
+    assert [cuda_build.kernel_field_id(pf(f), "t") for f in FIELDS] == [0, 1]
+    assert [cuda_build.kernel_width_id(f.num_limbs, "t") for f in FIELDS] \
+        == [0, 1]
+    other = FieldSpec(name="goldilocks", p=(1 << 64) - (1 << 32) + 1,
+                      generator=7, two_adicity=32)
+    with pytest.raises(NotImplementedError, match="goldilocks"):
+        cuda_build.kernel_field_id(other, "mont_mul")
+    # a field of a kernel field's name but another modulus is refused too
+    fake = FieldSpec(name="bn254_fr", p=other.p, generator=7, two_adicity=32)
+    with pytest.raises(NotImplementedError):
+        cuda_build.kernel_field_id(fake, "ntt")
+    with pytest.raises(ValueError):
+        cuda_build.kernel_width_id(4, "blake2s_columns")
+
+
+@pytest.mark.parametrize("pieces", [4, 6])
+def test_mont_mul_staging_swizzle_is_free_of_bank_conflicts(pieces):
+    """piece_slot (csrc/mont_mul.cu, mirrored in cuda_mont) permutes a
+    warp's 32 pieces-wide row; each quarter warp's eight 16-byte accesses,
+    the writes in element order (lane l, piece q at pieces l + q) and the
+    reads in run order (j 32 + lane), land in eight distinct bank groups."""
+    slot = lambda i: cuda_mont.piece_slot(pieces, i)  # noqa: E731
+    size = 32 * pieces
+    assert sorted(slot(i) for i in range(size)) == list(range(size))
+    for quarter in range(4):
+        lanes = range(8 * quarter, 8 * quarter + 8)
+        for q in range(pieces):
+            assert len({slot(pieces * l + q) % 8 for l in lanes}) == 8
+            assert len({slot(32 * q + l) % 8 for l in lanes}) == 8
+
+
 @pytest.mark.cuda
-def test_mont_mul_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_mont_mul_kernel_matches_plain(cuda, field):
     rng = np.random.default_rng(6)
-    a = rng.integers(0, 1 << 16, size=(5000, 16)).astype(np.int32)
-    b = rand_reduced(BN254_FR, rng, (5000,))
-    want = fieldops.mont_mul(pf(BN254_FR), t(a), t(b))
-    got = cuda_mont.mont_mul(pf(BN254_FR), t(a).to(cuda), t(b).to(cuda))
+    L = field.num_limbs
+    a = rng.integers(0, 1 << 16, size=(5000, L)).astype(np.int32)
+    b = rand_reduced(field, rng, (5000,))
+    want = fieldops.mont_mul(pf(field), t(a), t(b))
+    got = cuda_mont.mont_mul(pf(field), t(a).to(cuda), t(b).to(cuda))
     assert torch.equal(got.cpu(), want)
-    got_b = cuda_mont.mont_mul(pf(BN254_FR), t(a).to(cuda), t(b[0]).to(cuda))
-    assert torch.equal(got_b.cpu(), fieldops.mont_mul(pf(BN254_FR), t(a), t(b[0])))
+    got_b = cuda_mont.mont_mul(pf(field), t(a).to(cuda), t(b[0]).to(cuda))
+    assert torch.equal(got_b.cpu(), fieldops.mont_mul(pf(field), t(a), t(b[0])))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
 @pytest.mark.parametrize("count", [1, 31, 32, 33, 255, 256, 257, 8191])
-def test_mont_mul_kernel_partial_warps(cuda, count):
+def test_mont_mul_kernel_partial_warps(cuda, count, field):
     """The kernel stores a warp's results as one run: counts that end inside
     a warp or a block write their own elements and nothing past them."""
     rng = np.random.default_rng(count)
-    a = t(rng.integers(0, 1 << 16, size=(count + 2, 16)).astype(np.int32))
-    b = t(rand_reduced(BN254_FR, rng, (count + 2,)))
-    want = fieldops.mont_mul(pf(BN254_FR), a[:count], b[:count])
+    L = field.num_limbs
+    a = t(rng.integers(0, 1 << 16, size=(count + 2, L)).astype(np.int32))
+    b = t(rand_reduced(field, rng, (count + 2,)))
+    want = fieldops.mont_mul(pf(field), a[:count], b[:count])
     assert torch.equal(
-        cuda_mont.mont_mul(pf(BN254_FR), a[:count].to(cuda), b[:count].to(cuda)).cpu(),
+        cuda_mont.mont_mul(pf(field), a[:count].to(cuda), b[:count].to(cuda)).cpu(),
         want)
     # the C entry point on a longer output: the two rows past count stay
-    out = torch.full((count + 2, 16), -1, dtype=torch.int32, device=cuda)
+    out = torch.full((count + 2, L), -1, dtype=torch.int32, device=cuda)
     ad, bd = a.to(cuda), b.to(cuda)
     cuda_build.check(cuda_build.library().lt_mont_mul(
-        ad.data_ptr(), bd.data_ptr(), out.data_ptr(), count, 0,
+        cuda_build.kernel_field_id(pf(field), "t"), ad.data_ptr(),
+        bd.data_ptr(), out.data_ptr(), count, 0,
         cuda_build.stream_handle(out.device)), "lt_mont_mul")
     assert torch.equal(out[:count].cpu(), want)
     assert bool((out[count:] == -1).all())
 
 
 @pytest.mark.cuda
-def test_mont_mul_kernel_edge_operands(cuda):
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_mont_mul_kernel_edge_operands(cuda, field):
     """a up to R - 1 against b up to p - 1: where a lost carry would show."""
-    f = BN254_FR
-    R = 1 << 256
-    a_vals = [R - 1, R - 2, f.p, f.p - 1, 0, 1, (1 << 255) + 12345, R - (1 << 32)]
-    b_vals = [f.p - 1, f.p - 2, 1, 0, 1 << 253, (1 << 32) - 1, f.p - (1 << 32)]
+    f, L = field, field.num_limbs
+    R = 1 << (16 * L)
+    top = f.p.bit_length()
+    a_vals = [R - 1, R - 2, f.p, f.p - 1, 0, 1, (1 << (16 * L - 1)) + 12345,
+              R - (1 << 32)]
+    b_vals = [f.p - 1, f.p - 2, 1, 0, 1 << (top - 1), (1 << 32) - 1,
+              f.p - (1 << 32)]
     pairs = [(a, b) for a in a_vals for b in b_vals]
     to_limbs = lambda vs: np.array(  # noqa: E731
-        [[(v >> (16 * j)) & 0xFFFF for j in range(16)] for v in vs], dtype=np.int32)
+        [[(v >> (16 * j)) & 0xFFFF for j in range(L)] for v in vs], dtype=np.int32)
     a = t(to_limbs([x for x, _ in pairs]))
     b = t(to_limbs([y for _, y in pairs]))
     want = fieldops.mont_mul(pf(f), a, b)

@@ -22,12 +22,12 @@ if REPO not in sys.path:
 
 from ligero_tpu.circuit import ArithmeticCircuit  # noqa: E402
 from ligero_tpu.engine.backend import Backend  # noqa: E402
-from ligero_tpu.fields import BN254_FR as F  # noqa: E402
+from ligero_tpu.fields import BN254_FR, FIELDS  # noqa: E402
 from ligero_tpu.ligero import LigeroCircuit as RefCircuit  # noqa: E402
 from ligero_tpu.sponge import test_sponge  # noqa: E402
 from ligero_tpu.synthetic import generate_random_circuit  # noqa: E402
 from ligero_tpu_torch import LigeroCircuit, convert  # noqa: E402
-from ligero_tpu_torch.fields import BN254_FR as PF  # noqa: E402
+from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS  # noqa: E402
 
 import torch  # noqa: E402
 
@@ -52,11 +52,30 @@ CASES = [
     {"name": "zk 2^10 gates", "circuit": "synthetic", "gates": 1024,
      "num_vars": 64, "seed": 10, "lambda": ZK_LAMBDA, "zk": True,
      "zk_seed": ZK_SEED},
+    # BLS12-377 Fq, the kernels' second field
+    {"name": "BLS12-377 2^8 gates", "field": "bls12_377_fq",
+     "circuit": "synthetic", "gates": 256, "num_vars": 64, "seed": 8,
+     "lambda": 128, "zk": False},
+    {"name": "BLS12-377 2^10 gates", "field": "bls12_377_fq",
+     "circuit": "synthetic", "gates": 1024, "num_vars": 64, "seed": 10,
+     "lambda": 128, "zk": False},
+    {"name": "BLS12-377 zk 2^8 gates", "field": "bls12_377_fq",
+     "circuit": "synthetic", "gates": 256, "num_vars": 64, "seed": 8,
+     "lambda": ZK_LAMBDA, "zk": True, "zk_seed": ZK_SEED},
+    {"name": "BLS12-377 zk 2^10 gates", "field": "bls12_377_fq",
+     "circuit": "synthetic", "gates": 1024, "num_vars": 64, "seed": 10,
+     "lambda": ZK_LAMBDA, "zk": True, "zk_seed": ZK_SEED},
 ]
+
+
+def case_field(case):
+    """The JAX package's field of a case (BN254 Fr where it names none)."""
+    return FIELDS[case.get("field", BN254_FR.name)]
 
 
 def reference_case(case):
     """(circuit, outputs, prove call) on JAX-package objects."""
+    F = case_field(case)
     kw = {"zk_seed": bytes.fromhex(case["zk_seed"])} if case["zk"] else {}
     if case["circuit"] == "cube":
         c = ArithmeticCircuit(F)
@@ -70,6 +89,7 @@ def reference_case(case):
 
 
 def reference_proof_bytes(case) -> bytes:
+    F = case_field(case)
     circ, outs, prove = reference_case(case)
     ref = RefCircuit(circ, outs, lambda_=case["lambda"], zk=case["zk"],
                      backend=Backend(F))
@@ -96,7 +116,8 @@ def test_golden_digest_matches_jax_package_and_port(index):
     circ, outs, prove = reference_case(case)
     port = LigeroCircuit(convert.circuit_from_reference(circ), outs,
                          lambda_=case["lambda"], zk=case["zk"], device="cpu")
-    assert prove(port, test_sponge(F)).to_bytes(PF) == data
+    F = case_field(case)
+    assert prove(port, test_sponge(F)).to_bytes(PORT_FIELDS[F.name]) == data
 
 
 if __name__ == "__main__":

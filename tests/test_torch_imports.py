@@ -101,6 +101,25 @@ def test_zk_proves_and_verifies_with_both_blocked():
     assert "zk ok" in out
 
 
+def test_bls12_377_proves_and_verifies_with_both_blocked():
+    """The kernels' second field: plain and zk over BLS12-377 Fq."""
+    out = run_blocked(
+        "from ligero_tpu_torch import (BLS12_377_FQ as F, LigeroCircuit,\n"
+        "                              LigeroProof, test_sponge)\n"
+        "from ligero_tpu_torch.synthetic import generate_random_circuit\n"
+        "sp = test_sponge(F)\n"
+        "c, outs, vs = generate_random_circuit(F, 96, num_vars=4, seed=3)\n"
+        "for zk in (False, True):\n"
+        "    lig = LigeroCircuit(c, outs, lambda_=10, zk=zk, device='cpu')\n"
+        "    kw = {'zk_seed': bytes(range(32))} if zk else {}\n"
+        "    proof = lig.prove(vs, sp.clone(), **kw)\n"
+        "    assert lig.verify(proof, sp.clone())\n"
+        "    back = LigeroProof.from_bytes(proof.to_bytes(F), F)\n"
+        "    assert lig.verify(back, sp.clone())\n"
+        "print('bls ok')\n")
+    assert "bls ok" in out
+
+
 def test_batch_proves_and_verifies_with_both_blocked():
     out = run_blocked(
         PROVE +

@@ -149,6 +149,26 @@ def test_structured_twin_matches_plain_and_jax_package(n, w, tile_log):
             field, x, n, inverse, canon_out)), (inverse, canon_out)
 
 
+# BLS12-377 Fq at the edges of its routes: the tile limit (one pass of
+# 4096 elements, the 198 KB tile), cosets, two passes, global stages
+BLS_STRUCT_CASES = [(4096, 4096, 12), (4096, 2049, 12), (1024, 129, 12),
+                    (512, 512, 4), (1024, 300, 4), (256, 256, 3)]
+
+
+@pytest.mark.parametrize("n,w,tile_log", BLS_STRUCT_CASES)
+def test_structured_twin_matches_jax_package_bls12_377(n, w, tile_log):
+    """pallas_ntt carries every BLS12-377 transform of the JAX package; its
+    oracle here is DomainOps on numpy (Pallas does not run on the CPU)."""
+    field = BLS12_377_FQ
+    rng = np.random.default_rng(1000 * n + 10 * w + tile_log)
+    x = rand_mont(field, rng, (1, w))
+    for inverse, canon_out in FLAGS:
+        got = ntt.ntt_structured(pf(field), t(x), n, inverse, canon_out,
+                                 tile_log=tile_log)
+        assert np.array_equal(got.numpy(), jax_package_ntt(
+            field, x, n, inverse, canon_out)), (inverse, canon_out)
+
+
 @pytest.mark.parametrize("inverse,canon_out", FLAGS)
 @pytest.mark.parametrize("w,tile_log", [(1024, 12), (1024, 5), (128, 12),
                                         (1024, 3)])
@@ -230,9 +250,14 @@ MAIN_PATH_ROUTES = [
 ]
 
 
+@pytest.mark.parametrize("field", [BN254_FR, BLS12_377_FQ],
+                         ids=lambda f: f.name)
 @pytest.mark.parametrize("label,rows,w,n,name,split", MAIN_PATH_ROUTES,
                          ids=[c[0] for c in MAIN_PATH_ROUTES])
-def test_route_and_scratch_of_main_path_shapes(label, rows, w, n, name, split):
+def test_route_and_scratch_of_main_path_shapes(label, rows, w, n, name, split,
+                                               field):
+    """The routes count elements, so both fields take the same ones; the
+    scratch is one packed element (32 or 48 bytes) per element."""
     rt = cuda_ntt.route(w, n, rows)
     tile_log = ntt.tile_log_for(rows, w, n)
     assert rt == ntt.ntt_plan(w, n, tile_log)
@@ -240,9 +265,10 @@ def test_route_and_scratch_of_main_path_shapes(label, rows, w, n, name, split):
     assert (rt.lc, rt.l0, rt.l1, rt.l2) == split
     assert rt.lc + rt.l0 + rt.l1 + rt.l2 == rt.logn == n.bit_length() - 1
     assert w <= 1 << rt.ls and (rt.lc == 0 or w > 1 << (rt.ls - 1) or w == 1)
-    # only a two-pass route allocates: one packed 32-byte intermediate
-    want = rows * n * 32 if name.startswith("two-pass") else 0
-    assert cuda_ntt.scratch_bytes(rows, w, n) == want
+    # only a two-pass route allocates: one packed 4 W-byte intermediate
+    elem = 2 * field.num_limbs
+    want = rows * n * elem if name.startswith("two-pass") else 0
+    assert cuda_ntt.scratch_bytes(pf(field), rows, w, n) == want
     # a block's tile never exceeds the kernel's limit, and short transforms
     # are taken side by side up to 2048 elements
     for sub, avail in ((rt.ls, rt.lc),) if not rt.l1 else ((rt.l2, rt.l1),
@@ -291,8 +317,8 @@ def test_direct_fit_counts_scratch_by_route(monkeypatch):
     zu, zmsg, wide = (zrows * n * L * 4, zrows * k * L * 4,
                       zrows * d2 * L * 4)
     coeffs = zrows * (k + b) * L * 4
-    assert cuda_ntt.scratch_bytes(zrows, d2, n) == zu // 2
-    assert cuda_ntt.scratch_bytes(zrows, k + b, d2) == 0
+    assert cuda_ntt.scratch_bytes(pf(BN254_FR), zrows, d2, n) == zu // 2
+    assert cuda_ntt.scratch_bytes(pf(BN254_FR), zrows, k + b, d2) == 0
     encode = nnz * (L * 4 + 16) + zmsg + coeffs + wide + zu + zu // 2
     zfold = 12 * zmsg + zmsg // 4
     zlinear = zu + coeffs + nnz * (L * 4 + 16) + max(zfold, zmsg + 2 * wide)
@@ -316,34 +342,36 @@ KERNEL_CASES = [(2, 2), (1, 2), (1024, 1024), (100, 1024), (2048, 2048),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", [BN254_FR, BLS12_377_FQ], ids=lambda f: f.name)
 @pytest.mark.parametrize("w,n", KERNEL_CASES)
-def test_ntt_kernel_routes_match_plain(cuda, w, n):
+def test_ntt_kernel_routes_match_plain(cuda, w, n, field):
     rng = np.random.default_rng(n + w)
     batch = 5 if n <= 16384 else 1
-    x = t(rand_mont(BN254_FR, rng, (batch, w))).to(cuda)
+    x = t(rand_mont(field, rng, (batch, w))).to(cuda)
     assert cuda_ntt.route(w, n, batch) == cuda_ntt.route(w, n)
     before = cuda_ntt.launches.count
     for inverse, canon in FLAGS:
-        want = ntt.ntt_ref(pf(BN254_FR), x, n, inverse, canon)
-        got = cuda_ntt.ntt(pf(BN254_FR), x, n, inverse, canon)
+        want = ntt.ntt_ref(pf(field), x, n, inverse, canon)
+        got = cuda_ntt.ntt(pf(field), x, n, inverse, canon)
         assert torch.equal(got, want), (cuda_ntt.route(w, n), inverse, canon)
         # one row alone takes the small-batch route: the same bits
-        assert torch.equal(cuda_ntt.ntt(pf(BN254_FR), x[:1], n, inverse, canon),
+        assert torch.equal(cuda_ntt.ntt(pf(field), x[:1], n, inverse, canon),
                            want[:1]), (cuda_ntt.route(w, n, 1), inverse, canon)
     assert cuda_ntt.launches.count == before + 8
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", [BN254_FR, BLS12_377_FQ], ids=lambda f: f.name)
 @pytest.mark.parametrize("n,w,tile_log", STRUCT_CASES)
-def test_ntt_kernel_small_tile_limits(cuda, n, w, tile_log):
+def test_ntt_kernel_small_tile_limits(cuda, n, w, tile_log, field):
     """Every route, the global stages included, at the CPU twin's sizes: the
     kernel is handed the route of a lowered tile limit."""
-    x = t(rand_mont(BN254_FR, np.random.default_rng(n + w), (3, w))).to(cuda)
+    x = t(rand_mont(field, np.random.default_rng(n + w), (3, w))).to(cuda)
     rt = ntt.ntt_plan(w, n, tile_log)
     for inverse, canon in FLAGS:
-        got = cuda_ntt.ntt_routed(pf(BN254_FR), x, n, inverse, canon, rt,
+        got = cuda_ntt.ntt_routed(pf(field), x, n, inverse, canon, rt,
                                   tile_log=tile_log)
-        assert torch.equal(got, ntt.ntt_ref(pf(BN254_FR), x, n, inverse,
+        assert torch.equal(got, ntt.ntt_ref(pf(field), x, n, inverse,
                                             canon)), (rt, inverse, canon)
 
 
@@ -363,18 +391,23 @@ def test_ntt_kernel_rejects_bad_shapes(cuda):
         cuda_ntt.ntt_routed(f, torch.zeros((1, 8, 16), dtype=torch.int32,
                                            device=cuda), 8, False, False,
                             ntt.ntt_plan(4, 8))
+    with pytest.raises(ValueError):   # BLS12-377 elements are 24 limbs
+        cuda_ntt.ntt(pf(BLS12_377_FQ), torch.zeros((1, 8, 16),
+                                                   dtype=torch.int32,
+                                                   device=cuda), 8)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", [BN254_FR, BLS12_377_FQ], ids=lambda f: f.name)
 @pytest.mark.parametrize("n", [2, 64, 1024, 4096])
-def test_ntt_kernel_matches_plain(cuda, n):
+def test_ntt_kernel_matches_plain(cuda, n, field):
     rng = np.random.default_rng(n)
-    x = t(rand_mont(BN254_FR, rng, (3, n)))
+    x = t(rand_mont(field, rng, (3, n)))
     for inverse in (False, True):
         for canon in (False, True):
-            want = ntt.ntt_ref(pf(BN254_FR), x, n, inverse, canon)
-            got = cuda_ntt.ntt(pf(BN254_FR), x.to(cuda), n, inverse, canon)
+            want = ntt.ntt_ref(pf(field), x, n, inverse, canon)
+            got = cuda_ntt.ntt(pf(field), x.to(cuda), n, inverse, canon)
             assert torch.equal(got.cpu(), want)
     short = x[:, :max(1, n // 8)].contiguous()
-    assert torch.equal(cuda_ntt.ntt(pf(BN254_FR), short.to(cuda), n).cpu(),
-                       ntt.ntt_ref(pf(BN254_FR), short, n))
+    assert torch.equal(cuda_ntt.ntt(pf(field), short.to(cuda), n).cpu(),
+                       ntt.ntt_ref(pf(field), short, n))
