@@ -25,7 +25,9 @@ It runs every phase, in order; any failure exits non-zero:
                (``engine/spot.py``, which the verifier does not call yet)
                against the NTT kernel and its plain version.  The same
                kernel cases run again for BLS12-377 Fq at its instance's
-               shapes, with Blake2s at row counts of every residue mod 4.
+               shapes, with Blake2s at row counts of every residue mod 4,
+               three full matrices in one launch, and row_combine over
+               two matrices in one launch (the bls batch path's).
 4. parity   -- port proofs on the card byte-equal to the port's proofs on
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
@@ -39,7 +41,9 @@ It runs every phase, in order; any failure exits non-zero:
                plain, B = 2 zk): ``prove_batch`` byte-equal to sequential
                ``prove`` calls with their walls, ``verify_batch`` over
                honest, tampered, flipped and truncated proofs, and the peak
-               device memory.  Then the 2^20-gate circuit over BLS12-377
+               device memory; before each, its batched Blake2s and
+               row_combine launches at its own shapes against their plain
+               versions.  Then the 2^20-gate circuit over BLS12-377
                Fq: plain (and a batch of 2, honest and tampered, against
                sequential proves) and zk.
 6. serve    -- a repeated-squaring ``.r1cs`` (2^14 squarings) and its
@@ -81,7 +85,8 @@ sys.modules["ligero_tpu"] = None
 LOG2_GATES, SEED = 20, 0  # BASELINE.json config #5, the repo's headline size
 # BN254's batch phases run a smaller instance of the same circuit, to keep
 # the run well inside its time limit; their batched launches are held
-# against the plain versions at the 2^20 shapes in the kernels phase
+# against the plain versions at the 2^20 shapes in the kernels phase and
+# at their own shapes before each batch path
 BATCH_LOG2_GATES = 18
 ZK_SEED = bytes(range(32))
 # NVIDIA H100 SXM data sheet: device memory rate; 32-bit integer rate taken
@@ -206,10 +211,24 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def ntt_products(w: int, n: int, epilogue: bool) -> int:
+    """Montgomery products a row of the transform needs, w-wide rows
+    zero-extended to n, as ``csrc/ntt.cu`` decomposes it: c = n / s
+    transforms of s points (s the least power of two >= w), each of
+    s/2 log2 s radix-2 butterflies less the s - 1 whose twiddle is one
+    (a block of 2h points has one at pos 0 in every stage), plus the twist
+    of the w inputs of every coset, which coset 0 skips where there is no
+    output constant (``epilogue``: n^-1 or from-Montgomery) to fold in."""
+    s = 1 << (w - 1).bit_length()
+    c = n // s
+    butterflies = (s // 2) * (s.bit_length() - 1) - (s - 1)
+    return c * butterflies + w * (c if epilogue else c - 1)
+
+
 def ntt_work(field, rows: int, w: int, n: int, epilogue: bool):
     """Bytes and operations of a batched NTT: w-wide rows and the twiddles
-    in, n-wide rows out; n/2 log2 n butterflies a row, one product each."""
-    products = rows * ((n // 2) * (n.bit_length() - 1) + (n if epilogue else 0))
+    in, n-wide rows out; :func:`ntt_products` products a row."""
+    products = rows * ntt_products(w, n, epilogue)
     elem = elem_bytes(field)
     return (rows * (w + n) * elem + (n // 2) * elem // 2,
             products * mont_mul_ops(field))
@@ -287,7 +306,8 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
          lambda ab: mm(*ab), lambda ab: fieldops.mont_mul(field, *ab),
          (3 * nnz * elem, nnz * mont_mul_ops(field))),
         ("blake2s_cols", f"Blake2s columns {rows} x 1024", elems(rows, 1024),
-         cuda_hash.blake2s_columns, hashops.blake2s_columns_ref,
+         lambda u: cuda_hash.blake2s_columns(field, u),
+         hashops.blake2s_columns_ref,
          blake2s_work(field, rows, 1024)),
         ("row_combine", f"row_combine {rows} x {k}",
          pair(elems(rows), elems(rows, k)),
@@ -339,7 +359,8 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
         results["ntt"][f"{key}full_bound_ms"] = full[0]
         u = cuda_ntt.ntt(field, x, n, canon_out=True)
         del x
-        ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u), iters=3)
+        ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u),
+                        iters=3)
         full = bound(*blake2s_work(field, nrows, n))
         log(f"kernel [{field.name}] {label}Blake2s columns, full {nrows} x "
             f"{n}: {ms:.3f} ms, bound %.3f ms by %s" % full)
@@ -361,44 +382,95 @@ def host_hash_context(n: int) -> None:
         f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
 
 
-def blake2s_residue_cases(torch, field, gen, results, rows, n) -> None:
+def blake2s_residue_cases(torch, field, gen) -> None:
     """The column kernel of a 48-byte field, whose message repeats every 3
     blocks of 4 rows, at row counts of every residue mod 4, one matrix and
-    three stacked in one launch, against the plain version (the plain
-    version's time is per block: the full depth is the kernels phase's
-    4m-row case, and the zk main path hashes 4m + 3 rows); then three full
-    (4m, n) matrices against three single launches."""
-    from ligero_tpu_torch.engine import cuda_hash, hashops
-    cols = 256
+    three stacked in one launch, against the plain version (the full depth
+    is the kernels phase's 4m-row case; the zk main path hashes 4m + 3
+    rows)."""
     for nrows in (100, 101, 102, 103):
-        u = _rand_elems(torch, gen, (BATCH * nrows, cols), field)
-        side = u.reshape(BATCH, nrows, cols, field.num_limbs).permute(
-            1, 0, 2, 3).reshape(nrows, BATCH * cols, field.num_limbs)
-        want = hashops.blake2s_columns_ref(side)
-        ok = (torch.equal(cuda_hash.blake2s_columns(u[:nrows]), want[:cols])
-              and torch.equal(cuda_hash.blake2s_columns(u, BATCH), want))
-        log(f"kernel [{field.name}] Blake2s columns {nrows} rows "
-            f"(= {nrows % 4} mod 4) x {cols}, alone and {BATCH} in one "
-            f"launch: bit-equal to the plain version: {ok}")
-        require(ok, f"Blake2s {nrows} rows: kernel disagrees with its plain "
-                "version")
-        del u, side, want
-    u = _rand_elems(torch, gen, (BATCH * rows, n), field)
-    got = cuda_hash.blake2s_columns(u, BATCH)
-    for i in range(BATCH):
+        blake2s_batch_case(torch, field, gen, BATCH, nrows, 256)
+
+
+def blake2s_full_batch_case(torch, field, gen, B, rows, n) -> dict:
+    """B full (rows, n) matrices in one launch, whose element offsets pass
+    2^31, against B single launches (held against the plain version at
+    that row count in the kernels phase); returns the time and bound."""
+    from ligero_tpu_torch.engine import cuda_hash
+    u = _rand_elems(torch, gen, (B * rows, n), field)
+    got = cuda_hash.blake2s_columns(field, u, B)
+    for i in range(B):
         require(torch.equal(got[i * n:(i + 1) * n], cuda_hash.blake2s_columns(
-            u[i * rows:(i + 1) * rows])), f"batched Blake2s {BATCH} x {rows} "
-            f"x {n}, matrix {i}: differs from its single launch")
-    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, BATCH), 3)
-    bound_ms, by = bound(*[BATCH * w for w in blake2s_work(field, rows, n)])
-    log(f"kernel [{field.name}] batched Blake2s, full {BATCH} x {rows} x {n}: "
-        f"bit-equal to {BATCH} single launches; {ms:.3f} ms, bound "
+            field, u[i * rows:(i + 1) * rows])), f"batched Blake2s {B} x "
+            f"{rows} x {n}, matrix {i}: differs from its single launch")
+    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u, B), 3)
+    bound_ms, by = bound(*[B * w for w in blake2s_work(field, rows, n)])
+    log(f"kernel [{field.name}] batched Blake2s, full {B} x {rows} x {n}: "
+        f"bit-equal to {B} single launches; {ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms by {by}")
-    results["blake2s_cols"]["batched_full"] = {
-        "shape": f"{BATCH} x {rows} x {n}", "ms": ms, "bound_ms": bound_ms,
-        "bound_by": by}
     del u, got
     torch.cuda.empty_cache()
+    return {"shape": f"{B} x {rows} x {n}", "ms": ms, "bound_ms": bound_ms,
+            "bound_by": by}
+
+
+def blake2s_batch_case(torch, field, gen, B, nrows, cols) -> dict:
+    """The column kernel over B stacked (nrows, cols) matrices in one
+    launch, and over the first alone, against the plain version (which
+    hashes the B matrices' columns side by side as one (nrows, B cols)
+    matrix); returns the times and the bound of the batched launch."""
+    from ligero_tpu_torch.engine import cuda_hash, hashops
+    L = field.num_limbs
+    u = _rand_elems(torch, gen, (B * nrows, cols), field)
+    side = u.reshape(B, nrows, cols, L).permute(1, 0, 2, 3).reshape(
+        nrows, B * cols, L)
+    want, plain_ms = _time_once(
+        torch, lambda: hashops.blake2s_columns_ref(side))
+    got = cuda_hash.blake2s_columns(field, u, B)
+    require(torch.equal(got, want), f"batched Blake2s {B} x {nrows} x {cols}: "
+            "kernel disagrees with its plain version")
+    require(torch.equal(cuda_hash.blake2s_columns(field, u[:nrows]),
+                        want[:cols]), f"Blake2s columns {nrows} x {cols}: "
+            "kernel disagrees with its plain version")
+    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u, B), 5)
+    one = _time_cuda(
+        torch, lambda: cuda_hash.blake2s_columns(field, u[:nrows]), 5)
+    bound_ms, by = bound(*[B * w for w in blake2s_work(field, nrows, cols)])
+    log(f"kernel [{field.name}] batched Blake2s {B} x {nrows} x {cols}: "
+        f"max_abs_err=0, and one matrix alone; kernel {ms:.4f} ms (one "
+        f"matrix {one:.4f} ms), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by {by}")
+    del u, side, want, got
+    torch.cuda.empty_cache()
+    return {"shape": f"{B} x {nrows} x {cols}", "ms": ms, "one_ms": one,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
+
+
+def row_combine_batch_case(torch, field, gen, B, rows, k) -> dict:
+    """row_combine over B (rows, k) matrices with their own challenges in
+    one launch (grid z) against the plain version; returns the times and
+    the bound."""
+    from ligero_tpu_torch.engine import cuda_lc
+    r = _rand_elems(torch, gen, (B, rows), field)
+    mats = _rand_elems(torch, gen, (B, rows, k), field)
+    got = cuda_lc.row_combine_batch(field, r, mats)
+    want, plain_ms = _time_once(
+        torch, lambda: cuda_lc.row_combine_batch_ref(field, r, mats))
+    require(got.shape == want.shape and torch.equal(got, want),
+            f"batched row_combine {B} x {rows} x {k}: kernel disagrees with "
+            "its plain version")
+    ms = _time_cuda(
+        torch, lambda: cuda_lc.row_combine_batch(field, r, mats), 5)
+    one = _time_cuda(
+        torch, lambda: cuda_lc.row_combine(field, r[0], mats[0]), 5)
+    bound_ms, by = bound(*[B * w for w in row_combine_work(field, rows, k)])
+    log(f"kernel [{field.name}] batched row_combine {B} x {rows} x {k}: "
+        f"max_abs_err=0 kernel {ms:.4f} ms (one {one:.4f} ms), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {by}")
+    del r, mats, got, want
+    torch.cuda.empty_cache()
+    return {"shape": f"{B} x {rows} x {k}", "ms": ms, "one_ms": one,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
 
 
 def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
@@ -412,67 +484,19 @@ def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
     challenges; three trees on one stream (at n and at 64 leaves: what B
     launches cost).  The batched times and bounds go into ``results``
     beside the single launches'."""
-    from ligero_tpu_torch.engine import cuda_hash, cuda_lc, cuda_tree, hashops
-    B, cols, nrows = BATCH, 256, rows + 3
+    from ligero_tpu_torch.engine import cuda_tree, hashops
+    B = BATCH
 
     def check(label, got, want):
         require(got.shape == want.shape and torch.equal(got, want),
                 f"{label}: kernel disagrees with its per-proof version")
 
-    u = _rand_elems(torch, gen, (B * nrows, cols), field)
-    # the plain version hashes columns side by side: the three matrices'
-    # columns as one (nrows, B cols) matrix are the per-proof digests
-    side = u.reshape(B, nrows, cols, 16).permute(1, 0, 2, 3).reshape(
-        nrows, B * cols, 16)
-    want, plain_ms = _time_once(
-        torch, lambda: hashops.blake2s_columns_ref(side))
-    check(f"batched Blake2s {B} x {nrows} x {cols}",
-          cuda_hash.blake2s_columns(u, B), want)
-    check(f"zk Blake2s columns {nrows} x {cols} (odd row count)",
-          cuda_hash.blake2s_columns(u[:nrows]), want[:cols])
-    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, B), 5)
-    one = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u[:nrows]), 5)
-    bound_ms, by = bound(*[B * w for w in blake2s_work(field, nrows, cols)])
-    log(f"kernel batched Blake2s {B} x {nrows} x {cols} (odd row count): "
-        f"max_abs_err=0, and one matrix alone; kernel {ms:.4f} ms (one matrix "
-        f"{one:.4f} ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-        f"{by}")
-    results["blake2s_cols"]["batched"] = {
-        "shape": f"{B} x {nrows} x {cols}", "ms": ms, "one_ms": one,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
-    del u, side, want
-    torch.cuda.empty_cache()
-    u = _rand_elems(torch, gen, (B * rows, n), field)
-    got = cuda_hash.blake2s_columns(u, B)
-    for i in range(B):
-        check(f"batched Blake2s {B} x {rows} x {n}, matrix {i}",
-              got[i * n:(i + 1) * n],
-              cuda_hash.blake2s_columns(u[i * rows:(i + 1) * rows]))
-    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(u, B), 3)
-    bound_ms, by = bound(*[B * w for w in blake2s_work(field, rows, n)])
-    log(f"kernel batched Blake2s, full {B} x {rows} x {n}: bit-equal to {B} "
-        f"single launches; {ms:.3f} ms, bound {bound_ms:.3f} ms by {by}")
-    results["blake2s_cols"]["batched_full"] = {
-        "shape": f"{B} x {rows} x {n}", "ms": ms, "bound_ms": bound_ms,
-        "bound_by": by}
-    del u, got
-    torch.cuda.empty_cache()
-    r = _rand_elems(torch, gen, (B, rows), field)
-    mats = _rand_elems(torch, gen, (B, rows, k), field)
-    got = cuda_lc.row_combine_batch(field, r, mats)
-    want, plain_ms = _time_once(
-        torch, lambda: cuda_lc.row_combine_batch_ref(field, r, mats))
-    check(f"batched row_combine {B} x {rows} x {k}", got, want)
-    ms = _time_cuda(torch, lambda: cuda_lc.row_combine_batch(field, r, mats), 5)
-    one = _time_cuda(torch, lambda: cuda_lc.row_combine(field, r[0], mats[0]), 5)
-    bound_ms, by = bound(*[B * w for w in row_combine_work(field, rows, k)])
-    log(f"kernel batched row_combine {B} x {rows} x {k}: max_abs_err=0 kernel "
-        f"{ms:.4f} ms (one {one:.4f} ms), plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms by {by}")
-    results["row_combine"]["batched"] = {
-        "shape": f"{B} x {rows} x {k}", "ms": ms, "one_ms": one,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
-    del r, mats, got, want
+    results["blake2s_cols"]["batched"] = blake2s_batch_case(
+        torch, field, gen, B, rows + 3, 256)
+    results["blake2s_cols"]["batched_full"] = blake2s_full_batch_case(
+        torch, field, gen, B, rows, n)
+    results["row_combine"]["batched"] = row_combine_batch_case(
+        torch, field, gen, B, rows, k)
     for leaves_n in (n, 64):
         forest = torch.randint(-2**31, 2**31, (B, leaves_n, 8), generator=gen,
                                dtype=torch.int64, device="cuda").to(torch.int32)
@@ -1143,6 +1167,12 @@ def main() -> int:
     circ, outs, vars_ = make_circuit(field, BATCH_LOG2_GATES, SEED)
     for zk, path in ((False, "batch"), (True, "zk batch")):
         lig = build_instance(circ, outs, zk=zk)
+        # the batched launches at this path's own shapes
+        B = ZK_BATCH if zk else BATCH
+        results["blake2s_cols"][f"{path} path"] = blake2s_batch_case(
+            torch, field, gen, B, lig.num_rows, lig.n)
+        results["row_combine"][f"{path} path"] = row_combine_batch_case(
+            torch, field, gen, B, 4 * lig.m, lig.k + (lig.blind_t if zk else 0))
         by_path[path] = phase_batch(torch, field, lig, vars_)
         del lig
         torch.cuda.empty_cache()
@@ -1154,7 +1184,11 @@ def main() -> int:
     lig = build_instance(circ, outs, zk=False)
     bls_dims, zk_dims = instance_dims(lig)
     bls_results = phase_kernels(torch, bls, gen, bls_dims, zk_dims)
-    blake2s_residue_cases(torch, bls, gen, bls_results, 4 * lig.m, lig.n)
+    blake2s_residue_cases(torch, bls, gen)
+    bls_results["blake2s_cols"]["batched_full"] = blake2s_full_batch_case(
+        torch, bls, gen, BATCH, 4 * lig.m, lig.n)
+    bls_results["row_combine"]["batched"] = row_combine_batch_case(
+        torch, bls, gen, 2, 4 * lig.m, lig.k)   # the bls batch path's B
     by_path["bls plain"] = phase_main(torch, bls, lig, vars_)
     by_path["bls batch"] = phase_batch(torch, bls, lig, vars_, full=False)
     del lig
@@ -1172,7 +1206,8 @@ def main() -> int:
         require(sys.modules.get(mod) is None, f"{mod} was imported")
 
     extra = ("chain_floor_ms", "batched", "batched_full", "forest", "full_ms",
-             "zk_full_ms", "full_bound_ms", "zk_full_bound_ms")
+             "zk_full_ms", "full_bound_ms", "zk_full_bound_ms", "batch path",
+             "zk batch path")
 
     def timings(res: dict) -> dict:
         return {"max_abs_err": res["max_abs_err"], "ms": res["ms"],

@@ -30,8 +30,8 @@ constexpr int THREADS = 256;
 // results sits in its staging row: the swizzle keeps both the element-order
 // writes and the run-order reads free of bank conflicts (a quarter warp's
 // eight 16-byte accesses fall in eight distinct 16-byte bank groups;
-// engine/cuda_mont.py:piece_slot is the same map, checked there for both
-// piece counts).
+// tests/test_torch_field.py reads the expression below and checks this for
+// both piece counts).
 template <int PIECES>
 __device__ __forceinline__ int piece_slot(int idx) {
   static_assert(PIECES == 4 || PIECES == 6, "no swizzle for this width");

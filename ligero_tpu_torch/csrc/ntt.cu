@@ -62,7 +62,9 @@
 // registers.  BN254 keeps 8 elements of 8 words in them (64) beside a
 // product's temporaries; 8 elements of 12 words (96) would leave too few,
 // so BLS12-377 does two stages between barriers, 4 elements (48), at the
-// same 512 threads and one block to an SM.
+// same 512 threads and one block to an SM.  On an H100 this shape, with
+// ptxas's 128-152 bytes of spill, beat two stages at 256 threads (no
+// spill) and three stages at 256 or 512 threads (PERF.md, Findings).
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -72,20 +74,20 @@ namespace {
 constexpr int MAX_TILE_LOG = 12;  // 4096 elements: 132 KB with the padding
                                   // (198 KB for BLS12-377)
 constexpr int IO_UNROLL = 2;      // elements in flight when loading, storing
+// The most threads a block has: __launch_bounds__(MAX_THREADS, 1) leaves
+// 65536 / MAX_THREADS = 128 registers a thread (two 2048-element BN254
+// tiles or one other tile to an SM).
+constexpr int MAX_THREADS = 512;
 
-// The stages a thread does between barriers, and the most threads a block
-// has: __launch_bounds__(MAX_THREADS, 1) leaves 65536 / MAX_THREADS
-// registers a thread (128: two 2048-element BN254 tiles or one other tile
-// to an SM).  See the head of this file; scripts/ntt_shape_ab.py times
-// other shapes of the BLS12-377 instantiation.
+// The stages a thread does between barriers (see the head of this file).
 template <class F>
 struct NttShape {
-  static constexpr int RADIX_LOG = 3, MAX_THREADS = 512;
+  static constexpr int RADIX_LOG = 3;
 };
 
 template <>
 struct NttShape<Bls12377Fq> {
-  static constexpr int RADIX_LOG = 2, MAX_THREADS = 512;
+  static constexpr int RADIX_LOG = 2;
 };
 
 enum Mode { COSET = 0, PASS1 = 1, PASS2 = 2 };
@@ -187,7 +189,7 @@ __device__ __forceinline__ void dif_group(uint32_t* sm, int pitch, int tile,
 //          pw[c n0 i1 k2 mod n]; output k1 goes to position k2 + n2 k1 of
 //          out's coset r (l0 = 0) or, in place, of the segment (l0 > 0).
 template <class F, int MODE>
-__global__ void __launch_bounds__(NttShape<F>::MAX_THREADS, 1)
+__global__ void __launch_bounds__(MAX_THREADS, 1)
     ntt_pass_kernel(PassArgs a) {
   constexpr int W = F::W, L = F::L;
   extern __shared__ uint32_t sm[];
@@ -323,7 +325,6 @@ cudaError_t launch_pass(const PassArgs& a, long long blocks, int lt,
         (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  constexpr int MAX_THREADS = NttShape<F>::MAX_THREADS;
   int threads = tile >> NttShape<F>::RADIX_LOG;
   threads = threads < 32 ? 32 : (threads > MAX_THREADS ? MAX_THREADS : threads);
   ntt_pass_kernel<F, MODE><<<(unsigned)blocks, threads, bytes, st>>>(a);

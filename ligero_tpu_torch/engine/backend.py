@@ -284,7 +284,7 @@ class TorchBackend:
         over all batch * n columns, one tree launch per proof on one
         stream, one transfer of the flat trees, host unpacking."""
         n = u_canon.shape[1]
-        leaves_le = cuda_hash.blake2s_columns(u_canon, batch)
+        leaves_le = cuda_hash.blake2s_columns(self.field, u_canon, batch)
         flat = self.to_numpy(cuda_tree.forest_flat(
             leaves_le.reshape(batch, n, 8)))
         return [hashops.digest_lists(flat[b], n) for b in range(batch)]

@@ -160,18 +160,6 @@ def kernel_field_id(field, name: str) -> int:
         f"{' and '.join(f.name for f in KERNEL_FIELDS)} only, not {field.name}")
 
 
-def kernel_width_id(limbs: int, name: str) -> int:
-    """The id of the kernel field whose elements are ``limbs`` 16-bit limbs
-    (for a kernel that depends on the width alone); raises ``ValueError``
-    for another width."""
-    for known, fid in KERNEL_FIELDS.items():
-        if known.num_limbs == limbs:
-            return fid
-    raise ValueError(f"{name}: the kernels take elements of "
-                     f"{' or '.join(str(f.num_limbs) for f in KERNEL_FIELDS)} "
-                     f"limbs, not {limbs}")
-
-
 def check(code: int, name: str) -> None:
     if code != 0:
         raise CudaKernelError(f"{name}: CUDA error {code}")

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..fields import FieldSpec
+
 from . import cuda_build
 from .hashops import blake2s_columns_ref
 
@@ -36,19 +38,22 @@ def blake2s_columns_batch_ref(u_canon: torch.Tensor, batch: int) -> torch.Tensor
                       for b in range(batch)])
 
 
-def blake2s_columns(u_canon: torch.Tensor, batch: int = 1) -> torch.Tensor:
-    """(batch * rows, n, L) canonical int32 limbs, ``batch`` matrices of
-    ``rows`` rows stacked -> (batch * n, 8) int32 LE digest words: matrix
-    b's column j at row b n + j.  A column's message opens with its own
-    matrix's row count.  The hash depends on the element width alone: the
-    kernel takes the instantiation of the kernel field with L limbs."""
+def blake2s_columns(field: FieldSpec, u_canon: torch.Tensor,
+                    batch: int = 1) -> torch.Tensor:
+    """(batch * rows, n, L) canonical int32 limbs of ``field``, ``batch``
+    matrices of ``rows`` rows stacked -> (batch * n, 8) int32 LE digest
+    words: matrix b's column j at row b n + j.  A column's message opens
+    with its own matrix's row count."""
     if batch < 1 or u_canon.shape[0] % batch:
         raise ValueError(f"blake2s_columns: {u_canon.shape[0]} rows do not "
                          f"split into {batch} matrices")
+    if u_canon.shape[-1] != field.num_limbs:
+        raise ValueError(f"blake2s_columns: {field.name} elements are "
+                         f"{field.num_limbs} limbs, not {u_canon.shape[-1]}")
     if u_canon.device.type == "cpu":
         return blake2s_columns_batch_ref(u_canon, batch)
     total, n, L = u_canon.shape
-    fid = cuda_build.kernel_width_id(L, "blake2s_columns")
+    fid = cuda_build.kernel_field_id(field, "blake2s_columns")
     u_canon = u_canon.contiguous()
     out = torch.empty((batch * n, 8), dtype=torch.int32, device=u_canon.device)
     if n == 0:

@@ -7,8 +7,8 @@ the kernel is bound by device memory (4 L bytes in per operand and out per
 element: 64 for BN254, 96 for BLS12-377; ~200 or ~430 instructions of
 arithmetic); its design is one thread per element with the limbs packed
 into 32-bit words in registers, so every operand crosses memory once, and
-a warp's results staged through shared memory (:func:`piece_slot`) so that
-they leave as whole 512-byte runs.
+a warp's results staged through shared memory (a swizzle free of bank
+conflicts) so that they leave as whole 512-byte runs.
 
 A tensor on the CPU takes the plain version (:func:`fieldops.mont_mul`); a
 CUDA tensor launches the kernel or raises.
@@ -24,16 +24,6 @@ from . import cuda_build, fieldops
 
 #: kernel launches by :func:`mont_mul`
 launches = cuda_build.LaunchCounter()
-
-
-def piece_slot(pieces: int, idx: int) -> int:
-    """The kernel's staging swizzle (``piece_slot`` of csrc/mont_mul.cu):
-    where 16-byte piece ``idx`` of a warp's 32 results (piece q of lane l is
-    ``pieces * l + q``; ``pieces`` = L / 4) sits in the warp's staging row.
-    A permutation under which each quarter warp's eight accesses, written in
-    element order or read in run order, fall in eight distinct 16-byte bank
-    groups."""
-    return idx ^ ((idx >> 3) & (3 if pieces == 4 else 1))
 
 
 def mont_mul(field: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

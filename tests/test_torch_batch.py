@@ -259,12 +259,12 @@ def test_commit_columns_batch_matches_per_proof_and_backend(rows):
         part = u[b * rows:(b + 1) * rows]
         assert got[b] == be.commit_columns(be.asarray(part))
         assert got[b] == ref.commit_columns(part)
-    leaves = cuda_hash.blake2s_columns(be.asarray(u), B)
+    leaves = cuda_hash.blake2s_columns(PF, be.asarray(u), B)
     assert leaves.shape == (B * n, 8)
     assert torch.equal(leaves[n:2 * n],
                        hashops.blake2s_columns_ref(be.asarray(u[rows:2 * rows])))
     with pytest.raises(ValueError, match="do not split"):
-        cuda_hash.blake2s_columns(be.asarray(u[:-1]), B)
+        cuda_hash.blake2s_columns(PF, be.asarray(u[:-1]), B)
 
 
 def test_row_combine_batch_matches_per_proof_and_backend():
@@ -320,7 +320,7 @@ def test_blake2s_batch_kernel_matches_plain(cuda, rows, n):
     u = torch.from_numpy(rng.integers(0, 1 << 16, (3 * rows, n, 16)).astype(
         np.int32))
     before = cuda_hash.launches.count
-    got = cuda_hash.blake2s_columns(u.to(cuda), 3)
+    got = cuda_hash.blake2s_columns(PF, u.to(cuda), 3)
     assert cuda_hash.launches.count == before + 1
     assert torch.equal(got.cpu(), cuda_hash.blake2s_columns_batch_ref(u, 3))
 

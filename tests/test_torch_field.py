@@ -11,7 +11,7 @@ import torch
 
 from ligero_tpu.engine.fieldops import FieldKernel
 from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
-from ligero_tpu_torch.engine import cuda_build, cuda_mont, fieldops
+from ligero_tpu_torch.engine import cuda_build, cuda_hash, cuda_mont, fieldops
 from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
 
 # the suite runs in several worker processes that share the host's cores, and
@@ -352,12 +352,10 @@ def test_field_header_constants_match_bls12_377():
 
 
 def test_kernels_refuse_a_field_they_lack():
-    """The field kernels take BN254 Fr and BLS12-377 Fq by id, the column
-    hash 16 or 24 limbs; anything else raises before a launch."""
+    """The field kernels take BN254 Fr and BLS12-377 Fq by id; anything else
+    raises before a launch."""
     from ligero_tpu_torch.fields import FieldSpec
     assert [cuda_build.kernel_field_id(pf(f), "t") for f in FIELDS] == [0, 1]
-    assert [cuda_build.kernel_width_id(f.num_limbs, "t") for f in FIELDS] \
-        == [0, 1]
     other = FieldSpec(name="goldilocks", p=(1 << 64) - (1 << 32) + 1,
                       generator=7, two_adicity=32)
     with pytest.raises(NotImplementedError, match="goldilocks"):
@@ -366,17 +364,33 @@ def test_kernels_refuse_a_field_they_lack():
     fake = FieldSpec(name="bn254_fr", p=other.p, generator=7, two_adicity=32)
     with pytest.raises(NotImplementedError):
         cuda_build.kernel_field_id(fake, "ntt")
-    with pytest.raises(ValueError):
-        cuda_build.kernel_width_id(4, "blake2s_columns")
+    # the column hash takes the field too, and elements of its width only
+    u = torch.zeros((2, 3, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="24 limbs"):
+        cuda_hash.blake2s_columns(pf(BLS12_377_FQ), u)
+
+
+def mont_mul_piece_slot(pieces: int):
+    """``piece_slot<PIECES>`` of csrc/mont_mul.cu, read from the source: the
+    branch of its ``PIECES == 4 ? ... : ...`` for ``pieces``, evaluated as
+    Python (the C operators it uses mean the same there)."""
+    path = os.path.join(os.path.dirname(cuda_mont.__file__), "..", "csrc",
+                        "mont_mul.cu")
+    with open(path) as f:
+        src = f.read()
+    four, six = re.search(r"int piece_slot\(int idx\) \{.*?return PIECES == 4 "
+                          r"\? (.*?) : (.*?);\n", src, re.S).groups()
+    expr = compile(four if pieces == 4 else six, "piece_slot", "eval")
+    return lambda idx: eval(expr, {"__builtins__": {}}, {"idx": idx})
 
 
 @pytest.mark.parametrize("pieces", [4, 6])
 def test_mont_mul_staging_swizzle_is_free_of_bank_conflicts(pieces):
-    """piece_slot (csrc/mont_mul.cu, mirrored in cuda_mont) permutes a
-    warp's 32 pieces-wide row; each quarter warp's eight 16-byte accesses,
-    the writes in element order (lane l, piece q at pieces l + q) and the
-    reads in run order (j 32 + lane), land in eight distinct bank groups."""
-    slot = lambda i: cuda_mont.piece_slot(pieces, i)  # noqa: E731
+    """piece_slot (csrc/mont_mul.cu) permutes a warp's 32 pieces-wide row;
+    each quarter warp's eight 16-byte accesses, the writes in element order
+    (lane l, piece q at pieces l + q) and the reads in run order (j 32 +
+    lane), land in eight distinct bank groups."""
+    slot = mont_mul_piece_slot(pieces)
     size = 32 * pieces
     assert sorted(slot(i) for i in range(size)) == list(range(size))
     for quarter in range(4):

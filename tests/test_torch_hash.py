@@ -98,7 +98,7 @@ def test_blake2s_batch_matches_column_hash_bls12_377():
     """Two stacked BLS12-377 matrices of 7 rows: each column's digest opens
     with its own matrix's row count."""
     u = rand_canon(np.random.default_rng(21), (14, 3), BLS12_377_FQ)
-    got = cuda_hash.blake2s_columns(t(u), 2).numpy().view(np.uint32)
+    got = cuda_hash.blake2s_columns(pf(BLS12_377_FQ), t(u), 2).numpy().view(np.uint32)
     for b in range(2):
         for j in range(3):
             col = BLS12_377_FQ.limbs_to_ints(u[7 * b:7 * b + 7, j])
@@ -143,7 +143,7 @@ def test_tree_flat_and_digest_lists_match_backend(n):
 def test_wrapper_takes_plain_version_on_cpu():
     u = t(rand_canon(np.random.default_rng(13), (3, 4)))
     before = cuda_hash.launches.count
-    assert torch.equal(cuda_hash.blake2s_columns(u), hashops.blake2s_columns_ref(u))
+    assert torch.equal(cuda_hash.blake2s_columns(pf(BN254_FR), u), hashops.blake2s_columns_ref(u))
     assert cuda_hash.launches.count == before
 
 
@@ -153,9 +153,9 @@ def test_wrapper_takes_plain_version_on_cpu():
                                     (4, 64), (5, 64), (6, 64), (4103, 96)])
 def test_blake2s_kernel_matches_plain(cuda, rows, n, field):
     u = t(rand_canon(np.random.default_rng(rows), (rows, n), field))
-    got = cuda_hash.blake2s_columns(u.to(cuda))
+    got = cuda_hash.blake2s_columns(pf(field), u.to(cuda))
     assert torch.equal(got.cpu(), hashops.blake2s_columns_ref(u))
     # two matrices in one launch: each its own column hashes
     both = torch.cat([u, u.flip(0)])
-    got = cuda_hash.blake2s_columns(both.to(cuda), 2)
-    assert torch.equal(got.cpu(), cuda_hash.blake2s_columns(both, 2))
+    got = cuda_hash.blake2s_columns(pf(field), both.to(cuda), 2)
+    assert torch.equal(got.cpu(), cuda_hash.blake2s_columns(pf(field), both, 2))

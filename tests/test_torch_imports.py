@@ -171,8 +171,7 @@ IMPORT_LINE = re.compile(
 
 def port_sources() -> list[str]:
     paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "profile_torch_port.py"),
-             os.path.join(REPO, "scripts", "compare_kernels_with_parent.py")]
+             os.path.join(REPO, "scripts", "profile_torch_port.py")]
     for dirpath, _, files in os.walk(os.path.join(REPO, "ligero_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(paths)
