@@ -21,9 +21,15 @@ It runs every phase, in order; any failure exits non-zero:
                the tree's chain floor from a timed chain of dependent
                hashes; the serving path's pieces: the batched Blake2s and
                row_combine launches (B = 3) against their per-proof plain
-               versions, three trees on one stream; and the spot evaluation
+               versions, three trees on one stream; the spot evaluation
                (``engine/spot.py``, which the verifier does not call yet)
-               against the NTT kernel and its plain version.  The same
+               against the NTT kernel and its plain version; the Poseidon
+               sponge (``csrc/poseidon_cols.cu``) against its plain version
+               at full width and 64 / 67 rows, against the host sponge at
+               the commit's full heights, its tree levels against the host
+               tree, its chain floor; the kernel shapes of the 2^22-gate
+               instance (plain versions at 256 rows, full size against the
+               256-row launches and hashlib).  The same
                kernel cases run again for BLS12-377 Fq at its instance's
                shapes, with Blake2s at row counts of every residue mod 4,
                three full matrices in one launch, and row_combine over
@@ -32,16 +38,22 @@ It runs every phase, in order; any failure exits non-zero:
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
                x^3, 2^8 and 2^10 gates, and 2^8 and 2^10 gates with zk, over
-               BN254 Fr; 2^8 and 2^10 gates, plain and zk, over BLS12-377.
+               BN254 Fr; 2^8 and 2^10 gates, plain and zk, over BLS12-377;
+               2^8 gates, plain and zk, under the Poseidon commitment (the
+               CPU verifies the default-committed proofs only).
 5. main     -- the 2^20-gate synthetic circuit through ``LigeroCircuit``'s
                ``prove`` and ``verify``, first plain, then with ``zk=True``:
                verify True, tampered witness and flipped byte rejected,
                every kernel launched on each path; plain: a second proof,
-               byte-identical.  Then the batch path at 2^18 gates (B = 3
+               byte-identical.  The same two paths under the Poseidon
+               commitment: the sponge kernel launched, Blake2s and the
+               SHA-256 tree not (the default paths: the reverse).  Then the
+               batch path at 2^18 gates (B = 3
                plain, B = 2 zk): ``prove_batch`` byte-equal to sequential
                ``prove`` calls with their walls, ``verify_batch`` over
                honest, tampered, flipped and truncated proofs, and the peak
-               device memory; before each, its batched Blake2s and
+               device memory against the prover's and the verifier's
+               estimates; before each, its batched Blake2s and
                row_combine launches at its own shapes against their plain
                versions.  Then the 2^20-gate circuit over BLS12-377
                Fq: plain (and a batch of 2, honest and tampered, against
@@ -58,7 +70,8 @@ It runs every phase, in order; any failure exits non-zero:
                ``.r1cs`` over that field.
 
 The last two stdout lines are the kernels' JSON record (BN254 Fr's numbers
-in each entry, BLS12-377 Fq's under its ``bls12_377_fq`` key) and
+in each entry, BLS12-377 Fq's under its ``bls12_377_fq`` key; the Poseidon
+sponge has BN254's only) and
 ``{"ok": true, "device": {...}}``.  Neither JAX nor the JAX package
 ``ligero_tpu`` is ever imported.
 """
@@ -98,9 +111,16 @@ INT32_OPS_PER_S = 16.75e12
 # operations, plus state set-up); one SHA-256 two-to-one (128 rounds x ~24,
 # plus 48 schedule words x 13).  A Montgomery product: mont_mul_ops.
 BLAKE2S_BLOCK_OPS, SHA256_NODE_OPS = 1160, 3700
+# a Poseidon permutation of the test sponge: 8 full rounds of three S-boxes
+# and 31 partial rounds of one, an S-box x^17 five products; 39 rounds of
+# three constant adds and three MDS adds
+POSEIDON_PRODUCTS, POSEIDON_ADDS = 8 * 3 * 5 + 31 * 5, 39 * 6
 INT8_OPS_PER_S = 1.979e15  # the data sheet's dense int8 tensor-core rate
 BATCH, ZK_BATCH = 3, 2     # proofs a batch on the plain and the zk path
 LOG2_SQUARINGS = 14        # the serve phase's repeated-squaring circuit
+# the largest size the port runs in direct mode: its kernel shapes (m, k, n)
+# are held here, its paths in scripts/profile_torch_port.py
+LOG2_GATES_22, DIMS_22 = 22, (2049, 4096, 32768)
 BLS_LOG2_SQUARINGS = 10    # the BLS12-377 service's circuit
 KERNELS = {
     # name: (wrapper module, source, TPU kernel replaced)
@@ -114,7 +134,14 @@ KERNELS = {
                     "ligero_tpu/engine/mxu_lc.py:137"),
     "sha256_tree": ("cuda_tree", "ligero_tpu_torch/csrc/sha256_tree.cu",
                     "ligero_tpu/engine/pallas_tree.py:77"),
+    # the JAX package's Poseidon column sponges run every product of every
+    # round as a mont_mul_pallas launch (ligero_tpu/engine/poseidon_cols.py:71)
+    "poseidon_cols": ("cuda_poseidon", "ligero_tpu_torch/csrc/poseidon_cols.cu",
+                      "ligero_tpu/engine/pallas_kernels.py:30"),
 }
+#: the kernels a path of each commitment never launches
+NOT_ON_DEFAULT = ("poseidon_cols",)
+NOT_ON_POSEIDON = ("blake2s_cols", "sha256_tree")
 
 
 #: the TPU kernel each BLS12-377 instantiation replaces, where it differs:
@@ -161,10 +188,10 @@ def nvidia_smi_line() -> str:
 
 def wrappers():
     from ligero_tpu_torch.engine import (cuda_hash, cuda_lc, cuda_mont,
-                                         cuda_ntt, cuda_tree)
+                                         cuda_ntt, cuda_poseidon, cuda_tree)
     mods = {"cuda_ntt": cuda_ntt, "cuda_mont": cuda_mont,
             "cuda_hash": cuda_hash, "cuda_lc": cuda_lc,
-            "cuda_tree": cuda_tree}
+            "cuda_tree": cuda_tree, "cuda_poseidon": cuda_poseidon}
     return {name: mods[spec[0]] for name, spec in KERNELS.items()}
 
 
@@ -252,6 +279,25 @@ def row_combine_work(field, rows: int, k: int):
 
 def tree_work(n: int):
     return n * 32 + (2 * n - 1) * 32, (n - 1) * SHA256_NODE_OPS
+
+
+def field_add_ops(field) -> int:
+    """32-bit operations of a modular add: W adds with carry, W subtracts
+    with borrow, W selects."""
+    return 3 * (field.num_limbs // 2)
+
+
+def poseidon_work(field, rows: int, cols: int):
+    """Bytes and operations of the column sponges: every element read once,
+    one digest written a column; a column of h rows is ceil(h / 2)
+    permutations (275 products, 234 modular adds each), h to-Montgomery
+    products and rate adds, and one from-Montgomery product.  The adds
+    are counted (~13 % of the operations)."""
+    perms = (rows + 1) // 2
+    products = perms * POSEIDON_PRODUCTS + rows + 1
+    adds = perms * POSEIDON_ADDS + rows
+    return ((rows + 1) * cols * elem_bytes(field),
+            cols * (products * mont_mul_ops(field) + adds * field_add_ops(field)))
 
 
 def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
@@ -562,6 +608,198 @@ def spot_cases(torch, field, gen, rows, k, n, t) -> None:
         torch.cuda.empty_cache()
 
 
+def poseidon_cases(torch, field, gen, rows: int, n: int) -> dict:
+    """The Poseidon sponge kernel (BN254 Fr): against its plain version on
+    the card, bit-equal, at full width (n columns) and heights of 64 and 67
+    rows (67: the odd tail of zk columns); at the commit's full heights (4m
+    and 4m + 3 rows) against the port's host sponge (``col_hash``) on 8
+    sampled columns, and timed there (the main path's launch); its Merkle
+    levels against the host ``create_merkle_tree(two_to_one=...)`` at 1024
+    leaves, and the 14 level launches at n leaves timed; its chain floor:
+    one thread hashing one full column.  Returns the kernel's results."""
+    from ligero_tpu_torch.engine import cuda_poseidon, poseidon_cols
+    from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
+    from ligero_tpu_torch.merkle import create_merkle_tree
+    from ligero_tpu_torch.sponge import test_poseidon_config
+    cfg = test_poseidon_config(field)
+    mt = LigeroMTPoseidonParams(field)
+
+    def kern(u):
+        return cuda_poseidon.poseidon_columns(field, cfg, u)
+
+    res: dict = {"max_abs_err": 0}
+    for h in (64, 67):
+        u = _rand_elems(torch, gen, (h, n), field)
+        got = kern(u)
+        want, plain_ms = _time_once(
+            torch, lambda: poseidon_cols.poseidon_columns_plain(field, cfg, u))
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        ms = _time_cuda(torch, lambda: kern(u), 3)
+        bound_ms, by = bound(*poseidon_work(field, h, n))
+        log(f"kernel [{field.name}] Poseidon columns {h} x {n}: "
+            f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {bound_ms:.3f} ms by {by}")
+        require(got.shape == want.shape and err == 0, f"Poseidon columns {h} x "
+                f"{n}: the kernel disagrees with its plain version")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res[f"rows_{h}"] = {"ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": by}
+        del u, got, want
+    res["plain_ms"] = res["rows_64"]["plain_ms"]
+    for key, h in (("", rows), ("zk_", rows + 3)):
+        u = _rand_elems(torch, gen, (h, n), field)
+        got = poseidon_cols.digests_to_bytes(kern(u))
+        ms = _time_cuda(torch, lambda: kern(u), 2)
+        js = torch.randperm(n, generator=gen, device="cuda")[:8].tolist()
+        host = [mt.col_hash(field, field.limbs_to_ints(u[:, j].cpu().numpy()))
+                for j in js]
+        require([got[j] for j in js] == host, f"Poseidon columns {h} x {n}: "
+                "the kernel disagrees with the host sponge")
+        bound_ms, by = bound(*poseidon_work(field, h, n))
+        one = torch.empty((h, 1, field.num_limbs), dtype=torch.int32,
+                          device="cuda")
+        one.copy_(u[:, :1])
+        floor = _time_cuda(torch, lambda: kern(one), 2)
+        log(f"kernel [{field.name}] Poseidon columns, full {h} x {n}: 8 "
+            f"sampled columns equal the host sponge; {ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms by {by} ({bound_ms / ms:.1%}); chain floor "
+            f"(one thread, one column) {floor:.3f} ms ({floor / ms:.1%})")
+        if not key:
+            res.update(ms=ms, bound_ms=bound_ms, bound_by=by,
+                       chain_floor_ms=floor)
+        else:
+            res.update(zk_full_ms=ms, zk_full_bound_ms=bound_ms,
+                       zk_chain_floor_ms=floor)
+        del u, one
+    # the tree: levels of Poseidon two-to-one, one launch a level
+    leaves = _rand_elems(torch, gen, (1024,), field)
+    got = poseidon_cols.tree_levels(field, cfg, leaves)
+    digests = poseidon_cols.digests_to_bytes(leaves)
+    want = create_merkle_tree(digests, two_to_one=mt.two_to_one).levels
+    require([poseidon_cols.digests_to_bytes(lv) for lv in got] == want,
+            "Poseidon tree levels at 1024 leaves differ from the host tree")
+    leaves = _rand_elems(torch, gen, (n,), field)
+    res["levels_ms"] = _time_cuda(
+        torch, lambda: poseidon_cols.tree_levels(field, cfg, leaves), 3)
+    levels = n.bit_length() - 1
+    log(f"kernel [{field.name}] Poseidon tree: levels at 1024 leaves equal "
+        f"the host tree's; {levels} level launches at {n} leaves "
+        f"{res['levels_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return res
+
+
+def kernel_cases_2e22(torch, field, gen, results: dict) -> None:
+    """The kernel shapes of the 2^22-gate instance (m = 2049, k = 4096,
+    n = 32768; the zk d2 from the compile's own rule), held against the
+    plain versions: iNTT_k, NTT_n 4096 -> 32768 canonical, NTT_2k and zk
+    NTT_d2 at 256 rows; row_combine over 8196 x 4096; the tree at 32768
+    leaves.  Then at full size: iNTT_k and NTT_n over all 8196 rows, each
+    full transform's first 256 rows equal to the 256-row launch's (the
+    route may differ with the row count); Blake2s over the 8196 x 32768
+    canonical codewords, 16 sampled columns equal to the host's hashlib
+    column hash (``hashes.column_hash``; the plain version would take ~40 s
+    for its ~4100 dependent block steps, and holds the kernel at 4100 rows
+    in the kernels phase).  Times go into ``results[...]["2^22"]``."""
+    from ligero_tpu_torch.engine import cuda_lc, cuda_ntt, cuda_tree, hashops, ntt
+    from ligero_tpu_torch.hashes import column_hash
+    from ligero_tpu_torch.ligero.compile import calculate_t, zk_parameters
+    m, k, n = DIMS_22
+    rows = 4 * m
+    t = calculate_t(field, 128, (n - k + 1, n), n)
+    b, d2 = zk_parameters(k, n, t, True)
+
+    def check(name, label, got, want, plain_ms, ms, work):
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        bound_ms, by = bound(*work)
+        log(f"kernel [{field.name}] 2^22 {label}: max_abs_err={err} kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+            f"by {by}")
+        require(got.shape == want.shape and err == 0,
+                f"2^22 {label}: the kernel disagrees with its plain version")
+        results[name].setdefault("2^22", {})[label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by}
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+    firsts = {}
+    for label, w, size, inverse, canon in (
+            (f"iNTT_k k={k}", k, k, True, False),
+            (f"NTT_n {k} -> {n} canon_out", k, n, False, True),
+            (f"NTT_2k 2k={2 * k}", k, 2 * k, False, False),
+            (f"zk NTT_d2 d2={d2} of k + b", k + b, d2, False, False)):
+        x = _rand_elems(torch, gen, (256, w), field)
+        got = cuda_ntt.ntt(field, x, size, inverse, canon)
+        want, plain_ms = _time_once(
+            torch, lambda: ntt.ntt_ref(field, x, size, inverse, canon))
+        ms = _time_cuda(torch, lambda: cuda_ntt.ntt(field, x, size, inverse,
+                                                     canon), 5)
+        check("ntt", f"{label}, 256 x {w} [route "
+              f"{route_text(cuda_ntt.route(w, size, 256))}]", got, want,
+              plain_ms, ms, ntt_work(field, 256, w, size, inverse or canon))
+        firsts[label] = (x, got)
+        del want
+    r = _rand_elems(torch, gen, (rows,), field)
+    mat = _rand_elems(torch, gen, (rows, k), field)
+    got = cuda_lc.row_combine(field, r, mat)
+    want, plain_ms = _time_once(
+        torch, lambda: cuda_lc.row_combine_ref(field, r, mat))
+    ms = _time_cuda(torch, lambda: cuda_lc.row_combine(field, r, mat), 5)
+    check("row_combine", f"row_combine {rows} x {k}", got, want, plain_ms, ms,
+          row_combine_work(field, rows, k))
+    del r, mat
+    leaves = torch.randint(-2**31, 2**31, (n, 8), generator=gen,
+                           dtype=torch.int64, device="cuda").to(torch.int32)
+    got = cuda_tree.tree_flat(leaves)
+    want, plain_ms = _time_once(torch, lambda: hashops.tree_flat(leaves))
+    ms = _time_cuda(torch, lambda: cuda_tree.tree_flat(leaves), 5)
+    check("sha256_tree", f"SHA-256 tree n={n}", got, want, plain_ms, ms,
+          tree_work(n))
+    torch.cuda.empty_cache()
+    # full size, kernel only; the full transforms agree with the checked
+    # 256-row launches on their first rows
+    for label, w, size, inverse, canon in (
+            (f"iNTT_k k={k}", k, k, True, False),
+            (f"NTT_n {k} -> {n} canon_out", k, n, False, True)):
+        x256, got256 = firsts[label]
+        x = _rand_elems(torch, gen, (rows, w), field)
+        x[:256] = x256
+        out = cuda_ntt.ntt(field, x, size, inverse, canon)
+        require(torch.equal(out[:256], got256), f"2^22 {label}: the full "
+                f"{rows}-row transform differs from the 256-row launch")
+        del out
+        ms = _time_cuda(torch, lambda: cuda_ntt.ntt(field, x, size, inverse,
+                                                     canon), 3)
+        full = bound(*ntt_work(field, rows, w, size, inverse or canon))
+        log(f"kernel [{field.name}] 2^22 {label}, full {rows} x {w} -> {size} "
+            f"[route {route_text(cuda_ntt.route(w, size, rows))}]: first 256 "
+            f"rows equal the checked launch; {ms:.3f} ms, bound %.3f ms by %s"
+            % full)
+        results["ntt"]["2^22"][f"{label}, full {rows} rows"] = {
+            "ms": ms, "bound_ms": full[0], "bound_by": full[1]}
+        if canon:
+            u = cuda_ntt.ntt(field, x, size, inverse, canon)
+        del x
+        torch.cuda.empty_cache()
+    from ligero_tpu_torch.engine import cuda_hash
+    words = cuda_hash.blake2s_columns(field, u)
+    js = torch.randperm(n, generator=gen, device="cuda")[:16].tolist()
+    digests = words.cpu().numpy().view("<u4")
+    for j in js:
+        host = column_hash(field, field.limbs_to_ints(u[:, j].cpu().numpy()))
+        require(digests[j].tobytes() == host, f"2^22 Blake2s columns {rows} x "
+                f"{n}: column {j} differs from the host's column hash")
+    ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u), 3)
+    full = bound(*blake2s_work(field, rows, n))
+    log(f"kernel [{field.name}] 2^22 Blake2s columns, full {rows} x {n}: 16 "
+        f"sampled columns equal the host column hash; {ms:.3f} ms, bound "
+        "%.3f ms by %s" % full)
+    results["blake2s_cols"].setdefault("2^22", {})[f"full {rows} x {n}"] = {
+        "ms": ms, "bound_ms": full[0], "bound_by": full[1]}
+    del u, firsts
+    torch.cuda.empty_cache()
+
+
 def route_text(rt) -> str:
     """An NTT route in a few words: its name, cosets and sub-transforms."""
     split = " x ".join(str(1 << l) for l in (rt.l0, rt.l1, rt.l2) if l)
@@ -671,7 +909,8 @@ def tree_bit_equality(torch, gen) -> None:
 
 def golden_circuit(entry):
     """(field, circuit, outputs, prove call) of one ``golden_proofs.json``
-    entry (its ``field`` key names the field; BN254 Fr where it has none)."""
+    entry (its ``field`` key names the field; BN254 Fr where it has none;
+    its ``mt`` key, where present, the commitment)."""
     from ligero_tpu_torch import FIELDS, ArithmeticCircuit
     from ligero_tpu_torch.synthetic import generate_random_circuit
     field = FIELDS[entry.get("field", "bn254_fr")]
@@ -694,11 +933,17 @@ def phase_parity() -> None:
                         "ligero_tpu_torch", "testdata", "golden_proofs.json")
     with open(path) as f:
         entries = json.load(f)["proofs"]
-    require(len(entries) >= 9, "golden_proofs.json holds too few cases")
+    from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
+
+    require(len(entries) >= 11, "golden_proofs.json holds too few cases")
+    require(sum(e.get("mt") == "poseidon" for e in entries) >= 2,
+            "golden_proofs.json holds no Poseidon-committed case")
     for entry in entries:
         field, circ, outs, prove = golden_circuit(entry)
         sponge = test_sponge(field)
         kw = dict(lambda_=entry["lambda"], zk=entry["zk"])
+        if entry.get("mt") == "poseidon":
+            kw["mt_params"] = LigeroMTPoseidonParams(field)
         on_card = LigeroCircuit(circ, outs, device="cuda", **kw)
         on_cpu = LigeroCircuit(circ, outs, device="cpu", **kw)
         got = prove(on_card, sponge.clone())
@@ -706,10 +951,13 @@ def phase_parity() -> None:
         same = data == prove(on_cpu, sponge.clone()).to_bytes(field)
         golden = (len(data) == entry["length"]
                   and hashlib.sha256(data).hexdigest() == entry["sha256"])
-        ok_cpu = on_cpu.verify(got, sponge.clone())
+        # the CPU's Poseidon leaves of ~470 opened columns take its plain
+        # version ~0.5 min: the CPU verifies the default-committed proofs
+        ok_cpu = "mt_params" in kw or on_cpu.verify(got, sponge.clone())
         ok_card = on_card.verify(got, sponge.clone())
         log(f"parity [{field.name}] {entry['name']}: card bytes = CPU bytes: {same}, = the "
-            f"JAX package's digest: {golden}, CPU verifies: {ok_cpu}, card "
+            f"JAX package's digest: {golden}, CPU verifies: "
+            f"{'not run' if 'mt_params' in kw else ok_cpu}, card "
             f"verifies: {ok_card}")
         require(same and golden and ok_cpu and ok_card,
                 f"parity failed: {entry['name']}")
@@ -729,16 +977,21 @@ def make_circuit(field, log2_gates: int, seed: int):
     return circ, outs, vars_
 
 
-def build_instance(circ, outs, zk: bool):
+def build_instance(circ, outs, zk: bool, poseidon: bool = False):
     """A main path's instance: the synthetic circuit compiled for the card
-    (no ``device`` given: the card is the default)."""
+    (no ``device`` given: the card is the default), committed with the
+    default params or ``LigeroMTPoseidonParams``."""
     from ligero_tpu_torch import LigeroCircuit
+    from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
     from ligero_tpu_torch.utils.profiling import PhaseTimer
 
     t0 = time.perf_counter()
-    lig = LigeroCircuit(circ, outs, zk=zk, timer=PhaseTimer(enabled=True))
+    mt = LigeroMTPoseidonParams(circ.field) if poseidon else None
+    lig = LigeroCircuit(circ, outs, zk=zk, timer=PhaseTimer(enabled=True),
+                        mt_params=mt)
     require(lig.device.type == "cuda", "the default device is not the card")
-    log(f"LigeroCircuit(zk={zk}) built ({time.perf_counter() - t0:.1f} s): "
+    log(f"LigeroCircuit(zk={zk}, poseidon={poseidon}) built "
+        f"({time.perf_counter() - t0:.1f} s): "
         f"m={lig.m} k={lig.k} n={lig.n} t={lig.t} b={lig.blind_t} "
         f"d2={lig.d2}, U is {lig.num_rows} x {lig.n}, "
         f"nnz(A)={len(lig.state.a_vals)}")
@@ -762,15 +1015,18 @@ def reset_counts(torch, wraps) -> None:
         mod.launches.reset()
 
 
-def read_counts(wraps, path: str, earlier: dict | None = None) -> dict:
+def read_counts(wraps, path: str, earlier: dict | None = None,
+                absent=NOT_ON_DEFAULT) -> dict:
     """The launch counts just after a path was driven (added to those of
-    its ``earlier`` half, where it was driven in two); every kernel must
-    have been launched on it."""
+    its ``earlier`` half, where it was driven in two); every kernel but
+    those ``absent`` from the path (the other commitment's) must have been
+    launched on it, and those not at all."""
     launches = {name: mod.launches.count + (earlier or {}).get(name, 0)
                 for name, mod in wraps.items()}
     log(f"kernel launches on the {path} path: {launches}")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel was not launched on the {path} path: {launches}")
+    require(all((v == 0) == (name in absent) for name, v in launches.items()),
+            f"on the {path} path a kernel was not launched, or one of "
+            f"{absent} was: {launches}")
     return launches
 
 
@@ -780,10 +1036,17 @@ def flip_byte(data: bytes) -> bytes:
     return bytes(flipped)
 
 
-def path_tag(field, zk: bool) -> str:
+def path_tag(field, zk: bool, poseidon: bool = False) -> str:
     """The prefix of a path's name and log lines: "" / "zk " for BN254 Fr,
-    "bls " / "bls zk " for BLS12-377 Fq."""
-    return ("" if field.num_limbs == 16 else "bls ") + ("zk " if zk else "")
+    "bls " / "bls zk " for BLS12-377 Fq, "poseidon " before "zk " where
+    the Poseidon params commit."""
+    return (("" if field.num_limbs == 16 else "bls ")
+            + ("poseidon " if poseidon else "") + ("zk " if zk else ""))
+
+
+def is_poseidon(lig) -> bool:
+    from ligero_tpu_torch.ligero.types import is_default_mt_params
+    return not is_default_mt_params(lig.mt_params)
 
 
 def phase_main(torch, field, lig, vars_) -> dict:
@@ -794,7 +1057,8 @@ def phase_main(torch, field, lig, vars_) -> dict:
     timer = lig.timer
     sponge = test_sponge(field)
     wraps = wrappers()
-    tag = path_tag(field, lig.zk)
+    poseidon = is_poseidon(lig)
+    tag = path_tag(field, lig.zk, poseidon)
     kw = {"zk_seed": ZK_SEED} if lig.zk else {}
 
     reset_counts(torch, wraps)
@@ -807,7 +1071,8 @@ def phase_main(torch, field, lig, vars_) -> dict:
     t0 = time.perf_counter()
     ok = lig.verify(proof, sponge.clone())
     verify_s = time.perf_counter() - t0
-    launches = read_counts(wraps, f"{tag or 'plain '}main")
+    launches = read_counts(wraps, f"{tag or 'plain '}main", absent=(
+        NOT_ON_POSEIDON if poseidon else NOT_ON_DEFAULT))
     verify_phases = dict(timer.totals)
     peak = torch.cuda.max_memory_allocated()
     estimate = lig.backend.direct_bytes(
@@ -933,11 +1198,18 @@ def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
     vbatch_s = time.perf_counter() - t0
     vpeak = torch.cuda.max_memory_allocated()
     launches = read_counts(wraps, f"{tag}batch", earlier=proving)
+    dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t,
+            lig.d2)
+    part = lig.backend.max_verify_batch(*dims)
+    vestimate = lig.backend.verify_bytes(*dims, batch=min(part, len(batch)))
     log(f"  {tag}verify_batch v.ntt_cols "
         f"{lig.timer.totals.get('v.ntt_cols', 0.0) * 1e3:10.1f} ms")
-    log(f"{tag}verify_batch of {len(batch)}: {verdicts} in {vbatch_s:.3f} s; "
-        f"peak device memory {vpeak / 2**30:.2f} GiB")
+    log(f"{tag}verify_batch of {len(batch)} in parts of {part}: {verdicts} in "
+        f"{vbatch_s:.3f} s; peak device memory {vpeak / 2**30:.2f} GiB "
+        f"(verifier estimate {vestimate / 2**30:.2f} GiB)")
     require(verdicts == expected, f"verify_batch verdicts {verdicts}")
+    require(vestimate >= vpeak, "the verifier's memory estimate lies below "
+            "the measured verify_batch peak")
     return launches
 
 
@@ -1153,6 +1425,8 @@ def main() -> int:
     results["sha256_tree"]["chain_floor_ms"] = tree_chain_floor(torch, lig.n)
     batch_kernel_cases(torch, field, gen, results, rows, lig.k, lig.n)
     spot_cases(torch, field, gen, rows, lig.k, lig.n, lig.t)
+    results["poseidon_cols"] = poseidon_cases(torch, field, gen, rows, lig.n)
+    kernel_cases_2e22(torch, field, gen, results)
     host_hash_context(lig.n)
     phase_parity()
     by_path = {"plain": phase_main(torch, field, lig, vars_)}
@@ -1162,8 +1436,15 @@ def main() -> int:
     require((lig.blind_t, lig.d2) == zk_dims, "zk kernel shapes were not the "
             f"zk path's: {zk_dims} vs {(lig.blind_t, lig.d2)}")
     by_path["zk"] = phase_main(torch, field, lig, vars_)
-    del lig, circ, outs, vars_
+    del lig
     torch.cuda.empty_cache()
+    # the same circuit committed with the Poseidon params
+    for zk, path in ((False, "poseidon"), (True, "poseidon zk")):
+        lig = build_instance(circ, outs, zk=zk, poseidon=True)
+        by_path[path] = phase_main(torch, field, lig, vars_)
+        del lig
+        torch.cuda.empty_cache()
+    del circ, outs, vars_
     circ, outs, vars_ = make_circuit(field, BATCH_LOG2_GATES, SEED)
     for zk, path in ((False, "batch"), (True, "zk batch")):
         lig = build_instance(circ, outs, zk=zk)
@@ -1207,7 +1488,8 @@ def main() -> int:
 
     extra = ("chain_floor_ms", "batched", "batched_full", "forest", "full_ms",
              "zk_full_ms", "full_bound_ms", "zk_full_bound_ms", "batch path",
-             "zk batch path")
+             "zk batch path", "2^22", "rows_64", "rows_67", "levels_ms",
+             "zk_chain_floor_ms")
 
     def timings(res: dict) -> dict:
         return {"max_abs_err": res["max_abs_err"], "ms": res["ms"],
@@ -1220,19 +1502,23 @@ def main() -> int:
                 if path.startswith("bls") == bls_paths}
 
     # BN254 Fr's numbers at the top level of each entry, BLS12-377 Fq's
-    # beside them; no single PyTorch call computes any of these functions
-    record = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(counts[name] for counts in by_path.values()),
-         "launches_by_path": paths(name, False),
-         **timings(results[name]),
-         "max_abs_err": max(results[name]["max_abs_err"],
-                            bls_results[name]["max_abs_err"]),
-         "library_ms": None,
-         "bls12_377_fq": {"replaces": BLS_REPLACES.get(name, rep),
-                          "launches_by_path": paths(name, True),
-                          **timings(bls_results[name])}}
-        for name, (_, src, rep) in KERNELS.items()]}
+    # beside them (the Poseidon sponge has none: its digests hold no
+    # BLS12-377 element); no single PyTorch call computes any of these
+    # functions
+    record = {"kernels": []}
+    for name, (_, src, rep) in KERNELS.items():
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": sum(counts[name] for counts in by_path.values()),
+                 "launches_by_path": paths(name, False),
+                 **timings(results[name]), "library_ms": None}
+        if name in bls_results:
+            entry["max_abs_err"] = max(results[name]["max_abs_err"],
+                                       bls_results[name]["max_abs_err"])
+            entry["bls12_377_fq"] = {
+                "replaces": BLS_REPLACES.get(name, rep),
+                "launches_by_path": paths(name, True),
+                **timings(bls_results[name])}
+        record["kernels"].append(entry)
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -156,13 +156,7 @@ class TorchBackend:
         u, msg = rows * n * L * 4, rows * k * L * 4
         coeffs = rows * (k + blind_t) * L * 4
         coo = nnz * (L * 4 + 16)         # stays on the device between proofs
-        nz = nnz * L * 4
-        words = self.field.num_u64_limbs * 2 * 8
-        sampler = (2 * devsampler.plan_attempts(self.field, rows * k) * words
-                   + 5 * rows * k * words + msg)
-        segment = 3 * msg + 3 * nz
-        fold = 12 * msg + msg // 4
-        linear = max(sampler, segment, fold)
+        linear = self._linear_transients(rows, k, nnz)
         scratch = functools.partial(cuda_ntt.scratch_bytes, self.field)
         if blind_t:
             wide = rows * d2 * L * 4
@@ -177,6 +171,47 @@ class TorchBackend:
                 scratch(batch * rows, k, k), scratch(batch * rows, k, n))
             later = batch * (u + coeffs) + coo + linear
         return int(max(encode, later) * ESTIMATE_MARGIN)
+
+    def _linear_transients(self, rows: int, k: int, nnz: int) -> int:
+        """One proof's linear-phase transients (see :meth:`direct_bytes`)."""
+        msg, nz = rows * k * self.L * 4, nnz * self.L * 4
+        words = self.field.num_u64_limbs * 2 * 8
+        sampler = (2 * devsampler.plan_attempts(self.field, rows * k) * words
+                   + 5 * rows * k * words + msg)
+        return max(sampler, 3 * msg + 3 * nz, 12 * msg + msg // 4)
+
+    def verify_bytes(self, rows: int, k: int, n: int, nnz: int,
+                     blind_t: int = 0, d2: int | None = None,
+                     batch: int = 1) -> int:
+        """Estimate of the verifier's largest live set for ``batch`` proofs
+        verified together (``LigeroCircuit.verify_batch``; ``verify`` is a
+        batch of one), same arguments as :meth:`direct_bytes`.
+
+        A's COO (on the device between calls) and each proof's r^T A
+        coefficient rows (4m x k), which wait for the codewords at the
+        opened columns; beside them, the largest of: one proof's linear
+        transients as the prover counts them (the sampler, the sparse
+        product, the fold), or one proof's full n-point transform of its
+        coefficient rows with its NTT scratch.  Proof data on the device
+        (the reveals' transforms, the opened columns) is small beside
+        these."""
+        L = self.L
+        msg, u = rows * k * L * 4, rows * n * L * 4
+        coo = nnz * (L * 4 + 16)
+        transform = u + cuda_ntt.scratch_bytes(self.field, rows, k, n)
+        return int((coo + batch * msg + max(
+            self._linear_transients(rows, k, nnz), transform)) * ESTIMATE_MARGIN)
+
+    def max_verify_batch(self, rows: int, k: int, n: int, nnz: int,
+                         blind_t: int = 0, d2: int | None = None) -> int:
+        """The largest number of proofs, at most :data:`MAX_BATCH`, whose
+        joint verifier live set (:meth:`verify_bytes`) fits the device; 0
+        where not even one fits."""
+        budget = self.memory_budget()
+        for batch in range(MAX_BATCH, 0, -1):
+            if self.verify_bytes(rows, k, n, nnz, blind_t, d2, batch) <= budget:
+                return batch
+        return 0
 
     def check_direct_fits(self, rows: int, k: int, n: int, nnz: int,
                           blind_t: int = 0, d2: int | None = None) -> None:

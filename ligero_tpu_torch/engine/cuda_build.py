@@ -12,7 +12,9 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``c_void_p``.  The field kernels (NTT, mont_mul, Blake2s columns,
 row_combine) are templates over the field, built for BN254 Fr and
 BLS12-377 Fq, and take the field's id (:data:`KERNEL_FIELDS`,
-:func:`kernel_field_id`) as their first argument.
+:func:`kernel_field_id`) as their first argument.  The Poseidon sponge
+(``poseidon_cols.cu``) is built for BN254 Fr only: its 32-byte digests hold
+no BLS12-377 element.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ _SIGNATURES = {
                        _vp],
     "lt_sha256_tree": [_vp, _ll, _vp, _vp, _i, _vp],
     "lt_sha256_chain_probe": [_vp, _i, _vp],
+    "lt_poseidon_cols": [_vp, _vp, _ll, _ll, _ll, _ll, _vp, _vp],
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,16 @@
 """The Ligero SNARK's prover and verifier, plain and zk, on a PyTorch device.
 
 The port's counterpart of ``LigeroCircuit`` in ``ligero_tpu/ligero/core.py``
-for the single-device path with the default commitment (Blake2s column
-leaves, SHA-256 Merkle tree) in "direct" mode: the whole codeword matrix U
-lives on ``device`` as one tensor.  The host keeps what the JAX package
-keeps on the host: the circuit compile (``compile``), witness evaluation
-(``witness``), the Fiat-Shamir transcript (Poseidon sponge), Merkle paths
-and column hashes of the opened columns.  Every bulk step runs through
-:class:`TorchBackend`.
+for the single-device path in "direct" mode: the whole codeword matrix U
+lives on ``device`` as one tensor.  The commitment is pluggable
+(``mt_params``, ``ligero/types.py``): the default Blake2s column leaves and
+SHA-256 Merkle tree, or the Poseidon column sponges and Poseidon tree of
+``LigeroMTPoseidonParams``, each computed on the device.  The host keeps
+what the JAX package keeps on the host: the circuit compile (``compile``),
+witness evaluation (``witness``), the Fiat-Shamir transcript (Poseidon
+sponge), Merkle paths, and the verifier's path checks and Blake2s leaves of
+the opened columns (Poseidon leaves of the opened columns are computed on
+the device).  Every bulk step runs through :class:`TorchBackend`.
 
 zk mode (``zk=True``; an extension of the JAX package, the Rust reference
 is non-zk): every data row's codeword polynomial is blinded by
@@ -41,7 +44,6 @@ import torch
 
 from ..engine import cuda_build
 from ..engine.backend import TorchBackend
-from ..hashes import column_hash
 from ..merkle import MerkleTree
 from ..sampling import (
     get_distinct_indices_excluding,
@@ -52,6 +54,7 @@ from ..sampling import (
 from ..utils.profiling import PhaseTimer
 from .compile import (CHACHA_SEED_BYTES, DEFAULT_SECURITY_LEVEL,
                       CompiledInstance, compile_circuit)
+from .types import LigeroMTTestParams, is_default_mt_params
 from .proof import (
     InterleavedProof,
     LigeroProof,
@@ -90,27 +93,43 @@ class LigeroCircuit:
     field raises) or ``"cpu"`` (the kernels' plain PyTorch versions, any
     field).  The default is the CUDA device; where there is none the
     constructor raises.  ``zk=True`` compiles the zero-knowledge variant;
-    a circuit too small for it at this rate raises ``ValueError``."""
+    a circuit too small for it at this rate raises ``ValueError``.
+    ``mt_params`` is the commitment: ``None`` for the default
+    (``LigeroMTTestParams``), or params with ``device_col_digests``,
+    ``device_tree_levels`` and ``check_backend`` (``LigeroMTPoseidonParams``;
+    over BLS12-377 Fq it raises ``ValueError`` here)."""
 
     def __init__(self, circuit, outputs: list[int],
                  lambda_: int = DEFAULT_SECURITY_LEVEL, rate_inv: int = 8,
-                 zk: bool = False, device=None, timer: PhaseTimer | None = None):
+                 zk: bool = False, device=None, timer: PhaseTimer | None = None,
+                 mt_params=None):
         self._setup(compile_circuit(circuit, outputs, lambda_, rate_inv, zk),
-                    device, timer)
+                    device, timer, mt_params)
 
     @classmethod
     def from_compiled(cls, state: CompiledInstance, device=None,
-                      timer: PhaseTimer | None = None) -> "LigeroCircuit":
+                      timer: PhaseTimer | None = None,
+                      mt_params=None) -> "LigeroCircuit":
         obj = cls.__new__(cls)
-        obj._setup(state, device, timer)
+        obj._setup(state, device, timer, mt_params)
         return obj
 
-    def _setup(self, st: CompiledInstance, device, timer) -> None:
+    def _setup(self, st: CompiledInstance, device, timer, mt_params) -> None:
         self.state = st
         self.field = st.field
         self.backend = TorchBackend(st.field, device)
         self.device = self.backend.device
         self.timer = timer or PhaseTimer()
+        self.mt_params = LigeroMTTestParams() if mt_params is None else mt_params
+        self._mt_default = is_default_mt_params(self.mt_params)
+        if not self._mt_default:
+            # the port commits on the device only
+            hooks = ("device_col_digests", "device_tree_levels", "check_backend")
+            missing = [h for h in hooks if not hasattr(self.mt_params, h)]
+            if missing:
+                raise TypeError(f"mt_params {type(self.mt_params).__name__} "
+                                f"lacks {', '.join(missing)}")
+            self.mt_params.check_backend(self.backend)
         self.circuit, self.outputs = st.circuit, st.outputs
         self.m, self.k, self.n, self.t = st.m, st.k, st.n, st.t
         self.zk, self.blind_t, self.d2 = st.zk, st.blind_t, st.d2
@@ -219,7 +238,7 @@ class LigeroCircuit:
             del preenc                   # lives on as lc_rows
         with ph("commit"):
             trees = [MerkleTree(leaves, inner_levels=levels) for leaves, levels
-                     in be.commit_columns_batch(u_canon, B)]
+                     in self._commit(u_canon, B)]
 
         with ph("interleaved"):
             rs = []
@@ -283,6 +302,21 @@ class LigeroCircuit:
                     LinearConstraintsProof(qs[i], *o2),
                     QuadraticConstraintsProof(p0s[i], *o3)))
         return proofs
+
+    def _commit(self, u_canon, batch: int):
+        """Per proof ``(leaves, inner_levels)`` of ``batch`` stacked
+        (rows, n, L) canonical matrices, through ``mt_params``: the default
+        params' one Blake2s launch and trees, or each proof's device
+        digests and tree levels."""
+        if self._mt_default:
+            return self.backend.commit_columns_batch(u_canon, batch)
+        mt, rows = self.mt_params, u_canon.shape[0] // batch
+        out = []
+        for b in range(batch):
+            leaves = mt.device_col_digests(
+                self.backend, u_canon[b * rows:(b + 1) * rows])
+            out.append((leaves, mt.device_tree_levels(self.backend, leaves)))
+        return out
 
     def _zk_masks(self, zk_seed: bytes | None):
         """The three mask polynomials (canonical ints), their (3, d2, L)
@@ -367,18 +401,21 @@ class LigeroCircuit:
     def verify(self, proof: LigeroProof, sponge) -> bool:
         if not self._well_formed(proof):
             return False
+        leaves = self._opened_leaves([proof])[0]
         sponge.absorb_bytes(proof.u_root)                        # FS #1
         with self.timer.phase("v.interleaved"):
             ok = self._verify_interleaved(proof.interleaved, proof.u_root,
-                                          sponge)
+                                          sponge, leaves=leaves[0])
         if not ok:
             return False
         with self.timer.phase("v.linear"):
-            ok = self._verify_linear(proof.linear, proof.u_root, sponge)
+            ok = self._verify_linear(proof.linear, proof.u_root, sponge,
+                                     leaves[1])
         if not ok:
             return False
         with self.timer.phase("v.quadratic"):
-            return self._verify_quadratic(proof.quadratic, proof.u_root, sponge)
+            return self._verify_quadratic(proof.quadratic, proof.u_root, sponge,
+                                          leaves=leaves[2])
 
     def verify_batch(self, proofs: list[LigeroProof], sponge) -> list[bool]:
         """Verdicts of B proofs of this circuit, each on its own clone of
@@ -390,7 +427,9 @@ class LigeroCircuit:
         (``TorchBackend.ntt_columns_batch``)."""
         if len(proofs) <= 1:
             return [self.verify(p, sponge.clone()) for p in proofs]
-        part = max(2, self._max_batch())
+        part = max(1, self.backend.max_verify_batch(
+            self.num_rows, self.k, self.n, len(self.state.a_vals),
+            self.blind_t, self.d2))
         out: list[bool] = []
         for i in range(0, len(proofs), part):
             out.extend(self._verify_many(proofs[i:i + part], sponge))
@@ -411,6 +450,7 @@ class LigeroCircuit:
                 and _poly_degree(pf.quadratic.polynomial) < self.quad_bound]
         if not live:
             return verdicts
+        leaves = self._opened_leaves([proofs[i] for i in live])
         # the transforms of proof data, which hang on no transcript
         lc = be.ints_to_mont(
             [c for i in live for c in proofs[i].interleaved.preenc_u_lc]
@@ -429,10 +469,12 @@ class LigeroCircuit:
             pf, sp = proofs[i], sponge.clone()
             sp.absorb_bytes(pf.u_root)                           # FS #1
             if not self._verify_interleaved(pf.interleaved, pf.u_root, sp,
-                                            be.mont_to_ints(w_evals[j])):
+                                            be.mont_to_ints(w_evals[j]),
+                                            leaves[j][0]):
                 continue
             opened = self._verify_linear_open(pf.linear, pf.u_root, sp,
-                                              be.mont_to_ints(qp_evals[j]))
+                                              be.mont_to_ints(qp_evals[j]),
+                                              leaves[j][1])
             if opened is not None:
                 pending.append((i, j, sp, *opened))
         if not pending:
@@ -451,12 +493,13 @@ class LigeroCircuit:
                 self._verify_linear_spot(pf.linear, r_evals[slot], q_evals)
                 and self._verify_quadratic(
                     pf.quadratic, pf.u_root, sp,
-                    be.mont_to_ints(qp_evals[len(live) + j])))
+                    be.mont_to_ints(qp_evals[len(live) + j]), leaves[j][2]))
         return verdicts
 
     def warmup(self) -> dict:
         """Everything a first request would otherwise pay for: the kernel
-        library (built where the sources changed), A's one-time upload and
+        library (built where the sources changed: the Poseidon sponge
+        kernel with the others), A's one-time upload and
         the transforms' tables, by one throwaway prove and verify of the
         all-ones witness.  That witness
         satisfies only the interleaved test, so the linear phase's
@@ -497,14 +540,49 @@ class LigeroCircuit:
                 return False
         return True
 
-    def _verify_column_openings(self, columns, paths, u_root, sponge) -> bool:
+    def _opened_leaves(self, proofs) -> list:
+        """Per well-formed proof, the leaf digests of its three opened
+        column sets (interleaved, linear, quadratic): under non-default
+        ``mt_params`` all proofs' columns in one ``device_col_digests``
+        call; under the default params None for each set (their Blake2s
+        leaves are hashed on the host as each set is checked)."""
+        if self._mt_default:
+            return [(None, None, None)] * len(proofs)
+        subs = [sub for pf in proofs
+                for sub in (pf.interleaved, pf.linear, pf.quadratic)]
+        with self.timer.phase("v.col_digests"):
+            digests = self._column_leaves(
+                [col for sub in subs for col in sub.columns])
+        out, off = [], 0
+        for sub in subs:
+            out.append(digests[off:off + len(sub.columns)])
+            off += len(sub.columns)
+        return [tuple(out[3 * i:3 * i + 3]) for i in range(len(proofs))]
+
+    def _column_leaves(self, columns) -> list[bytes]:
+        """Leaf digests of opened columns (lists of ``num_rows`` ints)."""
+        mt = self.mt_params
+        if self._mt_default:
+            return [mt.col_hash(self.field, col) for col in columns]
+        if not columns:
+            return []
+        return mt.device_col_digests(
+            self.backend, self._columns_limbs(columns, self.num_rows))
+
+    def _verify_column_openings(self, columns, paths, u_root, sponge,
+                                leaves=None) -> bool:
+        """``leaves``: the columns' leaf digests where the caller computed
+        them already (:meth:`_opened_leaves`)."""
         indices = self._sample_indices(sponge.squeeze_bytes(CHACHA_SEED_BYTES))
         if len(columns) != len(indices) or len(paths) != len(indices):
             return False
         with self.timer.phase("v.col_openings"):
-            for col, idx, path in zip(columns, indices, paths):
+            if leaves is None:
+                leaves = self._column_leaves(columns)
+            two_to_one = self.mt_params.two_to_one
+            for leaf, idx, path in zip(leaves, indices, paths):
                 if path.leaf_index != idx or not path.verify(
-                        u_root, column_hash(self.field, col)):
+                        u_root, leaf, two_to_one=two_to_one):
                     return False
         return True
 
@@ -537,15 +615,17 @@ class LigeroCircuit:
         return True
 
     def _verify_interleaved(self, proof: InterleavedProof, u_root, sponge,
-                            w: list[int] | None = None) -> bool:
+                            w: list[int] | None = None, leaves=None) -> bool:
         """``w``: the reveal's n codeword values where ``verify_batch``
-        computed them already (the same values as below)."""
+        computed them already (the same values as below); ``leaves``: the
+        opened columns' leaf digests, where computed already."""
         be = self.backend
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #2
         r = self._expand_field(4 * self.m, seed)
         sponge.absorb_field_elems(proof.preenc_u_lc)             # FS #3
         if not self._verify_column_openings(proof.columns, proof.paths,
-                                            u_root, sponge):     # FS #4
+                                            u_root, sponge,
+                                            leaves):             # FS #4
             return False
         if w is None and self.zk:
             # the zk reveal is in coefficient space (deg < k + 3t): check
@@ -562,8 +642,8 @@ class LigeroCircuit:
         return self._spot_matches(w, proof, rhs, 0)
 
     def _verify_linear(self, proof: LinearConstraintsProof, u_root,
-                       sponge) -> bool:
-        opened = self._verify_linear_open(proof, u_root, sponge)
+                       sponge, leaves=None) -> bool:
+        opened = self._verify_linear_open(proof, u_root, sponge, leaves=leaves)
         if opened is None:
             return False
         r_coeffs, q_evals = opened
@@ -574,11 +654,13 @@ class LigeroCircuit:
         return self._verify_linear_spot(proof, r_evals, q_evals)
 
     def _verify_linear_open(self, proof: LinearConstraintsProof, u_root,
-                            sponge, q_evals: list[int] | None = None):
+                            sponge, q_evals: list[int] | None = None,
+                            leaves=None):
         """The linear phase up to its openings (FS #5-#7): ``(the r_i
         coefficient rows on the device, q's n values)``, or None where the
         proof is rejected.  ``q_evals``: q's values where ``verify_batch``
-        computed them already (the same values as below)."""
+        computed them already (the same values as below); ``leaves``: the
+        opened columns' leaf digests, where computed already."""
         p, k = self.field.p, self.k
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #5
         if _poly_degree(proof.polynomial) >= self.lin_bound:
@@ -592,7 +674,8 @@ class LigeroCircuit:
             return None
         sponge.absorb_field_elems(proof.polynomial)              # FS #6
         if not self._verify_column_openings(proof.columns, proof.paths,
-                                            u_root, sponge):     # FS #7
+                                            u_root, sponge,
+                                            leaves):             # FS #7
             return None
         return self._r_a_coeff_rows(seed), q_evals
 
@@ -607,9 +690,11 @@ class LigeroCircuit:
         return self._spot_matches(q_evals, proof, lhs, 1)
 
     def _verify_quadratic(self, proof: QuadraticConstraintsProof, u_root,
-                          sponge, p0_evals: list[int] | None = None) -> bool:
+                          sponge, p0_evals: list[int] | None = None,
+                          leaves=None) -> bool:
         """``p0_evals``: p0's n values where ``verify_batch`` computed them
-        already (the same values as below)."""
+        already (the same values as below); ``leaves``: the opened columns'
+        leaf digests, where computed already."""
         be, k, m = self.backend, self.k, self.m
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #8
         r_quad = self._expand_field(m, seed)
@@ -621,7 +706,8 @@ class LigeroCircuit:
             return False
         sponge.absorb_field_elems(proof.polynomial)              # FS #9
         if not self._verify_column_openings(proof.columns, proof.paths,
-                                            u_root, sponge):     # FS #10
+                                            u_root, sponge,
+                                            leaves):             # FS #10
             return False
         # sum_i r_i (x_i y_i - z_i) per opened column; to_mont(x) * y is
         # the canonical product

@@ -9,12 +9,15 @@ inner-node hasher, and a column hasher, with the concrete
 ``LigeroMTTestParams`` instantiating leaf = identity, two-to-one =
 SHA-256, column = Blake2s-256 over the compressed column encoding.
 
-The port's ``LigeroCircuit`` commits with the default
-:class:`LigeroMTTestParams` only (the Blake2s column kernel and the SHA-256
-tree kernel) and takes no params object until the Poseidon commitment is
-ported (ROADMAP.md queue 1 #14).  :class:`LigeroMTPoseidonParams` keeps its
-host hashers, which the tests hold against the JAX package's; its device
-path raises ``NotImplementedError``.
+The port's ``LigeroCircuit`` takes ``mt_params``: the default
+:class:`LigeroMTTestParams` commits through the Blake2s column kernel and
+the SHA-256 tree kernel, :class:`LigeroMTPoseidonParams` through the
+Poseidon sponge kernel (``device_col_digests``, ``device_tree_levels``), on
+the CPU through its plain version.  The host hashers (``col_hash``,
+``two_to_one``) are the oracle of the tests and check the verifier's
+Merkle paths.  Poseidon digests are 32-byte elements: over BLS12-377 Fq the
+device methods raise ``ValueError`` (the JAX package's ``col_hash`` fails
+there too, with ``OverflowError``).
 """
 
 from __future__ import annotations
@@ -77,18 +80,42 @@ class LigeroMTPoseidonParams:
     def leaf_hash(self, leaf: bytes) -> bytes:
         return leaf
 
-    # -- device fast path ---------------------------------------------------
-    def device_col_digests(self, backend, u_source):
-        """Batched device column digests.  On the CPU there is none (the
-        host per-column loop is the golden path), so this returns None as
-        the JAX package does off the device; on a CUDA backend the batched
-        Poseidon column sponges (``ligero_tpu/engine/poseidon_cols.py``)
-        are not ported yet (ROADMAP.md queue 1 #14)."""
-        if backend.device.type == "cpu":
-            return None
-        raise NotImplementedError(
-            "Poseidon Merkle-tree commitment on a CUDA device is not ported "
-            "yet (ROADMAP.md queue 1 #14)")
+    # -- the commitment on the device -------------------------------------
+    def check_backend(self, backend):
+        """The sponge config for ``backend``'s field; ``ValueError``, before
+        any launch, where that is not these params' field or its elements
+        do not fit a 32-byte digest."""
+        from ..engine.poseidon_cols import check_config
+        from ..sponge import test_poseidon_config
+        if backend.field.p != self.field.p:
+            raise ValueError(f"{self.field.name} Poseidon params over a "
+                             f"{backend.field.name} backend")
+        cfg = test_poseidon_config(self.field)
+        check_config(self.field, cfg)
+        return cfg
+
+    def device_col_digests(self, backend, u_source) -> list[bytes]:
+        """Column digests of a (rows, n, L) canonical limb matrix on
+        ``backend``'s device, the n sponges side by side
+        (``engine/poseidon_cols.py``): the CUDA kernel on the card (a build
+        or launch failure raises), the plain version on the CPU.
+        Bit-identical to :meth:`col_hash` of each column."""
+        from ..engine import poseidon_cols
+        cfg = self.check_backend(backend)
+        return poseidon_cols.digests_to_bytes(poseidon_cols.poseidon_columns(
+            self.field, cfg, backend.asarray(u_source)))
+
+    def device_tree_levels(self, backend, leaves: list[bytes]) -> list:
+        """The Merkle levels above ``leaves`` (a power of two of them), one
+        launch a level on ``backend``'s device: what
+        ``create_merkle_tree(leaves, two_to_one=self.two_to_one).levels``
+        holds."""
+        from ..engine import poseidon_cols
+        cfg = self.check_backend(backend)
+        limbs = backend.asarray(poseidon_cols.bytes_to_digests(
+            leaves, self.field.num_limbs))
+        return [poseidon_cols.digests_to_bytes(level) for level in
+                poseidon_cols.tree_levels(self.field, cfg, limbs)]
 
 
 def is_default_mt_params(params) -> bool:

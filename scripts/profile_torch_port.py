@@ -3,13 +3,16 @@
 
     python3 scripts/profile_torch_port.py [--log2-gates 20] [--device cuda]
                                           [--field bn254_fr] [--zk]
+                                          [--mt default|poseidon]
                                           [--lambda 128] [--batch B]
-                                          [--out FILE]
+                                          [--no-spot] [--out FILE]
 
 Builds the synthetic circuit of ``--log2-gates`` gates (seed 0) over
 ``--field`` (BN254 Fr, or BLS12-377 Fq: the kernels' two fields), compiled
 with ``zk=True`` under ``--zk`` (proofs then share one fixed ``zk_seed``;
-small circuits need a reduced ``--lambda`` to fit the blinding), then for
+small circuits need a reduced ``--lambda`` to fit the blinding) and
+committed with ``--mt`` (the default Blake2s/SHA-256 commitment, or
+``LigeroMTPoseidonParams``: BN254 Fr only), then for
 each of prove and verify: one warm-up call, three unprofiled walls,
 one call under the phase timer (CUDA synchronised at phase boundaries) and
 one call under ``torch.profiler``.  From the profiled call's device events
@@ -23,10 +26,14 @@ pairs a busy time and a wall from different calls.  Both are printed.
 The verifier is profiled twice: as it runs (its r_i codewords at the opened
 columns from the full NTT_n and a gather) and, for BN254 Fr (the spot
 evaluation takes 16-limb fields only), with ``engine/spot.py``'s spot
-evaluation in that step's place, each with its own peak device memory.  With
+evaluation in that step's place, each with its own peak device memory
+(``--no-spot`` leaves that second verify out).  With
 ``--batch B`` the same measurements are taken of ``prove_batch`` over B
 copies of the witness (under zk: B different seeds) and of ``verify_batch``
-over the B proofs, with proofs per second beside the single calls'.
+over the B proofs, with proofs per second beside the single calls'.  Each
+call's peak device memory stands beside the port's estimate of it
+(``TorchBackend.direct_bytes`` for the provers, ``verify_bytes`` for the
+verifiers); the script fails where a peak exceeds its estimate.
 
 Prints one JSON object (also written to ``--out``).  Neither JAX nor the
 JAX package is ever imported.
@@ -52,7 +59,8 @@ REPEATS = 3
 # holds this list against the sources)
 PORT_KERNELS = ("ntt_pass_kernel", "ntt_stage_kernel", "blake2s_cols_kernel",
                 "sha256_tree_kernel", "sha256_chain_probe_kernel",
-                "mont_mul_kernel", "row_combine_partial", "row_combine_finish")
+                "mont_mul_kernel", "row_combine_partial", "row_combine_finish",
+                "poseidon_cols_kernel")
 ZK_SEED = bytes(range(32))
 
 
@@ -153,6 +161,9 @@ def main() -> int:
     ap.add_argument("--field", default="bn254_fr",
                     choices=["bn254_fr", "bls12_377_fq"])
     ap.add_argument("--zk", action="store_true")
+    ap.add_argument("--mt", default="default", choices=["default", "poseidon"])
+    ap.add_argument("--no-spot", action="store_true",
+                    help="leave out the verify with the spot evaluation")
     ap.add_argument("--lambda", dest="lambda_", type=int, default=128)
     ap.add_argument("--batch", type=int, default=0,
                     help="also profile prove_batch and verify_batch of B")
@@ -163,14 +174,16 @@ def main() -> int:
 
     from ligero_tpu_torch import FIELDS, LigeroCircuit, test_sponge
     from ligero_tpu_torch.engine import spot
+    from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
     from ligero_tpu_torch.synthetic import generate_random_circuit
     from ligero_tpu_torch.utils.profiling import PhaseTimer
 
     field = FIELDS[args.field]
     circ, outs, vars_ = generate_random_circuit(field, 1 << args.log2_gates,
                                                 seed=0)
+    mt = LigeroMTPoseidonParams(field) if args.mt == "poseidon" else None
     lig = LigeroCircuit(circ, outs, lambda_=args.lambda_, zk=args.zk,
-                        device=args.device, timer=PhaseTimer())
+                        device=args.device, timer=PhaseTimer(), mt_params=mt)
     device = lig.device
     sponge = test_sponge(field)
     kw = {"zk_seed": ZK_SEED} if args.zk else {}
@@ -179,8 +192,18 @@ def main() -> int:
         return lig.prove(vars_, sponge.clone(), **kw)
 
     proof = prove()  # includes the one-time COO upload
+    dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t,
+            lig.d2)
+
+    def estimates(batch=1):
+        return {"direct_bytes_gib": lig.backend.direct_bytes(
+                    *dims, batch=batch) / 2**30,
+                "verify_bytes_gib": lig.backend.verify_bytes(
+                    *dims, batch=batch) / 2**30}
+
     record = {
         "field": field.name, "log2_gates": args.log2_gates, "zk": args.zk,
+        "mt": args.mt, **estimates(),
         "m": lig.m, "k": lig.k,
         "n": lig.n, "t": lig.t, "blind_t": lig.blind_t, "d2": lig.d2,
         "device": str(device),
@@ -193,7 +216,7 @@ def main() -> int:
     record["peak_device_memory_gib"] = (
         max(record[call]["peak_device_memory_gib"]
             for call in ("prove", "verify")) if device.type == "cuda" else None)
-    if spot.spot_ok(field, lig.n):
+    if spot.spot_ok(field, lig.n) and not args.no_spot:
         # the same verify with the spot evaluation as its ntt_columns
         lig.backend.ntt_columns = lambda coeffs, n, js: spot.spot_eval(
             lig.field, lig.backend.asarray(coeffs), js, n)
@@ -207,6 +230,7 @@ def main() -> int:
         seeds = [bytes([i]) * 32 for i in range(B)] if args.zk else None
         proofs = lig.prove_batch([vars_] * B, sponge, zk_seeds=seeds)
         record["batch"] = B
+        record["batch_estimates"] = estimates(B)
         record["prove_batch"] = profile_call(
             torch, device, lig,
             lambda: lig.prove_batch([vars_] * B, sponge, zk_seeds=seeds))
@@ -230,6 +254,22 @@ def main() -> int:
         with open(args.out, "w") as f:
             f.write(text + "\n")
     print(text)
+    if device.type == "cuda":
+        # each call's peak against the estimate of its live set
+        for call, key, est in (
+                ("prove", "direct_bytes_gib", record),
+                ("verify", "verify_bytes_gib", record),
+                ("prove_batch", "direct_bytes_gib",
+                 record.get("batch_estimates")),
+                ("verify_batch", "verify_bytes_gib",
+                 record.get("batch_estimates"))):
+            if call in record and (record[call]["peak_device_memory_gib"]
+                                   > est[key]):
+                print(f"profile_torch_port: the {call} peak "
+                      f"{record[call]['peak_device_memory_gib']:.2f} GiB "
+                      f"exceeds the estimate {est[key]:.2f} GiB",
+                      file=sys.stderr)
+                return 1
     return 0
 
 

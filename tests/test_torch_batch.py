@@ -176,7 +176,37 @@ def test_verify_batch_in_parts_and_all_dead(proved, monkeypatch):
     monkeypatch.setattr(port, "_verify_many", recorded)
     monkeypatch.setattr(port.backend, "memory_budget", lambda: 1)
     assert port.verify_batch(proofs, sp) == [True] + [False] * 4
-    assert sizes == [2, 2, 1]
+    assert sizes == [1, 1, 1, 1, 1]
+
+
+def test_verify_batch_parts_follow_the_verifier_estimate(proved, monkeypatch):
+    """verify_batch sizes its parts from ``TorchBackend.verify_bytes``:
+    a budget that admits one proof's verifier live set gives parts of one,
+    one that admits two gives parts of two; the verdicts are what
+    sequential ``verify`` calls give."""
+    zk, _, port, _, port_seq, _ = proved
+    sp = test_sponge(F)
+    proofs = [LigeroProof.from_bytes(b, PF) for b in port_seq]
+    want = [port.verify(p, sp.clone()) for p in proofs]
+    be = port.backend
+    dims = (port.num_rows, port.k, port.n, len(port.state.a_vals),
+            port.blind_t, port.d2)
+    sizes = []
+    real = port._verify_many
+
+    def recorded(part, sponge):
+        sizes.append(len(part))
+        return real(part, sponge)
+
+    monkeypatch.setattr(port, "_verify_many", recorded)
+    for fits, parts in ((1, [1] * 5), (2, [2, 2, 1])):
+        budget = be.verify_bytes(*dims, batch=fits)
+        assert be.verify_bytes(*dims, batch=fits + 1) > budget
+        monkeypatch.setattr(be, "memory_budget", lambda: budget)
+        assert be.max_verify_batch(*dims) == fits
+        sizes.clear()
+        assert port.verify_batch(proofs, sp) == want
+        assert sizes == parts
 
 
 def test_verify_batch_reads_injected_codewords_only_after_the_openings(proved):

@@ -24,10 +24,13 @@ from ligero_tpu.circuit import ArithmeticCircuit  # noqa: E402
 from ligero_tpu.engine.backend import Backend  # noqa: E402
 from ligero_tpu.fields import BN254_FR, FIELDS  # noqa: E402
 from ligero_tpu.ligero import LigeroCircuit as RefCircuit  # noqa: E402
+from ligero_tpu.ligero.types import (  # noqa: E402
+    LigeroMTPoseidonParams as RefPoseidon)
 from ligero_tpu.sponge import test_sponge  # noqa: E402
 from ligero_tpu.synthetic import generate_random_circuit  # noqa: E402
 from ligero_tpu_torch import LigeroCircuit, convert  # noqa: E402
 from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS  # noqa: E402
+from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams  # noqa: E402
 
 import torch  # noqa: E402
 
@@ -65,6 +68,12 @@ CASES = [
     {"name": "BLS12-377 zk 2^10 gates", "field": "bls12_377_fq",
      "circuit": "synthetic", "gates": 1024, "num_vars": 64, "seed": 10,
      "lambda": ZK_LAMBDA, "zk": True, "zk_seed": ZK_SEED},
+    # committed with the Poseidon params (BN254 Fr only)
+    {"name": "Poseidon 2^8 gates", "mt": "poseidon", "circuit": "synthetic",
+     "gates": 256, "num_vars": 64, "seed": 8, "lambda": 128, "zk": False},
+    {"name": "Poseidon zk 2^8 gates", "mt": "poseidon", "circuit": "synthetic",
+     "gates": 256, "num_vars": 64, "seed": 8, "lambda": ZK_LAMBDA, "zk": True,
+     "zk_seed": ZK_SEED},
 ]
 
 
@@ -91,8 +100,9 @@ def reference_case(case):
 def reference_proof_bytes(case) -> bytes:
     F = case_field(case)
     circ, outs, prove = reference_case(case)
+    mt = RefPoseidon(F) if case.get("mt") == "poseidon" else None
     ref = RefCircuit(circ, outs, lambda_=case["lambda"], zk=case["zk"],
-                     backend=Backend(F))
+                     backend=Backend(F), mt_params=mt)
     return prove(ref, test_sponge(F)).to_bytes(F)
 
 
@@ -114,9 +124,12 @@ def test_golden_digest_matches_jax_package_and_port(index):
     assert len(data) == entry["length"]
     assert hashlib.sha256(data).hexdigest() == entry["sha256"]
     circ, outs, prove = reference_case(case)
-    port = LigeroCircuit(convert.circuit_from_reference(circ), outs,
-                         lambda_=case["lambda"], zk=case["zk"], device="cpu")
     F = case_field(case)
+    mt = (LigeroMTPoseidonParams(PORT_FIELDS[F.name])
+          if case.get("mt") == "poseidon" else None)
+    port = LigeroCircuit(convert.circuit_from_reference(circ), outs,
+                         lambda_=case["lambda"], zk=case["zk"], device="cpu",
+                         mt_params=mt)
     assert prove(port, test_sponge(F)).to_bytes(PORT_FIELDS[F.name]) == data
 
 

@@ -46,7 +46,8 @@ def port_modules() -> list[str]:
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     names = port_modules()
     assert len(names) >= 35 and "ligero_tpu_torch.engine.cuda_tree" in names
-    for new in ("engine.spot", "circuit.r1cs", "cli", "server", "__main__"):
+    for new in ("engine.spot", "engine.poseidon_cols", "engine.cuda_poseidon",
+                "circuit.r1cs", "cli", "server", "__main__"):
         assert f"ligero_tpu_torch.{new}" in names
     names.remove("ligero_tpu_torch.__main__")    # importing it runs the CLI
     out = run_blocked(
@@ -84,6 +85,23 @@ def test_cube_proves_and_verifies_with_both_blocked():
         "assert not lig.verify(bad, sp.clone())\n"
         "print('cube ok')\n")
     assert "cube ok" in out
+
+
+def test_poseidon_commitment_proves_and_verifies_with_both_blocked():
+    out = run_blocked(
+        PROVE +
+        "from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams\n"
+        "c = ArithmeticCircuit(F)\n"
+        "x = c.new_variable_with_label('x')\n"
+        "c.add(c.pow(x, 3), c.constant(-26))\n"
+        "lig = LigeroCircuit(c, [c.last()], device='cpu',\n"
+        "                    mt_params=LigeroMTPoseidonParams(F))\n"
+        "proof = lig.prove_with_labels([('x', 3)], sp.clone())\n"
+        "assert lig.verify(proof, sp.clone())\n"
+        "bad = lig.prove_with_labels([('x', 4)], sp.clone())\n"
+        "assert not lig.verify(bad, sp.clone())\n"
+        "print('poseidon ok')\n")
+    assert "poseidon ok" in out
 
 
 def test_zk_proves_and_verifies_with_both_blocked():
@@ -181,6 +199,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     paths = port_sources()
     assert len(paths) >= 40
     assert any(path.endswith("server.py") for path in paths)
+    for new in ("poseidon_cols.py", "cuda_poseidon.py"):
+        assert os.path.join(REPO, "ligero_tpu_torch", "engine", new) in paths
     for path in paths:
         with open(path) as f:
             found = IMPORT_LINE.findall(f.read())

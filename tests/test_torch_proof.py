@@ -185,11 +185,12 @@ def test_preenc_python_fallback_matches_native(monkeypatch, name):
 
 
 def test_zk_is_not_ported():
-    """zk is ported now (tests/test_torch_zk.py).  What is still refused:
-    a circuit too small for the blinding at this rate, with the JAX
-    package's error, and the Poseidon commitment's device path."""
-    import types
-
+    """zk is ported now (tests/test_torch_zk.py), and so is the Poseidon
+    commitment (tests/test_torch_poseidon.py).  What is still refused: a
+    circuit too small for the blinding at this rate, with the JAX package's
+    error, and Poseidon digests of a field wider than 32 bytes."""
+    from ligero_tpu_torch.engine.backend import TorchBackend
+    from ligero_tpu_torch.fields import BLS12_377_FQ as PFQ
     from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
     circuit, outputs, _ = cube()
     with pytest.raises(ValueError, match="circuit too small for zk"):
@@ -197,11 +198,14 @@ def test_zk_is_not_ported():
     with pytest.raises(ValueError, match="circuit too small for zk"):
         port_circuit(circuit, outputs, zk=True)
     poseidon = LigeroMTPoseidonParams(PF)
-    on_cpu = types.SimpleNamespace(device=torch.device("cpu"))
-    on_card = types.SimpleNamespace(device=torch.device("cuda"))
-    assert poseidon.device_col_digests(on_cpu, None) is None
-    with pytest.raises(NotImplementedError, match="queue 1 #14"):
-        poseidon.device_col_digests(on_card, None)
+    on_cpu = TorchBackend(PF, "cpu")
+    zero_columns = torch.zeros((2, 3, PF.num_limbs), dtype=torch.int32)
+    assert poseidon.device_col_digests(on_cpu, zero_columns) == [
+        poseidon.col_hash(PF, [0, 0])] * 3
+    with pytest.raises(ValueError, match="32-byte"):
+        LigeroMTPoseidonParams(PFQ).device_col_digests(
+            TorchBackend(PFQ, "cpu"),
+            torch.zeros((2, 3, PFQ.num_limbs), dtype=torch.int32))
 
 
 def test_port_runs_with_jax_blocked():
