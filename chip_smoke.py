@@ -1198,8 +1198,7 @@ def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
     vbatch_s = time.perf_counter() - t0
     vpeak = torch.cuda.max_memory_allocated()
     launches = read_counts(wraps, f"{tag}batch", earlier=proving)
-    dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t,
-            lig.d2)
+    dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals))
     part = lig.backend.max_verify_batch(*dims)
     vestimate = lig.backend.verify_bytes(*dims, batch=min(part, len(batch)))
     log(f"  {tag}verify_batch v.ntt_cols "

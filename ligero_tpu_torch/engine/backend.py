@@ -181,11 +181,11 @@ class TorchBackend:
         return max(sampler, 3 * msg + 3 * nz, 12 * msg + msg // 4)
 
     def verify_bytes(self, rows: int, k: int, n: int, nnz: int,
-                     blind_t: int = 0, d2: int | None = None,
                      batch: int = 1) -> int:
         """Estimate of the verifier's largest live set for ``batch`` proofs
         verified together (``LigeroCircuit.verify_batch``; ``verify`` is a
-        batch of one), same arguments as :meth:`direct_bytes`.
+        batch of one), for ``rows`` committed rows, message length ``k``,
+        codeword length ``n`` and ``nnz`` nonzeros of A.
 
         A's COO (on the device between calls) and each proof's r^T A
         coefficient rows (4m x k), which wait for the codewords at the
@@ -202,14 +202,13 @@ class TorchBackend:
         return int((coo + batch * msg + max(
             self._linear_transients(rows, k, nnz), transform)) * ESTIMATE_MARGIN)
 
-    def max_verify_batch(self, rows: int, k: int, n: int, nnz: int,
-                         blind_t: int = 0, d2: int | None = None) -> int:
+    def max_verify_batch(self, rows: int, k: int, n: int, nnz: int) -> int:
         """The largest number of proofs, at most :data:`MAX_BATCH`, whose
         joint verifier live set (:meth:`verify_bytes`) fits the device; 0
         where not even one fits."""
         budget = self.memory_budget()
         for batch in range(MAX_BATCH, 0, -1):
-            if self.verify_bytes(rows, k, n, nnz, blind_t, d2, batch) <= budget:
+            if self.verify_bytes(rows, k, n, nnz, batch) <= budget:
                 return batch
         return 0
 

@@ -29,9 +29,10 @@ _CONSTS: dict = {}
 
 
 def kernel_constants(field: FieldSpec, cfg, device) -> torch.Tensor:
-    """(3 x 39 + 1, 8) int32 words on ``device``: the round constants in
-    Montgomery form, then R^2 mod p (the kernel's to-Montgomery factor)."""
-    key = (field.name, str(device))
+    """(3 x 39 + 1, 8) int32 words on ``device``: ``cfg``'s round
+    constants in Montgomery form, then R^2 mod p (the kernel's
+    to-Montgomery factor).  Cached by the constants' values."""
+    key = (field.name, str(device), tuple(c for row in cfg.ark for c in row))
     out = _CONSTS.get(key)
     if out is None:
         ark = poseidon_cols.round_constants(field, cfg)

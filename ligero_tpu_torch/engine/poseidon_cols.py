@@ -45,12 +45,11 @@ FULL_ROUNDS, PARTIAL_ROUNDS, ALPHA = 8, 31, 17
 MDS = [[1, 0, 1], [1, 1, 0], [0, 1, 1]]
 DIGEST_BYTES = 32
 
-_ARK_CACHE: dict = {}
-
 
 def check_config(field: FieldSpec, cfg) -> None:
     """Raise ``ValueError`` unless ``cfg`` is the permutation implemented
-    here over a field whose elements fit a 32-byte digest."""
+    here over a field whose elements fit a 32-byte digest.  The round
+    constants are the config's own, whatever their values."""
     if field.p.bit_length() > 8 * DIGEST_BYTES:
         raise ValueError(
             f"Poseidon Merkle digests are {DIGEST_BYTES}-byte field elements; "
@@ -60,21 +59,19 @@ def check_config(field: FieldSpec, cfg) -> None:
                          f"{field.name} columns")
     if ((cfg.full_rounds, cfg.partial_rounds, cfg.alpha, cfg.rate,
          cfg.capacity) != (FULL_ROUNDS, PARTIAL_ROUNDS, ALPHA, 2, 1)
-            or cfg.mds != MDS):
+            or cfg.mds != MDS
+            or [len(row) for row in cfg.ark] != [3] * (FULL_ROUNDS
+                                                      + PARTIAL_ROUNDS)):
         raise ValueError("only the test sponge's Poseidon permutation is "
                          "implemented (8 + 31 rounds, alpha 17, rate 2, "
                          "binary MDS)")
 
 
 def round_constants(field: FieldSpec, cfg) -> np.ndarray:
-    """(rounds, 3, L) uint32 Montgomery limbs of the round constants."""
-    key = field.name
-    ark = _ARK_CACHE.get(key)
-    if ark is None:
-        flat = [c % field.p for row in cfg.ark for c in row]
-        ark = field.ints_to_mont_limbs(flat).reshape(len(cfg.ark), 3, -1)
-        _ARK_CACHE[key] = ark
-    return ark
+    """(rounds, 3, L) uint32 Montgomery limbs of ``cfg``'s round
+    constants."""
+    flat = [c % field.p for row in cfg.ark for c in row]
+    return field.ints_to_mont_limbs(flat).reshape(len(cfg.ark), 3, -1)
 
 
 def _permute(field: FieldSpec, ark: torch.Tensor, state: torch.Tensor):

@@ -405,7 +405,7 @@ class LigeroCircuit:
         sponge.absorb_bytes(proof.u_root)                        # FS #1
         with self.timer.phase("v.interleaved"):
             ok = self._verify_interleaved(proof.interleaved, proof.u_root,
-                                          sponge, leaves=leaves[0])
+                                          sponge, leaves[0])
         if not ok:
             return False
         with self.timer.phase("v.linear"):
@@ -415,7 +415,7 @@ class LigeroCircuit:
             return False
         with self.timer.phase("v.quadratic"):
             return self._verify_quadratic(proof.quadratic, proof.u_root, sponge,
-                                          leaves=leaves[2])
+                                          leaves[2])
 
     def verify_batch(self, proofs: list[LigeroProof], sponge) -> list[bool]:
         """Verdicts of B proofs of this circuit, each on its own clone of
@@ -428,8 +428,7 @@ class LigeroCircuit:
         if len(proofs) <= 1:
             return [self.verify(p, sponge.clone()) for p in proofs]
         part = max(1, self.backend.max_verify_batch(
-            self.num_rows, self.k, self.n, len(self.state.a_vals),
-            self.blind_t, self.d2))
+            self.num_rows, self.k, self.n, len(self.state.a_vals)))
         out: list[bool] = []
         for i in range(0, len(proofs), part):
             out.extend(self._verify_many(proofs[i:i + part], sponge))
@@ -469,12 +468,12 @@ class LigeroCircuit:
             pf, sp = proofs[i], sponge.clone()
             sp.absorb_bytes(pf.u_root)                           # FS #1
             if not self._verify_interleaved(pf.interleaved, pf.u_root, sp,
-                                            be.mont_to_ints(w_evals[j]),
-                                            leaves[j][0]):
+                                            leaves[j][0],
+                                            be.mont_to_ints(w_evals[j])):
                 continue
             opened = self._verify_linear_open(pf.linear, pf.u_root, sp,
-                                              be.mont_to_ints(qp_evals[j]),
-                                              leaves[j][1])
+                                              leaves[j][1],
+                                              be.mont_to_ints(qp_evals[j]))
             if opened is not None:
                 pending.append((i, j, sp, *opened))
         if not pending:
@@ -492,8 +491,8 @@ class LigeroCircuit:
             verdicts[i] = (
                 self._verify_linear_spot(pf.linear, r_evals[slot], q_evals)
                 and self._verify_quadratic(
-                    pf.quadratic, pf.u_root, sp,
-                    be.mont_to_ints(qp_evals[len(live) + j]), leaves[j][2]))
+                    pf.quadratic, pf.u_root, sp, leaves[j][2],
+                    be.mont_to_ints(qp_evals[len(live) + j])))
         return verdicts
 
     def warmup(self) -> dict:
@@ -519,10 +518,11 @@ class LigeroCircuit:
         prove_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         sp = sponge.clone()
+        leaves = self._opened_leaves([proof])[0]
         sp.absorb_bytes(proof.u_root)
-        self._verify_interleaved(proof.interleaved, proof.u_root, sp)
-        self._verify_linear(proof.linear, proof.u_root, sp)
-        self._verify_quadratic(proof.quadratic, proof.u_root, sp)
+        self._verify_interleaved(proof.interleaved, proof.u_root, sp, leaves[0])
+        self._verify_linear(proof.linear, proof.u_root, sp, leaves[1])
+        self._verify_quadratic(proof.quadratic, proof.u_root, sp, leaves[2])
         r_coeffs = self._r_a_coeff_rows(bytes(CHACHA_SEED_BYTES))
         self.backend.to_numpy(self.backend.ntt_columns(
             r_coeffs, self.n, [path.leaf_index for path in proof.linear.paths]))
@@ -530,11 +530,13 @@ class LigeroCircuit:
                 "verify_s": round(time.perf_counter() - t0, 3)}
 
     def _well_formed(self, proof: LigeroProof) -> bool:
-        """Structural validation of an untrusted proof."""
+        """Structural validation of an untrusted proof: t columns and t
+        paths a set, each column ``num_rows`` high, checked before any of
+        its columns is hashed."""
         if len(proof.interleaved.preenc_u_lc) != self.blind_len:
             return False
         for sub in (proof.interleaved, proof.linear, proof.quadratic):
-            if len(sub.columns) != len(sub.paths):
+            if len(sub.columns) != self.t or len(sub.paths) != self.t:
                 return False
             if any(len(col) != self.num_rows for col in sub.columns):
                 return False
@@ -542,12 +544,8 @@ class LigeroCircuit:
 
     def _opened_leaves(self, proofs) -> list:
         """Per well-formed proof, the leaf digests of its three opened
-        column sets (interleaved, linear, quadratic): under non-default
-        ``mt_params`` all proofs' columns in one ``device_col_digests``
-        call; under the default params None for each set (their Blake2s
-        leaves are hashed on the host as each set is checked)."""
-        if self._mt_default:
-            return [(None, None, None)] * len(proofs)
+        column sets (interleaved, linear, quadratic), all proofs' columns
+        in one :meth:`_column_leaves` call."""
         subs = [sub for pf in proofs
                 for sub in (pf.interleaved, pf.linear, pf.quadratic)]
         with self.timer.phase("v.col_digests"):
@@ -569,16 +567,13 @@ class LigeroCircuit:
         return mt.device_col_digests(
             self.backend, self._columns_limbs(columns, self.num_rows))
 
-    def _verify_column_openings(self, columns, paths, u_root, sponge,
-                                leaves=None) -> bool:
-        """``leaves``: the columns' leaf digests where the caller computed
-        them already (:meth:`_opened_leaves`)."""
+    def _verify_column_openings(self, paths, u_root, sponge, leaves) -> bool:
+        """``leaves``: the opened columns' leaf digests
+        (:meth:`_opened_leaves`)."""
         indices = self._sample_indices(sponge.squeeze_bytes(CHACHA_SEED_BYTES))
-        if len(columns) != len(indices) or len(paths) != len(indices):
+        if len(leaves) != len(indices) or len(paths) != len(indices):
             return False
         with self.timer.phase("v.col_openings"):
-            if leaves is None:
-                leaves = self._column_leaves(columns)
             two_to_one = self.mt_params.two_to_one
             for leaf, idx, path in zip(leaves, indices, paths):
                 if path.leaf_index != idx or not path.verify(
@@ -615,16 +610,15 @@ class LigeroCircuit:
         return True
 
     def _verify_interleaved(self, proof: InterleavedProof, u_root, sponge,
-                            w: list[int] | None = None, leaves=None) -> bool:
-        """``w``: the reveal's n codeword values where ``verify_batch``
-        computed them already (the same values as below); ``leaves``: the
-        opened columns' leaf digests, where computed already."""
+                            leaves, w: list[int] | None = None) -> bool:
+        """``leaves``: the opened columns' leaf digests; ``w``: the
+        reveal's n codeword values where ``verify_batch`` computed them
+        already (the same values as below)."""
         be = self.backend
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #2
         r = self._expand_field(4 * self.m, seed)
         sponge.absorb_field_elems(proof.preenc_u_lc)             # FS #3
-        if not self._verify_column_openings(proof.columns, proof.paths,
-                                            u_root, sponge,
+        if not self._verify_column_openings(proof.paths, u_root, sponge,
                                             leaves):             # FS #4
             return False
         if w is None and self.zk:
@@ -642,8 +636,8 @@ class LigeroCircuit:
         return self._spot_matches(w, proof, rhs, 0)
 
     def _verify_linear(self, proof: LinearConstraintsProof, u_root,
-                       sponge, leaves=None) -> bool:
-        opened = self._verify_linear_open(proof, u_root, sponge, leaves=leaves)
+                       sponge, leaves) -> bool:
+        opened = self._verify_linear_open(proof, u_root, sponge, leaves)
         if opened is None:
             return False
         r_coeffs, q_evals = opened
@@ -654,13 +648,13 @@ class LigeroCircuit:
         return self._verify_linear_spot(proof, r_evals, q_evals)
 
     def _verify_linear_open(self, proof: LinearConstraintsProof, u_root,
-                            sponge, q_evals: list[int] | None = None,
-                            leaves=None):
+                            sponge, leaves,
+                            q_evals: list[int] | None = None):
         """The linear phase up to its openings (FS #5-#7): ``(the r_i
         coefficient rows on the device, q's n values)``, or None where the
-        proof is rejected.  ``q_evals``: q's values where ``verify_batch``
-        computed them already (the same values as below); ``leaves``: the
-        opened columns' leaf digests, where computed already."""
+        proof is rejected.  ``leaves``: the opened columns' leaf digests;
+        ``q_evals``: q's values where ``verify_batch`` computed them
+        already (the same values as below)."""
         p, k = self.field.p, self.k
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #5
         if _poly_degree(proof.polynomial) >= self.lin_bound:
@@ -673,8 +667,7 @@ class LigeroCircuit:
         if sum(q_evals[0::self.n // k]) % p != 0:
             return None
         sponge.absorb_field_elems(proof.polynomial)              # FS #6
-        if not self._verify_column_openings(proof.columns, proof.paths,
-                                            u_root, sponge,
+        if not self._verify_column_openings(proof.paths, u_root, sponge,
                                             leaves):             # FS #7
             return None
         return self._r_a_coeff_rows(seed), q_evals
@@ -690,11 +683,11 @@ class LigeroCircuit:
         return self._spot_matches(q_evals, proof, lhs, 1)
 
     def _verify_quadratic(self, proof: QuadraticConstraintsProof, u_root,
-                          sponge, p0_evals: list[int] | None = None,
-                          leaves=None) -> bool:
-        """``p0_evals``: p0's n values where ``verify_batch`` computed them
-        already (the same values as below); ``leaves``: the opened columns'
-        leaf digests, where computed already."""
+                          sponge, leaves,
+                          p0_evals: list[int] | None = None) -> bool:
+        """``leaves``: the opened columns' leaf digests; ``p0_evals``: p0's
+        n values where ``verify_batch`` computed them already (the same
+        values as below)."""
         be, k, m = self.backend, self.k, self.m
         seed = sponge.squeeze_bytes(CHACHA_SEED_BYTES)           # FS #8
         r_quad = self._expand_field(m, seed)
@@ -705,8 +698,7 @@ class LigeroCircuit:
         if any(p0_evals[(self.n // k) * c] != 0 for c in range(k)):
             return False
         sponge.absorb_field_elems(proof.polynomial)              # FS #9
-        if not self._verify_column_openings(proof.columns, proof.paths,
-                                            u_root, sponge,
+        if not self._verify_column_openings(proof.paths, u_root, sponge,
                                             leaves):             # FS #10
             return False
         # sum_i r_i (x_i y_i - z_i) per opened column; to_mont(x) * y is

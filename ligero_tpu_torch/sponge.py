@@ -57,7 +57,7 @@ class PoseidonConfig:
 
 
 _test_config_cache: dict[str, PoseidonConfig] = {}
-_native_ark_cache: dict[str, "object"] = {}  # field -> Montgomery round consts
+_native_ark_cache: dict[tuple, "object"] = {}  # (field, ark) -> Montgomery consts
 
 
 def test_poseidon_config(field: FieldSpec) -> PoseidonConfig:
@@ -160,12 +160,12 @@ class PoseidonSponge:
             return False
         cfg, field = self.cfg, self.cfg.field
         nl = field.num_u64_limbs
-        ark_mont = _native_ark_cache.get(field.name)
+        flat = tuple(c for row in cfg.ark for c in row)
+        ark_mont = _native_ark_cache.get((field.name, flat))
         if ark_mont is None:
-            flat = [c for row in cfg.ark for c in row]
-            ark_mont = native.ints_to_u64_limbs(flat, nl)
+            ark_mont = native.ints_to_u64_limbs(list(flat), nl)
             native.to_mont_inplace(field, ark_mont)
-            _native_ark_cache[field.name] = ark_mont
+            _native_ark_cache[field.name, flat] = ark_mont
         state = native.ints_to_u64_limbs(self.state, nl)
         native.to_mont_inplace(field, state)
         ev = native.ints_to_u64_limbs(elems, nl)

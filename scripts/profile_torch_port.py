@@ -5,7 +5,7 @@
                                           [--field bn254_fr] [--zk]
                                           [--mt default|poseidon]
                                           [--lambda 128] [--batch B]
-                                          [--no-spot] [--out FILE]
+                                          [--spot] [--out FILE]
 
 Builds the synthetic circuit of ``--log2-gates`` gates (seed 0) over
 ``--field`` (BN254 Fr, or BLS12-377 Fq: the kernels' two fields), compiled
@@ -23,11 +23,11 @@ profiler adds host time to every launch, so the share against the
 profiled wall overstates idleness; the share against the unprofiled wall
 pairs a busy time and a wall from different calls.  Both are printed.
 
-The verifier is profiled twice: as it runs (its r_i codewords at the opened
-columns from the full NTT_n and a gather) and, for BN254 Fr (the spot
-evaluation takes 16-limb fields only), with ``engine/spot.py``'s spot
-evaluation in that step's place, each with its own peak device memory
-(``--no-spot`` leaves that second verify out).  With
+The verifier is profiled as it runs (its r_i codewords at the opened
+columns from the full NTT_n and a gather); with ``--spot``, where the spot
+evaluation applies (BN254 Fr: 16-limb fields only), once more with
+``engine/spot.py``'s spot evaluation in that step's place, with its own
+peak device memory.  With
 ``--batch B`` the same measurements are taken of ``prove_batch`` over B
 copies of the witness (under zk: B different seeds) and of ``verify_batch``
 over the B proofs, with proofs per second beside the single calls'.  Each
@@ -162,8 +162,8 @@ def main() -> int:
                     choices=["bn254_fr", "bls12_377_fq"])
     ap.add_argument("--zk", action="store_true")
     ap.add_argument("--mt", default="default", choices=["default", "poseidon"])
-    ap.add_argument("--no-spot", action="store_true",
-                    help="leave out the verify with the spot evaluation")
+    ap.add_argument("--spot", action="store_true",
+                    help="also profile the verify with the spot evaluation")
     ap.add_argument("--lambda", dest="lambda_", type=int, default=128)
     ap.add_argument("--batch", type=int, default=0,
                     help="also profile prove_batch and verify_batch of B")
@@ -199,7 +199,7 @@ def main() -> int:
         return {"direct_bytes_gib": lig.backend.direct_bytes(
                     *dims, batch=batch) / 2**30,
                 "verify_bytes_gib": lig.backend.verify_bytes(
-                    *dims, batch=batch) / 2**30}
+                    *dims[:4], batch=batch) / 2**30}
 
     record = {
         "field": field.name, "log2_gates": args.log2_gates, "zk": args.zk,
@@ -216,7 +216,7 @@ def main() -> int:
     record["peak_device_memory_gib"] = (
         max(record[call]["peak_device_memory_gib"]
             for call in ("prove", "verify")) if device.type == "cuda" else None)
-    if spot.spot_ok(field, lig.n) and not args.no_spot:
+    if args.spot and spot.spot_ok(field, lig.n):
         # the same verify with the spot evaluation as its ntt_columns
         lig.backend.ntt_columns = lambda coeffs, n, js: spot.spot_eval(
             lig.field, lig.backend.asarray(coeffs), js, n)

@@ -189,8 +189,7 @@ def test_verify_batch_parts_follow_the_verifier_estimate(proved, monkeypatch):
     proofs = [LigeroProof.from_bytes(b, PF) for b in port_seq]
     want = [port.verify(p, sp.clone()) for p in proofs]
     be = port.backend
-    dims = (port.num_rows, port.k, port.n, len(port.state.a_vals),
-            port.blind_t, port.d2)
+    dims = (port.num_rows, port.k, port.n, len(port.state.a_vals))
     sizes = []
     real = port._verify_many
 

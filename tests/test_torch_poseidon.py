@@ -6,6 +6,7 @@ is exact (tolerance 0): bytes and limbs must be equal.  On the CPU the
 port's commitment takes the plain version (``engine/poseidon_cols.py``);
 the CUDA twins, marked ``cuda``, hold the kernel against it on a card."""
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -30,7 +31,7 @@ from ligero_tpu_torch.fields import BN254_FR as PF
 from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
 from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
 from ligero_tpu_torch.merkle import MerkleTree
-from ligero_tpu_torch.sponge import test_poseidon_config
+from ligero_tpu_torch.sponge import PoseidonSponge, test_poseidon_config
 
 from fixtures import generate_lemniscate_circuit
 
@@ -78,6 +79,34 @@ def test_plain_digests_match_jax_host_col_hash(rows):
     got = poseidon_cols.poseidon_columns_plain(PF, CFG, limbs)
     assert got.shape == (8, PF.num_limbs) and got.dtype == torch.int32
     assert poseidon_cols.digests_to_bytes(got) == host_digests(ints)
+
+
+@pytest.mark.parametrize("rows", [5, 17])
+def test_plain_digests_take_each_configs_round_constants(rows):
+    """The round constants are the config's own: under the test config
+    with every constant + 1 the digests are that config's host sponge's
+    (17 rows take the host sponge's native absorb, 5 its Python one), and
+    the test config's digests stay its own after it."""
+    ints, limbs = rand_matrix(np.random.default_rng(90 + rows), rows, 4)
+    other = dataclasses.replace(
+        CFG, ark=[[(c + 1) % F.p for c in row] for row in CFG.ark])
+
+    def host(cfg):
+        out = []
+        for j in range(4):
+            sp = PoseidonSponge(cfg)
+            sp.absorb_field_elems([row[j] for row in ints])
+            out.append(sp.squeeze_native_field_elements(1)[0].to_bytes(
+                32, "little"))
+        return out
+
+    assert host(CFG) == host_digests(ints) != host(other)
+    for cfg in (CFG, other, CFG):
+        assert poseidon_cols.digests_to_bytes(
+            poseidon_cols.poseidon_columns_plain(PF, cfg, limbs)) == host(cfg)
+    with pytest.raises(ValueError, match="test sponge"):
+        poseidon_cols.check_config(
+            PF, dataclasses.replace(CFG, ark=CFG.ark[:-1]))
 
 
 def test_params_route_on_the_cpu_is_the_plain_version():
@@ -265,6 +294,27 @@ def test_poseidon_verify_batch_verdicts(lemniscate, monkeypatch):
     assert calls == [(port.num_rows, 3 * 3 * port.t, PF.num_limbs)]
 
 
+@pytest.mark.parametrize("extra", [1, -1], ids=["t+1", "t-1"])
+def test_column_count_checked_before_any_digest(lemniscate, monkeypatch,
+                                                 extra):
+    """A proof whose opened set holds other than t columns is refused by
+    the structural check, by verify and verify_batch alike: none of its
+    columns reaches the digest call."""
+    _, _, port, (proof, _) = lemniscate
+    calls = []
+    monkeypatch.setattr(LigeroMTPoseidonParams, "device_col_digests",
+                        lambda self, backend, cols: calls.append(cols.shape))
+    bad = LigeroProof.from_bytes(proof.to_bytes(PF), PF)
+    if extra > 0:
+        bad.linear.columns.append(bad.linear.columns[0])
+        bad.linear.paths.append(bad.linear.paths[0])
+    else:
+        del bad.linear.columns[-1], bad.linear.paths[-1]
+    assert not port.verify(bad, test_sponge(F))
+    assert port.verify_batch([bad, bad], test_sponge(F)) == [False, False]
+    assert calls == []
+
+
 def test_bls12_377_poseidon_refused_by_both_packages():
     """Poseidon digests are 32-byte elements: a BLS12-377 Fq element does
     not fit.  The JAX package fails at ``to_bytes(32)`` with OverflowError;
@@ -297,6 +347,19 @@ def test_poseidon_kernel_matches_plain(cuda, rows, n):
     got = cuda_poseidon.poseidon_columns(PF, CFG, limbs.to(cuda))
     assert torch.equal(got.cpu(), poseidon_cols.poseidon_columns_plain(
         PF, CFG, limbs))
+
+
+@pytest.mark.cuda
+def test_poseidon_kernel_takes_each_configs_round_constants(cuda):
+    """The kernel's constants are cached by value: a second config's
+    launch uses its own, and the first config's after it uses the first's."""
+    _, limbs = rand_matrix(np.random.default_rng(8), 9, 130)
+    other = dataclasses.replace(
+        CFG, ark=[[(c + 1) % F.p for c in row] for row in CFG.ark])
+    for cfg in (CFG, other, CFG):
+        got = cuda_poseidon.poseidon_columns(PF, cfg, limbs.to(cuda))
+        assert torch.equal(got.cpu(), poseidon_cols.poseidon_columns_plain(
+            PF, cfg, limbs))
 
 
 @pytest.mark.cuda
