@@ -7,7 +7,8 @@ It runs every phase, in order; any failure exits non-zero:
 
 1. device   -- require CUDA; print the card's nvidia-smi name and power limit.
 2. build    -- build the kernels of ``ligero_tpu_torch/csrc`` with nvcc (both
-               fields' instantiations; ptxas's register and spill lines).
+               fields' instantiations; ptxas's register and spill lines);
+               where row_combine's row loop issues its loads (SASS).
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the 2^20-gate shapes of both paths (plain and zk); bit-equal
                (tolerance 0: exact integer arithmetic), both times printed,
@@ -24,10 +25,14 @@ It runs every phase, in order; any failure exits non-zero:
                versions, three trees on one stream; the spot evaluation
                (``engine/spot.py``, which the verifier does not call yet)
                against the NTT kernel and its plain version; the Poseidon
-               sponge (``csrc/poseidon_cols.cu``) against its plain version
-               at full width and 64 / 67 rows, against the host sponge at
-               the commit's full heights, its tree levels against the host
-               tree, its chain floor; the kernel shapes of the 2^22-gate
+               sponge (``csrc/poseidon_cols.cu``) at every compiled lane
+               count against its plain version at full width and 64 / 67
+               rows, against the host sponge at the commit's full heights
+               and at the verifier's launch (3t columns), each lane count
+               timed there and at a tree level and the root, its tree
+               levels against the host tree with their bound, three full
+               matrices in one launch against three, its chain floor; the
+               kernel shapes of the 2^22-gate
                instance (plain versions at 256 rows, full size against the
                256-row launches and hashlib).  The same
                kernel cases run again for BLS12-377 Fq at its instance's
@@ -49,7 +54,9 @@ It runs every phase, in order; any failure exits non-zero:
                commitment: the sponge kernel launched, Blake2s and the
                SHA-256 tree not (the default paths: the reverse).  Then the
                batch path at 2^18 gates (B = 3
-               plain, B = 2 zk): ``prove_batch`` byte-equal to sequential
+               plain, B = 2 zk, B = 2 under the Poseidon commitment: one
+               sponge launch for both proofs' columns, one a tree level for
+               both trees): ``prove_batch`` byte-equal to sequential
                ``prove`` calls with their walls, ``verify_batch`` over
                honest, tampered, flipped and truncated proofs, and the peak
                device memory against the prover's and the verifier's
@@ -608,69 +615,166 @@ def spot_cases(torch, field, gen, rows, k, n, t) -> None:
         torch.cuda.empty_cache()
 
 
-def poseidon_cases(torch, field, gen, rows: int, n: int) -> dict:
-    """The Poseidon sponge kernel (BN254 Fr): against its plain version on
-    the card, bit-equal, at full width (n columns) and heights of 64 and 67
-    rows (67: the odd tail of zk columns); at the commit's full heights (4m
-    and 4m + 3 rows) against the port's host sponge (``col_hash``) on 8
-    sampled columns, and timed there (the main path's launch); its Merkle
-    levels against the host ``create_merkle_tree(two_to_one=...)`` at 1024
-    leaves, and the 14 level launches at n leaves timed; its chain floor:
-    one thread hashing one full column.  Returns the kernel's results."""
+def row_combine_sass(path: str) -> dict:
+    """Where the row loop of each ``row_combine_partial`` instantiation
+    issues its global loads, from the library's SASS (``cuobjdump``): the
+    loop is the body of its one backward branch, and its loads fetch the
+    next row, which the product after the branch uses; ``lead`` is how many
+    of the loop's instructions stand between the last load and the branch
+    (a load sunk to the end of the loop leads by a few).  Returns
+    {instantiation: {"loads": n, "first_load": i, "last_load": j,
+    "first_multiply": k, "body": length, "lead": body - j}}."""
+    import re
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    res = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                         timeout=300)
+    require(res.returncode == 0, f"cuobjdump failed: {res.stderr[-300:]}")
+    out, name, body = {}, None, []
+    for line in res.stdout.splitlines() + ["Function : end"]:
+        if "Function : " in line:
+            if name and "row_combine_partial" in name:
+                field = "bls12_377_fq" if "Bls12377Fq" in name else "bn254_fr"
+                instrs = [(int(a, 16), text) for a, text in body]
+                back = [(at, int(t, 16)) for at, text in instrs
+                        for t in re.findall(r"BRA (0x[0-9a-f]+)", text)
+                        if int(t, 16) < at]
+                start, end = max(back, key=lambda b: b[0] - b[1])[::-1]
+                loop = [text for at, text in instrs if start <= at <= end]
+                loads = [i for i, text in enumerate(loop) if "LDG" in text]
+                mults = [i for i, text in enumerate(loop) if "IMAD.WIDE" in text]
+                out[field] = {"loads": len(loads), "body": len(loop),
+                              "first_load": min(loads, default=None),
+                              "last_load": max(loads, default=None),
+                              "first_multiply": min(mults, default=None),
+                              "lead": len(loop) - max(loads, default=len(loop))}
+            name, body = line.split("Function : ")[1].strip(), []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            body.append((m.group(1), m.group(2)))
+    return out
+
+
+def poseidon_levels_work(field, n: int):
+    """Bytes and operations of the Merkle levels above n leaves: one
+    2-row sponge a node, summed over the levels."""
+    works = [poseidon_work(field, 2, w) for w in
+             (n >> i for i in range(1, n.bit_length()))]
+    return tuple(sum(w[i] for w in works) for i in range(2))
+
+
+def poseidon_cases(torch, field, gen, rows: int, n: int, t: int) -> dict:
+    """The Poseidon sponge kernel (BN254 Fr), every compiled lane count G
+    (``cuda_poseidon.LANES``): against its plain version on the card,
+    bit-equal, at full width (n columns) and heights of 64 and 67 rows (67:
+    the odd tail of zk columns); at the commit's full heights (4m and
+    4m + 3 rows) and at the verifier's launch (its 3t opened columns of 4m
+    rows) against the port's host sponge (``col_hash``) on 8 sampled
+    columns, all G bit-equal to each other, each G timed there, at the tree
+    levels of n/2, n/4 and n/8 two-row columns and the root, and at full
+    height over 2048 and 4096 columns; the launch's own rule
+    (``lanes_for``) gives the reported times.  Then the Merkle levels
+    against the host ``create_merkle_tree(two_to_one=...)`` at 1024 leaves,
+    the level launches at n leaves timed with their bound; three full
+    matrices in one launch against three single launches; the chain floor:
+    one group of lanes hashing one full column.  Returns the kernel's
+    results."""
     from ligero_tpu_torch.engine import cuda_poseidon, poseidon_cols
     from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
     from ligero_tpu_torch.merkle import create_merkle_tree
     from ligero_tpu_torch.sponge import test_poseidon_config
     cfg = test_poseidon_config(field)
     mt = LigeroMTPoseidonParams(field)
+    lanes = cuda_poseidon.LANES
 
-    def kern(u):
-        return cuda_poseidon.poseidon_columns(field, cfg, u)
+    def kern(u, g=None):
+        return cuda_poseidon.poseidon_columns(field, cfg, u, lanes=g)
 
-    res: dict = {"max_abs_err": 0}
-    for h in (64, 67):
-        u = _rand_elems(torch, gen, (h, n), field)
-        got = kern(u)
-        want, plain_ms = _time_once(
-            torch, lambda: poseidon_cols.poseidon_columns_plain(field, cfg, u))
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        ms = _time_cuda(torch, lambda: kern(u), 3)
-        bound_ms, by = bound(*poseidon_work(field, h, n))
-        log(f"kernel [{field.name}] Poseidon columns {h} x {n}: "
-            f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {bound_ms:.3f} ms by {by}")
-        require(got.shape == want.shape and err == 0, f"Poseidon columns {h} x "
-                f"{n}: the kernel disagrees with its plain version")
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        res[f"rows_{h}"] = {"ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": by}
-        del u, got, want
-    res["plain_ms"] = res["rows_64"]["plain_ms"]
-    for key, h in (("", rows), ("zk_", rows + 3)):
-        u = _rand_elems(torch, gen, (h, n), field)
-        got = poseidon_cols.digests_to_bytes(kern(u))
-        ms = _time_cuda(torch, lambda: kern(u), 2)
-        js = torch.randperm(n, generator=gen, device="cuda")[:8].tolist()
-        host = [mt.col_hash(field, field.limbs_to_ints(u[:, j].cpu().numpy()))
-                for j in js]
-        require([got[j] for j in js] == host, f"Poseidon columns {h} x {n}: "
-                "the kernel disagrees with the host sponge")
-        bound_ms, by = bound(*poseidon_work(field, h, n))
-        one = torch.empty((h, 1, field.num_limbs), dtype=torch.int32,
+    def floor_ms(u, g):
+        one = torch.empty((u.shape[0], 1, field.num_limbs), dtype=torch.int32,
                           device="cuda")
         one.copy_(u[:, :1])
-        floor = _time_cuda(torch, lambda: kern(one), 2)
-        log(f"kernel [{field.name}] Poseidon columns, full {h} x {n}: 8 "
-            f"sampled columns equal the host sponge; {ms:.3f} ms, bound "
-            f"{bound_ms:.3f} ms by {by} ({bound_ms / ms:.1%}); chain floor "
-            f"(one thread, one column) {floor:.3f} ms ({floor / ms:.1%})")
+        return _time_cuda(torch, lambda: kern(one, g), 2)
+
+    res: dict = {"max_abs_err": 0, "per_lanes": {str(g): {} for g in lanes}}
+    for h in (64, 67):
+        u = _rand_elems(torch, gen, (h, n), field)
+        want, plain_ms = _time_once(
+            torch, lambda: poseidon_cols.poseidon_columns_plain(field, cfg, u))
+        bound_ms, by = bound(*poseidon_work(field, h, n))
+        for g in lanes:
+            got = kern(u, g)
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            ms = _time_cuda(torch, lambda: kern(u, g), 3)
+            log(f"kernel [{field.name}] Poseidon columns {h} x {n}, G = {g}: "
+                f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.1f} "
+                f"ms, bound {bound_ms:.3f} ms by {by}")
+            require(got.shape == want.shape and err == 0, f"Poseidon columns "
+                    f"{h} x {n} at G = {g}: the kernel disagrees with its "
+                    "plain version")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["per_lanes"][str(g)][f"rows_{h}_ms"] = ms
+        res[f"rows_{h}"] = {"plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": by}
+        del u, want
+    res["plain_ms"] = res["rows_64"]["plain_ms"]
+    # full heights: the commit (plain, zk) and the verifier's launch
+    for key, h, width in (("", rows, n), ("zk_", rows + 3, n),
+                          ("verifier_", rows, 3 * t)):
+        u = _rand_elems(torch, gen, (h, width), field)
+        js = torch.randperm(width, generator=gen, device="cuda")[:8].tolist()
+        host = [mt.col_hash(field, field.limbs_to_ints(u[:, j].cpu().numpy()))
+                for j in js]
+        bound_ms, by = bound(*poseidon_work(field, h, width))
+        first = None
+        for g in lanes:
+            got = kern(u, g)
+            first = got if first is None else first
+            require(torch.equal(got, first) and [poseidon_cols.digests_to_bytes(
+                got)[j] for j in js] == host, f"Poseidon columns {h} x {width}"
+                f" at G = {g}: differs from the host sponge or from G = 1")
+            ms = _time_cuda(torch, lambda: kern(u, g), 2)
+            res["per_lanes"][str(g)][f"{key or 'commit_'}ms"] = ms
+            log(f"kernel [{field.name}] Poseidon columns, full {h} x {width}, "
+                f"G = {g}: 8 sampled columns equal the host sponge; "
+                f"{ms:.3f} ms, bound {bound_ms:.3f} ms by {by} "
+                f"({bound_ms / ms:.1%})")
+        g = cuda_poseidon.lanes_for(width)
+        ms = res["per_lanes"][str(g)][f"{key or 'commit_'}ms"]
+        floor = floor_ms(u, cuda_poseidon.lanes_for(1))
+        log(f"kernel [{field.name}] Poseidon columns, full {h} x {width}: the "
+            f"launch's rule takes G = {g}, {ms:.3f} ms ({bound_ms / ms:.1%} of "
+            f"the bound); chain floor (one column, G = "
+            f"{cuda_poseidon.lanes_for(1)}) {floor:.3f} ms ({floor / ms:.1%})")
         if not key:
-            res.update(ms=ms, bound_ms=bound_ms, bound_by=by,
-                       chain_floor_ms=floor)
+            res.update(ms=ms, lanes=g, bound_ms=bound_ms, bound_by=by,
+                       chain_floor_ms=floor, chain_floor_g1_ms=floor_ms(u, 1))
+        elif key == "zk_":
+            res.update(zk_full_ms=ms, zk_full_bound_ms=bound_ms)
         else:
-            res.update(zk_full_ms=ms, zk_full_bound_ms=bound_ms,
-                       zk_chain_floor_ms=floor)
-        del u, one
+            res["verifier"] = {"shape": f"{h} x {width}", "ms": ms, "lanes": g,
+                               "bound_ms": bound_ms, "bound_by": by,
+                               "chain_floor_ms": floor}
+        del u
+    # the widths around the rule's thresholds: tree levels (2 rows) from
+    # n/2 columns to the root, and full-height launches of 2048 and 4096
+    # columns; each G, all bit-equal to G = 1
+    for h, width, iters in ([(2, n >> i, 20) for i in (1, 2, 3)] + [(2, 1, 20)]
+                            + [(rows, 2048, 1), (rows, 4096, 1)]):
+        key = f"{'level' if h == 2 else 'full'}_{width}_ms"
+        u = _rand_elems(torch, gen, (h, width), field)
+        want = kern(u, 1)
+        for g in lanes:
+            require(torch.equal(kern(u, g), want), f"Poseidon {h} x {width} "
+                    f"at G = {g} differs from G = 1")
+            res["per_lanes"][str(g)][key] = _time_cuda(
+                torch, lambda: kern(u, g), iters)
+        log(f"kernel [{field.name}] Poseidon {h} x {width}: every G bit-equal; "
+            + ", ".join(f"G = {g} {res['per_lanes'][str(g)][key]:.4f} ms"
+                        for g in lanes) + f"; the rule takes G = "
+            f"{cuda_poseidon.lanes_for(width)}")
+        del u
     # the tree: levels of Poseidon two-to-one, one launch a level
     leaves = _rand_elems(torch, gen, (1024,), field)
     got = poseidon_cols.tree_levels(field, cfg, leaves)
@@ -679,12 +783,32 @@ def poseidon_cases(torch, field, gen, rows: int, n: int) -> dict:
     require([poseidon_cols.digests_to_bytes(lv) for lv in got] == want,
             "Poseidon tree levels at 1024 leaves differ from the host tree")
     leaves = _rand_elems(torch, gen, (n,), field)
-    res["levels_ms"] = _time_cuda(
+    levels_ms = _time_cuda(
         torch, lambda: poseidon_cols.tree_levels(field, cfg, leaves), 3)
-    levels = n.bit_length() - 1
+    bound_ms, by = bound(*poseidon_levels_work(field, n))
+    res["levels"] = {"launches": n.bit_length() - 1, "ms": levels_ms,
+                     "bound_ms": bound_ms, "bound_by": by}
     log(f"kernel [{field.name}] Poseidon tree: levels at 1024 leaves equal "
-        f"the host tree's; {levels} level launches at {n} leaves "
-        f"{res['levels_ms']:.3f} ms")
+        f"the host tree's; {n.bit_length() - 1} level launches at {n} leaves "
+        f"{levels_ms:.3f} ms, bound {bound_ms:.4f} ms by {by}")
+    # three full matrices in one launch against three single launches
+    B = BATCH
+    u = _rand_elems(torch, gen, (B * rows, n), field)
+    mats = u.view(B, rows, n, field.num_limbs)
+    got = kern(mats)
+    for i in range(B):
+        require(torch.equal(got[i], kern(u[i * rows:(i + 1) * rows])),
+                f"batched Poseidon {B} x {rows} x {n}, matrix {i}: differs "
+                "from its single launch")
+    ms = _time_cuda(torch, lambda: kern(mats), 1)
+    bound_ms, by = bound(*[B * w for w in poseidon_work(field, rows, n)])
+    res["batched_full"] = {"shape": f"{B} x {rows} x {n}", "ms": ms,
+                           "lanes": cuda_poseidon.lanes_for(B * n),
+                           "bound_ms": bound_ms, "bound_by": by}
+    log(f"kernel [{field.name}] batched Poseidon, full {B} x {rows} x {n}: "
+        f"bit-equal to {B} single launches; {ms:.3f} ms "
+        f"({ms / res['ms']:.2f}x one), bound {bound_ms:.3f} ms by {by}")
+    del u, mats, got
     torch.cuda.empty_cache()
     return res
 
@@ -1133,7 +1257,8 @@ def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
 
     sponge = test_sponge(field)
     wraps = wrappers()
-    tag = path_tag(field, lig.zk)
+    poseidon = is_poseidon(lig)
+    tag = path_tag(field, lig.zk, poseidon)
     bad_vars = [(vars_[0][0], (vars_[0][1] + 1) % field.p)] + vars_[1:]
     if lig.zk:
         witnesses, seeds = [vars_] * ZK_BATCH, [ZK_SEED, ZK_SEED[::-1]]
@@ -1197,7 +1322,8 @@ def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
     torch.cuda.synchronize()
     vbatch_s = time.perf_counter() - t0
     vpeak = torch.cuda.max_memory_allocated()
-    launches = read_counts(wraps, f"{tag}batch", earlier=proving)
+    launches = read_counts(wraps, f"{tag}batch", earlier=proving, absent=(
+        NOT_ON_POSEIDON if poseidon else NOT_ON_DEFAULT))
     dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals))
     part = lig.backend.max_verify_batch(*dims)
     vestimate = lig.backend.verify_bytes(*dims, batch=min(part, len(batch)))
@@ -1412,6 +1538,13 @@ def main() -> int:
             for line in f:
                 if "registers" in line or "spill" in line:
                     log("ptxas: " + line.strip())
+    rc_sass = row_combine_sass(cuda_build.LIB_PATH)
+    for name, where in rc_sass.items():
+        log(f"SASS row_combine_partial [{name}]: row loop of {where['body']} "
+            f"instructions, first wide multiply at {where['first_multiply']}, "
+            f"the next row's {where['loads']} loads at {where['first_load']}.."
+            f"{where['last_load']}: {where['lead']} instructions ahead of the "
+            "branch to the product that uses them")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
@@ -1419,12 +1552,14 @@ def main() -> int:
     lig = build_instance(circ, outs, zk=False)
     dims, zk_dims = instance_dims(lig)
     results = phase_kernels(torch, field, gen, dims, zk_dims)
+    results["row_combine"]["sass"] = rc_sass
     rows = 4 * lig.m
     tree_bit_equality(torch, gen)
     results["sha256_tree"]["chain_floor_ms"] = tree_chain_floor(torch, lig.n)
     batch_kernel_cases(torch, field, gen, results, rows, lig.k, lig.n)
     spot_cases(torch, field, gen, rows, lig.k, lig.n, lig.t)
-    results["poseidon_cols"] = poseidon_cases(torch, field, gen, rows, lig.n)
+    results["poseidon_cols"] = poseidon_cases(torch, field, gen, rows, lig.n,
+                                              lig.t)
     kernel_cases_2e22(torch, field, gen, results)
     host_hash_context(lig.n)
     phase_parity()
@@ -1456,6 +1591,13 @@ def main() -> int:
         by_path[path] = phase_batch(torch, field, lig, vars_)
         del lig
         torch.cuda.empty_cache()
+    # the batch path under the Poseidon commitment: one sponge launch for
+    # both proofs' columns, one a tree level for both trees
+    lig = build_instance(circ, outs, zk=False, poseidon=True)
+    by_path["poseidon batch"] = phase_batch(torch, field, lig, vars_,
+                                            full=False)
+    del lig
+    torch.cuda.empty_cache()
     del circ, outs, vars_
 
     # the same synthetic circuit over BLS12-377 Fq, the kernels' second field
@@ -1487,8 +1629,8 @@ def main() -> int:
 
     extra = ("chain_floor_ms", "batched", "batched_full", "forest", "full_ms",
              "zk_full_ms", "full_bound_ms", "zk_full_bound_ms", "batch path",
-             "zk batch path", "2^22", "rows_64", "rows_67", "levels_ms",
-             "zk_chain_floor_ms")
+             "zk batch path", "2^22", "rows_64", "rows_67", "levels", "lanes",
+             "per_lanes", "verifier", "chain_floor_g1_ms", "sass")
 
     def timings(res: dict) -> dict:
         return {"max_abs_err": res["max_abs_err"], "ms": res["ms"],

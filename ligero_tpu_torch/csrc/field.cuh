@@ -249,6 +249,228 @@ __device__ __forceinline__ Fe fe_mont_mul(const Fe& a, const Fe& b) {
   return (top != 0u || ge) ? d : r;
 }
 
+// REDC(a * a) = a^2 * 2^-256 mod p, fully reduced, for a < p: the four
+// squarings of a Poseidon S-box.  The 28 cross products a_i a_j (i < j) are
+// formed once, row by row (two carry chains a row, one on the even and one
+// on the odd word pairs; a row's top word i + 8 is still 0 when the row
+// starts, and its sum so far, below 2^(32 (i + 9)), fits it), then doubled
+// and the 8 squares a_i^2 added: S = a^2 in 16 words.  The reduction is the
+// same word-by-word one as the product's: eight steps of S += m p 2^(32 i),
+// m = S_i (-p^-1) mod 2^32, each step's two carries out of its top words
+// kept aside (c[k] at word 8 + k) and added in once at the end.  Why the
+// result is below p: S + M p < p^2 + R p = p (p + R) < 2^511 (16 words, no
+// carry lost; c[8] stays 0), so S / R after the steps is below
+// p (p + R) / R = p + p^2 / R < 2p (p < R / 4), and one conditional
+// subtraction of p gives < p.
+__device__ __forceinline__ Fe fe_mont_sqr(const Fe& a) {
+  uint32_t s[2 * W], c[W + 1];
+#pragma unroll
+  for (int j = 0; j < 2 * W; ++j) s[j] = 0u;
+#pragma unroll
+  for (int j = 0; j <= W; ++j) c[j] = 0u;
+  // the cross products, row i = a_i (a_(i+1) .. a_7) at words 2i+1 .. i+8
+  asm(
+      "mad.lo.cc.u32 %0, %7, %8, %0;\n\t"
+      "madc.hi.cc.u32 %1, %7, %8, %1;\n\t"
+      "madc.lo.cc.u32 %2, %7, %9, %2;\n\t"
+      "madc.hi.cc.u32 %3, %7, %9, %3;\n\t"
+      "madc.lo.cc.u32 %4, %7, %10, %4;\n\t"
+      "madc.hi.cc.u32 %5, %7, %10, %5;\n\t"
+      "addc.u32 %6, %6, 0;\n\t"
+      : "+r"(s[2]), "+r"(s[3]), "+r"(s[4]), "+r"(s[5]), "+r"(s[6]), "+r"(s[7]),
+        "+r"(s[8])
+      : "r"(a.w[0]), "r"(a.w[2]), "r"(a.w[4]), "r"(a.w[6]));
+  asm(
+      "mad.lo.cc.u32 %0, %8, %9, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8, %9, %1;\n\t"
+      "madc.lo.cc.u32 %2, %8, %10, %2;\n\t"
+      "madc.hi.cc.u32 %3, %8, %10, %3;\n\t"
+      "madc.lo.cc.u32 %4, %8, %11, %4;\n\t"
+      "madc.hi.cc.u32 %5, %8, %11, %5;\n\t"
+      "madc.lo.cc.u32 %6, %8, %12, %6;\n\t"
+      "madc.hi.u32 %7, %8, %12, %7;\n\t"
+      : "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]), "+r"(s[5]), "+r"(s[6]),
+        "+r"(s[7]), "+r"(s[8])
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[3]), "r"(a.w[5]), "r"(a.w[7]));
+  asm(
+      "mad.lo.cc.u32 %0, %7, %8, %0;\n\t"
+      "madc.hi.cc.u32 %1, %7, %8, %1;\n\t"
+      "madc.lo.cc.u32 %2, %7, %9, %2;\n\t"
+      "madc.hi.cc.u32 %3, %7, %9, %3;\n\t"
+      "madc.lo.cc.u32 %4, %7, %10, %4;\n\t"
+      "madc.hi.cc.u32 %5, %7, %10, %5;\n\t"
+      "addc.u32 %6, %6, 0;\n\t"
+      : "+r"(s[3]), "+r"(s[4]), "+r"(s[5]), "+r"(s[6]), "+r"(s[7]), "+r"(s[8]),
+        "+r"(s[9])
+      : "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[4]), "r"(a.w[6]));
+  asm(
+      "mad.lo.cc.u32 %0, %6, %7, %0;\n\t"
+      "madc.hi.cc.u32 %1, %6, %7, %1;\n\t"
+      "madc.lo.cc.u32 %2, %6, %8, %2;\n\t"
+      "madc.hi.cc.u32 %3, %6, %8, %3;\n\t"
+      "madc.lo.cc.u32 %4, %6, %9, %4;\n\t"
+      "madc.hi.u32 %5, %6, %9, %5;\n\t"
+      : "+r"(s[4]), "+r"(s[5]), "+r"(s[6]), "+r"(s[7]), "+r"(s[8]), "+r"(s[9])
+      : "r"(a.w[1]), "r"(a.w[3]), "r"(a.w[5]), "r"(a.w[7]));
+  asm(
+      "mad.lo.cc.u32 %0, %5, %6, %0;\n\t"
+      "madc.hi.cc.u32 %1, %5, %6, %1;\n\t"
+      "madc.lo.cc.u32 %2, %5, %7, %2;\n\t"
+      "madc.hi.cc.u32 %3, %5, %7, %3;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      : "+r"(s[6]), "+r"(s[7]), "+r"(s[8]), "+r"(s[9]), "+r"(s[10])
+      : "r"(a.w[2]), "r"(a.w[4]), "r"(a.w[6]));
+  asm(
+      "mad.lo.cc.u32 %0, %6, %7, %0;\n\t"
+      "madc.hi.cc.u32 %1, %6, %7, %1;\n\t"
+      "madc.lo.cc.u32 %2, %6, %8, %2;\n\t"
+      "madc.hi.cc.u32 %3, %6, %8, %3;\n\t"
+      "madc.lo.cc.u32 %4, %6, %9, %4;\n\t"
+      "madc.hi.u32 %5, %6, %9, %5;\n\t"
+      : "+r"(s[5]), "+r"(s[6]), "+r"(s[7]), "+r"(s[8]), "+r"(s[9]), "+r"(s[10])
+      : "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[5]), "r"(a.w[7]));
+  asm(
+      "mad.lo.cc.u32 %0, %5, %6, %0;\n\t"
+      "madc.hi.cc.u32 %1, %5, %6, %1;\n\t"
+      "madc.lo.cc.u32 %2, %5, %7, %2;\n\t"
+      "madc.hi.cc.u32 %3, %5, %7, %3;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      : "+r"(s[7]), "+r"(s[8]), "+r"(s[9]), "+r"(s[10]), "+r"(s[11])
+      : "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[6]));
+  asm(
+      "mad.lo.cc.u32 %0, %4, %5, %0;\n\t"
+      "madc.hi.cc.u32 %1, %4, %5, %1;\n\t"
+      "madc.lo.cc.u32 %2, %4, %6, %2;\n\t"
+      "madc.hi.u32 %3, %4, %6, %3;\n\t"
+      : "+r"(s[8]), "+r"(s[9]), "+r"(s[10]), "+r"(s[11])
+      : "r"(a.w[3]), "r"(a.w[5]), "r"(a.w[7]));
+  asm(
+      "mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;\n\t"
+      : "+r"(s[10]), "+r"(s[11]), "+r"(s[12])
+      : "r"(a.w[4]), "r"(a.w[6]));
+  asm(
+      "mad.lo.cc.u32 %0, %4, %5, %0;\n\t"
+      "madc.hi.cc.u32 %1, %4, %5, %1;\n\t"
+      "madc.lo.cc.u32 %2, %4, %6, %2;\n\t"
+      "madc.hi.u32 %3, %4, %6, %3;\n\t"
+      : "+r"(s[9]), "+r"(s[10]), "+r"(s[11]), "+r"(s[12])
+      : "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[7]));
+  asm(
+      "mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;\n\t"
+      : "+r"(s[11]), "+r"(s[12]), "+r"(s[13])
+      : "r"(a.w[5]), "r"(a.w[6]));
+  asm(
+      "mad.lo.cc.u32 %0, %2, %3, %0;\n\t"
+      "madc.hi.u32 %1, %2, %3, %1;\n\t"
+      : "+r"(s[12]), "+r"(s[13])
+      : "r"(a.w[5]), "r"(a.w[7]));
+  asm(
+      "mad.lo.cc.u32 %0, %2, %3, %0;\n\t"
+      "madc.hi.u32 %1, %2, %3, %1;\n\t"
+      : "+r"(s[13]), "+r"(s[14])
+      : "r"(a.w[6]), "r"(a.w[7]));
+  // doubled (2 sum_(i<j) < 2^481: no carry out of word 15)
+  asm(
+      "add.cc.u32 %0, %0, %0;\n\t"
+      "addc.cc.u32 %1, %1, %1;\n\t"
+      "addc.cc.u32 %2, %2, %2;\n\t"
+      "addc.cc.u32 %3, %3, %3;\n\t"
+      "addc.cc.u32 %4, %4, %4;\n\t"
+      "addc.cc.u32 %5, %5, %5;\n\t"
+      "addc.cc.u32 %6, %6, %6;\n\t"
+      "addc.cc.u32 %7, %7, %7;\n\t"
+      "addc.cc.u32 %8, %8, %8;\n\t"
+      "addc.cc.u32 %9, %9, %9;\n\t"
+      "addc.cc.u32 %10, %10, %10;\n\t"
+      "addc.cc.u32 %11, %11, %11;\n\t"
+      "addc.cc.u32 %12, %12, %12;\n\t"
+      "addc.cc.u32 %13, %13, %13;\n\t"
+      "addc.u32 %14, %14, %14;\n\t"
+      : "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]), "+r"(s[5]), "+r"(s[6]),
+        "+r"(s[7]), "+r"(s[8]), "+r"(s[9]), "+r"(s[10]), "+r"(s[11]),
+        "+r"(s[12]), "+r"(s[13]), "+r"(s[14]), "+r"(s[15]));
+  // plus the squares a_i^2 at words 2i, 2i + 1 (a^2 < 2^512)
+  asm(
+      "mad.lo.cc.u32 %0, %16, %16, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, %16, %1;\n\t"
+      "madc.lo.cc.u32 %2, %17, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %17, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %18, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %18, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %19, %19, %6;\n\t"
+      "madc.hi.cc.u32 %7, %19, %19, %7;\n\t"
+      "madc.lo.cc.u32 %8, %20, %20, %8;\n\t"
+      "madc.hi.cc.u32 %9, %20, %20, %9;\n\t"
+      "madc.lo.cc.u32 %10, %21, %21, %10;\n\t"
+      "madc.hi.cc.u32 %11, %21, %21, %11;\n\t"
+      "madc.lo.cc.u32 %12, %22, %22, %12;\n\t"
+      "madc.hi.cc.u32 %13, %22, %22, %13;\n\t"
+      "madc.lo.cc.u32 %14, %23, %23, %14;\n\t"
+      "madc.hi.u32 %15, %23, %23, %15;\n\t"
+      : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]), "+r"(s[5]),
+        "+r"(s[6]), "+r"(s[7]), "+r"(s[8]), "+r"(s[9]), "+r"(s[10]),
+        "+r"(s[11]), "+r"(s[12]), "+r"(s[13]), "+r"(s[14]), "+r"(s[15])
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]),
+        "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]));
+  // the reduction: s[i .. i + 8] += m p clears s[i]; the even words of p
+  // carry out of word i + 7 into c[i], the odd words out of i + 8 into
+  // c[i + 1]
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const uint32_t m = s[i] * NP0;
+    asm(
+        "mad.lo.cc.u32 %0, 0xf0000001, %9, %0;\n\t"
+        "madc.hi.cc.u32 %1, 0xf0000001, %9, %1;\n\t"
+        "madc.lo.cc.u32 %2, 0x79b97091, %9, %2;\n\t"
+        "madc.hi.cc.u32 %3, 0x79b97091, %9, %3;\n\t"
+        "madc.lo.cc.u32 %4, 0x8181585d, %9, %4;\n\t"
+        "madc.hi.cc.u32 %5, 0x8181585d, %9, %5;\n\t"
+        "madc.lo.cc.u32 %6, 0xe131a029, %9, %6;\n\t"
+        "madc.hi.cc.u32 %7, 0xe131a029, %9, %7;\n\t"
+        "addc.u32 %8, %8, 0;\n\t"
+        : "+r"(s[i]), "+r"(s[i + 1]), "+r"(s[i + 2]), "+r"(s[i + 3]),
+          "+r"(s[i + 4]), "+r"(s[i + 5]), "+r"(s[i + 6]), "+r"(s[i + 7]),
+          "+r"(c[i])
+        : "r"(m));
+    asm(
+        "mad.lo.cc.u32 %0, 0x43e1f593, %9, %0;\n\t"
+        "madc.hi.cc.u32 %1, 0x43e1f593, %9, %1;\n\t"
+        "madc.lo.cc.u32 %2, 0x2833e848, %9, %2;\n\t"
+        "madc.hi.cc.u32 %3, 0x2833e848, %9, %3;\n\t"
+        "madc.lo.cc.u32 %4, 0xb85045b6, %9, %4;\n\t"
+        "madc.hi.cc.u32 %5, 0xb85045b6, %9, %5;\n\t"
+        "madc.lo.cc.u32 %6, 0x30644e72, %9, %6;\n\t"
+        "madc.hi.cc.u32 %7, 0x30644e72, %9, %7;\n\t"
+        "addc.u32 %8, %8, 0;\n\t"
+        : "+r"(s[i + 1]), "+r"(s[i + 2]), "+r"(s[i + 3]), "+r"(s[i + 4]),
+          "+r"(s[i + 5]), "+r"(s[i + 6]), "+r"(s[i + 7]), "+r"(s[i + 8]),
+          "+r"(c[i + 1])
+        : "r"(m));
+  }
+  // the result: s[8 .. 15] plus the carries kept aside (< 2p: no carry out)
+  Fe r, d;
+  asm(
+      "add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;\n\t"
+      : "=&r"(r.w[0]), "=&r"(r.w[1]), "=&r"(r.w[2]), "=&r"(r.w[3]),
+        "=&r"(r.w[4]), "=&r"(r.w[5]), "=&r"(r.w[6]), "=&r"(r.w[7])
+      : "r"(s[8]), "r"(s[9]), "r"(s[10]), "r"(s[11]), "r"(s[12]), "r"(s[13]),
+        "r"(s[14]), "r"(s[15]),
+        "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4]), "r"(c[5]),
+        "r"(c[6]), "r"(c[7]));
+  return sub_p(r.w, d.w) ? d : r;
+}
+
 }  // namespace fr
 
 namespace fq {
@@ -580,6 +802,9 @@ struct Bn254Fr {
   }
   static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
     return fr::fe_mont_mul(a, b);
+  }
+  static __device__ __forceinline__ Fe sqr(const Fe& a) {
+    return fr::fe_mont_sqr(a);
   }
 };
 

@@ -11,11 +11,21 @@
 //
 // Cost on the card: one 8 W-byte element of M per product (64 bytes for
 // BN254, 96 for BLS12-377), so at the interleaved-phase shape (4100 x 2048)
-// the pass reads 0.5 or 0.8 GB and is bandwidth-bound.  A first launch gives each thread one column and a
+// the pass reads 0.5 or 0.8 GB and is bound by bandwidth, as long as enough
+// loads are in flight.  A first launch gives each thread one column and a
 // chunk of rows (the grid's second axis), so the card is filled even when
 // M has few columns; a second launch adds the per-chunk partial sums.  Both
 // launches take a batch of B independent combinations of one shape on the
-// grid's third axis: (B, rows, k) x (B, rows) -> (B, k).
+// grid's third axis: (B, rows, k) x (B, rows) -> (B, k).  Loads in flight:
+// a thread issues the next row's two operand loads before the current
+// row's product (a register double buffer), so each thread has a row's
+// loads in flight while its product runs: at 12 words the product (~350
+// operations) no longer hides behind one row's loads.  The loads are
+// unconditional (the last row of a chunk loads itself again) and a compiler
+// barrier stands between them and the product, or the compiler sinks them
+// below it into the next iteration's wait.  At least four blocks of four
+// warps an SM (launch bounds: 128 registers a thread) keep four warps a
+// scheduler.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -23,28 +33,37 @@
 namespace {
 
 template <class F>
-__global__ void row_combine_partial(const int32_t* __restrict__ m,
-                                    const int32_t* __restrict__ r,
-                                    uint32_t* __restrict__ partial,
-                                    long long rows, long long k,
-                                    long long rows_per_chunk,
-                                    int r_col_stride) {
+__global__ void __launch_bounds__(128, 4)
+row_combine_partial(const int32_t* __restrict__ m,
+                    const int32_t* __restrict__ r,
+                    uint32_t* __restrict__ partial, long long rows,
+                    long long k, long long rows_per_chunk, int r_col_stride) {
   long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= k) return;
   const long long chunk = blockIdx.y, batch = blockIdx.z;
   constexpr int W = F::W, L = F::L;
+  using Fe = typename F::Fe;
   const long long r_row = r_col_stride ? k * L : L;
-  m += batch * rows * k * L;
-  r += batch * rows * r_row;
+  m += batch * rows * k * L + col * L;
+  r += batch * rows * r_row + col * r_col_stride;
   partial += batch * gridDim.y * k * W;
   const long long r0 = chunk * rows_per_chunk;
   const long long r1 = r0 + rows_per_chunk < rows ? r0 + rows_per_chunk : rows;
-  typename F::Fe acc = fe_zero<W>();
-  for (long long i = r0; i < r1; ++i) {
-    const typename F::Fe a =
-        load_limbs<W>(r + i * r_row + col * r_col_stride);
-    const typename F::Fe b = load_limbs<W>(m + (i * k + col) * L);
-    acc = F::add(acc, F::mul(a, b));
+  Fe acc = fe_zero<W>();
+  if (r0 < r1) {
+    Fe a = load_limbs<W>(r + r0 * r_row), b = load_limbs<W>(m + r0 * k * L);
+    for (long long i = r0; i < r1; ++i) {
+      // the next row's operands (the last row's own again: no branch for
+      // the compiler to sink below the product), then a barrier that keeps
+      // the loads ahead of this row's product
+      const long long next = i + 1 < r1 ? i + 1 : i;
+      const Fe a_next = load_limbs<W>(r + next * r_row);
+      const Fe b_next = load_limbs<W>(m + next * k * L);
+      asm volatile("" ::: "memory");
+      acc = F::add(acc, F::mul(a, b));
+      a = a_next;
+      b = b_next;
+    }
   }
   store_packed<W>(partial + (chunk * k + col) * W, acc);
 }

@@ -58,7 +58,8 @@ _SIGNATURES = {
                        _vp],
     "lt_sha256_tree": [_vp, _ll, _vp, _vp, _i, _vp],
     "lt_sha256_chain_probe": [_vp, _i, _vp],
-    "lt_poseidon_cols": [_vp, _vp, _ll, _ll, _ll, _ll, _vp, _vp],
+    "lt_poseidon_cols": [_vp, _vp, _ll, _ll, _ll, _ll, _ll, _ll, _i, _vp,
+                         _vp],
 }
 
 _lock = threading.Lock()

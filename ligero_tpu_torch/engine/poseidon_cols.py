@@ -23,6 +23,8 @@ Poseidon ``two_to_one(l, r)`` is the digest of the 2-element column
 [l, r] (digests are canonical elements and a level never needs padding:
 its width is a power of two), so every inner level of the Merkle tree is
 one call over a (2, w/2, L) view of the level below (:func:`tree_levels`).
+Every call takes B matrices at once, (B, rows, N, L): a batch's B
+commitments, or one level of B trees, go in one launch.
 
 :func:`poseidon_columns` is what the commitment calls: on a CUDA tensor the
 hand-written sponge kernel (``cuda_poseidon``), on a CPU tensor the plain
@@ -100,10 +102,15 @@ def _permute(field: FieldSpec, ark: torch.Tensor, state: torch.Tensor):
 def poseidon_columns_plain(field: FieldSpec, cfg, u: torch.Tensor) -> torch.Tensor:
     """Plain version: the digests of the N columns of ``u`` (rows, N, L),
     canonical int32 limbs (any strides), as (N, L) int32 canonical limbs,
-    each row one 32-byte little-endian digest.  The sponges run side by
-    side on a (3, N, L) Montgomery state, through fieldops products
+    each row one 32-byte little-endian digest; of B matrices (B, rows, N,
+    L), as (B, N, L).  The sponges run side by side on a (3, B N, L)
+    Montgomery state, through fieldops products
     (:func:`fieldops.mont_mul_vec`, whose results are ``mont_mul``'s)."""
     check_config(field, cfg)
+    if u.dim() == 4:
+        batch, rows, n, L = u.shape
+        side = u.permute(1, 0, 2, 3).reshape(rows, batch * n, L)
+        return poseidon_columns_plain(field, cfg, side).reshape(batch, n, L)
     rows, n, L = u.shape
     mul = fieldops.mont_mul_vec
     ark = torch.from_numpy(round_constants(field, cfg).astype(np.int32)).to(
@@ -125,9 +132,10 @@ def poseidon_columns_plain(field: FieldSpec, cfg, u: torch.Tensor) -> torch.Tens
 
 
 def poseidon_columns(field: FieldSpec, cfg, u: torch.Tensor) -> torch.Tensor:
-    """Column digests of ``u`` (rows, N, L) -> (N, L) int32 canonical
-    limbs: the CUDA kernel on a CUDA tensor (raises where it cannot
-    launch), the plain version on a CPU tensor."""
+    """Column digests of ``u`` (rows, N, L) -> (N, L), or of B matrices
+    (B, rows, N, L) -> (B, N, L), int32 canonical limbs: the CUDA kernel on
+    a CUDA tensor, one launch (raises where it cannot launch), the plain
+    version on a CPU tensor."""
     if u.device.type == "cpu":
         return poseidon_columns_plain(field, cfg, u)
     from . import cuda_poseidon
@@ -137,16 +145,18 @@ def poseidon_columns(field: FieldSpec, cfg, u: torch.Tensor) -> torch.Tensor:
 def tree_levels(field: FieldSpec, cfg, leaves: torch.Tensor) -> list:
     """The Merkle levels above ``leaves`` (n, L) (n a power of two >= 2):
     [(n/2, L), ..., (1, L)], each node the Poseidon two-to-one of its two
-    children, one :func:`poseidon_columns` call a level."""
-    n = leaves.shape[0]
+    children, one :func:`poseidon_columns` call a level; of B trees' leaves
+    (B, n, L), [(B, n/2, L), ..., (B, 1, L)], still one call a level."""
+    n = leaves.shape[-2]
     if n < 2 or n & (n - 1):
         raise ValueError(f"tree_levels: {n} leaves, not a power of two >= 2")
-    levels, cur = [], leaves
-    while cur.shape[0] > 1:
-        # column j of the (2, w/2, L) view is [cur[2j], cur[2j + 1]]
-        cur = poseidon_columns(field, cfg, cur.reshape(-1, 2, cur.shape[-1])
-                               .transpose(0, 1))
-        levels.append(cur)
+    levels, cur = [], leaves if leaves.dim() == 3 else leaves[None]
+    while cur.shape[1] > 1:
+        batch, w, L = cur.shape
+        # column j of tree b's (2, w/2, L) view is [cur[b, 2j], cur[b, 2j + 1]]
+        cur = poseidon_columns(field, cfg, cur.reshape(batch, w // 2, 2, L)
+                               .transpose(1, 2))
+        levels.append(cur if leaves.dim() == 3 else cur[0])
     return levels
 
 

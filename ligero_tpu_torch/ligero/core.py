@@ -306,17 +306,17 @@ class LigeroCircuit:
     def _commit(self, u_canon, batch: int):
         """Per proof ``(leaves, inner_levels)`` of ``batch`` stacked
         (rows, n, L) canonical matrices, through ``mt_params``: the default
-        params' one Blake2s launch and trees, or each proof's device
-        digests and tree levels."""
+        params' one Blake2s launch and trees, or the device digests of all
+        proofs' columns at once and their trees' levels, a level of every
+        tree at once."""
         if self._mt_default:
             return self.backend.commit_columns_batch(u_canon, batch)
-        mt, rows = self.mt_params, u_canon.shape[0] // batch
-        out = []
-        for b in range(batch):
-            leaves = mt.device_col_digests(
-                self.backend, u_canon[b * rows:(b + 1) * rows])
-            out.append((leaves, mt.device_tree_levels(self.backend, leaves)))
-        return out
+        mt, n = self.mt_params, u_canon.shape[1]
+        leaves = mt.device_col_digests(self.backend, u_canon, batch)
+        levels = mt.device_tree_levels(self.backend, leaves, batch)
+        return [(leaves[b * n:(b + 1) * n],
+                 [lv[b * len(lv) // batch:(b + 1) * len(lv) // batch]
+                  for lv in levels]) for b in range(batch)]
 
     def _zk_masks(self, zk_seed: bytes | None):
         """The three mask polynomials (canonical ints), their (3, d2, L)

@@ -94,20 +94,27 @@ class LigeroMTPoseidonParams:
         check_config(self.field, cfg)
         return cfg
 
-    def device_col_digests(self, backend, u_source) -> list[bytes]:
-        """Column digests of a (rows, n, L) canonical limb matrix on
-        ``backend``'s device, the n sponges side by side
+    def device_col_digests(self, backend, u_source,
+                           batch: int = 1) -> list[bytes]:
+        """Column digests of ``batch`` stacked (rows, n, L) canonical limb
+        matrices, a (batch rows, n, L) array, on ``backend``'s device, all
+        batch n sponges side by side in one launch
         (``engine/poseidon_cols.py``): the CUDA kernel on the card (a build
-        or launch failure raises), the plain version on the CPU.
-        Bit-identical to :meth:`col_hash` of each column."""
+        or launch failure raises), the plain version on the CPU.  Matrix
+        after matrix, bit-identical to :meth:`col_hash` of each column."""
         from ..engine import poseidon_cols
         cfg = self.check_backend(backend)
+        u = backend.asarray(u_source)
+        u = u.reshape(batch, u.shape[0] // batch, *u.shape[1:])
         return poseidon_cols.digests_to_bytes(poseidon_cols.poseidon_columns(
-            self.field, cfg, backend.asarray(u_source)))
+            self.field, cfg, u))
 
-    def device_tree_levels(self, backend, leaves: list[bytes]) -> list:
-        """The Merkle levels above ``leaves`` (a power of two of them), one
-        launch a level on ``backend``'s device: what
+    def device_tree_levels(self, backend, leaves: list[bytes],
+                           batch: int = 1) -> list:
+        """The Merkle levels above ``batch`` trees whose leaves (a power of
+        two each) stand tree after tree in ``leaves``, one launch a level
+        for all of them on ``backend``'s device: level i holds every
+        tree's nodes of that level, tree after tree.  Of one tree, what
         ``create_merkle_tree(leaves, two_to_one=self.two_to_one).levels``
         holds."""
         from ..engine import poseidon_cols
@@ -115,7 +122,8 @@ class LigeroMTPoseidonParams:
         limbs = backend.asarray(poseidon_cols.bytes_to_digests(
             leaves, self.field.num_limbs))
         return [poseidon_cols.digests_to_bytes(level) for level in
-                poseidon_cols.tree_levels(self.field, cfg, limbs)]
+                poseidon_cols.tree_levels(self.field, cfg, limbs.reshape(
+                    batch, len(leaves) // batch, -1))]
 
 
 def is_default_mt_params(params) -> bool:

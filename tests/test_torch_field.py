@@ -334,6 +334,67 @@ def test_field_header_chains_use_the_modulus_words(namespace, field):
     assert immediates(asm["sub_p"][0]) == P
 
 
+def emulated_mont_sqr(a: int) -> tuple[int, int]:
+    """fr::fe_mont_sqr of csrc/field.cuh on a Python int: its asm statements
+    as parsed (the cross-product rows, the doubling, the squares, the two
+    reduction chains of each of the eight steps, the final sum), the C++
+    around them mirrored here.  Returns (result, the carry word past the
+    sixteenth, which the header's bound says stays 0)."""
+    asm = field_header_asm("fr")["fe_mont_sqr"]
+    W = 8
+    np0 = (-pow(BN254_FR.p, -1, 1 << 32)) & M32
+    aw = [(a >> (32 * j)) & M32 for j in range(W)]
+    s, c = [0] * (2 * W), [0] * (W + 1)
+    names = {"s": s, "c": c, "a": aw}
+
+    def env(i=0, **extra):
+        def resolve(expr):
+            expr = expr.strip()
+            m = re.fullmatch(r"(\w+)(?:\.w)?\[(i)?(?: \+ )?(\d*)\]", expr)
+            if m:
+                key = (i if m.group(2) else 0) + int(m.group(3) or 0)
+                return [names[m.group(1)], key]
+            return [extra[expr], 0]
+        return resolve
+
+    cross, rest = asm[:13], asm[13:]
+    for stmt in cross + rest[:2]:           # rows, doubling, squares
+        run_asm(stmt, env())
+    for i in range(W):
+        m = [(s[i] * np0) & M32]
+        run_asm(rest[2], env(i, m=m))
+        run_asm(rest[3], env(i, m=m))
+        assert s[i] == 0
+    r = [0] * W
+    names["r"] = r
+    run_asm(rest[4], env())
+    value = sum(x << (32 * j) for j, x in enumerate(r))
+    return (value - BN254_FR.p if value >= BN254_FR.p else value), c[W]
+
+
+def test_field_header_mont_sqr_emulated():
+    """The squaring's PTX, instruction for instruction, gives REDC(a a) fully
+    reduced for every a < p: no carry lost (the rows' top words, the
+    doubling, the squares, the final sum), the carry word past the
+    sixteenth stays 0, and the result equals the product's."""
+    import random
+    mont_mul, _, _ = emulated_field_ops("fr", BN254_FR)
+    p, R = BN254_FR.p, 1 << 256
+    r_inv = pow(R, -1, p)
+    rnd = random.Random(17)
+    xs = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2, 1 << 253,
+          (1 << 253) - 1, R % p, (R * R) % p, M32, (1 << 224) - 1]
+    xs += [rnd.randrange(p) for _ in range(400)]
+    xs += [p - 1 - rnd.randrange(1 << 64) for _ in range(50)]
+    for x in xs:
+        got, spill = emulated_mont_sqr(x)
+        assert spill == 0, hex(x)
+        assert got == x * x * r_inv % p == mont_mul(x, x), hex(x)
+    # no more statements than the sum needs: 13 cross rows, 1 doubling, 1
+    # squares, 2 reduction chains, 1 final sum
+    assert len(field_header_asm("fr")["fe_mont_sqr"]) == 18
+
+
 def test_field_header_constants_match_bls12_377():
     """The fq namespace's p words, -p^-1 mod 2^32 and widths."""
     path = os.path.join(os.path.dirname(cuda_mont.__file__), "..", "csrc",

@@ -102,3 +102,22 @@ def test_row_combine_kernel_matches_plain(cuda, rows, k, field):
     got = cuda_lc.row_combine_batch(pf(field), rs.to(cuda), mats.to(cuda))
     assert torch.equal(got.cpu(),
                        cuda_lc.row_combine_batch_ref(pf(field), rs, mats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k", [(4099, 130), (1, 300), (127, 129)])
+def test_row_combine_bls12_377_ragged_rows_match_plain(cuda, rows, k):
+    """BLS12-377 at row counts the chunks of ``ROWS_PER_CHUNK`` rows do not
+    divide and at a single row (each thread's last row has no next row to
+    load ahead), single and batched, against the plain version."""
+    field = BLS12_377_FQ
+    rng = np.random.default_rng(rows + k)
+    mat = t(rand_mont(rng, (rows, k), field))
+    r = t(rand_mont(rng, (rows,), field))
+    got = cuda_lc.row_combine(pf(field), r.to(cuda), mat.to(cuda))
+    assert torch.equal(got.cpu(), cuda_lc.row_combine_ref(pf(field), r, mat))
+    rs = torch.stack([r, r.flip(0)])
+    mats = torch.stack([mat, mat.flip(1)])
+    got = cuda_lc.row_combine_batch(pf(field), rs.to(cuda), mats.to(cuda))
+    assert torch.equal(got.cpu(),
+                       cuda_lc.row_combine_batch_ref(pf(field), rs, mats))

@@ -137,6 +137,59 @@ def test_plain_tree_levels_match_jax_create_merkle_tree(n):
         poseidon_cols.tree_levels(PF, CFG, torch.zeros(6, 16, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("rows", [2, 5])
+def test_plain_batch_equals_per_matrix_calls(rows):
+    """B stacked matrices (B, rows, N, L) in one call give each matrix's own
+    digests, and the first matrix's equal the JAX package's host
+    ``col_hash``; through the params, a (B rows, N, L) stack gives the B N
+    digests matrix after matrix."""
+    rng = np.random.default_rng(70 + rows)
+    mats = [rand_matrix(rng, rows, 6) for _ in range(3)]
+    stacked = torch.stack([limbs for _, limbs in mats])
+    got = poseidon_cols.poseidon_columns(PF, CFG, stacked)
+    assert got.shape == (3, 6, PF.num_limbs)
+    for b, (_, limbs) in enumerate(mats):
+        assert torch.equal(got[b], poseidon_cols.poseidon_columns(PF, CFG,
+                                                                  limbs))
+    assert poseidon_cols.digests_to_bytes(got[0]) == host_digests(mats[0][0])
+    mt = LigeroMTPoseidonParams(PF)
+    flat = mt.device_col_digests(CPU, stacked.reshape(3 * rows, 6, -1), 3)
+    assert flat == poseidon_cols.digests_to_bytes(got)
+
+
+def test_plain_tree_levels_of_a_batch_equal_per_tree_calls():
+    """The levels of B trees in one call a level equal each tree's own
+    levels; through the params, level i holds the trees' nodes tree after
+    tree, and the first tree's levels equal the JAX package's
+    ``create_merkle_tree``."""
+    ref = RefParams(F)
+    forest = [[ref.col_hash(F, [b, i, (i * i + b) % F.p]) for i in range(8)]
+              for b in range(3)]
+    limbs = torch.stack([torch.from_numpy(poseidon_cols.bytes_to_digests(
+        leaves, PF.num_limbs)) for leaves in forest])
+    got = poseidon_cols.tree_levels(PF, CFG, limbs)
+    assert [tuple(lv.shape) for lv in got] == [(3, 4, 16), (3, 2, 16),
+                                               (3, 1, 16)]
+    for b in range(3):
+        one = poseidon_cols.tree_levels(PF, CFG, limbs[b])
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one))
+    mt = LigeroMTPoseidonParams(PF)
+    levels = mt.device_tree_levels(CPU, [d for tree in forest for d in tree], 3)
+    assert [lv[:len(lv) // 3] for lv in levels] == create_merkle_tree(
+        forest[0], two_to_one=ref.two_to_one).levels
+    assert levels == [poseidon_cols.digests_to_bytes(lv) for lv in got]
+
+
+def test_lane_rule_covers_every_column_count():
+    """The launch's lane count is one the kernel is built for at every
+    column count, and never grows with the count."""
+    counts = [1, 2, 3, 100, 468, 511, 512, 1000, 2047, 2048, 4096, 8191,
+              8192, 16384, 3 * 16384, 1 << 22]
+    lanes = [cuda_poseidon.lanes_for(c) for c in counts]
+    assert set(lanes) <= set(cuda_poseidon.LANES)
+    assert lanes == sorted(lanes, reverse=True)
+
+
 @pytest.mark.parametrize("fname", ["bn254_fr", "bls12_377_fq"])
 def test_vector_field_ops_equal_the_limb_loops(fname):
     """``mont_mul_vec`` / ``add_vec`` (the plain Poseidon's products and
@@ -268,12 +321,27 @@ def test_poseidon_params_change_the_transcript(lemniscate):
     assert not default.verify(proof, sp.clone())
 
 
-def test_poseidon_prove_batch_equals_sequential(lemniscate):
+def test_poseidon_prove_batch_equals_sequential(lemniscate, monkeypatch):
+    """A batch of 3 equals three single proves byte for byte, its commitment
+    one digest call for all three proofs' columns and one call a tree
+    level for all three trees."""
     _, _, port, proofs = lemniscate
+    calls = []
+    real = poseidon_cols.poseidon_columns
+
+    def counted(field, cfg, u):
+        calls.append(tuple(u.shape))
+        return real(field, cfg, u)
+
+    monkeypatch.setattr(poseidon_cols, "poseidon_columns", counted)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        got = port.prove_batch([WITNESS, BAD_WITNESS], test_sponge(F))
-    assert [p.to_bytes(PF) for p in got] == [p.to_bytes(PF) for p in proofs]
+        got = port.prove_batch([WITNESS, BAD_WITNESS, WITNESS], test_sponge(F))
+    assert [p.to_bytes(PF) for p in got] == [
+        p.to_bytes(PF) for p in (proofs[0], proofs[1], proofs[0])]
+    n, L = port.n, PF.num_limbs
+    assert calls == [(3, port.num_rows, n, L)] + [
+        (3, 2, n >> i, L) for i in range(1, n.bit_length())]
 
 
 def test_poseidon_verify_batch_verdicts(lemniscate, monkeypatch):
@@ -345,6 +413,58 @@ def test_bls12_377_poseidon_refused_by_both_packages():
 def test_poseidon_kernel_matches_plain(cuda, rows, n):
     _, limbs = rand_matrix(np.random.default_rng(rows), rows, n)
     got = cuda_poseidon.poseidon_columns(PF, CFG, limbs.to(cuda))
+    assert torch.equal(got.cpu(), poseidon_cols.poseidon_columns_plain(
+        PF, CFG, limbs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", [1, 2, 3, 7, 67])
+def test_poseidon_kernel_every_lane_count_matches_plain(cuda, lanes, rows):
+    """Every compiled lane count at ragged shapes: columns that leave a
+    warp part-full, heights even, odd and 1."""
+    for n in (1, 5, 130, 257):
+        _, limbs = rand_matrix(np.random.default_rng(100 * rows + n), rows, n)
+        got = cuda_poseidon.poseidon_columns(PF, CFG, limbs.to(cuda),
+                                             lanes=lanes)
+        assert torch.equal(got.cpu(), poseidon_cols.poseidon_columns_plain(
+            PF, CFG, limbs)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+def test_poseidon_kernel_batch_stride_and_tree_views(cuda, lanes):
+    """B stacked matrices in one launch equal B single launches and the
+    plain version; a level of B trees read through the strided (B, 2, w/2,
+    L) view equals the plain levels."""
+    _, limbs = rand_matrix(np.random.default_rng(31), 3 * 7, 130)
+    stacked = limbs.reshape(3, 7, 130, -1)
+    got = cuda_poseidon.poseidon_columns(PF, CFG, stacked.to(cuda),
+                                         lanes=lanes)
+    assert torch.equal(got.cpu(), poseidon_cols.poseidon_columns_plain(
+        PF, CFG, stacked))
+    for b in range(3):
+        assert torch.equal(got[b], cuda_poseidon.poseidon_columns(
+            PF, CFG, stacked[b].to(cuda), lanes=lanes))
+    _, leaves = rand_matrix(np.random.default_rng(32), 3, 64)
+    view = leaves.to(cuda).reshape(3, 32, 2, -1).transpose(1, 2)
+    got = cuda_poseidon.poseidon_columns(PF, CFG, view, lanes=lanes)
+    want = poseidon_cols.tree_levels(PF, CFG, leaves)[0]
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+def test_poseidon_kernel_inputs_at_the_edges(cuda, lanes):
+    """Elements at and just below p, and just below R = 2^256, through the
+    sponge's to-Montgomery step (a < R times R^2 mod p)."""
+    p, R = PF.p, 1 << 256
+    edges = [0, 1, p - 2, p - 1, p, p + 1, R - p, R - 2, R - 1, 1 << 255]
+    rows = [[edges[(3 * i + j) % len(edges)] for j in range(37)]
+            for i in range(5)]
+    limbs = torch.from_numpy(PF.ints_to_limbs(
+        [v for row in rows for v in row]).reshape(5, 37, -1).astype(np.int32))
+    got = cuda_poseidon.poseidon_columns(PF, CFG, limbs.to(cuda), lanes=lanes)
     assert torch.equal(got.cpu(), poseidon_cols.poseidon_columns_plain(
         PF, CFG, limbs))
 
