@@ -38,7 +38,14 @@ It runs every phase, in order; any failure exits non-zero:
                kernel cases run again for BLS12-377 Fq at its instance's
                shapes, with Blake2s at row counts of every residue mod 4,
                three full matrices in one launch, and row_combine over
-               two matrices in one launch (the bls batch path's).
+               two matrices in one launch (the bls batch path's).  The
+               streaming commit's Blake2s entry (``blake2s_absorb``, a
+               column's rows a chunk at a time) in both fields: against
+               its plain version and the whole-column kernel at rows of
+               every residue mod 4 and the zk path's odd count, chunked
+               raggedly, timed at the 2^20 shapes (4m x 256 in 1024-row
+               chunks) and at the 2^22 shapes (8196 x 32768, against the
+               whole-column kernel).
 4. parity   -- port proofs on the card byte-equal to the port's proofs on
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
@@ -64,7 +71,17 @@ It runs every phase, in order; any failure exits non-zero:
                row_combine launches at its own shapes against their plain
                versions.  Then the 2^20-gate circuit over BLS12-377
                Fq: plain (and a batch of 2, honest and tampered, against
-               sequential proves) and zk.
+               sequential proves) and zk.  Streaming mode: the 2^18-gate
+               circuit in both fields, plain and zk, built under a memory
+               budget at its streaming estimate for 512-row chunks (below
+               the direct one): proof bytes equal to the direct-mode proof,
+               verify True, flipped byte and tampered witness rejected,
+               every kernel but the whole-column Blake2s and the sponge
+               launched, each peak under its streaming estimate; then
+               BLS12-377 at 2^23 gates, which direct mode refuses on an
+               80 GB card (~99 GiB): streaming by the card's own budget,
+               one prove and verify (True), a flipped byte rejected, the
+               peaks beside the estimates.
 6. serve    -- a repeated-squaring ``.r1cs`` (2^14 squarings) and its
                witness written here; the port's HTTP service in a thread on
                an ephemeral port with no device named (it must take the
@@ -145,10 +162,25 @@ KERNELS = {
     # round as a mont_mul_pallas launch (ligero_tpu/engine/poseidon_cols.py:71)
     "poseidon_cols": ("cuda_poseidon", "ligero_tpu_torch/csrc/poseidon_cols.cu",
                       "ligero_tpu/engine/pallas_kernels.py:30"),
+    # the streaming commit's per-chunk absorb: an entry of blake2s_cols.cu
+    # (the JAX package's streamed form is XLA code around the same hash,
+    # ligero_tpu/engine/hashops.py:184-214)
+    "blake2s_stream": ("cuda_hash", "ligero_tpu_torch/csrc/blake2s_cols.cu",
+                       "ligero_tpu/engine/pallas_hash.py:39"),
 }
-#: the kernels a path of each commitment never launches
-NOT_ON_DEFAULT = ("poseidon_cols",)
-NOT_ON_POSEIDON = ("blake2s_cols", "sha256_tree")
+#: the wrapper's launch counter of a kernel, where it is not ``launches``
+COUNTERS = {"blake2s_stream": "stream_launches"}
+#: the kernels a path of each commitment and mode never launches
+NOT_ON_DEFAULT = ("poseidon_cols", "blake2s_stream")
+NOT_ON_POSEIDON = ("blake2s_cols", "sha256_tree", "blake2s_stream")
+NOT_ON_STREAMING = ("poseidon_cols", "blake2s_cols")
+#: streaming mode: the paths forced by the budget run at BATCH_LOG2_GATES
+#: (4m = 2052 rows) in chunks of at most this many rows; the one direct
+#: mode refuses is BLS12-377 at 2^23 gates, with the card's own budget
+FORCED_CHUNK_ROWS, STREAM_LOG2_GATES = 512, 23
+#: chunk rows of the streamed absorb's kernel cases (the streaming mode's
+#: largest chunk, backend.STREAM_MAX_CHUNK_ROWS)
+STREAM_CHUNK = 1024
 
 
 #: the TPU kernel each BLS12-377 instantiation replaces, where it differs:
@@ -199,7 +231,8 @@ def wrappers():
     mods = {"cuda_ntt": cuda_ntt, "cuda_mont": cuda_mont,
             "cuda_hash": cuda_hash, "cuda_lc": cuda_lc,
             "cuda_tree": cuda_tree, "cuda_poseidon": cuda_poseidon}
-    return {name: mods[spec[0]] for name, spec in KERNELS.items()}
+    return {name: getattr(mods[spec[0]], COUNTERS.get(name, "launches"))
+            for name, spec in KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +431,8 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
         torch.cuda.empty_cache()
     results["ntt"]["max_abs_err"] = max(
         results["ntt"]["max_abs_err"], ntt_route_cases(torch, field, gen))
+    results["blake2s_stream"] = blake2s_stream_entry(torch, field, gen, rows,
+                                                     n)
     # the commit's full-width NTT_n, column hash and tree (all rows, all n
     # columns; zk: 4m + 3 rows from d2-wide coefficients), kernel only
     for label, key, nrows, w in (("", "", rows, k),
@@ -422,6 +457,82 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
         del u
         torch.cuda.empty_cache()
     return results
+
+
+def stream_digests(field, u, chunk_rows: int, plain: bool = False):
+    """The streamed absorb over the rows of ``u`` in chunks of
+    ``chunk_rows`` (the streaming commit's launches): the kernel, or its
+    plain version on the same tensors."""
+    from ligero_tpu_torch.engine import cuda_hash
+    rows, n, _ = u.shape
+    hs = cuda_hash.ColumnHashStream(field, n, rows, u.device, plain=plain)
+    for r0 in range(0, rows, chunk_rows):
+        hs.absorb(u[r0:r0 + chunk_rows], min(chunk_rows, rows - r0))
+    return hs.digests()
+
+
+def blake2s_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
+    """The streamed absorb's record: the kernel over the commit's full
+    width, ``rows`` x ``n`` in STREAM_CHUNK-row chunks, bit-equal to the
+    whole-column kernel on the same matrix, timed with its bound; its
+    plain version (one small step a block: its time is its launches') held
+    at 260 x 1024 in chunks of 64, the last one ragged."""
+    from ligero_tpu_torch.engine import cuda_hash
+    u = _rand_elems(torch, gen, (260, 1024), field)
+    got = stream_digests(field, u, 64)
+    want, plain_ms = _time_once(torch, lambda: stream_digests(field, u, 64,
+                                                              plain=True))
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    require(err == 0, "streamed Blake2s 260 x 1024: the kernel disagrees "
+            "with its plain version")
+    u = _rand_elems(torch, gen, (rows, n), field)
+    require(torch.equal(stream_digests(field, u, STREAM_CHUNK),
+                        cuda_hash.blake2s_columns(field, u)),
+            f"streamed Blake2s {rows} x {n}: differs from the whole-column "
+            "kernel")
+    ms = _time_cuda(torch, lambda: stream_digests(field, u, STREAM_CHUNK), 3)
+    whole_ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u),
+                          3)
+    bound_ms, by = bound(*blake2s_work(field, rows, n))
+    log(f"kernel [{field.name}] streamed Blake2s {rows} x {n} in chunks of "
+        f"{STREAM_CHUNK}: bit-equal to the whole-column kernel; {ms:.3f} ms "
+        f"(whole-column {whole_ms:.3f} ms), bound {bound_ms:.3f} ms by {by}; "
+        f"plain version at 260 x 1024 in chunks of 64: max_abs_err={err}, "
+        f"{plain_ms:.1f} ms")
+    del u
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "whole_column_ms": whole_ms,
+            "shape": f"{rows} x {n} in chunks of {STREAM_CHUNK}; plain at "
+                     "260 x 1024 in chunks of 64"}
+
+
+def blake2s_stream_cases(torch, field, gen, zk_rows: int) -> None:
+    """The streamed absorb at ragged chunkings: rows of every residue mod 4
+    (103 = 4 x 25 + 3 an odd zk total) in chunks of one, two and three
+    periods of the column map and of 32 rows, each against its plain
+    version and the whole-column kernel; the zk path's own count
+    ``zk_rows`` in chunks of 128 and STREAM_CHUNK rows against the
+    whole-column kernel."""
+    from ligero_tpu_torch.engine import cuda_hash, hashops
+    E = hashops.period_rows(field.num_limbs)
+    small, large = (E, 2 * E, 3 * E, 32), (128, STREAM_CHUNK)
+    for nrows, chunkings, plains in (
+            (100, small, (False, True)), (101, small, (False, True)),
+            (102, small, (False, True)), (103, small, (False, True)),
+            (zk_rows, large, (False,))):
+        u = _rand_elems(torch, gen, (nrows, 256), field)
+        whole = cuda_hash.blake2s_columns(field, u)
+        for cr in chunkings:
+            for plain in plains:
+                got = stream_digests(field, u, cr, plain)
+                require(torch.equal(got, whole),
+                        f"streamed Blake2s {nrows} x 256 in chunks of {cr} "
+                        f"({'plain' if plain else 'kernel'}): differs from "
+                        "the whole-column kernel")
+    log(f"kernel [{field.name}] streamed Blake2s at rows 100-103 in chunks "
+        f"of {small}, kernel and plain version, and at {zk_rows} rows in "
+        f"chunks of {large}: bit-equal to the whole-column kernel")
 
 
 def host_hash_context(n: int) -> None:
@@ -920,7 +1031,17 @@ def kernel_cases_2e22(torch, field, gen, results: dict) -> None:
         "%.3f ms by %s" % full)
     results["blake2s_cols"].setdefault("2^22", {})[f"full {rows} x {n}"] = {
         "ms": ms, "bound_ms": full[0], "bound_by": full[1]}
-    del u, firsts
+    require(torch.equal(stream_digests(field, u, STREAM_CHUNK), words),
+            f"2^22 streamed Blake2s {rows} x {n}: differs from the "
+            "whole-column kernel")
+    ms = _time_cuda(torch, lambda: stream_digests(field, u, STREAM_CHUNK), 3)
+    log(f"kernel [{field.name}] 2^22 streamed Blake2s, full {rows} x {n} in "
+        f"chunks of {STREAM_CHUNK}: bit-equal to the whole-column kernel; "
+        f"{ms:.3f} ms, bound %.3f ms by %s" % full)
+    results["blake2s_stream"].setdefault("2^22", {})[
+        f"full {rows} x {n}, chunks of {STREAM_CHUNK}"] = {
+        "ms": ms, "bound_ms": full[0], "bound_by": full[1]}
+    del u, firsts, words
     torch.cuda.empty_cache()
 
 
@@ -1135,8 +1256,8 @@ def reset_counts(torch, wraps) -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for mod in wraps.values():
-        mod.launches.reset()
+    for counter in wraps.values():
+        counter.reset()
 
 
 def read_counts(wraps, path: str, earlier: dict | None = None,
@@ -1145,8 +1266,8 @@ def read_counts(wraps, path: str, earlier: dict | None = None,
     its ``earlier`` half, where it was driven in two); every kernel but
     those ``absent`` from the path (the other commitment's) must have been
     launched on it, and those not at all."""
-    launches = {name: mod.launches.count + (earlier or {}).get(name, 0)
-                for name, mod in wraps.items()}
+    launches = {name: counter.count + (earlier or {}).get(name, 0)
+                for name, counter in wraps.items()}
     log(f"kernel launches on the {path} path: {launches}")
     require(all((v == 0) == (name in absent) for name, v in launches.items()),
             f"on the {path} path a kernel was not launched, or one of "
@@ -1283,7 +1404,7 @@ def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
         torch.cuda.synchronize()
         batch_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        proving = {name: mod.launches.count for name, mod in wraps.items()}
+        proving = {name: counter.count for name, counter in wraps.items()}
         log(f"kernel launches of {tag}prove_batch: {proving}")
         torch.cuda.empty_cache()   # as before the batch: both start cold
         t0 = time.perf_counter()
@@ -1336,6 +1457,175 @@ def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
     require(vestimate >= vpeak, "the verifier's memory estimate lies below "
             "the measured verify_batch peak")
     return launches
+
+
+def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
+                    tampered_witness: bool = True) -> dict:
+    """Drive a streaming-mode path: one ``prove`` and one ``verify``
+    (True), their launch counts (every kernel but the whole-column
+    Blake2s and the Poseidon sponge), each call's peak against its
+    streaming estimate and the card's memory, the proof byte-equal to
+    ``want`` (the direct-mode proof) where given, a flipped byte and (with
+    ``tampered_witness``) a tampered witness rejected; with ``want``, also
+    a second, warm prove and verify, timed."""
+    from ligero_tpu_torch import LigeroProof, test_sponge
+
+    require(lig.encode_mode == "streaming", "the instance is not in "
+            f"streaming mode but {lig.encode_mode}")
+    tag = path_tag(field, lig.zk) + "streaming"
+    sponge, wraps, timer = test_sponge(field), wrappers(), lig.timer
+    kw = {"zk_seed": ZK_SEED} if lig.zk else {}
+    be = lig.backend
+    dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals))
+    data = lig.num_rows - (3 if lig.zk else 0)
+    # what earlier paths left on the device (cached NTT tables of their
+    # sizes and fields): not this instance's, so not in its estimates
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    others = torch.cuda.memory_allocated()
+    log(f"{tag}: {lig.num_rows} rows in chunks of {lig.chunk_rows} "
+        f"({-(-data // lig.chunk_rows)} chunks, the last of "
+        f"{data - (-(-data // lig.chunk_rows) - 1) * lig.chunk_rows} rows); "
+        f"the device's budget {be.memory_budget() / 2**30:.2f} GiB")
+
+    reset_counts(torch, wraps)
+    timer.reset()
+    t0 = time.perf_counter()
+    proof = lig.prove(vars_, sponge.clone(), **kw)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    prove_peak = torch.cuda.max_memory_allocated()
+    prove_phases = dict(timer.totals)
+    torch.cuda.reset_peak_memory_stats()
+    timer.reset()
+    t0 = time.perf_counter()
+    ok = lig.verify(proof, sponge.clone())
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    verify_peak = torch.cuda.max_memory_allocated()
+    launches = read_counts(wraps, tag, absent=NOT_ON_STREAMING)
+    estimate = be.streaming_bytes(*dims, lig.blind_t, lig.d2,
+                                  chunk_rows=lig.chunk_rows)
+    vestimate = be.streaming_verify_bytes(*dims, lig.chunk_rows)
+    direct = be.direct_bytes(*dims, lig.blind_t, lig.d2)
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"{tag} prove #1 (with A's one-time upload): {prove_s:.3f} s, peak "
+        f"{prove_peak / 2**30:.3f} GiB (streaming estimate "
+        f"{estimate / 2**30:.3f} GiB; direct mode would need "
+        f"{direct / 2**30:.2f} GiB); verify: {ok} ({verify_s:.3f} s), peak "
+        f"{verify_peak / 2**30:.3f} GiB (estimate {vestimate / 2**30:.3f} "
+        f"GiB); {others / 2**30:.3f} GiB of each peak held by earlier "
+        f"paths; the card holds {card / 2**30:.2f} GiB")
+    for name, secs in sorted(prove_phases.items(), key=lambda kv: -kv[1]):
+        log(f"  {tag} prove  {name:22s} {secs * 1e3:10.1f} ms")
+    for name, secs in sorted(timer.totals.items(), key=lambda kv: -kv[1]):
+        log(f"  {tag} verify {name:22s} {secs * 1e3:10.1f} ms")
+    require(ok, f"{tag}: verify rejected the honest proof")
+    require(prove_peak - others <= estimate
+            and verify_peak - others <= vestimate,
+            f"{tag}: a measured peak lies above its streaming estimate")
+    require(max(prove_peak, verify_peak) < card, f"{tag}: peak past the card")
+    data_bytes = proof.to_bytes(field)
+    warm = {}
+    if want is not None:
+        require(data_bytes == want, f"{tag}: the proof differs from the "
+                "direct-mode proof")
+        warm = warm_walls(torch, lig, vars_, kw)
+        log(f"{tag}: proof byte-equal to the direct-mode proof "
+            f"({len(data_bytes)} bytes); warm prove {warm['prove_s']:.3f} s, "
+            f"verify {warm['verify_s']:.3f} s")
+    flip_ok = lig.verify(LigeroProof.from_bytes(flip_byte(data_bytes), field),
+                         sponge.clone())
+    log(f"{tag} flipped byte: verify={flip_ok} (expect False)")
+    require(not flip_ok, f"{tag}: a proof with a flipped byte verified")
+    if tampered_witness:
+        bad_vars = [(vars_[0][0], (vars_[0][1] + 1) % field.p)] + vars_[1:]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            bad = lig.prove(bad_vars, sponge.clone(), **kw)
+        bad_ok = lig.verify(bad, sponge.clone())
+        log(f"{tag} tampered witness: verify={bad_ok} (expect False)")
+        require(not bad_ok, f"{tag}: a proof of a tampered witness verified")
+    return {"launches": launches, "prove_s": prove_s, "verify_s": verify_s,
+            "warm_prove_s": warm.get("prove_s"),
+            "warm_verify_s": warm.get("verify_s"),
+            "prove_peak_gib": prove_peak / 2**30,
+            "verify_peak_gib": verify_peak / 2**30,
+            "earlier_paths_gib": others / 2**30,
+            "estimate_gib": estimate / 2**30,
+            "verify_estimate_gib": vestimate / 2**30,
+            "direct_bytes_gib": direct / 2**30, "chunk_rows": lig.chunk_rows}
+
+
+def warm_walls(torch, lig, vars_, kw) -> dict:
+    """Host-clock walls of one more ``prove`` and ``verify`` of an instance
+    whose one-time work (A's upload, the tables) is done."""
+    from ligero_tpu_torch import test_sponge
+    sponge = test_sponge(lig.field)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof = lig.prove(vars_, sponge.clone(), **kw)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    require(lig.verify(proof, sponge.clone()), "a warm verify failed")
+    torch.cuda.synchronize()
+    return {"prove_s": prove_s, "verify_s": time.perf_counter() - t0}
+
+
+def phase_streaming_forced(torch, field, circ, outs, vars_, zk: bool) -> dict:
+    """Streaming mode forced by the memory budget on an instance direct
+    mode takes: the direct-mode proof first, then the instance built under
+    a budget at its streaming estimate for chunks of FORCED_CHUNK_ROWS
+    (below the direct estimate), driven by :func:`phase_streaming`."""
+    from ligero_tpu_torch import test_sponge
+    from ligero_tpu_torch.engine.backend import TorchBackend
+
+    direct = build_instance(circ, outs, zk=zk)
+    require(direct.encode_mode == "direct", "the forced instance does not "
+            "fit direct mode")
+    kw = {"zk_seed": ZK_SEED} if zk else {}
+    want = direct.prove(vars_, test_sponge(field), **kw).to_bytes(field)
+    direct_warm = warm_walls(torch, direct, vars_, kw)
+    log(f"{path_tag(field, zk)}direct mode at this size: warm prove "
+        f"{direct_warm['prove_s']:.3f} s, verify "
+        f"{direct_warm['verify_s']:.3f} s")
+    dims = (direct.num_rows, direct.k, direct.n, len(direct.state.a_vals),
+            direct.blind_t, direct.d2)
+    budget = direct.backend.streaming_bytes(*dims,
+                                            chunk_rows=FORCED_CHUNK_ROWS)
+    require(budget < direct.backend.direct_bytes(*dims), "the streaming "
+            "estimate does not lie below the direct one")
+    del direct
+    torch.cuda.empty_cache()
+    card_budget = TorchBackend.memory_budget
+    TorchBackend.memory_budget = lambda self: budget
+    try:
+        lig = build_instance(circ, outs, zk=zk)
+        res = phase_streaming(torch, field, lig, vars_, want=want)
+    finally:
+        TorchBackend.memory_budget = card_budget
+    del lig
+    torch.cuda.empty_cache()
+    res["direct_warm_prove_s"] = direct_warm["prove_s"]
+    res["direct_warm_verify_s"] = direct_warm["verify_s"]
+    return res
+
+
+def phase_streaming_reach(torch, field) -> dict:
+    """BLS12-377 at 2^23 gates, which direct mode refuses on this card:
+    streaming mode by the card's own budget, one prove and verify, a
+    flipped byte rejected, the peaks beside the estimates."""
+    circ, outs, vars_ = make_circuit(field, STREAM_LOG2_GATES, SEED)
+    lig = build_instance(circ, outs, zk=False)
+    be = lig.backend
+    direct = be.direct_bytes(lig.num_rows, lig.k, lig.n,
+                             len(lig.state.a_vals))
+    require(direct > be.memory_budget(), "direct mode fits this instance")
+    res = phase_streaming(torch, field, lig, vars_, tampered_witness=False)
+    del lig, circ, outs, vars_
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1558,6 +1848,7 @@ def main() -> int:
     results["sha256_tree"]["chain_floor_ms"] = tree_chain_floor(torch, lig.n)
     batch_kernel_cases(torch, field, gen, results, rows, lig.k, lig.n)
     spot_cases(torch, field, gen, rows, lig.k, lig.n, lig.t)
+    blake2s_stream_cases(torch, field, gen, rows + 3)
     results["poseidon_cols"] = poseidon_cases(torch, field, gen, rows, lig.n,
                                               lig.t)
     kernel_cases_2e22(torch, field, gen, results)
@@ -1598,6 +1889,13 @@ def main() -> int:
                                             full=False)
     del lig
     torch.cuda.empty_cache()
+    # streaming mode, forced by the budget at this size, plain and zk
+    streaming = {}
+    for zk in (False, True):
+        path = path_tag(field, zk) + "streaming"
+        streaming[path] = phase_streaming_forced(torch, field, circ, outs,
+                                                 vars_, zk)
+        by_path[path] = streaming[path]["launches"]
     del circ, outs, vars_
 
     # the same synthetic circuit over BLS12-377 Fq, the kernels' second field
@@ -1607,6 +1905,7 @@ def main() -> int:
     bls_dims, zk_dims = instance_dims(lig)
     bls_results = phase_kernels(torch, bls, gen, bls_dims, zk_dims)
     blake2s_residue_cases(torch, bls, gen)
+    blake2s_stream_cases(torch, bls, gen, 4 * lig.m + 3)
     bls_results["blake2s_cols"]["batched_full"] = blake2s_full_batch_case(
         torch, bls, gen, BATCH, 4 * lig.m, lig.n)
     bls_results["row_combine"]["batched"] = row_combine_batch_case(
@@ -1621,6 +1920,16 @@ def main() -> int:
     by_path["bls zk"] = phase_main(torch, bls, lig, vars_)
     del lig, circ, outs, vars_
     torch.cuda.empty_cache()
+    circ, outs, vars_ = make_circuit(bls, BATCH_LOG2_GATES, SEED)
+    for zk in (False, True):
+        path = path_tag(bls, zk) + "streaming"
+        streaming[path] = phase_streaming_forced(torch, bls, circ, outs,
+                                                 vars_, zk)
+        by_path[path] = streaming[path]["launches"]
+    del circ, outs, vars_
+    path = f"bls streaming 2^{STREAM_LOG2_GATES}"
+    streaming[path] = phase_streaming_reach(torch, bls)
+    by_path[path] = streaming[path]["launches"]
 
     by_path["serve"] = phase_serve(torch, field)
     by_path["bls serve"] = phase_serve_bls(torch, bls)
@@ -1660,6 +1969,9 @@ def main() -> int:
                 "launches_by_path": paths(name, True),
                 **timings(bls_results[name])}
         record["kernels"].append(entry)
+    record["streaming"] = {path: {key: val for key, val in res.items()
+                                  if key != "launches"}
+                           for path, res in streaming.items()}
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

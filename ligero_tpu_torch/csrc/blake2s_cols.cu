@@ -25,6 +25,18 @@
 // column c % n of matrix c / n, and every column's message opens with its
 // own matrix's row count, so the digests are those of B separate launches.
 //
+// The streamed entry (lt_blake2s_absorb) hashes a column whose rows arrive
+// in chunks: the streaming commit re-encodes the codeword matrix a row
+// chunk at a time and never holds it whole.  Each column's state between
+// launches is its chaining value and two carried words: a chunk of a
+// multiple of E rows fills whole blocks after those two words (64 bytes per
+// two BN254 rows, 192 per four BLS12-377 rows) and leaves the last two
+// words of its last row, so the word map above holds in every chunk.  The
+// last chunk may have any row count; its launch also makes the final
+// compression with the message's full length (a 64-bit counter: nothing
+// here limits a column to 2^32 bytes).  Both entries share absorb_column,
+// so the digests are those of the whole-column kernel for every chunking.
+//
 // Cost on the card: 10 rounds x 8 G functions per 64-byte block, i.e. about
 // 1000 dependent 32-bit operations per block and 2 (BN254) or 4/3
 // (BLS12-377) element loads, so the kernel is bound by integer issue, not
@@ -105,34 +117,27 @@ __host__ __device__ constexpr int gcd_int(int a, int b) {
   return b ? gcd_int(b, a % b) : a;
 }
 
+// Absorbs rows [0, rows) of one column (element r at u + r * stride) into
+// the chaining value h, after the two carried words (the u64 prefix or the
+// last two words of the rows before), compressing nblocks 64-byte blocks
+// from block block0 on.  final: the last block is the message's last, with
+// byte counter byte_len, and rows past the end read as zeros.  Not final:
+// rows is a multiple of E, every block is whole, and the carry leaves with
+// the last row's last two words.
 template <class F>
-__global__ void blake2s_cols_kernel(const int32_t* __restrict__ u,
-                                    long long rows, long long n,
-                                    long long batch,
-                                    int32_t* __restrict__ out) {
+__device__ __forceinline__ void absorb_column(
+    uint32_t h[8], uint32_t& carry0, uint32_t& carry1,
+    const int32_t* __restrict__ u, long long stride, long long rows,
+    long long nblocks, unsigned long long block0, bool final,
+    unsigned long long byte_len) {
   constexpr int W = F::W;
   constexpr int P = W / gcd_int(16, W), E = 16 / gcd_int(16, W);  // 16P = EW
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= batch * n) return;
-  const long long col = idx % n;
-  u += (idx / n) * rows * n * F::L;
-  uint32_t h[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] = blake_iv(i);
-  h[0] ^= 0x01010020u;  // digest 32 bytes, no key, fanout 1, depth 1
-
-  const unsigned long long byte_len =
-      8ull + 4ull * W * (unsigned long long)rows;
-  const long long nblocks = (long long)((byte_len + 63) / 64);
-  uint32_t carry0 = (uint32_t)rows;  // the u64 LE prefix opens block 0
-  uint32_t carry1 = (uint32_t)((unsigned long long)rows >> 32);
   for (long long q = 0; q * P < nblocks; ++q) {
     typename F::Fe e[E];
 #pragma unroll
     for (int j = 0; j < E; ++j) {
       const long long r = q * E + j;
-      e[j] = r < rows ? load_limbs<W>(u + (r * n + col) * F::L)
-                      : fe_zero<W>();
+      e[j] = r < rows ? load_limbs<W>(u + r * stride) : fe_zero<W>();
     }
 #pragma unroll
     for (int bb = 0; bb < P; ++bb) {
@@ -146,17 +151,69 @@ __global__ void blake2s_cols_kernel(const int32_t* __restrict__ u,
                  : off == -1 ? carry1
                              : e[off / W].w[off % W];
         }
-        const bool last = b == nblocks - 1;
+        const bool last = final && b == nblocks - 1;
         const unsigned long long t =
-            last ? byte_len : 64ull * (unsigned long long)(b + 1);
+            last ? byte_len
+                 : 64ull * (block0 + (unsigned long long)(b + 1));
         compress(h, m, t, last);
       }
     }
     carry0 = e[E - 1].w[W - 2];
     carry1 = e[E - 1].w[W - 1];
   }
+}
+
+__device__ __forceinline__ void blake_init(uint32_t h[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h[i] = blake_iv(i);
+  h[0] ^= 0x01010020u;  // digest 32 bytes, no key, fanout 1, depth 1
+}
+
+template <class F>
+__global__ void blake2s_cols_kernel(const int32_t* __restrict__ u,
+                                    long long rows, long long n,
+                                    long long batch,
+                                    int32_t* __restrict__ out) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= batch * n) return;
+  const long long col = idx % n;
+  u += (idx / n) * rows * n * F::L + col * F::L;
+  uint32_t h[8];
+  blake_init(h);
+  const unsigned long long byte_len =
+      8ull + 4ull * F::W * (unsigned long long)rows;
+  uint32_t carry0 = (uint32_t)rows;  // the u64 LE prefix opens block 0
+  uint32_t carry1 = (uint32_t)((unsigned long long)rows >> 32);
+  absorb_column<F>(h, carry0, carry1, u, n * F::L, rows,
+                   (long long)((byte_len + 63) / 64), 0, true, byte_len);
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[idx * 8 + i] = (int32_t)h[i];
+}
+
+// The streamed form: one chunk of a column's rows a launch.  state: (n, 10)
+// int32 per column, the chaining value (words 0-7) and the two carried
+// words (8-9); block0: the 64-byte blocks compressed before this chunk.
+template <class F>
+__global__ void blake2s_absorb_kernel(const int32_t* __restrict__ u,
+                                      long long rows, long long n,
+                                      int32_t* __restrict__ state,
+                                      unsigned long long block0, int final,
+                                      unsigned long long byte_len) {
+  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  int32_t* s = state + col * 10;
+  uint32_t h[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h[i] = (uint32_t)s[i];
+  uint32_t carry0 = (uint32_t)s[8], carry1 = (uint32_t)s[9];
+  const long long words = 2 + (long long)F::W * rows;
+  absorb_column<F>(h, carry0, carry1, u + col * F::L, n * F::L, rows,
+                   final ? (words + 15) / 16 : words / 16, block0, final != 0,
+                   byte_len);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = (int32_t)h[i];
+  s[8] = (int32_t)carry0;
+  s[9] = (int32_t)carry1;
 }
 
 }  // namespace
@@ -174,6 +231,27 @@ extern "C" int lt_blake2s_cols(int field, const void* u, long long rows,
           <<<(unsigned)((total + threads - 1) / threads), threads, 0,
              (cudaStream_t)stream>>>((const int32_t*)u, rows, n, batch,
                                      (int32_t*)out);
+    }
+    return cudaGetLastError();
+  });
+}
+
+// field: a field id; u: (>= rows, n, L) int32 canonical limbs, rows [0,
+// rows) absorbed; state: (n, 10) int32, updated in place; block0: blocks
+// compressed before; final: also the last compression, with byte counter
+// byte_len (not final: rows a multiple of the period's elements).
+extern "C" int lt_blake2s_absorb(int field, const void* u, long long rows,
+                                 long long n, void* state, long long block0,
+                                 int final, long long byte_len, void* stream) {
+  return with_field(field, [&](auto f) {
+    if (n > 0) {
+      const int threads = 128;
+      blake2s_absorb_kernel<decltype(f)>
+          <<<(unsigned)((n + threads - 1) / threads), threads, 0,
+             (cudaStream_t)stream>>>(
+              (const int32_t*)u, rows, n, (int32_t*)state,
+              (unsigned long long)block0, final,
+              (unsigned long long)byte_len);
     }
     return cudaGetLastError();
   });

@@ -12,9 +12,17 @@ Merkle tree (``cuda_tree``) and row combinations (``cuda_lc``); ChaCha20,
 modular add/sub, gathers and segment sums are PyTorch ops.  On the CPU the
 same calls take the kernels' plain versions.
 
-Only the "direct" mode exists: the whole codeword matrix U is one device
-tensor.  An instance too large for the device's memory raises
-:class:`DeviceMemoryError` before any allocation.
+Two modes, chosen per instance by :meth:`TorchBackend.encode_mode` from
+the live-set estimates before any allocation.  In "direct" mode the whole
+codeword matrix U is one device tensor (:meth:`TorchBackend.direct_bytes`).
+In "streaming" mode, where that does not fit, U is never held: only its
+coefficient rows stay on the device, in row chunks (``devmatrix``); the
+commit re-encodes a chunk at a time into per-column Blake2s states, the
+openings re-encode chunks to gather the opened columns, and the linear
+phase's challenges, sparse product and products run in blocks aligned with
+the chunks (:meth:`TorchBackend.streaming_bytes`).  The bulk steps take a
+tensor or a chunked handle and dispatch on its type.  An instance that fits
+neither mode raises :class:`DeviceMemoryError`.
 
 The ``*_batch`` methods serve ``LigeroCircuit.prove_batch`` and
 ``verify_batch``: B proofs of one circuit share one launch per bulk step
@@ -31,6 +39,7 @@ import torch
 from ..fields import FieldSpec
 from . import (cuda_build, cuda_hash, cuda_lc, cuda_mont, cuda_ntt, cuda_tree,
                devsampler, fieldops, hashops)
+from .devmatrix import RowChunkedMatrix, StreamedCodewords
 
 #: on the whole estimate of :meth:`TorchBackend.direct_bytes`: twiddle and
 #: twist tables, the tree, index vectors and the allocator's rounding
@@ -39,10 +48,28 @@ ESTIMATE_MARGIN = 1.03
 #: per proof and every proof adds its codeword matrix to the live set, so a
 #: larger batch costs memory and has shown no gain (PERF.md, Findings).
 MAX_BATCH = 3
+#: most rows a chunk of the streaming mode: a chunk's n-point transform
+#: (1024 x n elements) already fills the card, and a larger one only adds
+#: memory
+STREAM_MAX_CHUNK_ROWS = 1024
+#: chunk rows are a multiple of this: a whole number of the Blake2s column
+#: map's periods in both fields (hashops.period_rows: 2 and 4 rows)
+STREAM_ROW_QUANTUM = 4
 
 
 class DeviceMemoryError(RuntimeError):
-    """The instance does not fit the device in direct mode."""
+    """The instance fits the device in neither direct nor streaming mode
+    (or, where :meth:`TorchBackend.check_direct_fits` raises it, not in
+    direct mode)."""
+
+
+class MessageRows:
+    """The message rows of the streaming prover, held only as their
+    coefficients ``coeffs`` (iNTT_k of each row): a row combination of the
+    message rows is NTT_k of that of the coefficient rows, by linearity."""
+
+    def __init__(self, coeffs: RowChunkedMatrix):
+        self.coeffs = coeffs
 
 
 def resolve_device(device) -> torch.device:
@@ -202,27 +229,34 @@ class TorchBackend:
         return int((coo + batch * msg + max(
             self._linear_transients(rows, k, nnz), transform)) * ESTIMATE_MARGIN)
 
-    def max_verify_batch(self, rows: int, k: int, n: int, nnz: int) -> int:
+    def max_verify_batch(self, rows: int, k: int, n: int, nnz: int,
+                         chunk_rows: int = 0) -> int:
         """The largest number of proofs, at most :data:`MAX_BATCH`, whose
-        joint verifier live set (:meth:`verify_bytes`) fits the device; 0
-        where not even one fits."""
+        joint verifier live set fits the device (:meth:`verify_bytes`, or
+        :meth:`streaming_verify_bytes` at ``chunk_rows`` in streaming
+        mode); 0 where not even one fits."""
         budget = self.memory_budget()
         for batch in range(MAX_BATCH, 0, -1):
-            if self.verify_bytes(rows, k, n, nnz, batch) <= budget:
+            need = (self.streaming_verify_bytes(rows, k, n, nnz, chunk_rows,
+                                                batch) if chunk_rows
+                    else self.verify_bytes(rows, k, n, nnz, batch))
+            if need <= budget:
                 return batch
         return 0
 
     def check_direct_fits(self, rows: int, k: int, n: int, nnz: int,
                           blind_t: int = 0, d2: int | None = None) -> None:
-        """Raise unless one proof's largest live set
-        (:meth:`direct_bytes`) fits the device."""
+        """Raise unless one proof's largest live set in direct mode
+        (:meth:`direct_bytes`) fits the device (:meth:`encode_mode` then
+        takes streaming mode where that fits)."""
         need = self.direct_bytes(rows, k, n, nnz, blind_t, d2)
         budget = self.memory_budget()
         if need > budget:
             raise DeviceMemoryError(
                 f"instance needs ~{need / 2**30:.1f} GiB on {self.device} in "
-                f"direct mode (budget {budget / 2**30:.1f} GiB); resident and "
-                "streaming modes are not ported yet")
+                f"direct mode (budget {budget / 2**30:.1f} GiB); streaming "
+                "mode (TorchBackend.streaming_bytes) holds U in coefficient "
+                "chunks instead")
 
     def max_batch(self, rows: int, k: int, n: int, nnz: int,
                   blind_t: int = 0, d2: int | None = None) -> int:
@@ -234,6 +268,127 @@ class TorchBackend:
             if self.direct_bytes(rows, k, n, nnz, blind_t, d2, batch) <= budget:
                 return batch
         return 0
+
+    # ------------------------------------------------------------------
+    # memory budget (streaming mode)
+    # ------------------------------------------------------------------
+    def _stream_parts(self, rows: int, k: int, n: int, nnz: int,
+                      blind_t: int, d2: int, chunk_rows: int) -> dict:
+        """The streaming live set's pieces, in bytes, for ``rows``
+        committed rows (4m, or 4m + 3 under zk) in chunks of ``chunk_rows``
+        (see :meth:`streaming_bytes`)."""
+        E = self.L * 4                              # bytes of an element
+        cr, b = chunk_rows, blind_t
+        data = rows - 3 if b else rows              # 4m
+        padded = -(-data // cr) * cr
+        seg = cr * k                                # attempts a segment
+        bc = cr * k                                 # columns a sparse block
+        scratch = functools.partial(cuda_ntt.scratch_bytes, self.field)
+        return {
+            "coo": nnz * (E + 16),
+            "coeffs": padded * (k + b) * E + (3 * d2 * E if b else 0),
+            "r": data * k * E,
+            "r_coeffs": padded * k * E,
+            # the column sort of A's upload: keys, sorted keys, the order
+            # and the sort's scratch, 8 bytes an entry each
+            "upload": 40 * nnz,
+            # one message chunk up (16-bit, then widened), its iNTT_k;
+            # under zk its s draws (from a sampler segment), the blinded
+            # chunk and the subtraction
+            "encode": 5 * cr * k * E // 2 + scratch(cr, k, k) + (
+                3 * cr * b * E + self._segment_bytes(seg) if b else 0),
+            # one chunk's n-wide transform and its opened columns (3t of
+            # them: fewer than 512 at any security level the port runs)
+            "reencode": cr * n * E + scratch(cr, k + b, n)
+            + cr * min(n, 512) * E,
+            "sampler": self._segment_bytes(seg),
+            # a block's int64 sums beside a sub-batch of bc entries
+            # (gathered r, products in int32 and int64, column ids), the
+            # fold of the sums, or the folded block and its iNTT_k
+            "block": max(2 * bc * E + bc * (4 * E + 8), 49 * bc * E // 4,
+                         2 * bc * E + scratch(cr, k, k)),
+            # the linear product: a chunk pair on the d2 domain
+            "pair": 2 * cr * d2 * E + scratch(cr, k + b, d2),
+            # the quadratic product: a block of x, y and z rows each, their
+            # transforms, the product and the subtraction's int64 operands
+            "quad": 3 * cr * (k + b) * E + 9 * cr * d2 * E
+            + scratch(cr, k + b, d2),
+        }
+
+    def _segment_bytes(self, seg: int) -> int:
+        """One :class:`devsampler.FrStream` segment of ``seg`` attempts:
+        its keystream, candidates, accepted words and limb halves in int64
+        (as :meth:`_linear_transients` counts them), and the draws not yet
+        taken."""
+        return seg * (7 * self.field.num_u64_limbs * 2 * 8 + self.L * 4)
+
+    def streaming_bytes(self, rows: int, k: int, n: int, nnz: int,
+                        blind_t: int = 0, d2: int | None = None,
+                        chunk_rows: int = STREAM_MAX_CHUNK_ROWS) -> int:
+        """Estimate of the streaming prover's largest live set for one
+        proof: A's COO (sorted by column), the coefficient chunks (k + b
+        wide, and the three d2-wide mask rows under zk) and, beside them,
+        the largest of: A's upload; a chunk's encode; a chunk's re-encode
+        to n points (commit, openings); the linear phase, which holds the
+        challenge vector r (4mk elements) and the r^T A coefficient chunks
+        beside one sampler segment or one column block of the sparse
+        product and its fold; the linear product's chunk pair on the d2
+        domain with the r^T A chunks; or a block of the quadratic
+        product."""
+        d2 = 2 * k if d2 is None else d2
+        p = self._stream_parts(rows, k, n, nnz, blind_t, d2, chunk_rows)
+        linear = p["r"] + max(p["sampler"], p["r_coeffs"] + p["block"])
+        return int((p["coo"] + p["coeffs"] + max(
+            p["upload"], p["encode"], p["reencode"], linear,
+            p["r_coeffs"] + p["pair"], p["quad"])) * ESTIMATE_MARGIN)
+
+    def streaming_verify_bytes(self, rows: int, k: int, n: int, nnz: int,
+                               chunk_rows: int, batch: int = 1) -> int:
+        """Estimate of the streaming verifier's largest live set for
+        ``batch`` proofs: A's COO and each proof's r^T A coefficient
+        chunks, beside the upload, one proof's challenge vector with a
+        sampler segment or a sparse block, or one chunk's n-point
+        transform with the columns gathered from it."""
+        p = self._stream_parts(rows, k, n, nnz, 0, 2 * k, chunk_rows)
+        return int((p["coo"] + batch * p["r_coeffs"] + max(
+            p["upload"], p["r"] + max(p["sampler"], p["block"]),
+            p["reencode"])) * ESTIMATE_MARGIN)
+
+    def stream_chunk_rows(self, rows: int, k: int, n: int, nnz: int,
+                          blind_t: int = 0, d2: int | None = None) -> int:
+        """The largest chunk, a multiple of :data:`STREAM_ROW_QUANTUM` rows
+        and at most :data:`STREAM_MAX_CHUNK_ROWS` (or the rows rounded up),
+        whose :meth:`streaming_bytes` fits the device; 0 where none does."""
+        data = rows - 3 if blind_t else rows
+        q = STREAM_ROW_QUANTUM
+        top = min(STREAM_MAX_CHUNK_ROWS, -(-data // q) * q)
+        budget = self.memory_budget()
+        for cr in range(top, 0, -q):
+            need = self.streaming_bytes(rows, k, n, nnz, blind_t, d2, cr)
+            if need <= budget:
+                return cr
+        return 0
+
+    def encode_mode(self, rows: int, k: int, n: int, nnz: int,
+                    blind_t: int = 0,
+                    d2: int | None = None) -> tuple[str, int]:
+        """``("direct", 0)`` where :meth:`direct_bytes` fits the device,
+        else ``("streaming", chunk rows)`` where a chunking fits
+        (:meth:`stream_chunk_rows`); raises :class:`DeviceMemoryError`,
+        naming both estimates, where neither fits."""
+        direct = self.direct_bytes(rows, k, n, nnz, blind_t, d2)
+        budget = self.memory_budget()
+        if direct <= budget:
+            return "direct", 0
+        cr = self.stream_chunk_rows(rows, k, n, nnz, blind_t, d2)
+        if cr:
+            return "streaming", cr
+        least = self.streaming_bytes(rows, k, n, nnz, blind_t, d2,
+                                     STREAM_ROW_QUANTUM)
+        raise DeviceMemoryError(
+            f"instance needs ~{direct / 2**30:.1f} GiB on {self.device} in "
+            f"direct mode and ~{least / 2**30:.1f} GiB in streaming mode at "
+            f"its smallest chunks (budget {budget / 2**30:.1f} GiB)")
 
     # ------------------------------------------------------------------
     # transforms
@@ -290,11 +445,72 @@ class TorchBackend:
         rows[rows4:] = self.asarray(mask3)
         return coeffs, rows
 
+    def _rows_up(self, preenc, r0: int, r1: int) -> torch.Tensor:
+        """Host message rows [r0, r1) as int32 limbs on the device: 16-bit
+        limbs cross as they are and widen there (half the bytes of an
+        int32 copy, and no host pass over them)."""
+        blk = np.ascontiguousarray(preenc[r0:r1])
+        if blk.dtype != np.uint16:
+            return self.asarray(blk)
+        return torch.from_numpy(blk.view(np.int16)).to(self.device).to(
+            torch.int32).bitwise_and_(0xFFFF)
+
+    def _chunk_up(self, preenc, r0: int, chunk_rows: int) -> torch.Tensor:
+        """Host message rows [r0, r0 + chunk_rows) (fewer at the end) on
+        the device, zero rows below them to ``chunk_rows``."""
+        blk = self._rows_up(preenc, r0, r0 + chunk_rows)
+        if blk.shape[0] < chunk_rows:
+            blk = torch.cat([blk, blk.new_zeros(
+                (chunk_rows - blk.shape[0],) + tuple(blk.shape[1:]))])
+        return blk
+
+    def encode_chunks(self, preenc, k: int,
+                      chunk_rows: int) -> RowChunkedMatrix:
+        """Streaming encode: host (rows, k, L) message rows up a chunk at a
+        time, each iNTT_k'd into a coefficient chunk; the message matrix
+        is never whole on the device (``Backend.intt_resident``)."""
+        rows = preenc.shape[0]
+        return RowChunkedMatrix(
+            [self.intt(self._chunk_up(preenc, r0, chunk_rows), k)
+             for r0 in range(0, rows, chunk_rows)], rows, chunk_rows)
+
+    def zk_blind_chunks(self, preenc, rows_seed: bytes, blind_t: int,
+                        chunk_rows: int) -> RowChunkedMatrix:
+        """Streaming :meth:`zk_blind_rows`: the blinded (k + b)-wide
+        coefficient rows u_i = msg_i + (x^k - 1) s_i, a chunk at a time
+        from host message rows, the s draws taken in row order from the one
+        ``rows_seed`` stream (the draws of :meth:`zk_blind_rows`, bit for
+        bit).  Padding rows stay zero."""
+        rows4, k, L = preenc.shape
+        b, cr = blind_t, chunk_rows
+        stream = devsampler.FrStream(self.field, rows_seed, self.device,
+                                     segment=cr * k)
+        chunks = []
+        for r0 in range(0, rows4, cr):
+            real = min(cr, rows4 - r0)
+            msg = self.intt(self._rows_up(preenc, r0, r0 + real), k)
+            s = stream.take(real * b).reshape(real, b, L)
+            chunk = torch.zeros((cr, k + b, L), dtype=torch.int32,
+                                device=self.device)
+            chunk[:real, :k] = msg
+            del msg
+            chunk[:real, k:] = s
+            # the regions [0, b) and [k, k + b) overlap when b > k: as in
+            # zk_blind_rows, subtract from the concatenated layout
+            chunk[:real, :b] = self.sub(chunk[:real, :b], s)
+            chunks.append(chunk)
+        return RowChunkedMatrix(chunks, rows4, cr)
+
     def ntt_columns(self, coeffs, n: int, js) -> torch.Tensor:
         """All rows' n-point NTTs at the columns ``js`` only: (B, k, L) ->
         (B, len(js), L) Montgomery limbs on the device: the full transform
-        and a gather."""
+        and a gather; a :class:`RowChunkedMatrix` a chunk at a time, so
+        that one chunk's transform is live."""
         idx = torch.from_numpy(np.asarray(js, dtype=np.int64)).to(self.device)
+        if isinstance(coeffs, RowChunkedMatrix):
+            return torch.cat([
+                self.ntt(c, n).index_select(1, idx)[:coeffs.real_rows(i)]
+                for i, c in enumerate(coeffs.chunks)])
         return self.ntt(coeffs, n).index_select(1, idx)
 
     def ntt_columns_batch(self, coeffs_b, n: int, idx) -> torch.Tensor:
@@ -316,17 +532,48 @@ class TorchBackend:
         """(batch * rows, n, L) canonical limbs, the proofs' matrices
         stacked -> per-proof ``(leaves, inner_levels)``: one Blake2s launch
         over all batch * n columns, one tree launch per proof on one
-        stream, one transfer of the flat trees, host unpacking."""
+        stream, one transfer of the flat trees, host unpacking.  A
+        :class:`StreamedCodewords` (one proof) takes
+        :meth:`commit_columns_streaming`."""
+        if isinstance(u_canon, StreamedCodewords):
+            if batch != 1:
+                raise ValueError("streaming mode commits one proof at a time")
+            return [self.commit_columns_streaming(u_canon)]
         n = u_canon.shape[1]
         leaves_le = cuda_hash.blake2s_columns(self.field, u_canon, batch)
         flat = self.to_numpy(cuda_tree.forest_flat(
             leaves_le.reshape(batch, n, 8)))
         return [hashops.digest_lists(flat[b], n) for b in range(batch)]
 
+    def commit_columns_streaming(self, sc: StreamedCodewords):
+        """The commitment of a never-materialised U
+        (``Backend.commit_columns_streaming``): each coefficient chunk
+        re-encoded to canonical codewords (``ntt_and_canon``) and its real
+        rows absorbed into per-column Blake2s states
+        (``cuda_hash.ColumnHashStream``, the streamed kernel entry); the
+        last part's launch finalises, then the tree as in direct mode.
+        The leaves are :meth:`commit_columns`'s on the whole matrix."""
+        n = sc.n
+        hs = cuda_hash.ColumnHashStream(self.field, n, sc.rows, self.device)
+        for coeffs, real in sc.parts():
+            hs.absorb(self.ntt_and_canon(coeffs, n), real)
+        flat = self.to_numpy(cuda_tree.forest_flat(hs.digests()[None]))
+        return hashops.digest_lists(flat[0], n)
+
     def gather_columns_batch(self, u_canon, idx) -> np.ndarray:
         """Per-proof openings: (B * rows, n, L) and ``idx`` (B, t) ->
-        (B, rows, t, L) host uint32: proof b's columns ``idx[b]``."""
+        (B, rows, t, L) host uint32: proof b's columns ``idx[b]``.  A
+        :class:`StreamedCodewords` (one proof) re-encodes each part and
+        copies the opened columns of its real rows to the host
+        (``Backend.gather_columns``)."""
         idx = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(self.device)
+        if isinstance(u_canon, StreamedCodewords):
+            if idx.shape[0] != 1:
+                raise ValueError("streaming mode opens one proof at a time")
+            return np.concatenate([
+                self.to_numpy(self.ntt_and_canon(coeffs, u_canon.n)
+                              .index_select(1, idx[0])[:real])
+                for coeffs, real in u_canon.parts()])[None]
         batch, t = idx.shape
         u4 = u_canon.reshape(batch, -1, *u_canon.shape[1:])
         index = idx[:, None, :, None].expand(batch, u4.shape[1], t, u4.shape[3])
@@ -346,44 +593,129 @@ class TorchBackend:
 
     def row_combine_batch(self, r, mats):
         """Per-proof combinations: r (B, rows, L) x mats (B, rows, k, L) ->
-        (B, k, L), each as :meth:`row_combine` gives it."""
+        (B, k, L), each as :meth:`row_combine` gives it.  A chunked handle
+        (one proof) takes :meth:`row_combine_chunked`."""
+        if isinstance(mats, (RowChunkedMatrix, MessageRows)):
+            if r.shape[0] != 1:
+                raise ValueError("streaming mode combines one proof at a time")
+            return self.row_combine_chunked(r[0], mats)[None]
         return cuda_lc.row_combine_batch(self.field, self.asarray(r),
                                          self.asarray(mats))
 
-    def rand_field_mont(self, count: int, seed: bytes) -> torch.Tensor:
+    def row_combine_chunked(self, r, mat):
+        """sum_i r_i M_i over a :class:`RowChunkedMatrix` (the
+        ``row_combine`` kernel a chunk, partials added mod p); for
+        :class:`MessageRows`, that of the coefficient rows and one NTT_k
+        (``Backend.row_combine_coeffs``): the message-space combination,
+        the same field elements by linearity."""
+        rcm = mat.coeffs if isinstance(mat, MessageRows) else mat
+        r = self.asarray(r)
+        total = None
+        for i, chunk in enumerate(rcm.chunks):
+            r0, real = i * rcm.chunk_rows, rcm.real_rows(i)
+            part = self.row_combine(r[r0:r0 + real], chunk[:real])
+            total = part if total is None else fieldops.add(self.field,
+                                                            total, part)
+        if isinstance(mat, MessageRows):
+            return self.ntt(total[None], rcm.width)[0]
+        return total
+
+    def rand_field_mont(self, count: int, seed: bytes,
+                        segment: int = 0) -> torch.Tensor:
         """``F::rand`` expansion on the device, bit-identical to
-        ``sampling.rand_field_elements_limbs``."""
+        ``sampling.rand_field_elements_limbs``; with ``segment``, drawn
+        ``segment`` attempts at a time (:class:`devsampler.FrStream`)."""
+        if segment:
+            return devsampler.FrStream(self.field, seed, self.device,
+                                       segment).take(count)
         return devsampler.fr_sample(self.field, count, seed, self.device)
 
     def sparse_rA_mont(self, rowids, colids, vals_mont, r_mont,
                        num_cols: int) -> torch.Tensor:
         """out[col] = sum of vals[i] * r[rowids[i]] over entries in col,
-        mod p; all Montgomery.  Products on the mont_mul kernel, then an
-        exact int64 ``index_add_`` of the limbs (order-independent) and one
-        :func:`fieldops.fold_wide` reduction."""
-        gathered = r_mont.index_select(0, rowids)
-        prod = self.mont_mul(vals_mont, gathered)
-        del gathered
-        sums = torch.zeros((num_cols, self.L), dtype=torch.int64,
-                           device=self.device)
-        sums.index_add_(0, colids, prod.to(torch.int64))
-        del prod
-        return fieldops.fold_wide(self.field, sums, mul=cuda_mont.mont_mul)
+        mod p; all Montgomery: :meth:`sparse_rA_blocks` with one block of
+        all ``num_cols`` columns (A's entries in any order)."""
+        return next(self.sparse_rA_blocks(rowids, colids, vals_mont, r_mont,
+                                          [0, len(rowids)], num_cols))
+
+    def sparse_rA_blocks(self, rowids, colids, vals_mont, r_mont,
+                         bounds: list[int], block_cols: int):
+        """r^T A in column blocks (``Backend.sparse_rA_mont_blocked``):
+        A's entries sorted by column, ``bounds[j]`` the first entry of block
+        j (columns [j block_cols, (j + 1) block_cols)); yields each block's
+        (block_cols, L) Montgomery sums in column order.  A block's entries
+        go through the mont_mul kernel and an exact int64 ``index_add_`` of
+        the limbs ``block_cols`` at a time (order-independent), then one
+        :func:`fieldops.fold_wide`: the same values as the whole product.
+        Columns past A's run (the last block's padding) are zeros."""
+        for j in range(len(bounds) - 1):
+            c0 = j * block_cols
+            sums = torch.zeros((block_cols, self.L), dtype=torch.int64,
+                               device=self.device)
+            for e0 in range(bounds[j], bounds[j + 1], block_cols):
+                e1 = min(e0 + block_cols, bounds[j + 1])
+                gathered = r_mont.index_select(0, rowids[e0:e1])
+                prod = self.mont_mul(vals_mont[e0:e1], gathered)
+                del gathered
+                sums.index_add_(0, colids[e0:e1] - c0, prod.to(torch.int64))
+                del prod
+            yield fieldops.fold_wide(self.field, sums, mul=cuda_mont.mont_mul)
+            del sums
 
     def linear_combination_poly(self, u_coeffs, r_coeffs, d2: int):
         """q = sum_i r_i(X) u_i(X) by pointwise products on the d2 domain
         (2k without zk): (d2, L) Montgomery coefficients of q.  The rows
         may be of any widths <= d2 (k + b and k under zk); d2 must exceed
-        deg q."""
+        deg q.  Two row-aligned :class:`RowChunkedMatrix` go a chunk pair
+        at a time, partials added mod p (padding rows add zero)."""
+        if isinstance(u_coeffs, RowChunkedMatrix):
+            if (not isinstance(r_coeffs, RowChunkedMatrix)
+                    or r_coeffs.rows != u_coeffs.rows
+                    or r_coeffs.chunk_rows != u_coeffs.chunk_rows):
+                raise ValueError("linear_combination_poly: u and r chunks "
+                                 "are not row-aligned")
+            total = None
+            for uc, rc in zip(u_coeffs.chunks, r_coeffs.chunks):
+                eu = self.ntt(uc, d2)
+                er = self.ntt(rc, d2)
+                part = cuda_lc.row_combine(self.field, er, eu)
+                del eu, er
+                total = part if total is None else fieldops.add(
+                    self.field, total, part)
+            return self.intt(total[None], d2)[0]
         eu = self.ntt(u_coeffs, d2)
         er = self.ntt(r_coeffs, d2)
         total = cuda_lc.row_combine(self.field, er, eu)
         del eu, er
         return self.intt(total[None], d2)[0]
 
-    def quadratic_combination_poly(self, xyz_coeffs, r_quad, d2: int):
+    def quadratic_combination_poly(self, xyz_coeffs, r_quad, d2: int,
+                                   m: int | None = None):
         """p0 = sum_i r_i (x_i y_i - z_i) on the d2 domain: (d2, L)
-        Montgomery coefficients."""
+        Montgomery coefficients.  ``xyz_coeffs``: the x, y, z rows (3m),
+        or with ``m`` given any rows whose first 3m are those.  A
+        :class:`RowChunkedMatrix` goes in blocks of its chunk's rows that
+        stop at each region's end (rows 0, m, 2m start the regions; a
+        chunk may straddle them), partials added mod p."""
+        if isinstance(xyz_coeffs, RowChunkedMatrix):
+            rcm, qb = xyz_coeffs, xyz_coeffs.chunk_rows
+            r_quad = self.asarray(r_quad)
+            total = None
+            for i in range(0, m, qb):
+                end = min(i + qb, m)
+                ex, ey, ez = (self.ntt(rcm.row_block(base + i, base + end), d2)
+                              for base in (0, m, 2 * m))
+                term = self.mont_mul(ex, ey)
+                del ex, ey
+                term = self.sub(term, ez)
+                del ez
+                part = self.row_combine(r_quad[i:end], term)
+                del term
+                total = part if total is None else fieldops.add(
+                    self.field, total, part)
+            return self.intt(total[None], d2)[0]
+        if m is not None:
+            xyz_coeffs = xyz_coeffs[:3 * m]
         m = xyz_coeffs.shape[0] // 3
         ev = self.ntt(xyz_coeffs, d2)
         term = self.sub(self.mont_mul(ev[:m], ev[m:2 * m]), ev[2 * m:])

@@ -54,6 +54,7 @@ _SIGNATURES = {
                     _i, _i, _i, _vp],
     "lt_ntt_stage": [_i, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
     "lt_blake2s_cols": [_i, _vp, _ll, _ll, _ll, _vp, _vp],
+    "lt_blake2s_absorb": [_i, _vp, _ll, _ll, _vp, _ll, _i, _ll, _vp],
     "lt_row_combine": [_i, _vp, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _ll, _i,
                        _vp],
     "lt_sha256_tree": [_vp, _ll, _vp, _vp, _i, _vp],

@@ -8,7 +8,9 @@ PyTorch's CPU build has no unsigned 32-bit arithmetic), and come back as
 int32 bit patterns.
 
 :func:`blake2s_columns_ref` is the plain version the CUDA column kernel
-(``cuda_hash``) is held against, :func:`column_block_words` that kernel's
+(``cuda_hash``) is held against, :func:`blake2s_absorb_ref` that of its
+streamed entry (a column's rows absorbed chunk by chunk, the JAX package's
+``HashKernel.blake2s_stream_*``), :func:`column_block_words` the kernel's
 word map, :func:`tree_flat` the plain version of the
 CUDA tree kernel (``cuda_tree``).  :func:`digest_lists` is host code: it
 unpacks the flat tree transfer into byte lists.
@@ -126,6 +128,64 @@ def blake2s_columns_ref(u_canon: torch.Tensor) -> torch.Tensor:
         t = byte_len if last else 64 * (blk + 1)
         h = _blake2s_compress(h, msg[:, 16 * blk:16 * blk + 16], t, last)
     return _to_i32(h)
+
+
+#: words of a streamed column state: the chaining value, then two carried
+#: words (csrc/blake2s_cols.cu, ``blake2s_absorb_kernel``)
+STATE_WORDS = 10
+
+
+def period_rows(L: int) -> int:
+    """Rows of the column word map's period (E: 2 BN254 rows, 4 BLS12-377
+    rows): a chunk that is not a column's last has a multiple of these."""
+    return 16 // math.gcd(16, L // 2)
+
+
+def blake2s_stream_start(n: int, total_rows: int, device) -> torch.Tensor:
+    """(n, 10) int32 states of n columns of ``total_rows`` rows before any
+    row: the initial chaining value, and the u64 LE row count as the two
+    carried words."""
+    state = torch.zeros((n, STATE_WORDS), dtype=torch.int64, device=device)
+    state[:, :8] = torch.tensor(_IV, dtype=torch.int64, device=device)
+    state[:, 0] ^= 0x01010020
+    state[:, 8] = total_rows & M32
+    state[:, 9] = total_rows >> 32
+    return _to_i32(state)
+
+
+def blake2s_absorb_ref(chunk: torch.Tensor, rows: int, state: torch.Tensor,
+                       block0: int, final: bool,
+                       total_rows: int) -> torch.Tensor:
+    """Plain version of the streamed absorb: rows [0, ``rows``) of the
+    (>= rows, n, L) canonical chunk into the (n, 10) states after
+    ``block0`` compressed blocks -> the new states.  Not ``final``:
+    ``rows`` is a multiple of :func:`period_rows` and the chunk fills whole
+    blocks after the two carried words, which leave as its last row's last
+    two.  ``final``: the message ends here (``total_rows`` rows in all), the
+    last block takes the full byte length, and words 0-7 are the digest."""
+    n, L = chunk.shape[1], chunk.shape[2]
+    u = chunk[:rows].to(torch.int64)
+    packed = u[..., 0::2] | (u[..., 1::2] << 16)            # (rows, n, L/2)
+    words = packed.permute(1, 0, 2).reshape(n, rows * (L // 2))
+    s = _words64(state)
+    msg = torch.cat([s[:, 8:], words], dim=1)
+    nw = msg.shape[1]
+    if final:
+        nblocks = -(-nw // 16)
+        msg = torch.cat([msg, msg.new_zeros((n, 16 * nblocks - nw))], dim=1)
+    else:
+        if rows % period_rows(L):
+            raise ValueError(f"blake2s absorb: {rows} rows are not whole "
+                             f"periods of {period_rows(L)}")
+        nblocks = nw // 16
+    byte_len = 8 + total_rows * L * 2
+    h = s[:, :8]
+    for blk in range(nblocks):
+        last = final and blk == nblocks - 1
+        t = byte_len if last else 64 * (block0 + blk + 1)
+        h = _blake2s_compress(h, msg[:, 16 * blk:16 * blk + 16], t, last)
+    carry = s[:, 8:] if final else msg[:, 16 * nblocks:]
+    return _to_i32(torch.cat([h, carry], dim=1))
 
 
 def column_block_words(words: int, block: int) -> list[tuple[int, int]]:

@@ -1,8 +1,14 @@
 """The Ligero SNARK's prover and verifier, plain and zk, on a PyTorch device.
 
 The port's counterpart of ``LigeroCircuit`` in ``ligero_tpu/ligero/core.py``
-for the single-device path in "direct" mode: the whole codeword matrix U
-lives on ``device`` as one tensor.  The commitment is pluggable
+for the single-device path.  The mode is chosen per instance from the
+backend's live-set estimates (``encode_mode``): "direct", where the whole
+codeword matrix U lives on ``device`` as one tensor, or "streaming", where
+it does not fit: U is never held, only its coefficient rows in row chunks
+(``engine/devmatrix.py``), re-encoded a chunk at a time for the commit and
+the openings, and the linear phase runs in column blocks aligned with the
+chunks.  Streaming proofs are byte-identical to direct ones.  The
+commitment is pluggable
 (``mt_params``, ``ligero/types.py``): the default Blake2s column leaves and
 SHA-256 Merkle tree, or the Poseidon column sponges and Poseidon tree of
 ``LigeroMTPoseidonParams``, each computed on the device.  The host keeps
@@ -43,7 +49,8 @@ import numpy as np
 import torch
 
 from ..engine import cuda_build
-from ..engine.backend import TorchBackend
+from ..engine.backend import DeviceMemoryError, MessageRows, TorchBackend
+from ..engine.devmatrix import RowChunkedMatrix, StreamedCodewords
 from ..merkle import MerkleTree
 from ..sampling import (
     get_distinct_indices_excluding,
@@ -72,6 +79,19 @@ def _trim(coeffs: list[int]) -> list[int]:
     return coeffs[:end]
 
 
+def _mont_values(field, ints: list[int]) -> np.ndarray:
+    """Montgomery limbs of ``ints``, each distinct value converted once:
+    A's values are few (+-1 and the circuit's constants), and the
+    conversion of a Python int is what its upload spends its time on."""
+    distinct = list(dict.fromkeys(ints))
+    if 4 * len(distinct) > len(ints):
+        return field.ints_to_mont_limbs(ints)
+    pos = {v: i for i, v in enumerate(distinct)}
+    idx = np.fromiter(map(pos.__getitem__, ints), dtype=np.int64,
+                      count=len(ints))
+    return field.ints_to_mont_limbs(distinct)[idx]
+
+
 def _poly_degree(coeffs: list[int]) -> int:
     return max(len(coeffs) - 1, 0)
 
@@ -97,7 +117,10 @@ class LigeroCircuit:
     ``mt_params`` is the commitment: ``None`` for the default
     (``LigeroMTTestParams``), or params with ``device_col_digests``,
     ``device_tree_levels`` and ``check_backend`` (``LigeroMTPoseidonParams``;
-    over BLS12-377 Fq it raises ``ValueError`` here)."""
+    over BLS12-377 Fq it raises ``ValueError`` here).  ``encode_mode`` is
+    "direct" or "streaming" (``chunk_rows`` rows a chunk), from the
+    device's memory; an instance that fits neither, or a non-default
+    commitment past direct mode, raises ``DeviceMemoryError``."""
 
     def __init__(self, circuit, outputs: list[int],
                  lambda_: int = DEFAULT_SECURITY_LEVEL, rate_inv: int = 8,
@@ -135,8 +158,15 @@ class LigeroCircuit:
         self.zk, self.blind_t, self.d2 = st.zk, st.blind_t, st.d2
         self.blind_len, self.num_rows = st.blind_len, st.num_rows
         self.lin_bound, self.quad_bound = st.lin_bound, st.quad_bound
-        self.backend.check_direct_fits(self.num_rows, self.k, self.n,
-                                       len(st.a_vals), self.blind_t, self.d2)
+        self.encode_mode, self.chunk_rows = self.backend.encode_mode(
+            self.num_rows, self.k, self.n, len(st.a_vals), self.blind_t,
+            self.d2)
+        if self.encode_mode == "streaming" and not self._mt_default:
+            raise DeviceMemoryError(
+                "the instance needs streaming mode, which commits with the "
+                "default Blake2s/SHA-256 params only: the Poseidon sponge "
+                "under streaming (its state across row chunks) is not "
+                "ported yet")
         self._witness = WitnessEvaluator(st)
         self._coo = None
 
@@ -210,32 +240,12 @@ class LigeroCircuit:
         def stack(parts):                # no copy for a single proof
             return parts[0][None] if B == 1 else torch.stack(parts)
 
-        with ph("witness+preenc"):
-            preenc = stack([be.asarray(self._witness.preenc(a))
-                            for a in assignments])       # (B, 4m, k, L)
         if self.zk:
             with ph("zk_blind"):
                 masks = [self._zk_masks(seed) for seed in zk_seeds]
-                blinded = [be.zk_blind_rows(preenc[i], masks[i][4],
-                                            self.blind_t, self.d2, masks[i][3])
-                           for i in every]
-                del preenc
-                coeffs = stack([c for c, _ in blinded])
-                rows = (blinded[0][1] if B == 1
-                        else torch.cat([r for _, r in blinded]))
-                del blinded
-                lc_rows = coeffs
-            with ph("rs_encode"):
-                u_canon = be.ntt_and_canon(rows, self.n)
-                del rows
         else:
             masks = [(None, None, None)] * B
-            lc_rows = preenc
-            with ph("rs_encode"):
-                coeffs, u_canon = be.rs_encode_and_canon(
-                    preenc.reshape(B * 4 * m, self.k, -1), self.k, self.n)
-                coeffs = coeffs.reshape(B, 4 * m, self.k, -1)
-            del preenc                   # lives on as lc_rows
+        coeffs, lc_rows, u_canon = self._encode(assignments, masks)
         with ph("commit"):
             trees = [MerkleTree(leaves, inner_levels=levels) for leaves, levels
                      in self._commit(u_canon, B)]
@@ -277,8 +287,8 @@ class LigeroCircuit:
             for i in every:
                 seed = sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)   # FS #8
                 r_quad = self._expand_field(m, seed)
-                p0_mont = be.quadratic_combination_poly(coeffs[i, :3 * m],
-                                                        r_quad, self.d2)
+                p0_mont = be.quadratic_combination_poly(coeffs[i], r_quad,
+                                                        self.d2, m)
                 p0 = _trim(_add_mask(be.canon_limbs_to_ints(
                     be.from_mont(p0_mont)), masks[i][2], p))
                 p0s.append(p0)
@@ -302,6 +312,55 @@ class LigeroCircuit:
                     LinearConstraintsProof(qs[i], *o2),
                     QuadraticConstraintsProof(p0s[i], *o3)))
         return proofs
+
+    def _encode(self, assignments, masks):
+        """The committed rows of every witness: ``(coeffs, lc_rows,
+        u_canon)``, the coefficient rows each proof's products take (index
+        i: proof i), the rows its interleaved combination takes, and the
+        canonical codewords the commit and the openings take.  Direct mode:
+        tensors of all B proofs.  Streaming mode (one proof; its message
+        rows stay on the host): the coefficient chunks, the message rows as
+        their coefficients (zk: the coefficient rows themselves), and the
+        codewords as :class:`StreamedCodewords` over the chunks (zk: the
+        mask rows' coefficients below them)."""
+        be, ph, B = self.backend, self.timer.phase, len(masks)
+        with ph("witness+preenc"):
+            preenc = [self._witness.preenc(a) for a in assignments]
+        if self.encode_mode == "streaming":
+            if B != 1:
+                raise ValueError("streaming mode proves one witness at a time")
+            if self.zk:
+                with ph("zk_blind"):
+                    chunks = be.zk_blind_chunks(preenc[0], masks[0][4],
+                                                self.blind_t, self.chunk_rows)
+                    tail = be.asarray(masks[0][3])
+                return ([chunks], chunks,
+                        StreamedCodewords(chunks, self.n, tail))
+            with ph("rs_encode"):
+                chunks = be.encode_chunks(preenc[0], self.k, self.chunk_rows)
+            return ([chunks], MessageRows(chunks),
+                    StreamedCodewords(chunks, self.n))
+        with ph("witness+preenc"):                  # (B, 4m, k, L)
+            preenc = (be.asarray(preenc[0])[None] if B == 1
+                      else torch.stack([be.asarray(a) for a in preenc]))
+        if self.zk:
+            with ph("zk_blind"):
+                blinded = [be.zk_blind_rows(preenc[i], masks[i][4],
+                                            self.blind_t, self.d2, masks[i][3])
+                           for i in range(B)]
+                del preenc
+                coeffs = (blinded[0][0][None] if B == 1
+                          else torch.stack([c for c, _ in blinded]))
+                rows = (blinded[0][1] if B == 1
+                        else torch.cat([r for _, r in blinded]))
+                del blinded
+            with ph("rs_encode"):
+                return coeffs, coeffs, be.ntt_and_canon(rows, self.n)
+        with ph("rs_encode"):
+            coeffs, u_canon = be.rs_encode_and_canon(
+                preenc.reshape(B * 4 * self.m, self.k, -1), self.k, self.n)
+        # the message rows live on for the interleaved combination
+        return coeffs.reshape(B, 4 * self.m, self.k, -1), preenc, u_canon
 
     def _commit(self, u_canon, batch: int):
         """Per proof ``(leaves, inner_levels)`` of ``batch`` stacked
@@ -360,28 +419,60 @@ class LigeroCircuit:
 
     def _device_coo(self):
         """A's nonzeros on the device: row ids, column ids, Montgomery
-        values (one-time upload)."""
+        values (one-time upload).  In streaming mode sorted by column
+        (stable, on the device) with the first entry of each column block
+        (:meth:`_r_a_coeff_rows`) beside them."""
         if self._coo is None:
             with self.timer.phase("linear.coo_upload"):
                 st, dev = self.state, self.device
-                vals = self.field.ints_to_mont_limbs(st.a_vals)
-                self._coo = (torch.from_numpy(st.a_rows).to(dev),
-                             torch.from_numpy(st.a_cols).to(dev),
-                             self.backend.asarray(vals))
+                vals = _mont_values(self.field, st.a_vals)
+                cols = torch.from_numpy(st.a_cols).to(dev)
+                if self.encode_mode != "streaming":
+                    self._coo = (torch.from_numpy(st.a_rows).to(dev), cols,
+                                 self.backend.asarray(vals))
+                    return self._coo
+                cols, order = torch.sort(cols, stable=True)
+                order = order.cpu().numpy()
+                block = self.chunk_rows * self.k
+                starts = torch.arange(0, 4 * self.m * self.k + block, block,
+                                      dtype=torch.int64, device=dev)
+                bounds = torch.searchsorted(cols, starts).tolist()
+                self._coo = (torch.from_numpy(st.a_rows[order]).to(dev), cols,
+                             self.backend.asarray(vals[order]), bounds)
         return self._coo
 
-    def _r_a_coeff_rows(self, seed: bytes) -> torch.Tensor:
-        """r_linear -> r^T A in 4m rows of k -> iNTT_k (Montgomery)."""
+    def _r_a_coeff_rows(self, seed: bytes):
+        """r_linear -> r^T A in 4m rows of k -> iNTT_k (Montgomery): one
+        tensor in direct mode; in streaming mode a :class:`RowChunkedMatrix`
+        row-aligned with the coefficient chunks, r drawn a segment at a
+        time and the sparse product run in column blocks of a chunk's rows
+        (``_r_a_coeff_rows`` of the JAX package, its blocked branch).
+        Prover and verifier share it."""
         be, ph = self.backend, self.timer.phase
         four_mk = 4 * self.m * self.k
+        coo = self._device_coo()
+        if self.encode_mode != "streaming":
+            with ph("linear.expand"):
+                r = be.rand_field_mont(four_mk, seed)
+            with ph("linear.sparse_rA"):
+                r_a = be.sparse_rA_mont(*coo, r, four_mk)
+            del r
+            with ph("linear.intt"):
+                return be.intt(r_a.reshape(4 * self.m, self.k, -1), self.k)
+        cr = self.chunk_rows
         with ph("linear.expand"):
-            r = be.rand_field_mont(four_mk, seed)
-        rowids, colids, vals = self._device_coo()
-        with ph("linear.sparse_rA"):
-            r_a = be.sparse_rA_mont(rowids, colids, vals, r, four_mk)
-        del r
-        with ph("linear.intt"):
-            return be.intt(r_a.reshape(4 * self.m, self.k, -1), self.k)
+            r = be.rand_field_mont(four_mk, seed, segment=cr * self.k)
+        blocks = be.sparse_rA_blocks(*coo[:3], r, coo[3], cr * self.k)
+        chunks = []
+        while True:
+            with ph("linear.sparse_rA"):
+                block = next(blocks, None)
+            if block is None:
+                break
+            with ph("linear.intt"):
+                chunks.append(be.intt(block.reshape(cr, self.k, -1), self.k))
+            del block
+        return RowChunkedMatrix(chunks, 4 * self.m, cr)
 
     def _opened(self, cols: np.ndarray, tree, idx_sets):
         """One proof's gathered columns (rows, sum of the sets, L) ->
@@ -428,7 +519,8 @@ class LigeroCircuit:
         if len(proofs) <= 1:
             return [self.verify(p, sponge.clone()) for p in proofs]
         part = max(1, self.backend.max_verify_batch(
-            self.num_rows, self.k, self.n, len(self.state.a_vals)))
+            self.num_rows, self.k, self.n, len(self.state.a_vals),
+            self.chunk_rows))
         out: list[bool] = []
         for i in range(0, len(proofs), part):
             out.extend(self._verify_many(proofs[i:i + part], sponge))

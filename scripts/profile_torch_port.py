@@ -31,9 +31,13 @@ peak device memory.  With
 ``--batch B`` the same measurements are taken of ``prove_batch`` over B
 copies of the witness (under zk: B different seeds) and of ``verify_batch``
 over the B proofs, with proofs per second beside the single calls'.  Each
-call's peak device memory stands beside the port's estimate of it
-(``TorchBackend.direct_bytes`` for the provers, ``verify_bytes`` for the
-verifiers); the script fails where a peak exceeds its estimate.
+call's peak device memory stands beside the port's estimate of it in the
+instance's mode (``encode_mode``, recorded): in direct mode
+``TorchBackend.direct_bytes`` for the provers and ``verify_bytes`` for the
+verifiers, in streaming mode (past the direct mode's reach: 2^23 gates over
+BLS12-377, 2^24 over BN254 on an 80 GB card) ``streaming_bytes`` and
+``streaming_verify_bytes``; the script fails where a peak exceeds its
+estimate.
 
 Prints one JSON object (also written to ``--out``).  Neither JAX nor the
 JAX package is ever imported.
@@ -58,8 +62,9 @@ REPEATS = 3
 # every __global__ function of ligero_tpu_torch/csrc (tests/test_torch_imports.py
 # holds this list against the sources)
 PORT_KERNELS = ("ntt_pass_kernel", "ntt_stage_kernel", "blake2s_cols_kernel",
-                "sha256_tree_kernel", "sha256_chain_probe_kernel",
-                "mont_mul_kernel", "row_combine_partial", "row_combine_finish",
+                "blake2s_absorb_kernel", "sha256_tree_kernel",
+                "sha256_chain_probe_kernel", "mont_mul_kernel",
+                "row_combine_partial", "row_combine_finish",
                 "poseidon_cols_kernel")
 ZK_SEED = bytes(range(32))
 
@@ -195,15 +200,31 @@ def main() -> int:
     dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t,
             lig.d2)
 
+    be = lig.backend
+
     def estimates(batch=1):
-        return {"direct_bytes_gib": lig.backend.direct_bytes(
-                    *dims, batch=batch) / 2**30,
-                "verify_bytes_gib": lig.backend.verify_bytes(
-                    *dims[:4], batch=batch) / 2**30}
+        """The mode's estimates of the prover's and the verifier's live
+        sets for ``batch`` proofs (streaming mode proves one at a time and
+        verifies in parts of ``max_verify_batch``), beside direct mode's."""
+        out = {"direct_bytes_gib": be.direct_bytes(*dims, batch=batch) / 2**30,
+               "verify_bytes_gib": be.verify_bytes(*dims[:4],
+                                                   batch=batch) / 2**30}
+        if lig.encode_mode == "streaming":
+            part = min(batch, max(1, be.max_verify_batch(*dims[:4],
+                                                         lig.chunk_rows)))
+            out["prover_estimate_gib"] = be.streaming_bytes(
+                *dims, chunk_rows=lig.chunk_rows) / 2**30
+            out["verifier_estimate_gib"] = be.streaming_verify_bytes(
+                *dims[:4], lig.chunk_rows, part) / 2**30
+        else:
+            out["prover_estimate_gib"] = out["direct_bytes_gib"]
+            out["verifier_estimate_gib"] = out["verify_bytes_gib"]
+        return out
 
     record = {
         "field": field.name, "log2_gates": args.log2_gates, "zk": args.zk,
-        "mt": args.mt, **estimates(),
+        "mt": args.mt, "encode_mode": lig.encode_mode,
+        "chunk_rows": lig.chunk_rows, **estimates(),
         "m": lig.m, "k": lig.k,
         "n": lig.n, "t": lig.t, "blind_t": lig.blind_t, "d2": lig.d2,
         "device": str(device),
@@ -216,7 +237,8 @@ def main() -> int:
     record["peak_device_memory_gib"] = (
         max(record[call]["peak_device_memory_gib"]
             for call in ("prove", "verify")) if device.type == "cuda" else None)
-    if args.spot and spot.spot_ok(field, lig.n):
+    if (args.spot and spot.spot_ok(field, lig.n)
+            and lig.encode_mode == "direct"):
         # the same verify with the spot evaluation as its ntt_columns
         lig.backend.ntt_columns = lambda coeffs, n, js: spot.spot_eval(
             lig.field, lig.backend.asarray(coeffs), js, n)
@@ -257,11 +279,11 @@ def main() -> int:
     if device.type == "cuda":
         # each call's peak against the estimate of its live set
         for call, key, est in (
-                ("prove", "direct_bytes_gib", record),
-                ("verify", "verify_bytes_gib", record),
-                ("prove_batch", "direct_bytes_gib",
+                ("prove", "prover_estimate_gib", record),
+                ("verify", "verifier_estimate_gib", record),
+                ("prove_batch", "prover_estimate_gib",
                  record.get("batch_estimates")),
-                ("verify_batch", "verify_bytes_gib",
+                ("verify_batch", "verifier_estimate_gib",
                  record.get("batch_estimates"))):
             if call in record and (record[call]["peak_device_memory_gib"]
                                    > est[key]):

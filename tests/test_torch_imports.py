@@ -47,7 +47,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     names = port_modules()
     assert len(names) >= 35 and "ligero_tpu_torch.engine.cuda_tree" in names
     for new in ("engine.spot", "engine.poseidon_cols", "engine.cuda_poseidon",
-                "circuit.r1cs", "cli", "server", "__main__"):
+                "engine.devmatrix", "circuit.r1cs", "cli", "server",
+                "__main__"):
         assert f"ligero_tpu_torch.{new}" in names
     names.remove("ligero_tpu_torch.__main__")    # importing it runs the CLI
     out = run_blocked(
@@ -136,6 +137,31 @@ def test_bls12_377_proves_and_verifies_with_both_blocked():
         "    assert lig.verify(back, sp.clone())\n"
         "print('bls ok')\n")
     assert "bls ok" in out
+
+
+def test_streaming_proves_and_verifies_with_both_blocked():
+    """Streaming mode, forced by a budget under the direct estimate: U in
+    row chunks, the streamed column hash, the blocked linear phase."""
+    out = run_blocked(
+        PROVE +
+        "from ligero_tpu_torch.engine.backend import TorchBackend\n"
+        "c, outs, vs = generate_random_circuit(F, 96, num_vars=4, seed=3)\n"
+        "direct = LigeroCircuit(c, outs, lambda_=10, device='cpu')\n"
+        "want = direct.prove(vs, sp.clone()).to_bytes(F)\n"
+        "dims = (direct.num_rows, direct.k, direct.n,\n"
+        "        len(direct.state.a_vals), 0, direct.d2)\n"
+        "budget = direct.backend.streaming_bytes(*dims, chunk_rows=12)\n"
+        "assert budget < direct.backend.direct_bytes(*dims)\n"
+        "TorchBackend.memory_budget = lambda self: budget\n"
+        "lig = LigeroCircuit(c, outs, lambda_=10, device='cpu')\n"
+        "assert lig.encode_mode == 'streaming', lig.encode_mode\n"
+        "proof = lig.prove(vs, sp.clone())\n"
+        "assert proof.to_bytes(F) == want\n"
+        "assert lig.verify(proof, sp.clone())\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ligero_tpu')\n"
+        "               for m in sys.modules)\n"
+        "print('streaming ok')\n")
+    assert "streaming ok" in out
 
 
 def test_batch_proves_and_verifies_with_both_blocked():
