@@ -181,6 +181,13 @@ FORCED_CHUNK_ROWS, STREAM_LOG2_GATES = 512, 23
 #: chunk rows of the streamed absorb's kernel cases (the streaming mode's
 #: largest chunk, backend.STREAM_MAX_CHUNK_ROWS)
 STREAM_CHUNK = 1024
+#: (rows, chunk rows) at which the streamed absorb is held against its plain
+#: version: the 2^20 commit's 4m and 4m + 3 rows in the largest chunks (a
+#: last chunk of 4 rows, and an odd one of 7), and the forced paths' plain
+#: and zk counts in the chunks their budgets give (4m = 2052 in 536-row
+#: chunks, 4m + 3 = 2055 in 528-row ones)
+STREAM_PLAIN_CASES = ((4100, STREAM_CHUNK), (4103, STREAM_CHUNK), (2052, 536),
+                      (2055, 528))
 
 
 #: the TPU kernel each BLS12-377 instantiation replaces, where it differs:
@@ -459,32 +466,53 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
     return results
 
 
-def stream_digests(field, u, chunk_rows: int, plain: bool = False):
+def stream_digests(field, u, chunk_rows: int):
     """The streamed absorb over the rows of ``u`` in chunks of
-    ``chunk_rows`` (the streaming commit's launches): the kernel, or its
-    plain version on the same tensors."""
+    ``chunk_rows`` (the streaming commit's launches)."""
     from ligero_tpu_torch.engine import cuda_hash
     rows, n, _ = u.shape
-    hs = cuda_hash.ColumnHashStream(field, n, rows, u.device, plain=plain)
+    hs = cuda_hash.ColumnHashStream(field, n, rows, u.device)
     for r0 in range(0, rows, chunk_rows):
         hs.absorb(u[r0:r0 + chunk_rows], min(chunk_rows, rows - r0))
     return hs.digests()
 
 
+def stream_digests_plain(field, u, chunk_rows: int):
+    """:func:`stream_digests` through the plain version, on the same
+    tensors."""
+    from ligero_tpu_torch.engine import hashops
+    rows, n, _ = u.shape
+    state, blocks = hashops.blake2s_stream_start(n, rows, u.device), 0
+    for r0 in range(0, rows, chunk_rows):
+        cr = min(chunk_rows, rows - r0)
+        state = hashops.blake2s_absorb_ref(u[r0:r0 + cr], cr, state, blocks,
+                                           r0 + cr == rows, rows)
+        blocks += (2 + cr * field.num_limbs // 2) // 16
+    return state[:, :8]
+
+
 def blake2s_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
-    """The streamed absorb's record: the kernel over the commit's full
-    width, ``rows`` x ``n`` in STREAM_CHUNK-row chunks, bit-equal to the
-    whole-column kernel on the same matrix, timed with its bound; its
-    plain version (one small step a block: its time is its launches') held
-    at 260 x 1024 in chunks of 64, the last one ragged."""
+    """The streamed absorb's record: the kernel against its plain version
+    on the same card tensors, 256 columns at each of STREAM_PLAIN_CASES
+    (the chunkings the streaming paths give it; the plain version takes one
+    small step a block, so its time is its launches'), and over the
+    commit's full width, ``rows`` x ``n`` in STREAM_CHUNK-row chunks,
+    bit-equal to the whole-column kernel on the same matrix, timed with its
+    bound."""
     from ligero_tpu_torch.engine import cuda_hash
-    u = _rand_elems(torch, gen, (260, 1024), field)
-    got = stream_digests(field, u, 64)
-    want, plain_ms = _time_once(torch, lambda: stream_digests(field, u, 64,
-                                                              plain=True))
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    require(err == 0, "streamed Blake2s 260 x 1024: the kernel disagrees "
-            "with its plain version")
+    err, plain_ms = 0, None
+    for nrows, cr in STREAM_PLAIN_CASES:
+        u = _rand_elems(torch, gen, (nrows, 256), field)
+        got = stream_digests(field, u, cr)
+        want, case_ms = _time_once(torch, lambda: stream_digests_plain(
+            field, u, cr))
+        case_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        log(f"kernel [{field.name}] streamed Blake2s {nrows} x 256 in chunks "
+            f"of {cr}: max_abs_err={case_err} against its plain version "
+            f"({case_ms:.1f} ms)")
+        require(case_err == 0, f"streamed Blake2s {nrows} x 256 in chunks of "
+                f"{cr}: the kernel disagrees with its plain version")
+        err, plain_ms = max(err, case_err), plain_ms or case_ms
     u = _rand_elems(torch, gen, (rows, n), field)
     require(torch.equal(stream_digests(field, u, STREAM_CHUNK),
                         cuda_hash.blake2s_columns(field, u)),
@@ -496,15 +524,14 @@ def blake2s_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     bound_ms, by = bound(*blake2s_work(field, rows, n))
     log(f"kernel [{field.name}] streamed Blake2s {rows} x {n} in chunks of "
         f"{STREAM_CHUNK}: bit-equal to the whole-column kernel; {ms:.3f} ms "
-        f"(whole-column {whole_ms:.3f} ms), bound {bound_ms:.3f} ms by {by}; "
-        f"plain version at 260 x 1024 in chunks of 64: max_abs_err={err}, "
-        f"{plain_ms:.1f} ms")
+        f"(whole-column {whole_ms:.3f} ms), bound {bound_ms:.3f} ms by {by}")
     del u
     torch.cuda.empty_cache()
+    first = STREAM_PLAIN_CASES[0]
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "whole_column_ms": whole_ms,
             "shape": f"{rows} x {n} in chunks of {STREAM_CHUNK}; plain at "
-                     "260 x 1024 in chunks of 64"}
+                     f"{first[0]} x 256 in chunks of {first[1]}"}
 
 
 def blake2s_stream_cases(torch, field, gen, zk_rows: int) -> None:
@@ -525,8 +552,8 @@ def blake2s_stream_cases(torch, field, gen, zk_rows: int) -> None:
         whole = cuda_hash.blake2s_columns(field, u)
         for cr in chunkings:
             for plain in plains:
-                got = stream_digests(field, u, cr, plain)
-                require(torch.equal(got, whole),
+                digests = stream_digests_plain if plain else stream_digests
+                require(torch.equal(digests(field, u, cr), whole),
                         f"streamed Blake2s {nrows} x 256 in chunks of {cr} "
                         f"({'plain' if plain else 'kernel'}): differs from "
                         "the whole-column kernel")
@@ -1478,10 +1505,10 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
     be = lig.backend
     dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals))
     data = lig.num_rows - (3 if lig.zk else 0)
-    # what earlier paths left on the device (cached NTT tables of their
-    # sizes and fields): not this instance's, so not in its estimates
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    # the tables earlier paths cached (NTT twiddles and twists of their
+    # sizes and fields) go, so that each peak below holds this instance's
+    # own tables, made again in the run, and nothing of another path's
+    drop_cached_tables(torch)
     others = torch.cuda.memory_allocated()
     log(f"{tag}: {lig.num_rows} rows in chunks of {lig.chunk_rows} "
         f"({-(-data // lig.chunk_rows)} chunks, the last of "
@@ -1514,15 +1541,14 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
         f"{estimate / 2**30:.3f} GiB; direct mode would need "
         f"{direct / 2**30:.2f} GiB); verify: {ok} ({verify_s:.3f} s), peak "
         f"{verify_peak / 2**30:.3f} GiB (estimate {vestimate / 2**30:.3f} "
-        f"GiB); {others / 2**30:.3f} GiB of each peak held by earlier "
-        f"paths; the card holds {card / 2**30:.2f} GiB")
+        f"GiB); {others / 2**30:.3f} GiB allocated before the prove; the "
+        f"card holds {card / 2**30:.2f} GiB")
     for name, secs in sorted(prove_phases.items(), key=lambda kv: -kv[1]):
         log(f"  {tag} prove  {name:22s} {secs * 1e3:10.1f} ms")
     for name, secs in sorted(timer.totals.items(), key=lambda kv: -kv[1]):
         log(f"  {tag} verify {name:22s} {secs * 1e3:10.1f} ms")
     require(ok, f"{tag}: verify rejected the honest proof")
-    require(prove_peak - others <= estimate
-            and verify_peak - others <= vestimate,
+    require(prove_peak <= estimate and verify_peak <= vestimate,
             f"{tag}: a measured peak lies above its streaming estimate")
     require(max(prove_peak, verify_peak) < card, f"{tag}: peak past the card")
     data_bytes = proof.to_bytes(field)
@@ -1551,10 +1577,22 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
             "warm_verify_s": warm.get("verify_s"),
             "prove_peak_gib": prove_peak / 2**30,
             "verify_peak_gib": verify_peak / 2**30,
-            "earlier_paths_gib": others / 2**30,
+            "allocated_before_gib": others / 2**30,
             "estimate_gib": estimate / 2**30,
             "verify_estimate_gib": vestimate / 2**30,
             "direct_bytes_gib": direct / 2**30, "chunk_rows": lig.chunk_rows}
+
+
+def drop_cached_tables(torch) -> None:
+    """Free the device tables the port caches by size and field (the NTT's
+    twiddles and twists, the plain transform's twiddles, the spot
+    evaluation's tables) and cuBLAS's workspaces."""
+    from ligero_tpu_torch.engine import cuda_ntt, ntt, spot
+    for cache in (cuda_ntt._TABLES, ntt._TW_CACHE, spot._TABLES):
+        cache.clear()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
 
 
 def warm_walls(torch, lig, vars_, kw) -> dict:

@@ -119,12 +119,10 @@ class ColumnHashStream:
     chunk by chunk in row order (:func:`blake2s_absorb`); the chunk that
     brings the count to ``total_rows`` finalises, after which
     :meth:`digests` gives the (n, 8) int32 LE words :func:`blake2s_columns`
-    gives for the whole matrix.  ``plain``: the plain version on any
-    device (``chip_smoke.py`` holds the kernel against it on the card)."""
+    gives for the whole matrix."""
 
-    def __init__(self, field: FieldSpec, n: int, total_rows: int, device,
-                 plain: bool = False):
-        self.field, self.total_rows, self.plain = field, total_rows, plain
+    def __init__(self, field: FieldSpec, n: int, total_rows: int, device):
+        self.field, self.total_rows = field, total_rows
         self.done = self.blocks = 0
         self.state = blake2s_stream_start(n, total_rows, device)
 
@@ -134,13 +132,8 @@ class ColumnHashStream:
             raise ValueError(f"ColumnHashStream: {self.done} + {rows} rows "
                              f"exceed {self.total_rows}")
         final = self.done + rows == self.total_rows
-        if self.plain:
-            self.state = blake2s_absorb_ref(chunk, rows, self.state,
-                                            self.blocks, final,
-                                            self.total_rows)
-        else:
-            self.state = blake2s_absorb(self.field, chunk, rows, self.state,
-                                        self.blocks, final, self.total_rows)
+        self.state = blake2s_absorb(self.field, chunk, rows, self.state,
+                                    self.blocks, final, self.total_rows)
         self.done += rows
         self.blocks += (2 + rows * self.field.num_limbs // 2) // 16
 

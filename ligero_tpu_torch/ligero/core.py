@@ -84,8 +84,6 @@ def _mont_values(field, ints: list[int]) -> np.ndarray:
     A's values are few (+-1 and the circuit's constants), and the
     conversion of a Python int is what its upload spends its time on."""
     distinct = list(dict.fromkeys(ints))
-    if 4 * len(distinct) > len(ints):
-        return field.ints_to_mont_limbs(ints)
     pos = {v: i for i, v in enumerate(distinct)}
     idx = np.fromiter(map(pos.__getitem__, ints), dtype=np.int64,
                       count=len(ints))
