@@ -45,7 +45,19 @@ It runs every phase, in order; any failure exits non-zero:
                every residue mod 4 and the zk path's odd count, chunked
                raggedly, timed at the 2^20 shapes (4m x 256 in 1024-row
                chunks) and at the 2^22 shapes (8196 x 32768, against the
-               whole-column kernel).
+               whole-column kernel).  The Poseidon streaming commit's
+               chunked entry (``poseidon_absorb``): against its plain
+               version, every state between chunks and the digests, at the
+               paths' own chunkings (4100 / 4103 x 256 in 1024-row chunks,
+               2052 / 2055 in 536 / 528) at one lane a column (the path's)
+               and at eight, the plain version run by 16-row segments side
+               by side from the kernel's states (it takes ~0.19 s a pair of
+               rows on the card); at the same patterns cut in depth (68 /
+               71 rows in 16-row chunks, 40 in 12) at the full width of
+               16384 columns, row after row; against the whole-column
+               kernel and the host sponge on sampled columns; timed at
+               4100 x 16384 in 1024-row chunks beside the whole-column
+               kernel.
 4. parity   -- port proofs on the card byte-equal to the port's proofs on
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
@@ -57,9 +69,18 @@ It runs every phase, in order; any failure exits non-zero:
                ``prove`` and ``verify``, first plain, then with ``zk=True``:
                verify True, tampered witness and flipped byte rejected,
                every kernel launched on each path; plain: a second proof,
-               byte-identical.  The same two paths under the Poseidon
-               commitment: the sponge kernel launched, Blake2s and the
-               SHA-256 tree not (the default paths: the reverse).  Then the
+               byte-identical; then the same instance over a mesh of two
+               shards (``parallel.ShardedBackend``; distinct cards where
+               the host has two, else the card twice): proof byte-equal to
+               the single-device proof, verify True, tampering rejected,
+               warm walls beside one device's, each physical device's
+               peaks under the mesh's estimates.  The same two paths
+               under the Poseidon commitment: the sponge kernel launched,
+               Blake2s and the SHA-256 tree not (the default paths: the
+               reverse); each then
+               in streaming mode forced by the budget into 1024-row chunks
+               (the chunked sponge entry: proof byte-equal to the direct
+               one, rejections, peaks under ``streaming_bytes``).  Then the
                batch path at 2^18 gates (B = 3
                plain, B = 2 zk, B = 2 under the Poseidon commitment: one
                sponge launch for both proofs' columns, one a tree level for
@@ -69,9 +90,11 @@ It runs every phase, in order; any failure exits non-zero:
                device memory against the prover's and the verifier's
                estimates; before each, its batched Blake2s and
                row_combine launches at its own shapes against their plain
-               versions.  Then the 2^20-gate circuit over BLS12-377
-               Fq: plain (and a batch of 2, honest and tampered, against
-               sequential proves) and zk.  Streaming mode: the 2^18-gate
+               versions; the 2^18 zk instance over three shards and the
+               Poseidon one over two, as the mesh above.  Then the
+               2^20-gate circuit over BLS12-377 Fq: plain (and a batch of
+               2, honest and tampered, against sequential proves) and zk;
+               its 2^18 instance over two shards.  Streaming mode: the 2^18-gate
                circuit in both fields, plain and zk, built under a memory
                budget at its streaming estimate for 512-row chunks (below
                the direct one): proof bytes equal to the direct-mode proof,
@@ -95,7 +118,8 @@ It runs every phase, in order; any failure exits non-zero:
 
 The last two stdout lines are the kernels' JSON record (BN254 Fr's numbers
 in each entry, BLS12-377 Fq's under its ``bls12_377_fq`` key; the Poseidon
-sponge has BN254's only) and
+sponge has BN254's only; beside them the streaming and sharded paths'
+walls and peaks and the run's total seconds) and
 ``{"ok": true, "device": {...}}``.  Neither JAX nor the JAX package
 ``ligero_tpu`` is ever imported.
 """
@@ -167,13 +191,22 @@ KERNELS = {
     # ligero_tpu/engine/hashops.py:184-214)
     "blake2s_stream": ("cuda_hash", "ligero_tpu_torch/csrc/blake2s_cols.cu",
                        "ligero_tpu/engine/pallas_hash.py:39"),
+    # the Poseidon streaming commit's per-chunk absorb: an entry of
+    # poseidon_cols.cu (the JAX package's streamed sponge runs its products
+    # as mont_mul_pallas launches, ligero_tpu/engine/poseidon_cols.py:208-251)
+    "poseidon_stream": ("cuda_poseidon",
+                        "ligero_tpu_torch/csrc/poseidon_cols.cu",
+                        "ligero_tpu/engine/pallas_kernels.py:30"),
 }
 #: the wrapper's launch counter of a kernel, where it is not ``launches``
-COUNTERS = {"blake2s_stream": "stream_launches"}
+COUNTERS = {"blake2s_stream": "stream_launches",
+            "poseidon_stream": "stream_launches"}
 #: the kernels a path of each commitment and mode never launches
-NOT_ON_DEFAULT = ("poseidon_cols", "blake2s_stream")
-NOT_ON_POSEIDON = ("blake2s_cols", "sha256_tree", "blake2s_stream")
-NOT_ON_STREAMING = ("poseidon_cols", "blake2s_cols")
+NOT_ON_DEFAULT = ("poseidon_cols", "blake2s_stream", "poseidon_stream")
+NOT_ON_POSEIDON = ("blake2s_cols", "sha256_tree", "blake2s_stream",
+                   "poseidon_stream")
+NOT_ON_STREAMING = ("poseidon_cols", "blake2s_cols", "poseidon_stream")
+NOT_ON_POSEIDON_STREAMING = ("blake2s_cols", "sha256_tree", "blake2s_stream")
 #: streaming mode: the paths forced by the budget run at BATCH_LOG2_GATES
 #: (4m = 2052 rows) in chunks of at most this many rows; the one direct
 #: mode refuses is BLS12-377 at 2^23 gates, with the card's own budget
@@ -188,6 +221,29 @@ STREAM_CHUNK = 1024
 #: chunks, 4m + 3 = 2055 in 528-row ones)
 STREAM_PLAIN_CASES = ((4100, STREAM_CHUNK), (4103, STREAM_CHUNK), (2052, 536),
                       (2055, 528))
+#: the Poseidon chunked absorb against its plain version at the streaming
+#: paths' row counts and chunkings: the 2^20 commit's 4m and 4m + 3 rows in
+#: STREAM_CHUNK-row chunks (a last chunk of 4, an odd one of 7) and the
+#: forced 2^18 counts in the chunks their budgets give (4m = 2052 in
+#: 536-row chunks, 4m + 3 = 2055 in 528-row ones); the two counts of a
+#: depth share one matrix of POSEIDON_DEEP_COLS columns.  The plain version
+#: takes thousands of small tensor ops a pair of rows (~0.19 s on the card
+#: at 256 columns): run row after row, 4100 rows would take 6.5 min.  So
+#: the kernel also runs the same rows in chunks of
+#: POSEIDON_SEGMENT rows (cut at every chunk edge of the cases), and the
+#: plain version takes every such segment from the kernel's state at its
+#: start, all segments side by side as columns of one call; each kernel
+#: state, each chunked run's states and its digests must equal the plain
+#: segment that ends there, so by induction from the zero state every
+#: output equals the plain version's run over the whole column.
+POSEIDON_STREAM_CASES = (((4100, STREAM_CHUNK), (4103, STREAM_CHUNK)),
+                         ((2052, 536), (2055, 528)))
+POSEIDON_DEEP_COLS, POSEIDON_SEGMENT = 256, 16
+#: the same chunk patterns cut in depth, at the commit's full width (n =
+#: 16384, so the path's lanes a column) with the plain version row after
+#: row: 68 rows in 16-row chunks (four full, a last of 4), 71 (a last of 7,
+#: odd), 40 in 12-row chunks (three full, a last of 4)
+POSEIDON_PLAIN_CASES = ((68, 16), (71, 16), (40, 12))
 
 
 #: the TPU kernel each BLS12-377 instantiation replaces, where it differs:
@@ -560,6 +616,221 @@ def blake2s_stream_cases(torch, field, gen, zk_rows: int) -> None:
     log(f"kernel [{field.name}] streamed Blake2s at rows 100-103 in chunks "
         f"of {small}, kernel and plain version, and at {zk_rows} rows in "
         f"chunks of {large}: bit-equal to the whole-column kernel")
+
+
+def poseidon_stream_run(field, u, rows: int, chunk_rows: int, plain: bool,
+                        state=None, r0: int = 0):
+    """Rows [r0, rows) of ``u`` through the Poseidon chunked absorb in
+    chunks of ``chunk_rows`` (the kernel, or its plain version on the same
+    tensors), from ``state``, the states after r0 rows (fresh where r0 =
+    0): (the states after each chunk but the last, the digests)."""
+    return poseidon_chunks_run(field, u, list(range(r0 + chunk_rows, rows,
+                                                    chunk_rows)), rows,
+                               plain=plain, state=state, r0=r0)
+
+
+def poseidon_chunks_run(field, u, cuts, rows: int, lanes=None,
+                        plain: bool = False, state=None, r0: int = 0):
+    """Rows [r0, rows) of ``u`` through the chunked absorb (the kernel at
+    ``lanes`` lanes a column, default the wrapper's rule; or the plain
+    version), a chunk ending at each of ``cuts`` and the last at ``rows``
+    (``rows`` None: no last chunk), from ``state`` (the states after r0
+    rows; fresh where r0 = 0): (the states after each cut, the digests or
+    None)."""
+    from ligero_tpu_torch.engine import cuda_poseidon, poseidon_cols
+    from ligero_tpu_torch.sponge import test_poseidon_config
+    cfg = test_poseidon_config(field)
+    st = (poseidon_cols.poseidon_stream_start(field, u.shape[1], u.device)
+          if state is None else state.clone())
+    states, a = [], r0
+    for b in list(cuts) + ([] if rows is None else [rows]):
+        last = b == rows
+        if plain:
+            out = poseidon_cols.poseidon_absorb_plain(field, cfg, u[a:b],
+                                                      b - a, st, a == 0, last)
+        else:
+            out = cuda_poseidon.poseidon_absorb(field, cfg, u[a:b], b - a, st,
+                                                a == 0, last, lanes)
+        if last:
+            return states, out
+        st = out
+        states.append(out.clone())
+        a = b
+    return states, None
+
+
+def poseidon_plain_segments(torch, field, u, steps, states) -> dict:
+    """The plain chunked absorb over each of ``steps``, (a, b, last): rows
+    [a, b) of ``u`` from ``states[a]`` (fresh where a = 0); the steps of one
+    (b - a, a = 0, last) side by side, their columns concatenated, in one
+    call.  {(a, b, last): the states after b rows, or the digests}."""
+    from ligero_tpu_torch.engine import poseidon_cols
+    from ligero_tpu_torch.sponge import test_poseidon_config
+    cfg = test_poseidon_config(field)
+    n = u.shape[1]
+    groups: dict = {}
+    for a, b, last in steps:
+        groups.setdefault((b - a, a == 0, last), []).append((a, b))
+    out = {}
+    for (length, first, last), segs in groups.items():
+        chunk = torch.cat([u[a:b] for a, b in segs], dim=1)
+        state = (poseidon_cols.poseidon_stream_start(field, chunk.shape[1],
+                                                     u.device) if first
+                 else torch.cat([states[a] for a, _ in segs]))
+        res = poseidon_cols.poseidon_absorb_plain(field, cfg, chunk, length,
+                                                  state, first, last)
+        for i, (a, b) in enumerate(segs):
+            out[(a, b, last)] = res[i * n:(i + 1) * n]
+        del chunk, state, res
+    return out
+
+
+def poseidon_deep_cases(torch, field, gen, cases, diff) -> tuple[int, float]:
+    """The chunked absorb at ``cases`` ((rows, chunk rows), sharing one
+    matrix of POSEIDON_DEEP_COLS columns) against its plain version by
+    segments (see POSEIDON_STREAM_CASES): every state and digest of each
+    case's run, at the path's lanes a column (one, the rule's at 16384
+    columns) and at the rule's for this width, plus the kernel's segment
+    states; each digest set also against the whole-column kernel, and four
+    columns of it against the host sponge.  (max_abs_err, the plain
+    version's ms)."""
+    from ligero_tpu_torch.engine import cuda_poseidon, poseidon_cols
+    from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
+    from ligero_tpu_torch.sponge import test_poseidon_config
+    cfg = test_poseidon_config(field)
+    width = POSEIDON_DEEP_COLS
+    top = max(r for r, _ in cases)
+    u = _rand_elems(torch, gen, (top, width), field)
+    cuts = {r: list(range(cr, r, cr)) for r, cr in cases}
+    points = sorted(set(range(POSEIDON_SEGMENT, top, POSEIDON_SEGMENT))
+                    | {c for r in cuts for c in cuts[r]})
+    seg_states = dict(zip(points, poseidon_chunks_run(
+        field, u, points, None, lanes=1)[0]))
+    steps = [(a, b, False) for a, b in zip([0] + points[:-1], points)]
+    tails = {r: max([0] + [p for p in points if p < r]) for r, _ in cases}
+    steps += [(t, r, True) for r, t in tails.items()]
+    plain, plain_ms = _time_once(torch, lambda: poseidon_plain_segments(
+        torch, field, u, steps, seg_states))
+    after = {b: out for (a, b, last), out in plain.items() if not last}
+    err = max(diff(seg_states[b], after[b]) for b in points)
+    require(err == 0, f"Poseidon chunked {top} x {width} in "
+            f"{POSEIDON_SEGMENT}-row segments: a kernel state disagrees with "
+            "the plain version's segment")
+    mt = LigeroMTPoseidonParams(field)
+    js = (0, width // 3, 2 * width // 3, width - 1)
+    for r, cr in cases:
+        want = plain[(tails[r], r, True)]
+        for lanes in sorted({1, cuda_poseidon.lanes_for(width)}):
+            states, digests = poseidon_chunks_run(field, u, cuts[r], r,
+                                                  lanes=lanes)
+            case = max([diff(digests, want)]
+                       + [diff(st, after[c]) for st, c in zip(states,
+                                                              cuts[r])])
+            log(f"kernel [{field.name}] Poseidon chunked absorb {r} x {width} "
+                f"in chunks of {cr}, {lanes} lane(s) a column: "
+                f"max_abs_err={case} against its plain version "
+                f"({len(states)} states between chunks and the digests)")
+            require(case == 0, f"Poseidon chunked {r} x {width} in chunks of "
+                    f"{cr} at {lanes} lane(s): the kernel disagrees with its "
+                    "plain version")
+            err = max(err, case)
+        require(torch.equal(want, cuda_poseidon.poseidon_columns(
+            field, cfg, u[:r])), f"Poseidon {r} x {width}: the plain chunked "
+            "digests differ from the whole-column kernel")
+        host = [mt.col_hash(field, field.limbs_to_ints(u[:r, j].cpu().numpy()))
+                for j in js]
+        require([poseidon_cols.digests_to_bytes(want)[j] for j in js] == host,
+                f"Poseidon {r} x {width}: differs from the host sponge")
+    log(f"kernel [{field.name}] Poseidon chunked absorb at {cases} x {width}: "
+        f"{len(points)} kernel segment states and every run bit-equal to the "
+        f"plain version ({plain_ms:.1f} ms over {len(steps)} segments), the "
+        f"digests to the whole-column kernel and, at columns {js}, to the "
+        "host sponge")
+    del u, seg_states, plain
+    torch.cuda.empty_cache()
+    return err, plain_ms
+
+
+def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
+    """The Poseidon chunked absorb (``cuda_poseidon.poseidon_absorb``, BN254
+    Fr): against its plain version on the same card tensors, at the
+    streaming paths' row counts and chunkings (POSEIDON_STREAM_CASES, by
+    segments), and at POSEIDON_PLAIN_CASES at the commit's full width ``n``
+    row after row (the 71-row case takes the plain states after the 68-row
+    case's 64 shared rows); every state between chunks and every digest
+    bit-equal; over the commit's full width, ``rows`` x ``n`` in
+    STREAM_CHUNK-row chunks, bit-equal to the whole-column kernel on the
+    same matrix, both timed, with the whole column's bound."""
+    from ligero_tpu_torch.engine import cuda_poseidon
+    from ligero_tpu_torch.sponge import test_poseidon_config
+    cfg = test_poseidon_config(field)
+
+    def whole(u):
+        return cuda_poseidon.poseidon_columns(field, cfg, u)
+
+    def diff(a, b) -> int:
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    err, plain_ms = 0, None
+    for cases in POSEIDON_STREAM_CASES:
+        case_err, case_ms = poseidon_deep_cases(torch, field, gen, cases, diff)
+        err, plain_ms = max(err, case_err), plain_ms or case_ms
+    (r1, c1), (r2, _), (r3, c3) = POSEIDON_PLAIN_CASES
+    u = _rand_elems(torch, gen, (r2, n), field)
+    v = _rand_elems(torch, gen, (r3, n), field)
+    t0 = time.perf_counter()
+    plain = {r1: poseidon_stream_run(field, u, r1, c1, True),
+             r3: poseidon_stream_run(field, v, r3, c3, True)}
+    shared = (r1 // c1) * c1 if r1 % c1 else r1 - c1
+    plain[r2] = ([], poseidon_stream_run(
+        field, u, r2, c1, True, plain[r1][0][shared // c1 - 1], shared)[1])
+    torch.cuda.synchronize()
+    short_ms = (time.perf_counter() - t0) * 1e3
+    for (nrows, cr), mat in zip(POSEIDON_PLAIN_CASES, (u, u, v)):
+        states, digests = poseidon_stream_run(field, mat, nrows, cr, False)
+        want_states, want = plain[nrows]
+        case = max([diff(digests, want)] + [diff(a, b) for a, b in
+                                            zip(states, want_states)])
+        require(torch.equal(digests, whole(mat[:nrows])), f"Poseidon chunked "
+                f"{nrows} x {n} in chunks of {cr}: differs from the "
+                "whole-column kernel")
+        log(f"kernel [{field.name}] Poseidon chunked absorb {nrows} x {n} in "
+            f"chunks of {cr}, {cuda_poseidon.lanes_for(n)} lane(s) a column: "
+            f"max_abs_err={case} against its plain version "
+            f"({len(want_states)} states between chunks and the digests)")
+        require(case == 0, f"Poseidon chunked {nrows} x {n} in chunks of "
+                f"{cr}: the kernel disagrees with its plain version")
+        err = max(err, case)
+    log(f"kernel [{field.name}] Poseidon chunked absorb: plain version "
+        f"{short_ms:.1f} ms over the three cases at {n} columns")
+    del u, v
+    w = _rand_elems(torch, gen, (rows, n), field)
+    require(torch.equal(poseidon_stream_run(field, w, rows, STREAM_CHUNK,
+                                            False)[1], whole(w)),
+            f"Poseidon chunked {rows} x {n}: differs from the whole-column "
+            "kernel")
+    ms = _time_cuda(torch, lambda: poseidon_stream_run(
+        field, w, rows, STREAM_CHUNK, False), 3)
+    whole_ms = _time_cuda(torch, lambda: whole(w), 3)
+    bound_ms, by = bound(*poseidon_work(field, rows, n))
+    launches = -(-rows // STREAM_CHUNK)
+    log(f"kernel [{field.name}] Poseidon chunked absorb {rows} x {n} in "
+        f"{launches} chunks of {STREAM_CHUNK}: bit-equal to the whole-column "
+        f"kernel; {ms:.3f} ms (whole-column {whole_ms:.3f} ms, "
+        f"{ms / whole_ms - 1:+.1%}), bound {bound_ms:.3f} ms by {by} "
+        f"({bound_ms / ms:.1%})")
+    del w
+    torch.cuda.empty_cache()
+    first = POSEIDON_STREAM_CASES[0]
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "whole_column_ms": whole_ms,
+            "short_plain_ms": short_ms,
+            "lanes": cuda_poseidon.lanes_for(n),
+            "shape": f"{rows} x {n} in {launches} chunks of {STREAM_CHUNK}; "
+                     f"plain at {first} x {POSEIDON_DEEP_COLS} by "
+                     f"{POSEIDON_SEGMENT}-row segments (plain_ms), and at "
+                     f"{POSEIDON_PLAIN_CASES} x {n} row after row "
+                     "(short_plain_ms)"}
 
 
 def host_hash_context(n: int) -> None:
@@ -1489,9 +1760,10 @@ def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
 def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
                     tampered_witness: bool = True) -> dict:
     """Drive a streaming-mode path: one ``prove`` and one ``verify``
-    (True), their launch counts (every kernel but the whole-column
-    Blake2s and the Poseidon sponge), each call's peak against its
-    streaming estimate and the card's memory, the proof byte-equal to
+    (True), their launch counts (the default commitment: every kernel but
+    the whole-column Blake2s and the Poseidon sponge's; Poseidon: every
+    kernel but Blake2s's and the SHA-256 tree), each call's peak against
+    its streaming estimate and the card's memory, the proof byte-equal to
     ``want`` (the direct-mode proof) where given, a flipped byte and (with
     ``tampered_witness``) a tampered witness rejected; with ``want``, also
     a second, warm prove and verify, timed."""
@@ -1499,7 +1771,8 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
 
     require(lig.encode_mode == "streaming", "the instance is not in "
             f"streaming mode but {lig.encode_mode}")
-    tag = path_tag(field, lig.zk) + "streaming"
+    poseidon = is_poseidon(lig)
+    tag = path_tag(field, lig.zk, poseidon) + "streaming"
     sponge, wraps, timer = test_sponge(field), wrappers(), lig.timer
     kw = {"zk_seed": ZK_SEED} if lig.zk else {}
     be = lig.backend
@@ -1530,9 +1803,10 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
     torch.cuda.synchronize()
     verify_s = time.perf_counter() - t0
     verify_peak = torch.cuda.max_memory_allocated()
-    launches = read_counts(wraps, tag, absent=NOT_ON_STREAMING)
+    launches = read_counts(wraps, tag, absent=(
+        NOT_ON_POSEIDON_STREAMING if poseidon else NOT_ON_STREAMING))
     estimate = be.streaming_bytes(*dims, lig.blind_t, lig.d2,
-                                  chunk_rows=lig.chunk_rows)
+                                  chunk_rows=lig.chunk_rows, poseidon=poseidon)
     vestimate = be.streaming_verify_bytes(*dims, lig.chunk_rows)
     direct = be.direct_bytes(*dims, lig.blind_t, lig.d2)
     card = torch.cuda.get_device_properties(0).total_memory
@@ -1596,8 +1870,9 @@ def drop_cached_tables(torch) -> None:
 
 
 def warm_walls(torch, lig, vars_, kw) -> dict:
-    """Host-clock walls of one more ``prove`` and ``verify`` of an instance
-    whose one-time work (A's upload, the tables) is done."""
+    """Host-clock walls of one more ``prove`` and ``verify`` (True) of an
+    instance whose one-time work (A's upload, the tables) is done, and that
+    proof's bytes."""
     from ligero_tpu_torch import test_sponge
     sponge = test_sponge(lig.field)
     torch.cuda.synchronize()
@@ -1608,46 +1883,184 @@ def warm_walls(torch, lig, vars_, kw) -> dict:
     t0 = time.perf_counter()
     require(lig.verify(proof, sponge.clone()), "a warm verify failed")
     torch.cuda.synchronize()
-    return {"prove_s": prove_s, "verify_s": time.perf_counter() - t0}
+    return {"prove_s": prove_s, "verify_s": time.perf_counter() - t0,
+            "want": proof.to_bytes(lig.field)}
 
 
-def phase_streaming_forced(torch, field, circ, outs, vars_, zk: bool) -> dict:
+def single_reference(torch, lig, vars_) -> dict:
+    """What a later path of the same instance is held against: a warm
+    single-device, direct-mode instance's :func:`warm_walls` (its proof
+    under the smoke's zk seed), its dims and its estimate."""
+    dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t,
+            lig.d2)
+    return {**warm_walls(torch, lig, vars_,
+                         {"zk_seed": ZK_SEED} if lig.zk else {}),
+            "dims": dims, "direct_bytes": lig.backend.direct_bytes(*dims)}
+
+
+def phase_streaming_forced(torch, field, circ, outs, vars_, zk: bool,
+                           poseidon: bool = False,
+                           chunk_rows: int = FORCED_CHUNK_ROWS,
+                           reference: dict | None = None) -> dict:
     """Streaming mode forced by the memory budget on an instance direct
-    mode takes: the direct-mode proof first, then the instance built under
-    a budget at its streaming estimate for chunks of FORCED_CHUNK_ROWS
-    (below the direct estimate), driven by :func:`phase_streaming`."""
-    from ligero_tpu_torch import test_sponge
+    mode takes: the direct-mode proof first (``reference``, or a direct
+    instance built, warmed and proved here), then the instance built under
+    a budget at its streaming estimate for chunks of ``chunk_rows`` (below
+    the direct estimate), driven by :func:`phase_streaming`."""
     from ligero_tpu_torch.engine.backend import TorchBackend
+    from ligero_tpu_torch import test_sponge
 
-    direct = build_instance(circ, outs, zk=zk)
-    require(direct.encode_mode == "direct", "the forced instance does not "
-            "fit direct mode")
-    kw = {"zk_seed": ZK_SEED} if zk else {}
-    want = direct.prove(vars_, test_sponge(field), **kw).to_bytes(field)
-    direct_warm = warm_walls(torch, direct, vars_, kw)
-    log(f"{path_tag(field, zk)}direct mode at this size: warm prove "
-        f"{direct_warm['prove_s']:.3f} s, verify "
-        f"{direct_warm['verify_s']:.3f} s")
-    dims = (direct.num_rows, direct.k, direct.n, len(direct.state.a_vals),
-            direct.blind_t, direct.d2)
-    budget = direct.backend.streaming_bytes(*dims,
-                                            chunk_rows=FORCED_CHUNK_ROWS)
-    require(budget < direct.backend.direct_bytes(*dims), "the streaming "
-            "estimate does not lie below the direct one")
-    del direct
-    torch.cuda.empty_cache()
+    if reference is None:
+        direct = build_instance(circ, outs, zk=zk, poseidon=poseidon)
+        require(direct.encode_mode == "direct", "the forced instance does "
+                "not fit direct mode")
+        direct.prove(vars_, test_sponge(field), **(
+            {"zk_seed": ZK_SEED} if zk else {}))       # A's one-time upload
+        reference = single_reference(torch, direct, vars_)
+        del direct
+        torch.cuda.empty_cache()
+    log(f"{path_tag(field, zk, poseidon)}direct mode at this size: warm prove "
+        f"{reference['prove_s']:.3f} s, verify {reference['verify_s']:.3f} s")
+    budget = TorchBackend(field).streaming_bytes(
+        *reference["dims"], chunk_rows=chunk_rows, poseidon=poseidon)
+    require(budget < reference["direct_bytes"], "the streaming estimate does "
+            "not lie below the direct one")
     card_budget = TorchBackend.memory_budget
     TorchBackend.memory_budget = lambda self: budget
     try:
-        lig = build_instance(circ, outs, zk=zk)
-        res = phase_streaming(torch, field, lig, vars_, want=want)
+        lig = build_instance(circ, outs, zk=zk, poseidon=poseidon)
+        res = phase_streaming(torch, field, lig, vars_,
+                              want=reference["want"])
     finally:
         TorchBackend.memory_budget = card_budget
     del lig
     torch.cuda.empty_cache()
-    res["direct_warm_prove_s"] = direct_warm["prove_s"]
-    res["direct_warm_verify_s"] = direct_warm["verify_s"]
+    res["direct_warm_prove_s"] = reference["prove_s"]
+    res["direct_warm_verify_s"] = reference["verify_s"]
     return res
+
+
+def mesh_devices(torch, D: int) -> list[str]:
+    """D shards: distinct cards as far as the host has them, else the
+    first card again."""
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(D)]
+
+
+def phase_sharded(torch, field, circ, outs, vars_, zk: bool, poseidon: bool,
+                  D: int, reference: dict | None = None) -> dict:
+    """The row-sharded backend over a mesh of D shards
+    (``parallel.ShardedBackend``; on one card all D shards share it: its
+    walls are the controller's cost, not scaling): one ``prove`` and one
+    ``verify`` (True) with their launch counts (the commitment's kernels),
+    the proof byte-equal to the single-device proof of the same instance
+    (``reference``, or one built here), warm walls of both, a flipped byte
+    and a tampered witness rejected, and each physical device's prover and
+    verifier peaks against the mesh's estimates
+    (``ShardedBackend.device_bytes``): a peak over its estimate fails."""
+    from ligero_tpu_torch import LigeroCircuit, LigeroProof, test_sponge
+    from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
+    from ligero_tpu_torch.parallel import RowMesh, ShardedBackend
+    from ligero_tpu_torch.utils.profiling import PhaseTimer
+
+    tag = path_tag(field, zk, poseidon) + f"sharded D={D}"
+    if reference is None:
+        single = build_instance(circ, outs, zk=zk, poseidon=poseidon)
+        single.prove(vars_, test_sponge(field), **(
+            {"zk_seed": ZK_SEED} if zk else {}))       # A's one-time upload
+        reference = single_reference(torch, single, vars_)
+        del single
+    drop_cached_tables(torch)
+    mesh = RowMesh(mesh_devices(torch, D))
+    physical = mesh.physical
+    t0 = time.perf_counter()
+    lig = LigeroCircuit(circ, outs, zk=zk, timer=PhaseTimer(enabled=True),
+                        mt_params=(LigeroMTPoseidonParams(field) if poseidon
+                                   else None),
+                        backend=ShardedBackend(field, mesh))
+    log(f"{tag}: {mesh}, built ({time.perf_counter() - t0:.1f} s); U is "
+        f"{lig.num_rows} x {lig.n}, {lig.encode_mode} mode")
+    be, kw = lig.backend, ({"zk_seed": ZK_SEED} if zk else {})
+    dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t,
+            lig.d2)
+    estimate = be.device_bytes(*dims)
+    vestimate = be.device_bytes(*dims[:4], verifier=True)
+    sponge, wraps = test_sponge(field), wrappers()
+
+    def reset_peaks():
+        for dev in physical:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peaks() -> dict:
+        return {str(dev): torch.cuda.max_memory_allocated(dev)
+                for dev in physical}
+
+    others = {str(dev): torch.cuda.memory_allocated(dev) for dev in physical}
+    reset_counts(torch, wraps)
+    reset_peaks()
+    t0 = time.perf_counter()
+    proof = lig.prove(vars_, sponge.clone(), **kw)
+    for dev in physical:
+        torch.cuda.synchronize(dev)
+    prove_s = time.perf_counter() - t0
+    prove_peaks = peaks()
+    reset_peaks()
+    t0 = time.perf_counter()
+    ok = lig.verify(proof, sponge.clone())
+    for dev in physical:
+        torch.cuda.synchronize(dev)
+    verify_s = time.perf_counter() - t0
+    verify_peaks = peaks()
+    launches = read_counts(wraps, tag, absent=(
+        NOT_ON_POSEIDON if poseidon else NOT_ON_DEFAULT))
+    require(ok, f"{tag}: verify rejected the honest proof")
+    data = proof.to_bytes(field)
+    require(data == reference["want"], f"{tag}: the proof differs from the "
+            "single-device proof")
+    warm = warm_walls(torch, lig, vars_, kw)
+    p1, v1 = reference["prove_s"], reference["verify_s"]
+    log(f"{tag}: proof byte-equal to the single-device proof ({len(data)} "
+        f"bytes); prove #1 (A's upload) {prove_s:.3f} s, verify "
+        f"{verify_s:.3f} s; warm prove {warm['prove_s']:.3f} s, verify "
+        f"{warm['verify_s']:.3f} s against one device's {p1:.3f} / {v1:.3f} "
+        f"s ({warm['prove_s'] / p1 - 1:+.1%} / {warm['verify_s'] / v1 - 1:+.1%})")
+    for dev in map(str, physical):
+        log(f"{tag} {dev}: prove peak {prove_peaks[dev] / 2**30:.3f} GiB "
+            f"(mesh estimate {estimate[dev] / 2**30:.3f} GiB), verify peak "
+            f"{verify_peaks[dev] / 2**30:.3f} GiB (estimate "
+            f"{vestimate[dev] / 2**30:.3f} GiB); {others[dev] / 2**30:.3f} GiB "
+            "allocated before; one device's direct_bytes "
+            f"{reference['direct_bytes'] / 2**30:.3f} GiB")
+        require(prove_peaks[dev] <= estimate[dev]
+                and verify_peaks[dev] <= vestimate[dev],
+                f"{tag}: a peak on {dev} lies above the mesh's estimate")
+    for name, secs in sorted(lig.timer.totals.items(), key=lambda kv: -kv[1]):
+        log(f"  {tag} warm {name:22s} {secs * 1e3:10.1f} ms")
+    flip_ok = lig.verify(LigeroProof.from_bytes(flip_byte(data), field),
+                         sponge.clone())
+    bad_vars = [(vars_[0][0], (vars_[0][1] + 1) % field.p)] + vars_[1:]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        bad_ok = lig.verify(lig.prove(bad_vars, sponge.clone(), **kw),
+                            sponge.clone())
+    log(f"{tag}: flipped byte verify={flip_ok}, tampered witness "
+        f"verify={bad_ok} (expect False, False)")
+    require(not flip_ok and not bad_ok, f"{tag}: a flipped or tampered "
+            "proof verified")
+    del lig, be
+    torch.cuda.empty_cache()
+    return {"launches": launches, "devices": [str(d) for d in mesh.devices],
+            "prove_s": prove_s, "verify_s": verify_s,
+            "warm_prove_s": warm["prove_s"], "warm_verify_s": warm["verify_s"],
+            "single_warm_prove_s": reference["prove_s"],
+            "single_warm_verify_s": reference["verify_s"],
+            "prove_peak_gib": {d: v / 2**30 for d, v in prove_peaks.items()},
+            "verify_peak_gib": {d: v / 2**30 for d, v in verify_peaks.items()},
+            "estimate_gib": {d: v / 2**30 for d, v in estimate.items()},
+            "verify_estimate_gib": {d: v / 2**30
+                                    for d, v in vestimate.items()},
+            "single_direct_bytes_gib": reference["direct_bytes"] / 2**30}
 
 
 def phase_streaming_reach(torch, field) -> dict:
@@ -1853,6 +2266,7 @@ def main() -> int:
     from ligero_tpu_torch.engine import cuda_build
 
     field = BN254_FR
+    start = time.perf_counter()
     smi = nvidia_smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
@@ -1889,24 +2303,38 @@ def main() -> int:
     blake2s_stream_cases(torch, field, gen, rows + 3)
     results["poseidon_cols"] = poseidon_cases(torch, field, gen, rows, lig.n,
                                               lig.t)
+    results["poseidon_stream"] = poseidon_stream_entry(torch, field, gen, rows,
+                                                       lig.n)
     kernel_cases_2e22(torch, field, gen, results)
     host_hash_context(lig.n)
     phase_parity()
     by_path = {"plain": phase_main(torch, field, lig, vars_)}
+    ref = single_reference(torch, lig, vars_)
     del lig
     torch.cuda.empty_cache()
+    # the same instance over a mesh of two shards
+    sharded = {"sharded": phase_sharded(torch, field, circ, outs, vars_,
+                                        False, False, 2, ref)}
     lig = build_instance(circ, outs, zk=True)
     require((lig.blind_t, lig.d2) == zk_dims, "zk kernel shapes were not the "
             f"zk path's: {zk_dims} vs {(lig.blind_t, lig.d2)}")
     by_path["zk"] = phase_main(torch, field, lig, vars_)
     del lig
     torch.cuda.empty_cache()
-    # the same circuit committed with the Poseidon params
+    # the same circuit committed with the Poseidon params, then in streaming
+    # mode forced by the budget into STREAM_CHUNK-row chunks
+    streaming = {}
     for zk, path in ((False, "poseidon"), (True, "poseidon zk")):
         lig = build_instance(circ, outs, zk=zk, poseidon=True)
         by_path[path] = phase_main(torch, field, lig, vars_)
+        ref = single_reference(torch, lig, vars_)
         del lig
         torch.cuda.empty_cache()
+        path = path_tag(field, zk, True) + "streaming"
+        streaming[path] = phase_streaming_forced(
+            torch, field, circ, outs, vars_, zk, poseidon=True,
+            chunk_rows=STREAM_CHUNK, reference=ref)
+        by_path[path] = streaming[path]["launches"]
     del circ, outs, vars_
     circ, outs, vars_ = make_circuit(field, BATCH_LOG2_GATES, SEED)
     for zk, path in ((False, "batch"), (True, "zk batch")):
@@ -1918,17 +2346,23 @@ def main() -> int:
         results["row_combine"][f"{path} path"] = row_combine_batch_case(
             torch, field, gen, B, 4 * lig.m, lig.k + (lig.blind_t if zk else 0))
         by_path[path] = phase_batch(torch, field, lig, vars_)
+        ref = single_reference(torch, lig, vars_) if zk else None
         del lig
         torch.cuda.empty_cache()
+    # zk over a mesh of three shards: 4m + 3 rows, the last block padded
+    sharded["zk sharded"] = phase_sharded(torch, field, circ, outs, vars_,
+                                          True, False, 3, ref)
     # the batch path under the Poseidon commitment: one sponge launch for
     # both proofs' columns, one a tree level for both trees
     lig = build_instance(circ, outs, zk=False, poseidon=True)
     by_path["poseidon batch"] = phase_batch(torch, field, lig, vars_,
                                             full=False)
+    ref = single_reference(torch, lig, vars_)
     del lig
     torch.cuda.empty_cache()
+    sharded["poseidon sharded"] = phase_sharded(torch, field, circ, outs,
+                                                vars_, False, True, 2, ref)
     # streaming mode, forced by the budget at this size, plain and zk
-    streaming = {}
     for zk in (False, True):
         path = path_tag(field, zk) + "streaming"
         streaming[path] = phase_streaming_forced(torch, field, circ, outs,
@@ -1959,6 +2393,8 @@ def main() -> int:
     del lig, circ, outs, vars_
     torch.cuda.empty_cache()
     circ, outs, vars_ = make_circuit(bls, BATCH_LOG2_GATES, SEED)
+    sharded["bls sharded"] = phase_sharded(torch, bls, circ, outs, vars_,
+                                           False, False, 2)
     for zk in (False, True):
         path = path_tag(bls, zk) + "streaming"
         streaming[path] = phase_streaming_forced(torch, bls, circ, outs,
@@ -1969,6 +2405,8 @@ def main() -> int:
     streaming[path] = phase_streaming_reach(torch, bls)
     by_path[path] = streaming[path]["launches"]
 
+    for path, res in sharded.items():
+        by_path[path] = res["launches"]
     by_path["serve"] = phase_serve(torch, field)
     by_path["bls serve"] = phase_serve_bls(torch, bls)
     for mod in ("jax", "ligero_tpu"):
@@ -1977,7 +2415,8 @@ def main() -> int:
     extra = ("chain_floor_ms", "batched", "batched_full", "forest", "full_ms",
              "zk_full_ms", "full_bound_ms", "zk_full_bound_ms", "batch path",
              "zk batch path", "2^22", "rows_64", "rows_67", "levels", "lanes",
-             "per_lanes", "verifier", "chain_floor_g1_ms", "sass")
+             "per_lanes", "verifier", "chain_floor_g1_ms", "sass",
+             "whole_column_ms", "short_plain_ms", "shape")
 
     def timings(res: dict) -> dict:
         return {"max_abs_err": res["max_abs_err"], "ms": res["ms"],
@@ -2010,6 +2449,11 @@ def main() -> int:
     record["streaming"] = {path: {key: val for key, val in res.items()
                                   if key != "launches"}
                            for path, res in streaming.items()}
+    record["sharded"] = {path: {key: val for key, val in res.items()
+                                if key != "launches"}
+                         for path, res in sharded.items()}
+    record["total_s"] = time.perf_counter() - start
+    log(f"chip_smoke: every phase passed in {record['total_s']:.1f} s")
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

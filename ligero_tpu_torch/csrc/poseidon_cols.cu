@@ -78,6 +78,19 @@
 // whose first column lies past the last exits; the other lanes past it run
 // along on the last column (every shuffle takes the whole warp) and store
 // nothing.
+//
+// The streaming commit's entry (lt_poseidon_absorb) hashes the same columns
+// when their rows arrive a chunk at a time, as the streaming mode
+// re-encodes them (the JAX package: PoseidonColumns.digests on a
+// StreamedCodewords, ligero_tpu/engine/poseidon_cols.py:208-251): one launch
+// a chunk, each column's three state words kept on the device between
+// launches (96 bytes a column, written canonical), the last chunk's launch
+// writing the digests.  Every chunk but the last has an even number of rows,
+// so the pairs, and the state after each pair's permutation, are the whole
+// column's; the zk height 4m + 3 leaves its odd row to the last chunk.  The
+// two entries share one kernel and its absorb loop (absorb_rows); a chunk
+// adds two 96-byte state transfers a column to a launch whose time is its
+// permutations' chains.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -360,14 +373,49 @@ struct Sponge {
   }
 };
 
+// Rows [0, rows) of one column, from col (its row 0; rows row_stride int32
+// words apart) absorbed into s: add a pair (or the odd tail alone) into the
+// rate, permute, until the rows run out, so that the state is "after the
+// permutation" between calls; rows = 0 is one permutation of s.  Both
+// entries run it: the whole column in one call, or a chunk of its rows a
+// call (an even count but in the column's last chunk, which keeps the pairs
+// of the whole column).  The permutation's code stands once.
+template <int G>
+__device__ __forceinline__ void absorb_rows(const Sponge<G>& sp,
+                                            typename Lanes<G>::E s[3],
+                                            const int32_t* col, long long rows,
+                                            long long row_stride) {
+  using E = typename Lanes<G>::E;
+  constexpr int WG = Lanes<G>::WG;
+  const Lanes<G>& o = sp.o;
+  const E r2 = sp.constant(CONSTS - 1);
+  for (long long i = 0;;) {
+    if (i < rows) {
+      // to Montgomery form (a < R, R^2 mod p < p), into the rate
+      s[1] = o.add(s[1], o.mul(load_part<WG>(col + i * row_stride), r2));
+      if (i + 1 < rows)
+        s[2] = o.add(s[2],
+                     o.mul(load_part<WG>(col + (i + 1) * row_stride), r2));
+    }
+    i += 2;
+    sp.permute(s);
+    if (i >= rows) break;
+  }
+}
+
 // at least G blocks an SM: 512 / G registers a thread at most, so that a
-// 16384-column launch at G lanes (128 G blocks) is resident in one wave
+// 16384-column launch at G lanes (128 G blocks) is resident in one wave.
+// state: null for the whole-column entry (each column's sponge starts at
+// zero and ends in its digest); else the chunked entry's (total, 3, W) words,
+// Montgomery form below p, column c's element i at state + (3 c + i) W: read
+// unless first (zero then), written unless last (the digest then).
 template <int G>
 __global__ void __launch_bounds__(THREADS, G)
 poseidon_cols_kernel(const uint32_t* __restrict__ constants,
                      const int32_t* __restrict__ u, long long rows,
                      long long n, long long total, long long row_stride,
                      long long col_stride, long long batch_stride,
+                     uint32_t* state, int first, int last,
                      int32_t* __restrict__ out) {
   using Ops = Lanes<G>;
   using E = typename Ops::E;
@@ -384,23 +432,28 @@ poseidon_cols_kernel(const uint32_t* __restrict__ constants,
   const Sponge<G> sp{o, consts};
   const int32_t* col = u + (c / n) * batch_stride + (c % n) * col_stride +
                        2 * WG * o.lig;
-  const E r2 = sp.constant(CONSTS - 1);
+  uint32_t* mine = state + c * 3 * W + o.lig * WG;  // (used where non-null)
   E s[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) s[i] = fe_zero<WG>();
-  // absorb a pair (or the odd tail alone), permute, until the rows run out:
-  // the permutation's code once
-  for (long long i = 0;;) {
-    if (i < rows) {
-      // to Montgomery form (a < R, R^2 mod p < p), into the rate
-      s[1] = o.add(s[1], o.mul(load_part<WG>(col + i * row_stride), r2));
-      if (i + 1 < rows)
-        s[2] = o.add(s[2],
-                     o.mul(load_part<WG>(col + (i + 1) * row_stride), r2));
+  for (int i = 0; i < 3; ++i) {
+    s[i] = fe_zero<WG>();
+    if (!first) {
+#pragma unroll
+      for (int j = 0; j < WG; ++j) s[i].w[j] = mine[i * W + j];
     }
-    i += 2;
-    sp.permute(s);
-    if (i >= rows) break;
+  }
+  absorb_rows<G>(sp, s, col, rows, row_stride);
+  if (!last) {
+    // canonical (below p), so the words equal the plain version's
+    if (tid / G < total) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const E v = o.canonical(s[i]);
+#pragma unroll
+        for (int j = 0; j < WG; ++j) mine[i * W + j] = v.w[j];
+      }
+    }
+    return;
   }
   E one = fe_zero<WG>();
   if (o.lig == 0) one.w[0] = 1u;
@@ -411,15 +464,39 @@ poseidon_cols_kernel(const uint32_t* __restrict__ constants,
 template <int G>
 cudaError_t launch(const void* constants, const void* u, long long rows,
                    long long n, long long total, long long row_stride,
-                   long long col_stride, long long batch_stride, void* out,
-                   cudaStream_t st) {
+                   long long col_stride, long long batch_stride, void* state,
+                   int first, int last, void* out, cudaStream_t st) {
   const long long blocks = (total * G + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (blocks > 0)
     poseidon_cols_kernel<G><<<(unsigned)blocks, THREADS, 0, st>>>(
         (const uint32_t*)constants, (const int32_t*)u, rows, n, total,
-        row_stride, col_stride, batch_stride, (int32_t*)out);
+        row_stride, col_stride, batch_stride, (uint32_t*)state, first, last,
+        (int32_t*)out);
   return cudaGetLastError();
+}
+
+cudaError_t launch_lanes(int lanes, const void* constants, const void* u,
+                         long long rows, long long n, long long total,
+                         long long row_stride, long long col_stride,
+                         long long batch_stride, void* state, int first,
+                         int last, void* out, cudaStream_t st) {
+  switch (lanes) {
+    case 1:
+      return launch<1>(constants, u, rows, n, total, row_stride, col_stride,
+                       batch_stride, state, first, last, out, st);
+    case 2:
+      return launch<2>(constants, u, rows, n, total, row_stride, col_stride,
+                       batch_stride, state, first, last, out, st);
+    case 4:
+      return launch<4>(constants, u, rows, n, total, row_stride, col_stride,
+                       batch_stride, state, first, last, out, st);
+    case 8:
+      return launch<8>(constants, u, rows, n, total, row_stride, col_stride,
+                       batch_stride, state, first, last, out, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -434,25 +511,31 @@ extern "C" int lt_poseidon_cols(const void* constants, const void* u,
                                 long long row_stride, long long col_stride,
                                 long long batch_stride, int lanes, void* out,
                                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   if (rows < 0 || n < 0 || batch < 1 || (row_stride & 3) ||
       (col_stride & 3) || (batch_stride & 3) || n > (1LL << 40) / batch)
     return (int)cudaErrorInvalidValue;
-  const long long total = n * batch;
-  switch (lanes) {
-    case 1:
-      return (int)launch<1>(constants, u, rows, n, total, row_stride,
-                            col_stride, batch_stride, out, st);
-    case 2:
-      return (int)launch<2>(constants, u, rows, n, total, row_stride,
-                            col_stride, batch_stride, out, st);
-    case 4:
-      return (int)launch<4>(constants, u, rows, n, total, row_stride,
-                            col_stride, batch_stride, out, st);
-    case 8:
-      return (int)launch<8>(constants, u, rows, n, total, row_stride,
-                            col_stride, batch_stride, out, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_lanes(lanes, constants, u, rows, n, n * batch,
+                           row_stride, col_stride, batch_stride, nullptr, 1,
+                           1, out, (cudaStream_t)stream);
+}
+
+// The streaming commit's entry: rows [0, rows) of one canonical (>= rows, n)
+// chunk (element (r, j) at u + r row_stride + j col_stride int32 words)
+// absorbed into the n columns' sponge states (n, 3, 8) uint32 words:
+// zero-started where first, the digests written to out (n, L) int32 where
+// last, else the states updated in place.  A chunk that is not the column's
+// last has an even, non-zero number of rows, so the pairs of the whole
+// column are kept; rows > 0.
+extern "C" int lt_poseidon_absorb(const void* constants, const void* u,
+                                  long long rows, long long n,
+                                  long long row_stride, long long col_stride,
+                                  void* state, int first, int last, int lanes,
+                                  void* out, void* stream) {
+  if (rows < 1 || (!last && (rows & 1)) || n < 0 || n > (1LL << 40) ||
+      (row_stride & 3) || (col_stride & 3) || state == nullptr ||
+      (last && out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_lanes(lanes, constants, u, rows, n, n, row_stride,
+                           col_stride, 0, state, first, last, out,
+                           (cudaStream_t)stream);
 }

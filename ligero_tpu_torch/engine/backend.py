@@ -17,7 +17,8 @@ the live-set estimates before any allocation.  In "direct" mode the whole
 codeword matrix U is one device tensor (:meth:`TorchBackend.direct_bytes`).
 In "streaming" mode, where that does not fit, U is never held: only its
 coefficient rows stay on the device, in row chunks (``devmatrix``); the
-commit re-encodes a chunk at a time into per-column Blake2s states, the
+commit re-encodes a chunk at a time into per-column Blake2s (or, under the
+Poseidon commitment, sponge) states, the
 openings re-encode chunks to gather the opened columns, and the linear
 phase's challenges, sparse product and products run in blocks aligned with
 the chunks (:meth:`TorchBackend.streaming_bytes`).  The bulk steps take a
@@ -26,7 +27,10 @@ neither mode raises :class:`DeviceMemoryError`.
 
 The ``*_batch`` methods serve ``LigeroCircuit.prove_batch`` and
 ``verify_batch``: B proofs of one circuit share one launch per bulk step
-(:meth:`TorchBackend.max_batch` says how many go together).
+(:meth:`TorchBackend.max_batch` says how many go together).  The core
+reaches the committed matrices only through the backend (``upload_messages``,
+``rs_encode_batch``, ``zk_blind_batch``, ``row_matrix``, ``column_blocks``),
+so that ``parallel.ShardedBackend`` can hold them in row blocks over a mesh.
 """
 
 from __future__ import annotations
@@ -89,6 +93,10 @@ def resolve_device(device) -> torch.device:
 
 class TorchBackend:
     """Bulk limb arithmetic for one field on one device."""
+
+    #: the device mesh the bulk steps shard over: none here
+    #: (``parallel.ShardedBackend`` has one)
+    mesh = None
 
     def __init__(self, field: FieldSpec, device=None):
         self.field = field
@@ -273,10 +281,12 @@ class TorchBackend:
     # memory budget (streaming mode)
     # ------------------------------------------------------------------
     def _stream_parts(self, rows: int, k: int, n: int, nnz: int,
-                      blind_t: int, d2: int, chunk_rows: int) -> dict:
+                      blind_t: int, d2: int, chunk_rows: int,
+                      poseidon: bool = False) -> dict:
         """The streaming live set's pieces, in bytes, for ``rows``
         committed rows (4m, or 4m + 3 under zk) in chunks of ``chunk_rows``
-        (see :meth:`streaming_bytes`)."""
+        (see :meth:`streaming_bytes`); ``poseidon``: the commit's sponge
+        states (3 W words a column) and digests beside the re-encode."""
         E = self.L * 4                              # bytes of an element
         cr, b = chunk_rows, blind_t
         data = rows - 3 if b else rows              # 4m
@@ -284,6 +294,7 @@ class TorchBackend:
         seg = cr * k                                # attempts a segment
         bc = cr * k                                 # columns a sparse block
         scratch = functools.partial(cuda_ntt.scratch_bytes, self.field)
+        sponge = n * (3 * (self.L // 2) * 4 + E) if poseidon else 0
         return {
             "coo": nnz * (E + 16),
             "coeffs": padded * (k + b) * E + (3 * d2 * E if b else 0),
@@ -298,9 +309,10 @@ class TorchBackend:
             "encode": 5 * cr * k * E // 2 + scratch(cr, k, k) + (
                 3 * cr * b * E + self._segment_bytes(seg) if b else 0),
             # one chunk's n-wide transform and its opened columns (3t of
-            # them: fewer than 512 at any security level the port runs)
+            # them: fewer than 512 at any security level the port runs);
+            # under Poseidon the column sponges' states and digests
             "reencode": cr * n * E + scratch(cr, k + b, n)
-            + cr * min(n, 512) * E,
+            + cr * min(n, 512) * E + sponge,
             "sampler": self._segment_bytes(seg),
             # a block's int64 sums beside a sub-batch of bc entries
             # (gathered r, products in int32 and int64, column ids), the
@@ -324,7 +336,8 @@ class TorchBackend:
 
     def streaming_bytes(self, rows: int, k: int, n: int, nnz: int,
                         blind_t: int = 0, d2: int | None = None,
-                        chunk_rows: int = STREAM_MAX_CHUNK_ROWS) -> int:
+                        chunk_rows: int = STREAM_MAX_CHUNK_ROWS,
+                        poseidon: bool = False) -> int:
         """Estimate of the streaming prover's largest live set for one
         proof: A's COO (sorted by column), the coefficient chunks (k + b
         wide, and the three d2-wide mask rows under zk) and, beside them,
@@ -334,9 +347,11 @@ class TorchBackend:
         beside one sampler segment or one column block of the sparse
         product and its fold; the linear product's chunk pair on the d2
         domain with the r^T A chunks; or a block of the quadratic
-        product."""
+        product.  ``poseidon``: the commit is the Poseidon sponge's, whose
+        per-column states and digests stand beside a chunk's re-encode."""
         d2 = 2 * k if d2 is None else d2
-        p = self._stream_parts(rows, k, n, nnz, blind_t, d2, chunk_rows)
+        p = self._stream_parts(rows, k, n, nnz, blind_t, d2, chunk_rows,
+                               poseidon)
         linear = p["r"] + max(p["sampler"], p["r_coeffs"] + p["block"])
         return int((p["coo"] + p["coeffs"] + max(
             p["upload"], p["encode"], p["reencode"], linear,
@@ -355,7 +370,8 @@ class TorchBackend:
             p["reencode"])) * ESTIMATE_MARGIN)
 
     def stream_chunk_rows(self, rows: int, k: int, n: int, nnz: int,
-                          blind_t: int = 0, d2: int | None = None) -> int:
+                          blind_t: int = 0, d2: int | None = None,
+                          poseidon: bool = False) -> int:
         """The largest chunk, a multiple of :data:`STREAM_ROW_QUANTUM` rows
         and at most :data:`STREAM_MAX_CHUNK_ROWS` (or the rows rounded up),
         whose :meth:`streaming_bytes` fits the device; 0 where none does."""
@@ -364,27 +380,29 @@ class TorchBackend:
         top = min(STREAM_MAX_CHUNK_ROWS, -(-data // q) * q)
         budget = self.memory_budget()
         for cr in range(top, 0, -q):
-            need = self.streaming_bytes(rows, k, n, nnz, blind_t, d2, cr)
+            need = self.streaming_bytes(rows, k, n, nnz, blind_t, d2, cr,
+                                        poseidon)
             if need <= budget:
                 return cr
         return 0
 
     def encode_mode(self, rows: int, k: int, n: int, nnz: int,
-                    blind_t: int = 0,
-                    d2: int | None = None) -> tuple[str, int]:
+                    blind_t: int = 0, d2: int | None = None,
+                    poseidon: bool = False) -> tuple[str, int]:
         """``("direct", 0)`` where :meth:`direct_bytes` fits the device,
         else ``("streaming", chunk rows)`` where a chunking fits
-        (:meth:`stream_chunk_rows`); raises :class:`DeviceMemoryError`,
-        naming both estimates, where neither fits."""
+        (:meth:`stream_chunk_rows`; ``poseidon``: under the Poseidon
+        commitment); raises :class:`DeviceMemoryError`, naming both
+        estimates, where neither fits."""
         direct = self.direct_bytes(rows, k, n, nnz, blind_t, d2)
         budget = self.memory_budget()
         if direct <= budget:
             return "direct", 0
-        cr = self.stream_chunk_rows(rows, k, n, nnz, blind_t, d2)
+        cr = self.stream_chunk_rows(rows, k, n, nnz, blind_t, d2, poseidon)
         if cr:
             return "streaming", cr
         least = self.streaming_bytes(rows, k, n, nnz, blind_t, d2,
-                                     STREAM_ROW_QUANTUM)
+                                     STREAM_ROW_QUANTUM, poseidon)
         raise DeviceMemoryError(
             f"instance needs ~{direct / 2**30:.1f} GiB on {self.device} in "
             f"direct mode and ~{least / 2**30:.1f} GiB in streaming mode at "
@@ -444,6 +462,50 @@ class TorchBackend:
         rows[:rows4, :k + b] = coeffs
         rows[rows4:] = self.asarray(mask3)
         return coeffs, rows
+
+    # ------------------------------------------------------------------
+    # direct mode: the committed matrices of B proofs
+    # ------------------------------------------------------------------
+    def upload_messages(self, preenc: list) -> torch.Tensor:
+        """B host (4m, k, L) message matrices -> (B, 4m, k, L) on the
+        device."""
+        if len(preenc) == 1:
+            return self.asarray(preenc[0])[None]
+        return torch.stack([self.asarray(a) for a in preenc])
+
+    def rs_encode_batch(self, msgs, k: int, n: int):
+        """(B, 4m, k, L) message rows -> ``(coeffs (B, 4m, k, L), canonical
+        codewords (B 4m, n, L))``: every proof's rows in one encode."""
+        B, rows = msgs.shape[:2]
+        coeffs, u_canon = self.rs_encode_and_canon(
+            msgs.reshape(B * rows, k, -1), k, n)
+        return coeffs.reshape(B, rows, k, -1), u_canon
+
+    def zk_blind_batch(self, msgs, rows_seeds: list, blind_t: int, d2: int,
+                       mask3s: list):
+        """:meth:`zk_blind_rows` of each proof of (B, 4m, k, L) message
+        rows -> ``(coeffs (B, 4m, k + b, L), rows (B (4m + 3), d2, L))``."""
+        blinded = [self.zk_blind_rows(msgs[i], rows_seeds[i], blind_t, d2,
+                                      mask3s[i]) for i in range(len(mask3s))]
+        if len(blinded) == 1:
+            return blinded[0][0][None], blinded[0][1]
+        coeffs = torch.stack([c for c, _ in blinded])
+        rows = torch.cat([r for _, r in blinded])
+        return coeffs, rows
+
+    def row_matrix(self, a):
+        """A (rows, w, L) matrix the bulk steps take as a whole (the r^T A
+        coefficient rows): the tensor on the device here; row blocks over
+        the mesh in ``parallel.ShardedBackend``."""
+        return self.asarray(a)
+
+    def column_blocks(self, u_canon, batch: int = 1):
+        """The columns of ``batch`` stacked (rows, n, L) matrices for a
+        column hash, as (batch, rows, n_i, L) blocks in column order: here
+        the whole matrices, one block; over a mesh one block a device
+        (``parallel.ShardedBackend``)."""
+        u = self.asarray(u_canon)
+        yield u.reshape(batch, u.shape[0] // batch, *u.shape[1:])
 
     def _rows_up(self, preenc, r0: int, r1: int) -> torch.Tensor:
         """Host message rows [r0, r1) as int32 limbs on the device: 16-bit
@@ -531,8 +593,9 @@ class TorchBackend:
     def commit_columns_batch(self, u_canon, batch: int):
         """(batch * rows, n, L) canonical limbs, the proofs' matrices
         stacked -> per-proof ``(leaves, inner_levels)``: one Blake2s launch
-        over all batch * n columns, one tree launch per proof on one
-        stream, one transfer of the flat trees, host unpacking.  A
+        a column block (:meth:`column_blocks`: here all batch * n columns
+        at once, over a mesh one block a device), one tree launch per proof
+        on one stream, one transfer of the flat trees, host unpacking.  A
         :class:`StreamedCodewords` (one proof) takes
         :meth:`commit_columns_streaming`."""
         if isinstance(u_canon, StreamedCodewords):
@@ -540,9 +603,12 @@ class TorchBackend:
                 raise ValueError("streaming mode commits one proof at a time")
             return [self.commit_columns_streaming(u_canon)]
         n = u_canon.shape[1]
-        leaves_le = cuda_hash.blake2s_columns(self.field, u_canon, batch)
-        flat = self.to_numpy(cuda_tree.forest_flat(
-            leaves_le.reshape(batch, n, 8)))
+        leaves_le = torch.cat([
+            cuda_hash.blake2s_columns(
+                self.field, block.reshape(-1, *block.shape[2:]), batch)
+            .reshape(batch, -1, 8).to(self.device)
+            for block in self.column_blocks(u_canon, batch)], dim=1)
+        flat = self.to_numpy(cuda_tree.forest_flat(leaves_le))
         return [hashops.digest_lists(flat[b], n) for b in range(batch)]
 
     def commit_columns_streaming(self, sc: StreamedCodewords):

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "lt_sha256_chain_probe": [_vp, _i, _vp],
     "lt_poseidon_cols": [_vp, _vp, _ll, _ll, _ll, _ll, _ll, _ll, _i, _vp,
                          _vp],
+    "lt_poseidon_absorb": [_vp, _vp, _ll, _ll, _ll, _ll, _vp, _i, _i, _i, _vp,
+                           _vp],
 }
 
 _lock = threading.Lock()

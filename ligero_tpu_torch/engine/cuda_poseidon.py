@@ -16,8 +16,18 @@ lane where the columns fill the card, eight where they leave it idle.  One
 launch takes B stacked matrices (a batch's commitments, or a tree level of
 B trees).
 
+The chunked entry (:func:`poseidon_absorb`, :class:`PoseidonColumnStream`,
+the counterpart of the JAX package's ``PoseidonColumns.digests`` on a
+``StreamedCodewords``) hashes the same columns when their rows arrive chunk
+by chunk, as the streaming commit re-encodes them: one launch a chunk,
+each column's (3, 8) state words kept on the device between launches, the
+last chunk's launch writing the digests.  Its digests equal
+:func:`poseidon_columns`'s for every chunking whose chunks but the last
+have even row counts.
+
 A tensor on the CPU takes the plain version
-(:func:`poseidon_cols.poseidon_columns_plain`); a CUDA tensor launches the
+(:func:`poseidon_cols.poseidon_columns_plain`,
+:func:`poseidon_cols.poseidon_absorb_plain`); a CUDA tensor launches the
 kernel or raises.
 """
 
@@ -31,6 +41,8 @@ from . import cuda_build, poseidon_cols
 
 #: kernel launches by :func:`poseidon_columns`
 launches = cuda_build.LaunchCounter()
+#: launches of the chunked entry, by :func:`poseidon_absorb`
+stream_launches = cuda_build.LaunchCounter()
 
 #: the lane counts the kernel is compiled for
 LANES = (1, 2, 4, 8)
@@ -110,3 +122,91 @@ def poseidon_columns(field: FieldSpec, cfg, u: torch.Tensor,
             cuda_build.stream_handle(u.device)), "lt_poseidon_cols")
     launches.add()
     return out if u.dim() == 4 else out[0]
+
+
+def poseidon_absorb(field: FieldSpec, cfg, chunk: torch.Tensor, rows: int,
+                    state: torch.Tensor, first: bool, last: bool,
+                    lanes: int | None = None) -> torch.Tensor:
+    """Rows [0, ``rows``) of a (>= rows, n, L) canonical chunk absorbed into
+    the (n, 3, 8) int32 sponge states
+    (:func:`poseidon_cols.poseidon_stream_start`; taken as zero where
+    ``first``).  Returns the new states (on CUDA: ``state``, updated in
+    place), or where ``last`` the (n, L) canonical digests.  A chunk that
+    is not a column's last has an even, non-zero number of rows (an odd one
+    raises: the pairs would shift).  One launch at ``lanes`` lanes a column
+    (default :func:`lanes_for` of n); the plain version on a CPU tensor."""
+    L = field.num_limbs
+    if (chunk.dim() != 3 or chunk.shape[-1] != L
+            or not 0 < rows <= chunk.shape[0]):
+        raise ValueError(f"poseidon_absorb: bad chunk {tuple(chunk.shape)} "
+                         f"for {rows} {field.name} rows")
+    n = chunk.shape[1]
+    if state.shape != (n, 3, L // 2) or state.dtype != torch.int32:
+        raise ValueError(f"poseidon_absorb: states {tuple(state.shape)} "
+                         f"{state.dtype} for {n} columns")
+    if not last and rows % 2:
+        raise ValueError(f"poseidon_absorb: an odd chunk of {rows} rows "
+                         "before a column's last chunk would shift its pairs")
+    if chunk.device.type == "cpu":
+        return poseidon_cols.poseidon_absorb_plain(field, cfg, chunk, rows,
+                                                   state, first, last)
+    poseidon_cols.check_config(field, cfg)
+    if (field.name, field.p) != (BN254_FR.name, BN254_FR.p):
+        raise NotImplementedError(
+            f"poseidon_absorb: the CUDA kernel is built for {BN254_FR.name} "
+            f"only, not {field.name}")
+    lanes = lanes_for(n) if lanes is None else lanes
+    if lanes not in LANES:
+        raise ValueError(f"poseidon_absorb: {lanes} lanes a column; the "
+                         f"kernel is built for {LANES}")
+    chunk = chunk.contiguous()
+    cuda_build.require_cuda_tensors("poseidon_absorb", chunk, state)
+    out = (torch.empty((n, L), dtype=torch.int32, device=chunk.device)
+           if last else None)
+    consts = kernel_constants(field, cfg, chunk.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(chunk.device):
+        cuda_build.check(lib.lt_poseidon_absorb(
+            consts.data_ptr(), chunk.data_ptr(), rows, n, chunk.stride(0),
+            chunk.stride(1), state.data_ptr(), int(first), int(last), lanes,
+            None if out is None else out.data_ptr(),
+            cuda_build.stream_handle(chunk.device)), "lt_poseidon_absorb")
+    stream_launches.add()
+    return state if out is None else out
+
+
+class PoseidonColumnStream:
+    """The Poseidon digests of n columns of ``total_rows`` rows, absorbed
+    chunk by chunk in row order (:func:`poseidon_absorb`); the chunk that
+    brings the count to ``total_rows`` writes the digests, after which
+    :meth:`digests` gives the (n, L) canonical limbs
+    :func:`poseidon_columns` gives for the whole matrix."""
+
+    def __init__(self, field: FieldSpec, cfg, n: int, total_rows: int,
+                 device):
+        if total_rows < 1:
+            raise ValueError("PoseidonColumnStream: no rows")
+        self.field, self.cfg = field, cfg
+        self.total_rows, self.done = total_rows, 0
+        self.state = poseidon_cols.poseidon_stream_start(field, n, device)
+        self.out = None
+
+    def absorb(self, chunk: torch.Tensor, rows: int) -> None:
+        """The next ``rows`` rows: rows [0, rows) of ``chunk``."""
+        if self.done + rows > self.total_rows:
+            raise ValueError(f"PoseidonColumnStream: {self.done} + {rows} "
+                             f"rows exceed {self.total_rows}")
+        last = self.done + rows == self.total_rows
+        res = poseidon_absorb(self.field, self.cfg, chunk, rows, self.state,
+                              self.done == 0, last)
+        if last:
+            self.out, self.state = res, None
+        else:
+            self.state = res
+        self.done += rows
+
+    def digests(self) -> torch.Tensor:
+        if self.done != self.total_rows:
+            raise ValueError(f"PoseidonColumnStream: {self.done} of "
+                             f"{self.total_rows} rows absorbed")
+        return self.out

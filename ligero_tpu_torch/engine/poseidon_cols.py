@@ -26,6 +26,13 @@ one call over a (2, w/2, L) view of the level below (:func:`tree_levels`).
 Every call takes B matrices at once, (B, rows, N, L): a batch's B
 commitments, or one level of B trees, go in one launch.
 
+The streaming commit absorbs the columns a chunk of rows at a time
+(:func:`poseidon_absorb_plain` and the kernel's chunked entry, through
+``cuda_poseidon.PoseidonColumnStream``): every pair is add-then-permute,
+so the state between chunks of even heights is the state after a
+permutation, (n, 3, W) words a column set, and the chunk that ends the
+column writes the digests.
+
 :func:`poseidon_columns` is what the commitment calls: on a CUDA tensor the
 hand-written sponge kernel (``cuda_poseidon``), on a CPU tensor the plain
 version (:func:`poseidon_columns_plain`), nothing else.  Digests are 32-byte
@@ -99,6 +106,27 @@ def _permute(field: FieldSpec, ark: torch.Tensor, state: torch.Tensor):
     return state
 
 
+def _absorb(field: FieldSpec, ark: torch.Tensor, state: torch.Tensor,
+            u: torch.Tensor, rows: int) -> torch.Tensor:
+    """Rows [0, ``rows``) of ``u`` (>= rows, N, L) canonical limbs absorbed
+    into a (3, N, L) Montgomery state: add a pair (or the odd tail alone,
+    rate slot 0 only) into the rate, permute, until the rows run out
+    (``rows`` = 0: one permutation).  The kernel's ``absorb_rows``."""
+    mul = fieldops.mont_mul_vec
+    for i in range(0, max(rows, 1), 2):
+        elems = fieldops.to_mont(field, u[i:min(i + 2, rows)], mul=mul)
+        if len(elems):
+            rate = fieldops.add_vec(field, state[1:1 + len(elems)], elems)
+            state = torch.cat([state[:1], rate, state[1 + len(elems):]])
+        state = _permute(field, ark, state)
+    return state
+
+
+def _ark(field: FieldSpec, cfg, device) -> torch.Tensor:
+    return torch.from_numpy(round_constants(field, cfg).astype(np.int32)).to(
+        device)
+
+
 def poseidon_columns_plain(field: FieldSpec, cfg, u: torch.Tensor) -> torch.Tensor:
     """Plain version: the digests of the N columns of ``u`` (rows, N, L),
     canonical int32 limbs (any strides), as (N, L) int32 canonical limbs,
@@ -112,23 +140,57 @@ def poseidon_columns_plain(field: FieldSpec, cfg, u: torch.Tensor) -> torch.Tens
         side = u.permute(1, 0, 2, 3).reshape(rows, batch * n, L)
         return poseidon_columns_plain(field, cfg, side).reshape(batch, n, L)
     rows, n, L = u.shape
-    mul = fieldops.mont_mul_vec
-    ark = torch.from_numpy(round_constants(field, cfg).astype(np.int32)).to(
-        u.device)
     # thousands of small tensor ops: inference mode trims each one's
     # dispatch; the result leaves it as an ordinary tensor (the clone)
     with torch.inference_mode():
         state = torch.zeros((3, n, L), dtype=torch.int32, device=u.device)
-        for i in range(0, rows, 2):
-            if i:
-                state = _permute(field, ark, state)
-            # one pair, or the odd tail alone (rate slot 0 only)
-            elems = fieldops.to_mont(field, u[i:i + 2], mul=mul)
-            rate = fieldops.add_vec(field, state[1:1 + len(elems)], elems)
-            state = torch.cat([state[:1], rate, state[1 + len(elems):]])
-        state = _permute(field, ark, state)
-        digests = fieldops.from_mont(field, state[1], mul=mul)
+        state = _absorb(field, _ark(field, cfg, u.device), state, u, rows)
+        digests = fieldops.from_mont(field, state[1], mul=fieldops.mont_mul_vec)
     return digests.clone()
+
+
+def poseidon_stream_start(field: FieldSpec, n: int, device) -> torch.Tensor:
+    """The (n, 3, W) int32 sponge states of n columns before their first
+    row (zeros): W = L / 2 32-bit words an element, the layout of the
+    chunked kernel entry."""
+    return torch.zeros((n, 3, field.num_limbs // 2), dtype=torch.int32,
+                       device=device)
+
+
+def _limbs_to_words(limbs: torch.Tensor) -> torch.Tensor:
+    """(..., L) 16-bit limbs -> (..., L / 2) int32 words (bit patterns)."""
+    w = limbs[..., 0::2].to(torch.int64) | (limbs[..., 1::2].to(torch.int64)
+                                            << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def _words_to_limbs(words: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_limbs_to_words`."""
+    lo, hi = words & 0xFFFF, (words >> 16) & 0xFFFF
+    return torch.stack([lo, hi], dim=-1).reshape(*words.shape[:-1], -1)
+
+
+def poseidon_absorb_plain(field: FieldSpec, cfg, chunk: torch.Tensor,
+                          rows: int, state: torch.Tensor, first: bool,
+                          last: bool) -> torch.Tensor:
+    """Plain version of the chunked entry: rows [0, ``rows``) of a (>= rows,
+    n, L) canonical chunk absorbed into the (n, 3, W) states
+    (:func:`poseidon_stream_start`; zero where ``first``), a pair and a
+    permutation at a time; returns the new states (canonical Montgomery
+    words), or where ``last`` the (n, L) canonical digests.  Chunk after
+    chunk, the digests of :func:`poseidon_columns_plain` on the whole
+    column, where every chunk but the last has an even row count."""
+    check_config(field, cfg)
+    with torch.inference_mode():
+        st = (torch.zeros((3,) + tuple(chunk.shape[1:]), dtype=torch.int32,
+                          device=chunk.device) if first
+              else _words_to_limbs(state.permute(1, 0, 2)))
+        st = _absorb(field, _ark(field, cfg, chunk.device), st, chunk, rows)
+        if last:
+            out = fieldops.from_mont(field, st[1], mul=fieldops.mont_mul_vec)
+        else:
+            out = _limbs_to_words(st).permute(1, 0, 2).contiguous()
+    return out.clone()
 
 
 def poseidon_columns(field: FieldSpec, cfg, u: torch.Tensor) -> torch.Tensor:

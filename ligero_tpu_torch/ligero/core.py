@@ -6,9 +6,13 @@ backend's live-set estimates (``encode_mode``): "direct", where the whole
 codeword matrix U lives on ``device`` as one tensor, or "streaming", where
 it does not fit: U is never held, only its coefficient rows in row chunks
 (``engine/devmatrix.py``), re-encoded a chunk at a time for the commit and
-the openings, and the linear phase runs in column blocks aligned with the
-chunks.  Streaming proofs are byte-identical to direct ones.  The
-commitment is pluggable
+the openings (the commit absorbs each re-encoded chunk into per-column
+Blake2s or Poseidon states), and the linear phase runs in column blocks
+aligned with the chunks.  Streaming proofs are byte-identical to direct
+ones.  Over a mesh of devices (``backend=parallel.ShardedBackend(field,
+mesh)``, direct mode) the bulk steps run row-sharded; the core passes the
+backend's row blocks on without opening them.  The commitment is
+pluggable
 (``mt_params``, ``ligero/types.py``): the default Blake2s column leaves and
 SHA-256 Merkle tree, or the Poseidon column sponges and Poseidon tree of
 ``LigeroMTPoseidonParams``, each computed on the device.  The host keeps
@@ -117,28 +121,45 @@ class LigeroCircuit:
     ``device_tree_levels`` and ``check_backend`` (``LigeroMTPoseidonParams``;
     over BLS12-377 Fq it raises ``ValueError`` here).  ``encode_mode`` is
     "direct" or "streaming" (``chunk_rows`` rows a chunk), from the
-    device's memory; an instance that fits neither, or a non-default
-    commitment past direct mode, raises ``DeviceMemoryError``."""
+    device's memory (under either commitment); an instance that fits
+    neither raises ``DeviceMemoryError``.
+
+    ``backend`` takes the place of ``device``: a :class:`TorchBackend` of
+    the circuit's field, such as ``parallel.ShardedBackend(field, mesh)``,
+    whose bulk steps run row-sharded over a mesh of devices (proofs
+    byte-identical to one device's; direct mode only, one proof a call:
+    ``prove_batch`` and ``verify_batch`` raise ``NotImplementedError``
+    there).  Giving both raises ``ValueError``."""
 
     def __init__(self, circuit, outputs: list[int],
                  lambda_: int = DEFAULT_SECURITY_LEVEL, rate_inv: int = 8,
                  zk: bool = False, device=None, timer: PhaseTimer | None = None,
-                 mt_params=None):
+                 mt_params=None, backend: TorchBackend | None = None):
         self._setup(compile_circuit(circuit, outputs, lambda_, rate_inv, zk),
-                    device, timer, mt_params)
+                    device, timer, mt_params, backend)
 
     @classmethod
     def from_compiled(cls, state: CompiledInstance, device=None,
                       timer: PhaseTimer | None = None,
-                      mt_params=None) -> "LigeroCircuit":
+                      mt_params=None,
+                      backend: TorchBackend | None = None) -> "LigeroCircuit":
         obj = cls.__new__(cls)
-        obj._setup(state, device, timer, mt_params)
+        obj._setup(state, device, timer, mt_params, backend)
         return obj
 
-    def _setup(self, st: CompiledInstance, device, timer, mt_params) -> None:
+    def _setup(self, st: CompiledInstance, device, timer, mt_params,
+               backend) -> None:
         self.state = st
         self.field = st.field
-        self.backend = TorchBackend(st.field, device)
+        if backend is None:
+            backend = TorchBackend(st.field, device)
+        elif device is not None:
+            raise ValueError("LigeroCircuit: give a device or a backend, "
+                             "not both")
+        elif backend.field.p != st.field.p:
+            raise ValueError(f"a {backend.field.name} backend for a "
+                             f"{st.field.name} circuit")
+        self.backend = backend
         self.device = self.backend.device
         self.timer = timer or PhaseTimer()
         self.mt_params = LigeroMTTestParams() if mt_params is None else mt_params
@@ -158,13 +179,7 @@ class LigeroCircuit:
         self.lin_bound, self.quad_bound = st.lin_bound, st.quad_bound
         self.encode_mode, self.chunk_rows = self.backend.encode_mode(
             self.num_rows, self.k, self.n, len(st.a_vals), self.blind_t,
-            self.d2)
-        if self.encode_mode == "streaming" and not self._mt_default:
-            raise DeviceMemoryError(
-                "the instance needs streaming mode, which commits with the "
-                "default Blake2s/SHA-256 params only: the Poseidon sponge "
-                "under streaming (its state across row chunks) is not "
-                "ported yet")
+            self.d2, poseidon=not self._mt_default)
         self._witness = WitnessEvaluator(st)
         self._coo = None
 
@@ -190,6 +205,7 @@ class LigeroCircuit:
         A batch larger than ``TorchBackend.max_batch`` allows is proved in
         parts; where not even two proofs fit the device together, one at a
         time."""
+        self._check_batches("prove_batch")
         if not assignments:
             return []
         if not self.zk:
@@ -208,6 +224,14 @@ class LigeroCircuit:
             out.extend(self._prove_many(group, [sponge.clone() for _ in group],
                                         zk_seeds[i:i + part]))
         return out
+
+    def _check_batches(self, name: str) -> None:
+        """Batches are not ported over a mesh: raise there."""
+        if self.backend.mesh is not None:
+            raise NotImplementedError(
+                f"{name} over a mesh (ShardedBackend) is not ported yet: "
+                "ROADMAP.md queue 1, the mesh's batches; call "
+                f"{name.split('_')[0]} per proof")
 
     def _max_batch(self) -> int:
         """Proofs of this instance that go through the device together."""
@@ -316,11 +340,12 @@ class LigeroCircuit:
         u_canon)``, the coefficient rows each proof's products take (index
         i: proof i), the rows its interleaved combination takes, and the
         canonical codewords the commit and the openings take.  Direct mode:
-        tensors of all B proofs.  Streaming mode (one proof; its message
-        rows stay on the host): the coefficient chunks, the message rows as
-        their coefficients (zk: the coefficient rows themselves), and the
-        codewords as :class:`StreamedCodewords` over the chunks (zk: the
-        mask rows' coefficients below them)."""
+        the backend's batch of all B proofs (tensors; over a mesh, row
+        blocks: ``parallel.ShardedBackend``).  Streaming mode (one proof;
+        its message rows stay on the host): the coefficient chunks, the
+        message rows as their coefficients (zk: the coefficient rows
+        themselves), and the codewords as :class:`StreamedCodewords` over
+        the chunks (zk: the mask rows' coefficients below them)."""
         be, ph, B = self.backend, self.timer.phase, len(masks)
         with ph("witness+preenc"):
             preenc = [self._witness.preenc(a) for a in assignments]
@@ -339,26 +364,20 @@ class LigeroCircuit:
             return ([chunks], MessageRows(chunks),
                     StreamedCodewords(chunks, self.n))
         with ph("witness+preenc"):                  # (B, 4m, k, L)
-            preenc = (be.asarray(preenc[0])[None] if B == 1
-                      else torch.stack([be.asarray(a) for a in preenc]))
+            msgs = be.upload_messages(preenc)
+            del preenc
         if self.zk:
             with ph("zk_blind"):
-                blinded = [be.zk_blind_rows(preenc[i], masks[i][4],
-                                            self.blind_t, self.d2, masks[i][3])
-                           for i in range(B)]
-                del preenc
-                coeffs = (blinded[0][0][None] if B == 1
-                          else torch.stack([c for c, _ in blinded]))
-                rows = (blinded[0][1] if B == 1
-                        else torch.cat([r for _, r in blinded]))
-                del blinded
+                coeffs, rows = be.zk_blind_batch(
+                    msgs, [mk[4] for mk in masks], self.blind_t, self.d2,
+                    [mk[3] for mk in masks])
+                del msgs
             with ph("rs_encode"):
                 return coeffs, coeffs, be.ntt_and_canon(rows, self.n)
         with ph("rs_encode"):
-            coeffs, u_canon = be.rs_encode_and_canon(
-                preenc.reshape(B * 4 * self.m, self.k, -1), self.k, self.n)
+            coeffs, u_canon = be.rs_encode_batch(msgs, self.k, self.n)
         # the message rows live on for the interleaved combination
-        return coeffs.reshape(B, 4 * self.m, self.k, -1), preenc, u_canon
+        return coeffs, msgs, u_canon
 
     def _commit(self, u_canon, batch: int):
         """Per proof ``(leaves, inner_levels)`` of ``batch`` stacked
@@ -456,7 +475,8 @@ class LigeroCircuit:
                 r_a = be.sparse_rA_mont(*coo, r, four_mk)
             del r
             with ph("linear.intt"):
-                return be.intt(r_a.reshape(4 * self.m, self.k, -1), self.k)
+                return be.intt(be.row_matrix(
+                    r_a.reshape(4 * self.m, self.k, -1)), self.k)
         cr = self.chunk_rows
         with ph("linear.expand"):
             r = be.rand_field_mont(four_mk, seed, segment=cr * self.k)
@@ -514,6 +534,7 @@ class LigeroCircuit:
         p0 one NTT, and the B blocks of r_i coefficients stay on the
         device for their codewords at each proof's opened columns
         (``TorchBackend.ntt_columns_batch``)."""
+        self._check_batches("verify_batch")
         if len(proofs) <= 1:
             return [self.verify(p, sponge.clone()) for p in proofs]
         part = max(1, self.backend.max_verify_batch(

@@ -101,13 +101,32 @@ class LigeroMTPoseidonParams:
         batch n sponges side by side in one launch
         (``engine/poseidon_cols.py``): the CUDA kernel on the card (a build
         or launch failure raises), the plain version on the CPU.  Matrix
-        after matrix, bit-identical to :meth:`col_hash` of each column."""
-        from ..engine import poseidon_cols
+        after matrix, bit-identical to :meth:`col_hash` of each column.
+        Over a mesh, one launch a device for its block of whole columns
+        (``backend.column_blocks``).  A ``StreamedCodewords`` (the
+        streaming mode's U, one proof) is re-encoded a part at a time
+        (``backend.ntt_and_canon``) and its real rows absorbed into the
+        columns' sponge states (``cuda_poseidon.PoseidonColumnStream``, the
+        chunked kernel entry), as the default commitment's streamed Blake2s
+        absorbs them."""
+        import torch
+
+        from ..engine import cuda_poseidon, poseidon_cols
+        from ..engine.devmatrix import StreamedCodewords
         cfg = self.check_backend(backend)
-        u = backend.asarray(u_source)
-        u = u.reshape(batch, u.shape[0] // batch, *u.shape[1:])
-        return poseidon_cols.digests_to_bytes(poseidon_cols.poseidon_columns(
-            self.field, cfg, u))
+        if isinstance(u_source, StreamedCodewords):
+            if batch != 1:
+                raise ValueError("streaming mode commits one proof at a time")
+            n = u_source.n
+            stream = cuda_poseidon.PoseidonColumnStream(
+                self.field, cfg, n, u_source.rows, backend.device)
+            for coeffs, real in u_source.parts():
+                stream.absorb(backend.ntt_and_canon(coeffs, n), real)
+            return poseidon_cols.digests_to_bytes(stream.digests())
+        return poseidon_cols.digests_to_bytes(torch.cat(
+            [poseidon_cols.poseidon_columns(self.field, cfg, block)
+             .to(backend.device)
+             for block in backend.column_blocks(u_source, batch)], dim=1))
 
     def device_tree_levels(self, backend, leaves: list[bytes],
                            batch: int = 1) -> list:

@@ -48,7 +48,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     assert len(names) >= 35 and "ligero_tpu_torch.engine.cuda_tree" in names
     for new in ("engine.spot", "engine.poseidon_cols", "engine.cuda_poseidon",
                 "engine.devmatrix", "circuit.r1cs", "cli", "server",
-                "__main__"):
+                "parallel", "parallel.sharded_backend", "__main__"):
         assert f"ligero_tpu_torch.{new}" in names
     names.remove("ligero_tpu_torch.__main__")    # importing it runs the CLI
     out = run_blocked(
@@ -162,6 +162,55 @@ def test_streaming_proves_and_verifies_with_both_blocked():
         "               for m in sys.modules)\n"
         "print('streaming ok')\n")
     assert "streaming ok" in out
+
+
+def test_poseidon_streaming_proves_and_verifies_with_both_blocked():
+    """The Poseidon commitment in streaming mode: the column sponges absorb
+    U a re-encoded chunk at a time, their states kept between chunks."""
+    out = run_blocked(
+        PROVE +
+        "from ligero_tpu_torch.engine.backend import TorchBackend\n"
+        "from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams\n"
+        "mt = LigeroMTPoseidonParams(F)\n"
+        "c, outs, vs = generate_random_circuit(F, 96, num_vars=4, seed=3)\n"
+        "direct = LigeroCircuit(c, outs, lambda_=10, device='cpu',\n"
+        "                       mt_params=mt)\n"
+        "want = direct.prove(vs, sp.clone()).to_bytes(F)\n"
+        "dims = (direct.num_rows, direct.k, direct.n,\n"
+        "        len(direct.state.a_vals), 0, direct.d2)\n"
+        "budget = direct.backend.streaming_bytes(*dims, chunk_rows=12,\n"
+        "                                        poseidon=True)\n"
+        "TorchBackend.memory_budget = lambda self: budget\n"
+        "lig = LigeroCircuit(c, outs, lambda_=10, device='cpu', mt_params=mt)\n"
+        "assert lig.encode_mode == 'streaming', lig.encode_mode\n"
+        "proof = lig.prove(vs, sp.clone())\n"
+        "assert proof.to_bytes(F) == want\n"
+        "assert lig.verify(proof, sp.clone())\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ligero_tpu')\n"
+        "               for m in sys.modules)\n"
+        "print('poseidon streaming ok')\n")
+    assert "poseidon streaming ok" in out
+
+
+def test_sharded_backend_proves_and_verifies_with_both_blocked():
+    """``ShardedBackend`` over a mesh of three CPU shards, zk (4m + 3 rows,
+    the last block padded): the single-device proof, byte for byte."""
+    out = run_blocked(
+        PROVE +
+        "from ligero_tpu_torch.parallel import RowMesh, ShardedBackend\n"
+        "c, outs, vs = generate_random_circuit(F, 96, num_vars=4, seed=3)\n"
+        "seed = bytes(range(32))\n"
+        "one = LigeroCircuit(c, outs, lambda_=10, zk=True, device='cpu')\n"
+        "want = one.prove(vs, sp.clone(), zk_seed=seed).to_bytes(F)\n"
+        "be = ShardedBackend(F, RowMesh(['cpu'] * 3))\n"
+        "lig = LigeroCircuit(c, outs, lambda_=10, zk=True, backend=be)\n"
+        "proof = lig.prove(vs, sp.clone(), zk_seed=seed)\n"
+        "assert proof.to_bytes(F) == want\n"
+        "assert lig.verify(proof, sp.clone())\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ligero_tpu')\n"
+        "               for m in sys.modules)\n"
+        "print('sharded ok')\n")
+    assert "sharded ok" in out
 
 
 def test_batch_proves_and_verifies_with_both_blocked():

@@ -253,7 +253,8 @@ def test_blocked_pieces_equal_the_whole_forms(streamed):
 def test_mode_choice_follows_the_budget(monkeypatch):
     """Direct where it fits; streaming where only that fits; neither:
     DeviceMemoryError naming both estimates; the Poseidon commitment past
-    direct mode: DeviceMemoryError (not ported under streaming)."""
+    direct mode: streaming too, in chunks no larger (its estimate counts
+    the column sponges' states)."""
     be = TorchBackend(pf(BN254_FR), "cpu")
     shape = (4100, 2048, 16384, 9_443_331)
     direct = be.direct_bytes(*shape)
@@ -274,10 +275,11 @@ def test_mode_choice_follows_the_budget(monkeypatch):
                                             seed=CIRCUIT_SEED)
     port = convert.circuit_from_reference(circ)
     force_streaming(monkeypatch, LigeroCircuit(port, outs, device="cpu"))
-    with pytest.raises(DeviceMemoryError, match="Poseidon"):
-        LigeroCircuit(port, outs, device="cpu",
-                      mt_params=LigeroMTPoseidonParams(pf(BN254_FR)))
-    assert LigeroCircuit(port, outs, device="cpu").encode_mode == "streaming"
+    blake = LigeroCircuit(port, outs, device="cpu")
+    pos = LigeroCircuit(port, outs, device="cpu",
+                        mt_params=LigeroMTPoseidonParams(pf(BN254_FR)))
+    assert blake.encode_mode == pos.encode_mode == "streaming"
+    assert 0 < pos.chunk_rows <= blake.chunk_rows
 
 
 def test_streaming_estimates_at_the_reach_of_the_card():
