@@ -43,9 +43,10 @@ It runs every phase, in order; any failure exits non-zero:
                column's rows a chunk at a time) in both fields: against
                its plain version and the whole-column kernel at rows of
                every residue mod 4 and the zk path's odd count, chunked
-               raggedly, timed at the 2^20 shapes (4m x 256 in 1024-row
-               chunks) and at the 2^22 shapes (8196 x 32768, against the
-               whole-column kernel).  The Poseidon streaming commit's
+               raggedly, at the paths' own chunk patterns (the 2^20 one
+               cut in depth, see STREAM_PLAIN_CASES), timed at the 2^20
+               shapes (4m x n in 1024-row chunks, against the whole-column
+               kernel) and at the 2^22 shapes (8196 x 32768).  The Poseidon streaming commit's
                chunked entry (``poseidon_absorb``): against its plain
                version, every state between chunks and the digests, at the
                paths' own chunkings (4100 / 4103 x 256 in 1024-row chunks,
@@ -57,7 +58,13 @@ It runs every phase, in order; any failure exits non-zero:
                16384 columns, row after row; against the whole-column
                kernel and the host sponge on sampled columns; timed at
                4100 x 16384 in 1024-row chunks beside the whole-column
-               kernel.
+               kernel.  The prover core (``parallel.core_step``) in both
+               fields at the JAX bench's 2048 x 512 -> 4096 and the
+               headline 4100 x 2048 -> 16384: bit-equal to the backend
+               path on the same card tensors, its RS-encode + Merkle-commit
+               elements a second beside the card; the sharded core at
+               2048 x 512 -> 4096 over two and four shards, every stage,
+               bit-equal to the single core.
 4. parity   -- port proofs on the card byte-equal to the port's proofs on
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
@@ -74,7 +81,9 @@ It runs every phase, in order; any failure exits non-zero:
                the host has two, else the card twice): proof byte-equal to
                the single-device proof, verify True, tampering rejected,
                warm walls beside one device's, each physical device's
-               peaks under the mesh's estimates.  The same two paths
+               peaks under the mesh's estimates; again in streaming mode
+               over the two shards, forced by the budget into 1024-row
+               chunks (peaks under ``stream_device_bytes``).  The same two paths
                under the Poseidon commitment: the sponge kernel launched,
                Blake2s and the SHA-256 tree not (the default paths: the
                reverse); each then
@@ -90,11 +99,15 @@ It runs every phase, in order; any failure exits non-zero:
                device memory against the prover's and the verifier's
                estimates; before each, its batched Blake2s and
                row_combine launches at its own shapes against their plain
-               versions; the 2^18 zk instance over three shards and the
-               Poseidon one over two, as the mesh above.  Then the
+               versions; the same B = 3 and zk B = 2 batches over two
+               shards (the mesh's batches: equal to sequential calls);
+               the 2^18 zk instance over three shards, direct and in
+               streaming mode (512-row chunks), and the Poseidon one over
+               two, as the mesh above.  Then the
                2^20-gate circuit over BLS12-377 Fq: plain (and a batch of
                2, honest and tampered, against sequential proves) and zk;
-               its 2^18 instance over two shards.  Streaming mode: the 2^18-gate
+               its 2^18 instance over two shards, direct and in streaming
+               mode.  Streaming mode: the 2^18-gate
                circuit in both fields, plain and zk, built under a memory
                budget at its streaming estimate for 512-row chunks (below
                the direct one): proof bytes equal to the direct-mode proof,
@@ -119,7 +132,8 @@ It runs every phase, in order; any failure exits non-zero:
 The last two stdout lines are the kernels' JSON record (BN254 Fr's numbers
 in each entry, BLS12-377 Fq's under its ``bls12_377_fq`` key; the Poseidon
 sponge has BN254's only; beside them the streaming and sharded paths'
-walls and peaks and the run's total seconds) and
+walls and peaks, the prover core's times and rates, and the run's total
+seconds) and
 ``{"ok": true, "device": {...}}``.  Neither JAX nor the JAX package
 ``ligero_tpu`` is ever imported.
 """
@@ -214,13 +228,23 @@ FORCED_CHUNK_ROWS, STREAM_LOG2_GATES = 512, 23
 #: chunk rows of the streamed absorb's kernel cases (the streaming mode's
 #: largest chunk, backend.STREAM_MAX_CHUNK_ROWS)
 STREAM_CHUNK = 1024
-#: (rows, chunk rows) at which the streamed absorb is held against its plain
-#: version: the 2^20 commit's 4m and 4m + 3 rows in the largest chunks (a
-#: last chunk of 4 rows, and an odd one of 7), and the forced paths' plain
-#: and zk counts in the chunks their budgets give (4m = 2052 in 536-row
-#: chunks, 4m + 3 = 2055 in 528-row ones)
-STREAM_PLAIN_CASES = ((4100, STREAM_CHUNK), (4103, STREAM_CHUNK), (2052, 536),
-                      (2055, 528))
+#: the rows of each absorb at which the streamed absorb is held against its
+#: plain version (one small step a 64-byte block, ~3.5 ms a BN254 pair of
+#: rows): the 2^20 commit's pattern (4m = 4100 rows in 1024-row chunks, a
+#: last chunk of 4; over a mesh each device's columns take the same) cut 8x
+#: in depth, and under zk with the three mask rows' part after it (also
+#: the mesh zk path's 512-row pattern); the forced 2^18 paths' own
+#: chunkings at full depth (4m = 2052 in 536-row chunks; under zk in 528,
+#: then the mask rows).  The cut keeps every absorb's block phase: a column
+#: is the 8-byte row count, then 2 L bytes a row, so an absorb starts at
+#: byte 8 + 2 L r0 of the column and its offset in a 64-byte block depends
+#: only on r0 mod hashops.period_rows (2 BN254 rows, 4 BLS12-377 rows).
+#: 128 and 1024 are both multiples of 4, so each 128-row absorb, and the
+#: short last ones after it, start and end at the offsets of their
+#: 1024-row counterparts; only the count of whole blocks inside an absorb
+#: (the kernel's loop) is smaller.
+STREAM_PLAIN_CASES = ((128,) * 4 + (4,), (128,) * 4 + (4, 3),
+                      (536,) * 3 + (444,), (528,) * 3 + (468, 3))
 #: the Poseidon chunked absorb against its plain version at the streaming
 #: paths' row counts and chunkings: the 2^20 commit's 4m and 4m + 3 rows in
 #: STREAM_CHUNK-row chunks (a last chunk of 4, an odd one of 7) and the
@@ -244,6 +268,19 @@ POSEIDON_DEEP_COLS, POSEIDON_SEGMENT = 256, 16
 #: row: 68 rows in 16-row chunks (four full, a last of 4), 71 (a last of 7,
 #: odd), 40 in 12-row chunks (three full, a last of 4)
 POSEIDON_PLAIN_CASES = ((68, 16), (71, 16), (40, 12))
+
+
+#: the prover core's shapes (4m, k, n): the JAX package's bench step
+#: (bench.py: 2048 x 512 -> 4096) and the headline 2^20-gate commit
+CORE_SHAPES = ((2048, 512, 4096), (4100, 2048, 16384))
+#: every this-many-th column of the core's first shape has its Blake2s leaf
+#: held against the plain hash (~3 us an element on the card: 256 columns
+#: of 2048 rows take ~1.6 s BN254, ~2.5 s BLS12-377)
+CORE_PLAIN_COL_STEP = 16
+#: the kernels the prover core never launches (its transforms' twists are
+#: inside the NTT kernel; no streaming, no Poseidon)
+NOT_ON_CORE = ("mont_mul", "poseidon_cols", "blake2s_stream",
+               "poseidon_stream")
 
 
 #: the TPU kernel each BLS12-377 instantiation replaces, where it differs:
@@ -522,52 +559,75 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
     return results
 
 
-def stream_digests(field, u, chunk_rows: int):
+def row_cuts(rows: int, chunk_rows) -> list[int]:
+    """The rows of each absorb: chunks of ``chunk_rows`` (an int; the last
+    one short), or ``chunk_rows`` itself, a list of row counts."""
+    if isinstance(chunk_rows, int):
+        return [min(chunk_rows, rows - r0) for r0 in range(0, rows, chunk_rows)]
+    return list(chunk_rows)
+
+
+def stream_digests(field, u, chunk_rows):
     """The streamed absorb over the rows of ``u`` in chunks of
-    ``chunk_rows`` (the streaming commit's launches)."""
+    ``chunk_rows`` (:func:`row_cuts`; the streaming commit's launches)."""
     from ligero_tpu_torch.engine import cuda_hash
     rows, n, _ = u.shape
-    hs = cuda_hash.ColumnHashStream(field, n, rows, u.device)
-    for r0 in range(0, rows, chunk_rows):
-        hs.absorb(u[r0:r0 + chunk_rows], min(chunk_rows, rows - r0))
+    hs, r0 = cuda_hash.ColumnHashStream(field, n, rows, u.device), 0
+    for cr in row_cuts(rows, chunk_rows):
+        hs.absorb(u[r0:r0 + cr], cr)
+        r0 += cr
     return hs.digests()
 
 
-def stream_digests_plain(field, u, chunk_rows: int):
+def stream_digests_plain(field, u, chunk_rows):
     """:func:`stream_digests` through the plain version, on the same
     tensors."""
     from ligero_tpu_torch.engine import hashops
     rows, n, _ = u.shape
-    state, blocks = hashops.blake2s_stream_start(n, rows, u.device), 0
-    for r0 in range(0, rows, chunk_rows):
-        cr = min(chunk_rows, rows - r0)
+    state, blocks, r0 = hashops.blake2s_stream_start(n, rows, u.device), 0, 0
+    for cr in row_cuts(rows, chunk_rows):
         state = hashops.blake2s_absorb_ref(u[r0:r0 + cr], cr, state, blocks,
                                            r0 + cr == rows, rows)
         blocks += (2 + cr * field.num_limbs // 2) // 16
+        r0 += cr
     return state[:, :8]
+
+
+def cuts_text(cuts) -> str:
+    """(536, 536, 536, 444) -> "536 x 3 + 444"."""
+    parts, i = [], 0
+    while i < len(cuts):
+        j = i
+        while j < len(cuts) and cuts[j] == cuts[i]:
+            j += 1
+        parts.append(f"{cuts[i]} x {j - i}" if j - i > 1 else str(cuts[i]))
+        i = j
+    return " + ".join(parts)
 
 
 def blake2s_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     """The streamed absorb's record: the kernel against its plain version
     on the same card tensors, 256 columns at each of STREAM_PLAIN_CASES
-    (the chunkings the streaming paths give it; the plain version takes one
-    small step a block, so its time is its launches'), and over the
+    (the chunkings the streaming paths give it, the largest cut in depth;
+    the plain version takes one small step a block, so its time is its
+    launches'), and over the
     commit's full width, ``rows`` x ``n`` in STREAM_CHUNK-row chunks,
     bit-equal to the whole-column kernel on the same matrix, timed with its
     bound."""
     from ligero_tpu_torch.engine import cuda_hash
     err, plain_ms = 0, None
-    for nrows, cr in STREAM_PLAIN_CASES:
+    for cuts in STREAM_PLAIN_CASES:
+        nrows = sum(cuts)
         u = _rand_elems(torch, gen, (nrows, 256), field)
-        got = stream_digests(field, u, cr)
+        got = stream_digests(field, u, cuts)
         want, case_ms = _time_once(torch, lambda: stream_digests_plain(
-            field, u, cr))
+            field, u, cuts))
         case_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        log(f"kernel [{field.name}] streamed Blake2s {nrows} x 256 in chunks "
-            f"of {cr}: max_abs_err={case_err} against its plain version "
-            f"({case_ms:.1f} ms)")
-        require(case_err == 0, f"streamed Blake2s {nrows} x 256 in chunks of "
-                f"{cr}: the kernel disagrees with its plain version")
+        log(f"kernel [{field.name}] streamed Blake2s {nrows} x 256 in absorbs "
+            f"of {cuts_text(cuts)} rows: max_abs_err={case_err} against its "
+            f"plain version ({case_ms:.1f} ms)")
+        require(case_err == 0, f"streamed Blake2s {nrows} x 256 in absorbs "
+                f"of {cuts}: the kernel disagrees with its plain version")
         err, plain_ms = max(err, case_err), plain_ms or case_ms
     u = _rand_elems(torch, gen, (rows, n), field)
     require(torch.equal(stream_digests(field, u, STREAM_CHUNK),
@@ -587,7 +647,7 @@ def blake2s_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "whole_column_ms": whole_ms,
             "shape": f"{rows} x {n} in chunks of {STREAM_CHUNK}; plain at "
-                     f"{first[0]} x 256 in chunks of {first[1]}"}
+                     f"{sum(first)} x 256 in absorbs of {cuts_text(first)}"}
 
 
 def blake2s_stream_cases(torch, field, gen, zk_rows: int) -> None:
@@ -1354,7 +1414,9 @@ def ntt_route_cases(torch, field, gen) -> int:
     and w < n at n = 2, 1024, 2048, 4096 (one pass, cosets); w = 1, w = s,
     w = s + 1 and a width that is no power of two at n = 16384 (cosets);
     n = 8192, 65536 and 2^17 (two passes), alone and under cosets; single
-    rows, which take two passes at any size.  Small batches, every
+    rows, which take two passes at any size; the four-shard prover core's
+    512-row blocks (n = 512, and 512 -> 4096 under cosets).  Small batches
+    elsewhere, every
     combination of inverse and canon_out; BLS12-377 up to n = 16384, the
     largest transform of its paths.  Returns the largest absolute
     difference seen (0 or the run fails)."""
@@ -1366,7 +1428,10 @@ def ntt_route_cases(torch, field, gen) -> int:
               (2, 5000, 16384), (2, 65536, 65536), (1, 1 << 17, 1 << 17),
               (1, 40000, 1 << 17),
               # single rows: split in two passes so that they fill the card
-              (1, 2048, 2048), (1, 2048, 4096), (1, 4095, 16384)]
+              (1, 2048, 2048), (1, 2048, 4096), (1, 4095, 16384),
+              # the four-shard prover core's blocks: iNTT_512 and NTT
+              # 512 -> 4096 of 512 rows
+              (512, 512, 512), (512, 512, 4096)]
     if field.num_limbs != 16:
         shapes = [sh for sh in shapes if sh[2] <= 16384]
     worst = 0
@@ -1663,7 +1728,8 @@ def phase_main(torch, field, lig, vars_) -> dict:
     return launches
 
 
-def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
+def phase_batch(torch, field, lig, vars_, full: bool = True,
+                tag: str | None = None) -> dict:
     """The batch path at the main path's size: ``prove_batch`` of B
     witnesses (plain: honest, one changed input, honest; zk: the honest
     witness under two seeds; not ``full``: honest, one changed input)
@@ -1671,13 +1737,14 @@ def phase_batch(torch, field, lig, vars_, full: bool = True) -> dict:
     over [honest, honest, tampered witness, flipped byte, truncated column
     list] (not ``full``: [honest, tampered witness]) against the verdicts
     ``verify`` gives one by one (it gave the first four kinds on the main
-    path).  Returns the launch counts of the batched prove + verify."""
+    path).  Returns the launch counts of the batched prove + verify.
+    ``tag``: the path's name before "batch" (a mesh's: "sharded ")."""
     from ligero_tpu_torch import LigeroProof, test_sponge
 
     sponge = test_sponge(field)
     wraps = wrappers()
     poseidon = is_poseidon(lig)
-    tag = path_tag(field, lig.zk, poseidon)
+    tag = path_tag(field, lig.zk, poseidon) + (tag or "")
     bad_vars = [(vars_[0][0], (vars_[0][1] + 1) % field.p)] + vars_[1:]
     if lig.zk:
         witnesses, seeds = [vars_] * ZK_BATCH, [ZK_SEED, ZK_SEED[::-1]]
@@ -1898,6 +1965,22 @@ def single_reference(torch, lig, vars_) -> dict:
             "dims": dims, "direct_bytes": lig.backend.direct_bytes(*dims)}
 
 
+def single_instance_reference(torch, field, circ, outs, vars_, zk: bool,
+                              poseidon: bool = False) -> dict:
+    """:func:`single_reference` of a single-device instance in direct mode
+    built, and proved once (A's one-time upload), here."""
+    from ligero_tpu_torch import test_sponge
+    single = build_instance(circ, outs, zk=zk, poseidon=poseidon)
+    require(single.encode_mode == "direct", "the reference instance does "
+            "not fit direct mode")
+    single.prove(vars_, test_sponge(field), **(
+        {"zk_seed": ZK_SEED} if zk else {}))
+    reference = single_reference(torch, single, vars_)
+    del single
+    torch.cuda.empty_cache()
+    return reference
+
+
 def phase_streaming_forced(torch, field, circ, outs, vars_, zk: bool,
                            poseidon: bool = False,
                            chunk_rows: int = FORCED_CHUNK_ROWS,
@@ -1908,17 +1991,10 @@ def phase_streaming_forced(torch, field, circ, outs, vars_, zk: bool,
     a budget at its streaming estimate for chunks of ``chunk_rows`` (below
     the direct estimate), driven by :func:`phase_streaming`."""
     from ligero_tpu_torch.engine.backend import TorchBackend
-    from ligero_tpu_torch import test_sponge
 
     if reference is None:
-        direct = build_instance(circ, outs, zk=zk, poseidon=poseidon)
-        require(direct.encode_mode == "direct", "the forced instance does "
-                "not fit direct mode")
-        direct.prove(vars_, test_sponge(field), **(
-            {"zk_seed": ZK_SEED} if zk else {}))       # A's one-time upload
-        reference = single_reference(torch, direct, vars_)
-        del direct
-        torch.cuda.empty_cache()
+        reference = single_instance_reference(torch, field, circ, outs,
+                                              vars_, zk, poseidon)
     log(f"{path_tag(field, zk, poseidon)}direct mode at this size: warm prove "
         f"{reference['prove_s']:.3f} s, verify {reference['verify_s']:.3f} s")
     budget = TorchBackend(field).streaming_bytes(
@@ -1948,43 +2024,64 @@ def mesh_devices(torch, D: int) -> list[str]:
 
 
 def phase_sharded(torch, field, circ, outs, vars_, zk: bool, poseidon: bool,
-                  D: int, reference: dict | None = None) -> dict:
+                  D: int, reference: dict, chunk_rows: int = 0) -> dict:
     """The row-sharded backend over a mesh of D shards
     (``parallel.ShardedBackend``; on one card all D shards share it: its
     walls are the controller's cost, not scaling): one ``prove`` and one
     ``verify`` (True) with their launch counts (the commitment's kernels),
     the proof byte-equal to the single-device proof of the same instance
-    (``reference``, or one built here), warm walls of both, a flipped byte
-    and a tampered witness rejected, and each physical device's prover and
-    verifier peaks against the mesh's estimates
-    (``ShardedBackend.device_bytes``): a peak over its estimate fails."""
+    (``reference``), warm walls of both, a flipped byte and a tampered
+    witness rejected, and each physical device's prover and verifier peaks
+    against the mesh's estimates (``ShardedBackend.device_bytes``): a peak
+    over its estimate fails.  With ``chunk_rows``: streaming mode over the
+    mesh, forced by a budget at the mesh's streaming estimate for chunks of
+    that many rows (below its direct estimate; the chunks that budget
+    gives may be larger), the peaks against
+    ``ShardedBackend.stream_device_bytes``."""
     from ligero_tpu_torch import LigeroCircuit, LigeroProof, test_sponge
+    from ligero_tpu_torch.engine.backend import TorchBackend
     from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
     from ligero_tpu_torch.parallel import RowMesh, ShardedBackend
     from ligero_tpu_torch.utils.profiling import PhaseTimer
 
-    tag = path_tag(field, zk, poseidon) + f"sharded D={D}"
-    if reference is None:
-        single = build_instance(circ, outs, zk=zk, poseidon=poseidon)
-        single.prove(vars_, test_sponge(field), **(
-            {"zk_seed": ZK_SEED} if zk else {}))       # A's one-time upload
-        reference = single_reference(torch, single, vars_)
-        del single
+    tag = (path_tag(field, zk, poseidon) + "sharded "
+           + ("streaming " if chunk_rows else "") + f"D={D}")
     drop_cached_tables(torch)
     mesh = RowMesh(mesh_devices(torch, D))
     physical = mesh.physical
-    t0 = time.perf_counter()
-    lig = LigeroCircuit(circ, outs, zk=zk, timer=PhaseTimer(enabled=True),
-                        mt_params=(LigeroMTPoseidonParams(field) if poseidon
-                                   else None),
-                        backend=ShardedBackend(field, mesh))
+    card_budget = TorchBackend.memory_budget
+    if chunk_rows:
+        probe = ShardedBackend(field, mesh)
+        budget = probe.streaming_bytes(*reference["dims"],
+                                       chunk_rows=chunk_rows)
+        require(budget < probe.direct_bytes(*reference["dims"]),
+                f"{tag}: the mesh's streaming estimate does not lie below "
+                "its direct one")
+        TorchBackend.memory_budget = lambda self: budget
+    try:
+        t0 = time.perf_counter()
+        lig = LigeroCircuit(circ, outs, zk=zk, timer=PhaseTimer(enabled=True),
+                            mt_params=(LigeroMTPoseidonParams(field)
+                                       if poseidon else None),
+                            backend=ShardedBackend(field, mesh))
+    finally:
+        TorchBackend.memory_budget = card_budget
     log(f"{tag}: {mesh}, built ({time.perf_counter() - t0:.1f} s); U is "
-        f"{lig.num_rows} x {lig.n}, {lig.encode_mode} mode")
+        f"{lig.num_rows} x {lig.n}, {lig.encode_mode} mode"
+        + (f", chunks of {lig.chunk_rows} rows" if chunk_rows else ""))
+    require(lig.encode_mode == ("streaming" if chunk_rows else "direct"),
+            f"{tag}: {lig.encode_mode} mode")
     be, kw = lig.backend, ({"zk_seed": ZK_SEED} if zk else {})
     dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals), lig.blind_t,
             lig.d2)
-    estimate = be.device_bytes(*dims)
-    vestimate = be.device_bytes(*dims[:4], verifier=True)
+    if chunk_rows:
+        chunk_rows = lig.chunk_rows            # the budget's, at least ours
+        estimate = be.stream_device_bytes(*dims, chunk_rows=chunk_rows)
+        vestimate = be.stream_device_bytes(*dims[:4], chunk_rows=chunk_rows,
+                                           verifier=True)
+    else:
+        estimate = be.device_bytes(*dims)
+        vestimate = be.device_bytes(*dims[:4], verifier=True)
     sponge, wraps = test_sponge(field), wrappers()
 
     def reset_peaks():
@@ -1996,6 +2093,10 @@ def phase_sharded(torch, field, circ, outs, vars_, zk: bool, poseidon: bool,
         return {str(dev): torch.cuda.max_memory_allocated(dev)
                 for dev in physical}
 
+    one_stream = ""
+    if chunk_rows:
+        one_stream = ", streaming_bytes {:.3f} GiB".format(TorchBackend(
+            field).streaming_bytes(*dims, chunk_rows=chunk_rows) / 2**30)
     others = {str(dev): torch.cuda.memory_allocated(dev) for dev in physical}
     reset_counts(torch, wraps)
     reset_peaks()
@@ -2013,6 +2114,7 @@ def phase_sharded(torch, field, circ, outs, vars_, zk: bool, poseidon: bool,
     verify_s = time.perf_counter() - t0
     verify_peaks = peaks()
     launches = read_counts(wraps, tag, absent=(
+        NOT_ON_STREAMING if chunk_rows else
         NOT_ON_POSEIDON if poseidon else NOT_ON_DEFAULT))
     require(ok, f"{tag}: verify rejected the honest proof")
     data = proof.to_bytes(field)
@@ -2031,7 +2133,7 @@ def phase_sharded(torch, field, circ, outs, vars_, zk: bool, poseidon: bool,
             f"{verify_peaks[dev] / 2**30:.3f} GiB (estimate "
             f"{vestimate[dev] / 2**30:.3f} GiB); {others[dev] / 2**30:.3f} GiB "
             "allocated before; one device's direct_bytes "
-            f"{reference['direct_bytes'] / 2**30:.3f} GiB")
+            f"{reference['direct_bytes'] / 2**30:.3f} GiB{one_stream}")
         require(prove_peaks[dev] <= estimate[dev]
                 and verify_peaks[dev] <= vestimate[dev],
                 f"{tag}: a peak on {dev} lies above the mesh's estimate")
@@ -2051,6 +2153,7 @@ def phase_sharded(torch, field, circ, outs, vars_, zk: bool, poseidon: bool,
     del lig, be
     torch.cuda.empty_cache()
     return {"launches": launches, "devices": [str(d) for d in mesh.devices],
+            "chunk_rows": chunk_rows,
             "prove_s": prove_s, "verify_s": verify_s,
             "warm_prove_s": warm["prove_s"], "warm_verify_s": warm["verify_s"],
             "single_warm_prove_s": reference["prove_s"],
@@ -2061,6 +2164,147 @@ def phase_sharded(torch, field, circ, outs, vars_, zk: bool, poseidon: bool,
             "verify_estimate_gib": {d: v / 2**30
                                     for d, v in vestimate.items()},
             "single_direct_bytes_gib": reference["direct_bytes"] / 2**30}
+
+
+def _max_err(torch, got, want) -> int:
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def core_plain_chain(torch, field, preenc, r, k: int, n: int, core_out):
+    """The core's outputs ``(u, leaves, root, lc)`` against its kernels'
+    plain versions on the same card tensors: U from ``ntt.ntt_ref``
+    (iNTT_k, then NTT_n with the canonical epilogue), the Blake2s leaves of
+    every CORE_PLAIN_COL_STEP-th column from ``hashops.blake2s_columns_ref``
+    over the plain U, the root from ``hashops.tree_flat`` over the kernel's
+    leaves, lc from ``cuda_lc.row_combine_ref``.  Every difference must be
+    0.  Returns ``(errors, the plain flat tree, plain ms)``; the flat tree
+    holds every subtree root the sharded core makes."""
+    from ligero_tpu_torch.engine import cuda_lc, hashops, ntt
+    u, leaves, root, lc = core_out
+    cols = torch.arange(0, n, CORE_PLAIN_COL_STEP, device=u.device)
+
+    def chain():
+        u_plain = ntt.ntt_ref(field, ntt.ntt_ref(field, preenc, k,
+                                                 inverse=True), n,
+                              canon_out=True)
+        return (u_plain,
+                hashops.blake2s_columns_ref(u_plain.index_select(1, cols)),
+                hashops.tree_flat(leaves),
+                cuda_lc.row_combine_ref(field, r, preenc))
+
+    (u_plain, leaves_plain, flat, lc_plain), ms = _time_once(torch, chain)
+    errs = {"u": _max_err(torch, u, u_plain),
+            "leaves": _max_err(torch, leaves.index_select(0, cols),
+                               leaves_plain),
+            "root": _max_err(torch, root, flat[-8:]),
+            "lc": _max_err(torch, lc, lc_plain)}
+    return errs, flat, ms
+
+
+def phase_core(torch, field, gen, smi: str) -> dict:
+    """The prover core (``parallel.core_step``) at each of CORE_SHAPES:
+    ``make_prover_core`` bit-equal to the backend path on the same card
+    tensors (``rs_encode_and_canon``, ``commit_columns``' leaves and root,
+    ``row_combine``) and timed, its RS-encode + Merkle-commit elements a
+    second beside the card.  At the first shape the core is also held
+    against its kernels' plain versions (:func:`core_plain_chain`), and
+    ``make_sharded_prover_core`` over two and four shards gives every
+    stage's outputs bit-equal to the single core's (the subtree roots to
+    the plain tree's level log2(n / D)), so the sharded core's own kernel
+    shapes (row blocks of 4m / D, column blocks of n / D) are held against
+    the plain versions too.  Returns the launch counts of the core at the
+    headline shape and of the four-shard core's full stage, the rates and
+    the plain check's errors."""
+    import numpy as np
+    from ligero_tpu_torch.engine import cuda_tree
+    from ligero_tpu_torch.engine.backend import TorchBackend
+    from ligero_tpu_torch.parallel import (make_prover_core,
+                                           make_sharded_prover_core)
+    from ligero_tpu_torch.parallel.core_step import STAGES
+
+    be, wraps = TorchBackend(field), wrappers()
+    tag = "" if field.num_limbs == 16 else "bls "
+    launches, rates, plain = {}, {}, {}
+    for four_m, k, n in CORE_SHAPES:
+        shape = f"{four_m} x {k} -> {n}"
+        preenc = _rand_elems(torch, gen, (four_m, k), field)
+        r = _rand_elems(torch, gen, (four_m,), field)
+        fn = make_prover_core(field, four_m, k, n)
+        reset_counts(torch, wraps)
+        u, leaves, root, lc = fn(preenc, r)
+        torch.cuda.synchronize()
+        if (four_m, k, n) == CORE_SHAPES[-1]:
+            launches[f"{tag}core"] = read_counts(wraps, f"{tag}core",
+                                                 absent=NOT_ON_CORE)
+        # the backend path on the same tensors (launches not counted)
+        u_ref = be.rs_encode_and_canon(preenc, k, n)[1]
+        leaf_bytes, levels = be.commit_columns(u_ref)
+        got = leaves.cpu().numpy().view(np.uint32).astype("<u4")
+        require(torch.equal(u, u_ref)
+                and [got[j].tobytes() for j in range(n)] == leaf_bytes
+                and root.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+                == levels[-1][0]
+                and torch.equal(lc, be.row_combine(r, preenc)),
+                f"core [{field.name}] {shape}: differs from the backend path")
+        del u_ref
+        ms = _time_cuda(torch, lambda: fn(preenc, r), 5)
+        rates[shape] = {"ms": ms, "elements_per_s": four_m * n / (ms / 1e3)}
+        log(f"core [{field.name}] {shape}: bit-equal to the backend path; "
+            f"{ms:.3f} ms a call (lc included): RS-encode + Merkle-commit "
+            f"{four_m * n / (ms / 1e3):.4g} elements/s on {smi}")
+        if (four_m, k, n) != CORE_SHAPES[0]:
+            del u, leaves, root, lc, preenc, r
+            torch.cuda.empty_cache()
+            continue
+        errs, flat, plain_ms = core_plain_chain(torch, field, preenc, r, k,
+                                                n, (u, leaves, root, lc))
+        log(f"core [{field.name}] {shape} against the plain chain (ntt_ref "
+            f"iNTT_{k} then NTT_{n} canon_out, blake2s_columns_ref at "
+            f"{n // CORE_PLAIN_COL_STEP} columns, tree_flat, "
+            f"row_combine_ref): max_abs_err {errs} ({plain_ms:.1f} ms)")
+        require(not any(errs.values()), f"core [{field.name}] {shape}: "
+                f"differs from its kernels' plain versions ({errs})")
+        plain[shape] = {"max_abs_err": errs, "plain_ms": plain_ms}
+        for D in (2, 4):
+            level = (n // D).bit_length() - 1
+            off = cuda_tree.level_offset(n, level)
+            for stage in STAGES:
+                fnd = make_sharded_prover_core(field, mesh_devices(torch, D),
+                                               four_m, k, n, stage=stage)
+                counted = D == 4 and stage == "full"
+                if counted:
+                    reset_counts(torch, wraps)
+                out = fnd(preenc, r)
+                torch.cuda.synchronize()
+                if counted:
+                    launches[f"{tag}sharded core"] = read_counts(
+                        wraps, f"{tag}sharded core D=4", absent=NOT_ON_CORE)
+                same = [torch.equal(torch.cat(out[0]).to(u.device), u)]
+                if stage == "encode+a2a":
+                    same.append(torch.equal(torch.cat(
+                        [c.to(u.device) for c in out[1]], dim=1), u))
+                if stage in ("encode+a2a+hash", "full"):
+                    same.append(torch.equal(torch.cat(
+                        [lv.to(u.device) for lv in out[1]]), leaves))
+                if stage == "encode+a2a+hash":
+                    same.append(torch.equal(out[2].reshape(-1).to(u.device),
+                                            flat[off:off + 8 * D]))
+                if stage == "full":
+                    same += [torch.equal(out[2], root),
+                             torch.equal(out[3], lc)]
+                require(all(same), f"sharded core [{field.name}] {shape} D = "
+                        f"{D}, stage {stage}: differs from the single core "
+                        f"({same})")
+            ms_d = _time_cuda(torch, lambda: fnd(preenc, r), 3)
+            rates[f"{shape} D={D}"] = {"ms": ms_d, "elements_per_s":
+                                       four_m * n / (ms_d / 1e3)}
+            log(f"sharded core [{field.name}] {shape} over {D} shards "
+                f"({mesh_devices(torch, D)}): every stage bit-equal to the "
+                f"single core; full stage {ms_d:.3f} ms a call, "
+                f"{four_m * n / (ms_d / 1e3):.4g} elements/s")
+        del u, leaves, root, lc, preenc, r, flat
+        torch.cuda.empty_cache()
+    return {"launches": launches, "rates": rates, "plain": plain}
 
 
 def phase_streaming_reach(torch, field) -> dict:
@@ -2262,8 +2506,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ligero_tpu_torch import BLS12_377_FQ, BN254_FR
+    from ligero_tpu_torch import BLS12_377_FQ, BN254_FR, LigeroCircuit
     from ligero_tpu_torch.engine import cuda_build
+    from ligero_tpu_torch.parallel import ShardedBackend
 
     field = BN254_FR
     start = time.perf_counter()
@@ -2307,6 +2552,7 @@ def main() -> int:
                                                        lig.n)
     kernel_cases_2e22(torch, field, gen, results)
     host_hash_context(lig.n)
+    core = {field.name: phase_core(torch, field, gen, smi)}
     phase_parity()
     by_path = {"plain": phase_main(torch, field, lig, vars_)}
     ref = single_reference(torch, lig, vars_)
@@ -2315,6 +2561,11 @@ def main() -> int:
     # the same instance over a mesh of two shards
     sharded = {"sharded": phase_sharded(torch, field, circ, outs, vars_,
                                         False, False, 2, ref)}
+    # and in streaming mode over the mesh, forced into STREAM_CHUNK-row
+    # chunks (a device's rows a step; the last step one short chunk)
+    sharded["sharded streaming"] = phase_sharded(
+        torch, field, circ, outs, vars_, False, False, 2, ref,
+        chunk_rows=STREAM_CHUNK)
     lig = build_instance(circ, outs, zk=True)
     require((lig.blind_t, lig.d2) == zk_dims, "zk kernel shapes were not the "
             f"zk path's: {zk_dims} vs {(lig.blind_t, lig.d2)}")
@@ -2349,9 +2600,20 @@ def main() -> int:
         ref = single_reference(torch, lig, vars_) if zk else None
         del lig
         torch.cuda.empty_cache()
+        # the same batch over a mesh of two shards
+        lig = LigeroCircuit(circ, outs, zk=zk, backend=ShardedBackend(
+            field, mesh_devices(torch, 2)))
+        by_path[path.replace("batch", "sharded batch")] = phase_batch(
+            torch, field, lig, vars_, tag="sharded ")
+        del lig
+        torch.cuda.empty_cache()
     # zk over a mesh of three shards: 4m + 3 rows, the last block padded
     sharded["zk sharded"] = phase_sharded(torch, field, circ, outs, vars_,
                                           True, False, 3, ref)
+    # and in streaming mode over the three, FORCED_CHUNK_ROWS-row chunks
+    sharded["zk sharded streaming"] = phase_sharded(
+        torch, field, circ, outs, vars_, True, False, 3, ref,
+        chunk_rows=FORCED_CHUNK_ROWS)
     # the batch path under the Poseidon commitment: one sponge launch for
     # both proofs' columns, one a tree level for both trees
     lig = build_instance(circ, outs, zk=False, poseidon=True)
@@ -2382,6 +2644,7 @@ def main() -> int:
         torch, bls, gen, BATCH, 4 * lig.m, lig.n)
     bls_results["row_combine"]["batched"] = row_combine_batch_case(
         torch, bls, gen, 2, 4 * lig.m, lig.k)   # the bls batch path's B
+    core[bls.name] = phase_core(torch, bls, gen, smi)
     by_path["bls plain"] = phase_main(torch, bls, lig, vars_)
     by_path["bls batch"] = phase_batch(torch, bls, lig, vars_, full=False)
     del lig
@@ -2393,8 +2656,12 @@ def main() -> int:
     del lig, circ, outs, vars_
     torch.cuda.empty_cache()
     circ, outs, vars_ = make_circuit(bls, BATCH_LOG2_GATES, SEED)
+    ref = single_instance_reference(torch, bls, circ, outs, vars_, False)
     sharded["bls sharded"] = phase_sharded(torch, bls, circ, outs, vars_,
-                                           False, False, 2)
+                                           False, False, 2, ref)
+    sharded["bls sharded streaming"] = phase_sharded(
+        torch, bls, circ, outs, vars_, False, False, 2, ref,
+        chunk_rows=FORCED_CHUNK_ROWS)
     for zk in (False, True):
         path = path_tag(bls, zk) + "streaming"
         streaming[path] = phase_streaming_forced(torch, bls, circ, outs,
@@ -2407,6 +2674,8 @@ def main() -> int:
 
     for path, res in sharded.items():
         by_path[path] = res["launches"]
+    for res in core.values():
+        by_path.update(res["launches"])
     by_path["serve"] = phase_serve(torch, field)
     by_path["bls serve"] = phase_serve_bls(torch, bls)
     for mod in ("jax", "ligero_tpu"):
@@ -2452,6 +2721,7 @@ def main() -> int:
     record["sharded"] = {path: {key: val for key, val in res.items()
                                 if key != "launches"}
                          for path, res in sharded.items()}
+    record["core"] = {name: res["rates"] for name, res in core.items()}
     record["total_s"] = time.perf_counter() - start
     log(f"chip_smoke: every phase passed in {record['total_s']:.1f} s")
     print(smi, flush=True)

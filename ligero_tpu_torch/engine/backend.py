@@ -29,12 +29,17 @@ The ``*_batch`` methods serve ``LigeroCircuit.prove_batch`` and
 ``verify_batch``: B proofs of one circuit share one launch per bulk step
 (:meth:`TorchBackend.max_batch` says how many go together).  The core
 reaches the committed matrices only through the backend (``upload_messages``,
-``rs_encode_batch``, ``zk_blind_batch``, ``row_matrix``, ``column_blocks``),
-so that ``parallel.ShardedBackend`` can hold them in row blocks over a mesh.
+``rs_encode_batch``, ``zk_blind_batch``, ``row_matrix``, ``column_blocks``,
+``place_chunk``), so that ``parallel.ShardedBackend`` can hold them in row
+blocks over a mesh.  The streaming methods run each chunk where it lies and
+hash each column block where :meth:`TorchBackend._column_split` puts it:
+here everything is on ``device``; over a mesh, chunk i lies on device i
+mod D and the commit's column blocks are the devices' own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -93,10 +98,6 @@ def resolve_device(device) -> torch.device:
 
 class TorchBackend:
     """Bulk limb arithmetic for one field on one device."""
-
-    #: the device mesh the bulk steps shard over: none here
-    #: (``parallel.ShardedBackend`` has one)
-    mesh = None
 
     def __init__(self, field: FieldSpec, device=None):
         self.field = field
@@ -186,26 +187,41 @@ class TorchBackend:
         sums (``fieldops.fold_wide``: r, the sums, a part, a term, the
         running sum, and the modular add's int64 operands, sum, carry copy
         and selection)."""
+        coo = nnz * (self.L * 4 + 16)    # stays on the device between proofs
+        enc, enc_t, later, pair = self._direct_phases(rows, k, n, blind_t,
+                                                      d2, batch)
+        msg = rows * k * self.L * 4      # the r^T A coefficient rows
+        linear = self._linear_transients(rows, k, nnz)
+        return int(max(coo + enc + enc_t,
+                       coo + later + max(linear, msg + pair))
+                   * ESTIMATE_MARGIN)
+
+    def _direct_phases(self, rows: int, k: int, n: int, blind_t: int,
+                       d2: int | None, batch: int):
+        """:meth:`direct_bytes`'s pieces for ``rows`` rows, without A's
+        COO and the linear transients: ``(the encode's resident matrices,
+        its NTT scratch, the later phases' resident matrices, one proof's
+        products on the d2 domain)``.  Resident: the message, coefficient
+        and codeword matrices (and the zk row matrix) of the batch; the
+        products: two (rows, d2) evaluation matrices and their scratch,
+        beside the r^T A coefficient rows (without zk they stay under the
+        linear transients)."""
         L = self.L
         d2 = 2 * k if d2 is None else d2
         u, msg = rows * n * L * 4, rows * k * L * 4
         coeffs = rows * (k + blind_t) * L * 4
-        coo = nnz * (L * 4 + 16)         # stays on the device between proofs
-        linear = self._linear_transients(rows, k, nnz)
+        wide = rows * d2 * L * 4
         scratch = functools.partial(cuda_ntt.scratch_bytes, self.field)
+        pair = 2 * wide + scratch(rows, min(k + blind_t, d2), d2)
         if blind_t:
-            wide = rows * d2 * L * 4
             # (an estimate takes any sizes; a transform needs w <= n)
-            encode = coo + batch * (msg + coeffs + wide + u) + scratch(
-                batch * rows, min(d2, n), n)
-            products = msg + 2 * wide + scratch(
-                rows, min(k + blind_t, d2), d2)
-            later = batch * (u + coeffs) + coo + max(linear, products)
+            enc = batch * (msg + coeffs + wide + u)
+            enc_t = scratch(batch * rows, min(d2, n), n)
         else:
-            encode = coo + batch * (2 * msg + u) + max(
-                scratch(batch * rows, k, k), scratch(batch * rows, k, n))
-            later = batch * (u + coeffs) + coo + linear
-        return int(max(encode, later) * ESTIMATE_MARGIN)
+            enc = batch * (2 * msg + u)
+            enc_t = max(scratch(batch * rows, k, k),
+                        scratch(batch * rows, k, n))
+        return enc, enc_t, batch * (u + coeffs), pair
 
     def _linear_transients(self, rows: int, k: int, nnz: int) -> int:
         """One proof's linear-phase transients (see :meth:`direct_bytes`)."""
@@ -373,11 +389,13 @@ class TorchBackend:
                           blind_t: int = 0, d2: int | None = None,
                           poseidon: bool = False) -> int:
         """The largest chunk, a multiple of :data:`STREAM_ROW_QUANTUM` rows
-        and at most :data:`STREAM_MAX_CHUNK_ROWS` (or the rows rounded up),
+        and at most :data:`STREAM_MAX_CHUNK_ROWS` (or the rows rounded up,
+        over a mesh the rows a device: each step keeps every device busy),
         whose :meth:`streaming_bytes` fits the device; 0 where none does."""
         data = rows - 3 if blind_t else rows
         q = STREAM_ROW_QUANTUM
-        top = min(STREAM_MAX_CHUNK_ROWS, -(-data // q) * q)
+        devices = len(self._column_split(n))
+        top = min(STREAM_MAX_CHUNK_ROWS, -(-data // (q * devices)) * q)
         budget = self.memory_budget()
         for cr in range(top, 0, -q):
             need = self.streaming_bytes(rows, k, n, nnz, blind_t, d2, cr,
@@ -507,6 +525,32 @@ class TorchBackend:
         u = self.asarray(u_canon)
         yield u.reshape(batch, u.shape[0] // batch, *u.shape[1:])
 
+    # ------------------------------------------------------------------
+    # where the parts of a matrix lie (a mesh deals them over its devices)
+    # ------------------------------------------------------------------
+    def _chunk_device(self, i: int) -> torch.device:
+        """The device of chunk ``i`` of a streaming matrix: here the one
+        device."""
+        return self.device
+
+    @contextlib.contextmanager
+    def _on(self, device):
+        """A context, with ``device`` current for the kernels' launches,
+        that yields the single-device backend of ``device``: here this
+        backend."""
+        yield self
+
+    def _column_split(self, n: int) -> list[tuple[torch.device, int, int]]:
+        """Where a column hash runs: ``(device, first column, end)`` per
+        block of columns, in column order; here all n on the device."""
+        return [(self.device, 0, n)]
+
+    def place_chunk(self, i: int, chunk: torch.Tensor) -> torch.Tensor:
+        """Chunk ``i`` of a streaming matrix made on the controller (the
+        r^T A coefficient chunks) moved to :meth:`_chunk_device`, beside
+        the coefficient chunk it pairs with."""
+        return chunk.to(self._chunk_device(i))
+
     def _rows_up(self, preenc, r0: int, r1: int) -> torch.Tensor:
         """Host message rows [r0, r1) as int32 limbs on the device: 16-bit
         limbs cross as they are and widen there (half the bytes of an
@@ -531,10 +575,11 @@ class TorchBackend:
         """Streaming encode: host (rows, k, L) message rows up a chunk at a
         time, each iNTT_k'd into a coefficient chunk; the message matrix
         is never whole on the device (``Backend.intt_resident``)."""
-        rows = preenc.shape[0]
-        return RowChunkedMatrix(
-            [self.intt(self._chunk_up(preenc, r0, chunk_rows), k)
-             for r0 in range(0, rows, chunk_rows)], rows, chunk_rows)
+        rows, chunks = preenc.shape[0], []
+        for i, r0 in enumerate(range(0, rows, chunk_rows)):
+            with self._on(self._chunk_device(i)) as be:
+                chunks.append(be.intt(be._chunk_up(preenc, r0, chunk_rows), k))
+        return RowChunkedMatrix(chunks, rows, chunk_rows)
 
     def zk_blind_chunks(self, preenc, rows_seed: bytes, blind_t: int,
                         chunk_rows: int) -> RowChunkedMatrix:
@@ -548,32 +593,37 @@ class TorchBackend:
         stream = devsampler.FrStream(self.field, rows_seed, self.device,
                                      segment=cr * k)
         chunks = []
-        for r0 in range(0, rows4, cr):
+        for i, r0 in enumerate(range(0, rows4, cr)):
             real = min(cr, rows4 - r0)
-            msg = self.intt(self._rows_up(preenc, r0, r0 + real), k)
-            s = stream.take(real * b).reshape(real, b, L)
-            chunk = torch.zeros((cr, k + b, L), dtype=torch.int32,
-                                device=self.device)
-            chunk[:real, :k] = msg
-            del msg
-            chunk[:real, k:] = s
-            # the regions [0, b) and [k, k + b) overlap when b > k: as in
-            # zk_blind_rows, subtract from the concatenated layout
-            chunk[:real, :b] = self.sub(chunk[:real, :b], s)
+            with self._on(self._chunk_device(i)) as be:
+                msg = be.intt(be._rows_up(preenc, r0, r0 + real), k)
+                s = stream.take(real * b).reshape(real, b, L).to(be.device)
+                chunk = torch.zeros((cr, k + b, L), dtype=torch.int32,
+                                    device=be.device)
+                chunk[:real, :k] = msg
+                del msg
+                chunk[:real, k:] = s
+                # the regions [0, b) and [k, k + b) overlap when b > k: as
+                # in zk_blind_rows, subtract from the concatenated layout
+                chunk[:real, :b] = be.sub(chunk[:real, :b], s)
             chunks.append(chunk)
         return RowChunkedMatrix(chunks, rows4, cr)
 
     def ntt_columns(self, coeffs, n: int, js) -> torch.Tensor:
         """All rows' n-point NTTs at the columns ``js`` only: (B, k, L) ->
         (B, len(js), L) Montgomery limbs on the device: the full transform
-        and a gather; a :class:`RowChunkedMatrix` a chunk at a time, so
-        that one chunk's transform is live."""
-        idx = torch.from_numpy(np.asarray(js, dtype=np.int64)).to(self.device)
+        and a gather; a :class:`RowChunkedMatrix` a chunk at a time where
+        the chunk lies, so that one chunk's transform is live."""
+        idx = torch.from_numpy(np.asarray(js, dtype=np.int64))
         if isinstance(coeffs, RowChunkedMatrix):
-            return torch.cat([
-                self.ntt(c, n).index_select(1, idx)[:coeffs.real_rows(i)]
-                for i, c in enumerate(coeffs.chunks)])
-        return self.ntt(coeffs, n).index_select(1, idx)
+            out = []
+            for i, c in enumerate(coeffs.chunks):
+                with self._on(c.device) as be:
+                    out.append(be.ntt(c, n).index_select(
+                        1, idx.to(c.device))[:coeffs.real_rows(i)].to(
+                            self.device))
+            return torch.cat(out)
+        return self.ntt(coeffs, n).index_select(1, idx.to(self.device))
 
     def ntt_columns_batch(self, coeffs_b, n: int, idx) -> torch.Tensor:
         """Per-proof :meth:`ntt_columns`: B coefficient blocks (rows, w, L)
@@ -614,16 +664,27 @@ class TorchBackend:
     def commit_columns_streaming(self, sc: StreamedCodewords):
         """The commitment of a never-materialised U
         (``Backend.commit_columns_streaming``): each coefficient chunk
-        re-encoded to canonical codewords (``ntt_and_canon``) and its real
-        rows absorbed into per-column Blake2s states
-        (``cuda_hash.ColumnHashStream``, the streamed kernel entry); the
-        last part's launch finalises, then the tree as in direct mode.
-        The leaves are :meth:`commit_columns`'s on the whole matrix."""
+        re-encoded to canonical codewords (``ntt_and_canon``) where it
+        lies, and its real rows absorbed into per-column Blake2s states
+        (``cuda_hash.ColumnHashStream``, the streamed kernel entry) in row
+        order, each block of :meth:`_column_split` on its device (over a
+        mesh: the row -> column re-shard of each part); the last part's
+        launch finalises, then the tree as in direct mode.  The leaves are
+        :meth:`commit_columns`'s on the whole matrix."""
         n = sc.n
-        hs = cuda_hash.ColumnHashStream(self.field, n, sc.rows, self.device)
+        blocks = [(dev, c0, c1, cuda_hash.ColumnHashStream(
+            self.field, c1 - c0, sc.rows, dev))
+            for dev, c0, c1 in self._column_split(n)]
         for coeffs, real in sc.parts():
-            hs.absorb(self.ntt_and_canon(coeffs, n), real)
-        flat = self.to_numpy(cuda_tree.forest_flat(hs.digests()[None]))
+            with self._on(coeffs.device) as be:
+                canon = be.ntt_and_canon(coeffs, n)
+            for dev, c0, c1, hs in blocks:
+                with self._on(dev):
+                    hs.absorb(canon[:real, c0:c1].to(dev), real)
+            del canon
+        leaves = torch.cat([hs.digests().to(self.device)
+                            for _, _, _, hs in blocks])
+        flat = self.to_numpy(cuda_tree.forest_flat(leaves[None]))
         return hashops.digest_lists(flat[0], n)
 
     def gather_columns_batch(self, u_canon, idx) -> np.ndarray:
@@ -631,15 +692,19 @@ class TorchBackend:
         (B, rows, t, L) host uint32: proof b's columns ``idx[b]``.  A
         :class:`StreamedCodewords` (one proof) re-encodes each part and
         copies the opened columns of its real rows to the host
-        (``Backend.gather_columns``)."""
-        idx = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(self.device)
+        (``Backend.gather_columns``), each part where it lies."""
+        idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
         if isinstance(u_canon, StreamedCodewords):
             if idx.shape[0] != 1:
                 raise ValueError("streaming mode opens one proof at a time")
-            return np.concatenate([
-                self.to_numpy(self.ntt_and_canon(coeffs, u_canon.n)
-                              .index_select(1, idx[0])[:real])
-                for coeffs, real in u_canon.parts()])[None]
+            parts = []
+            for coeffs, real in u_canon.parts():
+                with self._on(coeffs.device) as be:
+                    parts.append(self.to_numpy(
+                        be.ntt_and_canon(coeffs, u_canon.n).index_select(
+                            1, idx[0].to(coeffs.device))[:real]))
+            return np.concatenate(parts)[None]
+        idx = idx.to(self.device)
         batch, t = idx.shape
         u4 = u_canon.reshape(batch, -1, *u_canon.shape[1:])
         index = idx[:, None, :, None].expand(batch, u4.shape[1], t, u4.shape[3])
@@ -670,16 +735,19 @@ class TorchBackend:
 
     def row_combine_chunked(self, r, mat):
         """sum_i r_i M_i over a :class:`RowChunkedMatrix` (the
-        ``row_combine`` kernel a chunk, partials added mod p); for
-        :class:`MessageRows`, that of the coefficient rows and one NTT_k
-        (``Backend.row_combine_coeffs``): the message-space combination,
-        the same field elements by linearity."""
+        ``row_combine`` kernel a chunk where it lies, partials added mod p
+        on the device); for :class:`MessageRows`, that of the coefficient
+        rows and one NTT_k (``Backend.row_combine_coeffs``): the
+        message-space combination, the same field elements by
+        linearity."""
         rcm = mat.coeffs if isinstance(mat, MessageRows) else mat
         r = self.asarray(r)
         total = None
         for i, chunk in enumerate(rcm.chunks):
             r0, real = i * rcm.chunk_rows, rcm.real_rows(i)
-            part = self.row_combine(r[r0:r0 + real], chunk[:real])
+            with self._on(chunk.device) as be:
+                part = be.row_combine(r[r0:r0 + real].to(chunk.device),
+                                      chunk[:real]).to(self.device)
             total = part if total is None else fieldops.add(self.field,
                                                             total, part)
         if isinstance(mat, MessageRows):
@@ -733,7 +801,8 @@ class TorchBackend:
         (2k without zk): (d2, L) Montgomery coefficients of q.  The rows
         may be of any widths <= d2 (k + b and k under zk); d2 must exceed
         deg q.  Two row-aligned :class:`RowChunkedMatrix` go a chunk pair
-        at a time, partials added mod p (padding rows add zero)."""
+        at a time where the u chunk lies, partials added mod p (padding
+        rows add zero)."""
         if isinstance(u_coeffs, RowChunkedMatrix):
             if (not isinstance(r_coeffs, RowChunkedMatrix)
                     or r_coeffs.rows != u_coeffs.rows
@@ -742,10 +811,12 @@ class TorchBackend:
                                  "are not row-aligned")
             total = None
             for uc, rc in zip(u_coeffs.chunks, r_coeffs.chunks):
-                eu = self.ntt(uc, d2)
-                er = self.ntt(rc, d2)
-                part = cuda_lc.row_combine(self.field, er, eu)
-                del eu, er
+                with self._on(uc.device) as be:
+                    eu = be.ntt(uc, d2)
+                    er = be.ntt(rc.to(uc.device), d2)
+                    part = cuda_lc.row_combine(self.field, er, eu).to(
+                        self.device)
+                    del eu, er
                 total = part if total is None else fieldops.add(
                     self.field, total, part)
             return self.intt(total[None], d2)[0]
@@ -762,21 +833,26 @@ class TorchBackend:
         or with ``m`` given any rows whose first 3m are those.  A
         :class:`RowChunkedMatrix` goes in blocks of its chunk's rows that
         stop at each region's end (rows 0, m, 2m start the regions; a
-        chunk may straddle them), partials added mod p."""
+        chunk may straddle them), each where its x rows lie (the y and z
+        rows copied there), partials added mod p."""
         if isinstance(xyz_coeffs, RowChunkedMatrix):
             rcm, qb = xyz_coeffs, xyz_coeffs.chunk_rows
             r_quad = self.asarray(r_quad)
             total = None
             for i in range(0, m, qb):
                 end = min(i + qb, m)
-                ex, ey, ez = (self.ntt(rcm.row_block(base + i, base + end), d2)
-                              for base in (0, m, 2 * m))
-                term = self.mont_mul(ex, ey)
-                del ex, ey
-                term = self.sub(term, ez)
-                del ez
-                part = self.row_combine(r_quad[i:end], term)
-                del term
+                dev = rcm.chunks[i // qb].device
+                with self._on(dev) as be:
+                    ex, ey, ez = (be.ntt(rcm.row_block(base + i, base + end,
+                                                       dev), d2)
+                                  for base in (0, m, 2 * m))
+                    term = be.mont_mul(ex, ey)
+                    del ex, ey
+                    term = be.sub(term, ez)
+                    del ez
+                    part = be.row_combine(r_quad[i:end].to(dev), term).to(
+                        self.device)
+                    del term
                 total = part if total is None else fieldops.add(
                     self.field, total, part)
             return self.intt(total[None], d2)[0]

@@ -9,6 +9,9 @@ chunk at a time (:class:`StreamedCodewords`): the commit absorbs each
 re-encoded chunk into per-column Blake2s states, the openings gather the
 opened columns of each.  The r^T A coefficient rows of the linear phase are
 a :class:`RowChunkedMatrix` too, row-aligned with the codeword chunks.
+Over a mesh (``parallel.ShardedBackend``) the chunks of one matrix lie on
+several devices: chunk i on mesh device i mod D, the block-cyclic layout of
+the JAX package's ``ShardedCoeffs``.
 
 The backend's bulk steps take either a tensor (direct mode) or one of these
 handles, and dispatch on the type, as the JAX package does.
@@ -44,13 +47,15 @@ class RowChunkedMatrix:
         """Rows of chunk ``i`` that are not padding."""
         return min(self.chunk_rows, self.rows - i * self.chunk_rows)
 
-    def row_block(self, r0: int, r1: int) -> torch.Tensor:
-        """Rows ``[r0, r1)`` as one tensor, across chunk boundaries."""
+    def row_block(self, r0: int, r1: int, device=None) -> torch.Tensor:
+        """Rows ``[r0, r1)`` as one tensor, across chunk boundaries (on
+        ``device``, where the chunks lie on several: a mesh's)."""
         parts, i = [], r0
         while i < r1:
             ci, off = divmod(i, self.chunk_rows)
             take = min(self.chunk_rows - off, r1 - i)
-            parts.append(self.chunks[ci][off:off + take])
+            part = self.chunks[ci][off:off + take]
+            parts.append(part if device is None else part.to(device))
             i += take
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 

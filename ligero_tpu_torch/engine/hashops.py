@@ -262,6 +262,12 @@ def _byteswap(x: torch.Tensor) -> torch.Tensor:
             | ((x >> 8) & 0xFF00) | ((x >> 24) & 0xFF))
 
 
+def byteswap_words(words: torch.Tensor) -> torch.Tensor:
+    """int32 digest words, each one's four bytes reversed: a leaf's LE
+    words <-> the BE words the tree hashes."""
+    return _to_i32(_byteswap(_words64(words)))
+
+
 def tree_flat(leaves_le: torch.Tensor) -> torch.Tensor:
     """(n, 8) LE leaf digest words -> one flat int32 vector: the leaves' LE
     words, then every SHA-256 level's BE words bottom-up (the layout of the

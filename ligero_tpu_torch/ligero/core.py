@@ -10,8 +10,9 @@ the openings (the commit absorbs each re-encoded chunk into per-column
 Blake2s or Poseidon states), and the linear phase runs in column blocks
 aligned with the chunks.  Streaming proofs are byte-identical to direct
 ones.  Over a mesh of devices (``backend=parallel.ShardedBackend(field,
-mesh)``, direct mode) the bulk steps run row-sharded; the core passes the
-backend's row blocks on without opening them.  The commitment is
+mesh)``) the bulk steps run row-sharded, in either mode and for batches;
+the core passes the backend's row blocks and chunks on without opening
+them.  The commitment is
 pluggable
 (``mt_params``, ``ligero/types.py``): the default Blake2s column leaves and
 SHA-256 Merkle tree, or the Poseidon column sponges and Poseidon tree of
@@ -126,10 +127,10 @@ class LigeroCircuit:
 
     ``backend`` takes the place of ``device``: a :class:`TorchBackend` of
     the circuit's field, such as ``parallel.ShardedBackend(field, mesh)``,
-    whose bulk steps run row-sharded over a mesh of devices (proofs
-    byte-identical to one device's; direct mode only, one proof a call:
-    ``prove_batch`` and ``verify_batch`` raise ``NotImplementedError``
-    there).  Giving both raises ``ValueError``."""
+    whose bulk steps run row-sharded over a mesh of devices (proofs and
+    verdicts byte-identical to one device's, in direct and streaming
+    mode, batches included; the Poseidon commitment in direct mode only).
+    Giving both raises ``ValueError``."""
 
     def __init__(self, circuit, outputs: list[int],
                  lambda_: int = DEFAULT_SECURITY_LEVEL, rate_inv: int = 8,
@@ -205,7 +206,6 @@ class LigeroCircuit:
         A batch larger than ``TorchBackend.max_batch`` allows is proved in
         parts; where not even two proofs fit the device together, one at a
         time."""
-        self._check_batches("prove_batch")
         if not assignments:
             return []
         if not self.zk:
@@ -224,14 +224,6 @@ class LigeroCircuit:
             out.extend(self._prove_many(group, [sponge.clone() for _ in group],
                                         zk_seeds[i:i + part]))
         return out
-
-    def _check_batches(self, name: str) -> None:
-        """Batches are not ported over a mesh: raise there."""
-        if self.backend.mesh is not None:
-            raise NotImplementedError(
-                f"{name} over a mesh (ShardedBackend) is not ported yet: "
-                "ROADMAP.md queue 1, the mesh's batches; call "
-                f"{name.split('_')[0]} per proof")
 
     def _max_batch(self) -> int:
         """Proofs of this instance that go through the device together."""
@@ -342,7 +334,8 @@ class LigeroCircuit:
         canonical codewords the commit and the openings take.  Direct mode:
         the backend's batch of all B proofs (tensors; over a mesh, row
         blocks: ``parallel.ShardedBackend``).  Streaming mode (one proof;
-        its message rows stay on the host): the coefficient chunks, the
+        its message rows stay on the host): the coefficient chunks (over a
+        mesh dealt over its devices), the
         message rows as their coefficients (zk: the coefficient rows
         themselves), and the codewords as :class:`StreamedCodewords` over
         the chunks (zk: the mask rows' coefficients below them)."""
@@ -460,11 +453,13 @@ class LigeroCircuit:
 
     def _r_a_coeff_rows(self, seed: bytes):
         """r_linear -> r^T A in 4m rows of k -> iNTT_k (Montgomery): one
-        tensor in direct mode; in streaming mode a :class:`RowChunkedMatrix`
-        row-aligned with the coefficient chunks, r drawn a segment at a
-        time and the sparse product run in column blocks of a chunk's rows
-        (``_r_a_coeff_rows`` of the JAX package, its blocked branch).
-        Prover and verifier share it."""
+        tensor in direct mode (over a mesh, row blocks); in streaming mode
+        a :class:`RowChunkedMatrix` row-aligned with the coefficient
+        chunks, each chunk placed beside its coefficient chunk
+        (``place_chunk``), r drawn a segment at a time and the sparse
+        product run in column blocks of a chunk's rows (``_r_a_coeff_rows``
+        of the JAX package, its blocked branch).  Prover and verifier share
+        it."""
         be, ph = self.backend, self.timer.phase
         four_mk = 4 * self.m * self.k
         coo = self._device_coo()
@@ -488,7 +483,8 @@ class LigeroCircuit:
             if block is None:
                 break
             with ph("linear.intt"):
-                chunks.append(be.intt(block.reshape(cr, self.k, -1), self.k))
+                chunks.append(be.place_chunk(len(chunks), be.intt(
+                    block.reshape(cr, self.k, -1), self.k)))
             del block
         return RowChunkedMatrix(chunks, 4 * self.m, cr)
 
@@ -534,7 +530,6 @@ class LigeroCircuit:
         p0 one NTT, and the B blocks of r_i coefficients stay on the
         device for their codewords at each proof's opened columns
         (``TorchBackend.ntt_columns_batch``)."""
-        self._check_batches("verify_batch")
         if len(proofs) <= 1:
             return [self.verify(p, sponge.clone()) for p in proofs]
         part = max(1, self.backend.max_verify_batch(

@@ -1,18 +1,21 @@
 """Row-sharded execution over a mesh of devices: ``ShardedBackend``.
 
-The port's counterpart of ``ligero_tpu/parallel/sharded_backend.py`` (its
-direct mode).  ``LigeroCircuit(circuit, outputs,
-backend=ShardedBackend(field, RowMesh(devices)))`` distributes ``prove`` and
-``verify`` over a 1-D mesh (the JAX package's axis ``"rows"``) with no
-change to the protocol, and the proofs are byte-identical to one device's:
+The port's counterpart of ``ligero_tpu/parallel/sharded_backend.py``.
+``LigeroCircuit(circuit, outputs,
+backend=ShardedBackend(field, RowMesh(devices)))`` distributes ``prove``,
+``verify``, ``prove_batch`` and ``verify_batch`` over a 1-D mesh (the JAX
+package's axis ``"rows"``) with no change to the protocol, and the proofs
+are byte-identical to one device's.
+
+Direct mode, where every device's estimate fits (:meth:`device_bytes`):
 
 * **the encode, NTT, iNTT, NTT with the canonical epilogue and the zk
   blind**: row-sharded, no communication (transforms never cross rows);
 * **the column commitment**: a row -> column re-shard (the all_to_all:
-  device d receives columns [d n/D, (d + 1) n/D) of every row, from every
-  device), after which each device hashes its whole columns, with Blake2s
-  or the Poseidon sponge; the tree runs on the controller over the
-  gathered leaves;
+  device d receives columns [d c, (d + 1) c), c = ceil(n / D), of every
+  row, from every device), after which each device hashes its whole
+  columns, with Blake2s or the Poseidon sponge; the tree runs on the
+  controller over the gathered leaves;
 * **row combinations and the linear and quadratic products**: per-device
   partial sums, gathered on the controller and added mod p.  Mod-p addition
   is associative, so any grouping of the row sum gives the same field
@@ -22,30 +25,61 @@ change to the protocol, and the proofs are byte-identical to one device's:
 * **the sparse r^T A product and the ChaCha20 sampler**: on the controller
   (as in the JAX package, which inherits them from ``Backend``).
 
+Streaming mode, where the direct estimate passes a device's memory and a
+chunking fits (:meth:`stream_device_bytes`): the coefficient rows in
+chunks of c rows, chunk i on mesh device i mod D.  That is the block-cyclic
+layout of the JAX package's ``ShardedCoeffs`` (``_to_cyclic``: global row g
+on device (g mod c D) // c), and it is what makes every step of c D rows
+keep all D devices at work.  ``TorchBackend``'s streaming methods run each
+chunk where it lies: the encode and the zk blind (the blinding draws taken
+on the controller in row order), the commit (each re-encoded chunk
+re-sharded row -> column as it comes, every device absorbing its column
+block into its own columns' Blake2s states with the streamed kernel entry,
+rows in global order; the tree on the controller), the openings and the
+verifier's r_i codewords at the opened columns (a chunk at a time, the
+opened columns gathered on the controller), the linear product (the r^T A
+chunks placed beside the coefficient chunks they pair with) and the
+quadratic product (each block's y and z rows copied to its x rows'
+device); partial sums are added mod p on the controller.  The Poseidon
+commitment does not run in streaming mode over a mesh, as in the JAX
+package (its ``PoseidonColumns`` reads one device's chunks): the mode
+choice refuses it with ``ValueError`` before any launch.
+
+Batches: B proofs of one circuit go as one :class:`ShardedRows` of batch
+B, each block holding every proof's rows of the block, so that a bulk step
+runs once a device for all of them (the JAX package's ``ntt_and_canon``,
+``commit_columns_batch`` and ``gather_columns_batch`` on its mesh).
+
 The controller is one process that issues every device's work and the
 copies between devices itself: the one-process model of the JAX package's
 ``shard_map``.  A device may repeat in the mesh (``["cpu"] * D`` in the
 tests, ``["cuda:0"] * D`` on a host with one card): its shards then share
-its memory, and :meth:`ShardedBackend.device_bytes` adds them up.  Rows
-that do not divide D are zero-padded: zero rows are exact under the NTT
-and add zero to every sum.
-
-Not ported yet (each raises, naming its ``ROADMAP.md`` item): streaming
-mode over the mesh (the JAX package's ``ShardedCoeffs``, block-cyclic) and
-batches (``prove_batch`` / ``verify_batch``).
+its memory, and the estimates add up what they hold.  Rows that do not
+divide D are zero-padded: zero rows are exact under the NTT and add zero
+to every sum.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
 
-from ..engine import cuda_lc, fieldops
-from ..engine.backend import (ESTIMATE_MARGIN, DeviceMemoryError,
+from ..engine import cuda_lc, cuda_ntt, fieldops
+from ..engine.backend import (ESTIMATE_MARGIN, STREAM_MAX_CHUNK_ROWS,
                               TorchBackend, resolve_device)
+from ..engine.hashops import STATE_WORDS
 from ..fields import FieldSpec
+
+#: why :meth:`ShardedBackend.encode_mode` refuses the Poseidon commitment
+#: past direct mode
+POSEIDON_STREAMING = (
+    "the Poseidon commitment does not run in streaming mode over a mesh "
+    "(nor in the JAX package, whose PoseidonColumns reads the chunks of one "
+    "device's matrix): this instance does not fit the mesh in direct mode; "
+    "prove it on one device (streaming mode), or over more devices")
 
 
 class RowMesh:
@@ -74,27 +108,41 @@ class RowMesh:
 
 
 class ShardedRows:
-    """A logical (rows, w, L) matrix in row blocks over a mesh: block d,
-    on mesh device d, holds the next ``real[d]`` rows of the matrix, then
-    zero rows.  Only the backend opens it; the protocol layer passes it
-    on."""
+    """A logical (rows, w, L) matrix, or ``batch`` of them stacked, in row
+    blocks over a mesh: block d, on mesh device d, holds the next
+    ``real[d]`` rows of each matrix, then zero rows, matrix after matrix
+    (matrix b's part of the block at rows [b h, (b + 1) h) for a block of
+    ``batch`` h rows).  Only the backend opens it; the protocol layer
+    passes it on."""
 
-    def __init__(self, blocks: list[torch.Tensor], real: list[int]):
+    def __init__(self, blocks: list[torch.Tensor], real: list[int],
+                 batch: int = 1):
         if len(blocks) != len(real) or any(
-                not 0 <= r <= b.shape[0] for b, r in zip(blocks, real)):
+                b.shape[0] % batch or not 0 <= r <= b.shape[0] // batch
+                for b, r in zip(blocks, real)):
             raise ValueError("ShardedRows: real row counts do not fit the "
                              "blocks")
-        self.blocks, self.real = blocks, list(real)
+        self.blocks, self.real, self.batch = blocks, list(real), batch
         self.starts = [int(v) for v in np.cumsum([0] + self.real[:-1])]
         self.rows = sum(self.real)
         self.width, self.L = blocks[0].shape[1], blocks[0].shape[2]
 
     @property
     def shape(self) -> tuple[int, int, int]:
-        return (self.rows, self.width, self.L)
+        return (self.batch * self.rows, self.width, self.L)
+
+    def part(self, d: int, b: int = 0) -> torch.Tensor:
+        """Matrix ``b``'s rows of block ``d`` (real rows, then zeros)."""
+        h = self.blocks[d].shape[0] // self.batch
+        return self.blocks[d][b * h:(b + 1) * h]
+
+    def proof(self, b: int) -> "ShardedRows":
+        """Matrix ``b`` alone (views of the blocks)."""
+        return ShardedRows([self.part(d, b) for d in range(len(self.blocks))],
+                           self.real)
 
 
-def _on(device: torch.device):
+def on_device(device: torch.device):
     """Make ``device`` current for the kernels' launches, which go to the
     current CUDA device."""
     if device.type == "cuda":
@@ -103,24 +151,43 @@ def _on(device: torch.device):
 
 
 class ShardedBackend(TorchBackend):
-    """A :class:`TorchBackend` whose bulk steps run per row block over
-    ``mesh`` (a :class:`RowMesh` or a list of devices); the controller,
-    ``mesh.devices[0]``, keeps the sampler, the sparse product, the trees
-    and everything small.  Direct mode, one proof a call."""
+    """A :class:`TorchBackend` whose bulk steps run per row block (direct
+    mode) or per chunk (streaming mode) over ``mesh`` (a :class:`RowMesh`
+    or a list of devices); the controller, ``mesh.devices[0]``, keeps the
+    sampler, the sparse product, the trees and everything small."""
 
     def __init__(self, field: FieldSpec, mesh):
         mesh = mesh if isinstance(mesh, RowMesh) else RowMesh(mesh)
         super().__init__(field, mesh.devices[0])
         self.mesh, self.D = mesh, mesh.size
         # one single-device backend a physical device: the bulk steps of a
-        # block run through the one that holds it
-        self._local = {dev: TorchBackend(field, dev) for dev in mesh.physical}
+        # block or chunk run through the one that holds it
+        self._backends = {dev: TorchBackend(field, dev)
+                          for dev in mesh.physical}
 
     def _be(self, device: torch.device) -> TorchBackend:
-        return self._local[device]
+        return self._backends[device]
 
     # ------------------------------------------------------------------
-    # layout
+    # where the parts of a matrix lie (TorchBackend's placement hooks)
+    # ------------------------------------------------------------------
+    def _chunk_device(self, i: int) -> torch.device:
+        """Chunk i of a streaming matrix lies on mesh device i mod D."""
+        return self.mesh.devices[i % self.D]
+
+    @contextlib.contextmanager
+    def _on(self, device):
+        with on_device(device):
+            yield self._be(device)
+
+    def _column_split(self, n: int) -> list[tuple[torch.device, int, int]]:
+        """Device d hashes columns [d c, (d + 1) c), c = ceil(n / D)."""
+        c = -(-n // self.D)
+        return [(dev, d * c, min(n, (d + 1) * c))
+                for d, dev in enumerate(self.mesh.devices) if d * c < n]
+
+    # ------------------------------------------------------------------
+    # layout (direct mode)
     # ------------------------------------------------------------------
     def _split(self, rows: int) -> tuple[int, list[int]]:
         """Block height and real rows of each block for ``rows`` rows."""
@@ -148,17 +215,19 @@ class ShardedBackend(TorchBackend):
         return ShardedRows(blocks, real)
 
     def gather_rows(self, sr: ShardedRows) -> torch.Tensor:
-        """The logical matrix as one tensor on the controller."""
-        return torch.cat([b[:r].to(self.device)
-                          for b, r in zip(sr.blocks, sr.real)])
+        """The logical matrix (of a batch: the matrices stacked) as one
+        tensor on the controller."""
+        return torch.cat([sr.part(d, b)[:real].to(self.device)
+                          for b in range(sr.batch)
+                          for d, real in enumerate(sr.real)])
 
     def _map(self, sr: ShardedRows, fn) -> ShardedRows:
         """``fn(local backend, block)`` on each block, on its device."""
         out = []
         for blk in sr.blocks:
-            with _on(blk.device):
+            with on_device(blk.device):
                 out.append(fn(self._be(blk.device), blk))
-        return ShardedRows(out, sr.real)
+        return ShardedRows(out, sr.real, sr.batch)
 
     def _row_range(self, sr: ShardedRows, r0: int, r1: int,
                    device: torch.device) -> torch.Tensor:
@@ -182,143 +251,243 @@ class ShardedBackend(TorchBackend):
         return total
 
     def column_blocks(self, u_canon, batch: int = 1):
-        """The row -> column re-shard of a :class:`ShardedRows`: device d
-        gets columns [d c, (d + 1) c) (c = ceil(n / D)) of every real row
-        from every block, as a (1, rows, c, L) tensor; one destination at a
-        time, so that a device holds one column block beside its rows.
-        A tensor (the verifier's opened columns) is one block on the
-        controller."""
+        """The row -> column re-shard of a :class:`ShardedRows` of
+        ``batch`` matrices: device d gets columns [d c, (d + 1) c) of every
+        real row from every block, as a (batch, rows, c, L) tensor; one
+        destination at a time, so that a device holds one column block
+        beside its rows.  A tensor (the verifier's opened columns) is one
+        block on the controller."""
         if not isinstance(u_canon, ShardedRows):
             yield from super().column_blocks(u_canon, batch)
             return
-        if batch != 1:
-            raise ValueError("the mesh commits one proof at a time")
-        n = u_canon.width
-        c = -(-n // self.D)
-        for d, dev in enumerate(self.mesh.devices):
-            c0, c1 = min(n, d * c), min(n, (d + 1) * c)
-            if c0 == c1:
-                continue
-            with _on(dev):
-                yield torch.cat([blk[:real, c0:c1].to(dev) for blk, real
-                                 in zip(u_canon.blocks, u_canon.real)])[None]
+        if batch != u_canon.batch:
+            raise ValueError(f"column_blocks: {u_canon.batch} matrices, "
+                             f"not {batch}")
+        for dev, c0, c1 in self._column_split(u_canon.width):
+            with on_device(dev):
+                out = torch.empty((batch, u_canon.rows, c1 - c0, self.L),
+                                  dtype=torch.int32, device=dev)
+                for b in range(batch):
+                    for d, (start, real) in enumerate(zip(u_canon.starts,
+                                                          u_canon.real)):
+                        out[b, start:start + real] = u_canon.part(d, b)[
+                            :real, c0:c1]
+                yield out
 
     # ------------------------------------------------------------------
     # memory (per physical device)
     # ------------------------------------------------------------------
     def memory_budget(self) -> int:
-        return min(be.memory_budget() for be in self._local.values())
+        return min(be.memory_budget() for be in self._backends.values())
+
+    def _shard_heights(self, devices, heights) -> dict:
+        """``{str(physical device): [heights of the parts it holds]}``."""
+        out = {str(dev): [] for dev in self.mesh.physical}
+        for dev, h in zip(devices, heights):
+            out[str(dev)].append(h)
+        return out
 
     def device_bytes(self, rows: int, k: int, n: int, nnz: int,
                      blind_t: int = 0, d2: int | None = None,
-                     verifier: bool = False) -> dict:
+                     verifier: bool = False, batch: int = 1) -> dict:
         """Estimate of the largest live set on each physical device (keyed
-        by ``str(device)``), for one proof (``verifier``: one verify) of
-        ``rows`` committed rows: every shard the device holds, counted as
-        :meth:`TorchBackend.direct_bytes` (``verify_bytes``) counts one
-        device's proof of the shard's rows without A; on the controller A's
-        COO, the challenge sampler and sparse product over all 4m k entries
-        (``_linear_transients``) and the r^T A rows before they are sharded;
-        and, for the prover, on every device the re-shard's column block
-        and the pieces it is cut from (2 rows n / D elements).  An upper
-        bound: shards on one device are counted side by side, though they
-        take their turns."""
+        by ``str(device)``) in direct mode, for ``batch`` proofs
+        (``verifier``: verifies) of ``rows`` committed rows.  What the
+        shards of a device hold is summed, but their transients are counted
+        once, the largest shard's: the controller runs the shards of a
+        repeated device one after another.  Per phase, as
+        :meth:`TorchBackend.direct_bytes` counts one device's:
+
+        * the encode: each shard's message, coefficient and codeword
+          matrices (and zk row matrix), one shard's NTT scratch;
+        * the commit: those matrices and the re-shard's column block
+          (batch x rows x c elements) with the pieces it is cut from;
+        * the later phases: each shard's codewords and coefficients, and
+          beside them either every shard's r^T A coefficient rows with one
+          shard's products on the d2 domain, or on the controller one
+          proof's linear transients over all 4m k entries (the sampler,
+          the sparse product and its fold) with the r^T A rows before they
+          are sharded;
+        * the verifier: each proof's r^T A coefficient blocks, beside one
+          block's n-point transform or, on the controller, the linear
+          transients and the r^T A rows.
+
+        A's COO (between proofs) on the controller."""
         E = self.L * 4
         data = rows - 3 if blind_t else rows
         h = self._split(data)[0]
-        if verifier:
-            shard = TorchBackend.verify_bytes(self, h, k, n, 0)
-        else:
-            shard = TorchBackend.direct_bytes(self, h + (3 if blind_t else 0),
-                                              k, n, 0, blind_t, d2)
-        out: dict = {}
-        for dev in self.mesh.devices:
-            out[str(dev)] = out.get(str(dev), 0) + shard
-        if not verifier:
-            reshard = 2 * rows * -(-n // self.D) * E * ESTIMATE_MARGIN
-            for dev in self.mesh.physical:
-                out[str(dev)] += int(reshard)
-        controller = (nnz * (E + 16) + self._linear_transients(data, k, nnz)
-                      + data * k * E)
-        out[str(self.device)] += int(controller * ESTIMATE_MARGIN)
+        heights = [h] * self.D
+        if blind_t:
+            heights[-1] += 3
+        scratch = functools.partial(cuda_ntt.scratch_bytes, self.field)
+        linear = self._linear_transients(data, k, nnz) + data * k * E
+        coo = nnz * (E + 16)
+        out = {}
+        for key, hs in self._shard_heights(self.mesh.devices,
+                                           heights).items():
+            ctrl = key == str(self.device)
+            if verifier:
+                need = batch * sum(s * k * E for s in hs) + max(
+                    max(s * n * E + scratch(s, k, n) for s in hs),
+                    linear if ctrl else 0)
+            else:
+                phases = [self._direct_phases(s, k, n, blind_t, d2, batch)
+                          for s in hs]
+                enc = sum(p[0] for p in phases)
+                reshard = 2 * batch * rows * -(-n // self.D) * E
+                later = sum(p[2] for p in phases) + max(
+                    sum(s * k * E for s in hs) + max(p[3] for p in phases),
+                    linear if ctrl else 0)
+                need = max(enc + max(p[1] for p in phases), enc + reshard,
+                           later)
+            out[key] = int((need + (coo if ctrl else 0)) * ESTIMATE_MARGIN)
         return out
 
     def direct_bytes(self, rows: int, k: int, n: int, nnz: int,
                      blind_t: int = 0, d2: int | None = None,
                      batch: int = 1) -> int:
         """The largest of :meth:`device_bytes` over the physical devices."""
-        if batch != 1:
-            raise ValueError("the mesh proves one proof at a time")
-        return max(self.device_bytes(rows, k, n, nnz, blind_t, d2).values())
+        return max(self.device_bytes(rows, k, n, nnz, blind_t, d2,
+                                     batch=batch).values())
 
     def verify_bytes(self, rows: int, k: int, n: int, nnz: int,
                      batch: int = 1) -> int:
-        if batch != 1:
-            raise ValueError("the mesh verifies one proof at a time")
-        return max(self.device_bytes(rows, k, n, nnz, verifier=True).values())
+        return max(self.device_bytes(rows, k, n, nnz, verifier=True,
+                                     batch=batch).values())
 
-    def encode_mode(self, rows: int, k: int, n: int, nnz: int,
-                    blind_t: int = 0, d2: int | None = None,
-                    poseidon: bool = False) -> tuple[str, int]:
-        """Direct mode where every device's estimate fits its memory; else
-        :class:`DeviceMemoryError`: streaming mode over the mesh is not
-        ported."""
-        need = self.direct_bytes(rows, k, n, nnz, blind_t, d2)
-        budget = self.memory_budget()
-        if need > budget:
-            raise DeviceMemoryError(
-                f"instance needs ~{need / 2**30:.1f} GiB on a device of "
-                f"{self.mesh} in direct mode (budget {budget / 2**30:.1f} "
-                "GiB); streaming under the mesh is not ported yet "
-                "(ROADMAP.md queue 1, the mesh's streaming)")
-        return "direct", 0
+    def stream_device_bytes(self, rows: int, k: int, n: int, nnz: int,
+                            blind_t: int = 0, d2: int | None = None,
+                            chunk_rows: int = STREAM_MAX_CHUNK_ROWS,
+                            verifier: bool = False, batch: int = 1) -> dict:
+        """Estimate of the largest live set on each physical device in
+        streaming mode, chunks of ``chunk_rows`` rows dealt over the mesh
+        (chunk i on device i mod D): the pieces of
+        :meth:`TorchBackend.streaming_bytes` (``_stream_parts``) with the
+        chunks a device holds in place of all of them.  The prover: the
+        device's coefficient chunks beside the largest of a chunk's encode,
+        its re-encode (with one column slice of the re-shard and the
+        device's column states), the device's r^T A chunks with a chunk
+        pair on the d2 domain, or a block of the quadratic product; on the
+        controller also A's COO, the zk mask rows, A's upload and the
+        linear phase's challenge vector with a sampler segment or a sparse
+        block.  The verifier (``batch`` proofs): each proof's r^T A chunks
+        on the device, beside a chunk's n-point transform or, on the
+        controller, the upload and the linear phase."""
+        d2 = 2 * k if d2 is None else d2
+        b = 0 if verifier else blind_t
+        p = self._stream_parts(rows, k, n, nnz, b, d2, chunk_rows)
+        E, cr = self.L * 4, chunk_rows
+        data = rows - 3 if b else rows
+        count = -(-data // cr)
+        held = self._shard_heights(
+            [self._chunk_device(i) for i in range(count)], [cr] * count)
+        cn = -(-n // self.D)
+        out = {}
+        for key, hs in held.items():
+            ctrl = key == str(self.device)
+            share = sum(hs)
+            r_coeffs = share * k * E
+            if verifier:
+                linear = max(p["upload"], p["r"] + max(p["sampler"],
+                                                       p["block"]))
+                need = batch * r_coeffs + max(p["reencode"],
+                                              linear if ctrl else 0)
+            else:
+                states = sum(1 for dev, _, _ in self._column_split(n)
+                             if str(dev) == key) * cn * STATE_WORDS * 4
+                linear = max(p["upload"], p["r"] + max(
+                    p["sampler"], r_coeffs + p["block"]))
+                need = share * (k + b) * E + max(
+                    p["encode"], p["reencode"] + cr * cn * E + states,
+                    r_coeffs + p["pair"], p["quad"], linear if ctrl else 0)
+                if ctrl and b:
+                    need += 3 * d2 * E              # the zk mask rows
+            out[key] = int((need + (p["coo"] if ctrl else 0))
+                           * ESTIMATE_MARGIN)
+        return out
+
+    def streaming_bytes(self, rows: int, k: int, n: int, nnz: int,
+                        blind_t: int = 0, d2: int | None = None,
+                        chunk_rows: int = STREAM_MAX_CHUNK_ROWS,
+                        poseidon: bool = False) -> int:
+        """The largest of :meth:`stream_device_bytes` over the physical
+        devices.  ``poseidon`` raises ``ValueError``: the Poseidon commitment
+        has no streaming mode over the mesh, so :meth:`encode_mode` refuses
+        it past direct mode, before any launch."""
+        if poseidon:
+            raise ValueError(POSEIDON_STREAMING)
+        return max(self.stream_device_bytes(rows, k, n, nnz, blind_t, d2,
+                                            chunk_rows).values())
+
+    def streaming_verify_bytes(self, rows: int, k: int, n: int, nnz: int,
+                               chunk_rows: int, batch: int = 1) -> int:
+        return max(self.stream_device_bytes(rows, k, n, nnz,
+                                            chunk_rows=chunk_rows,
+                                            verifier=True,
+                                            batch=batch).values())
 
     # ------------------------------------------------------------------
-    # the committed matrices (one proof)
+    # the committed matrices (direct mode, B proofs)
     # ------------------------------------------------------------------
-    def upload_messages(self, preenc: list) -> list:
-        """One host (4m, k, L) message matrix -> ``[ShardedRows]``."""
-        if len(preenc) != 1:
-            raise ValueError("the mesh proves one proof at a time")
-        return [self.row_matrix(preenc[0])]
+    def upload_messages(self, preenc: list) -> ShardedRows:
+        """B host (4m, k, L) message matrices -> one :class:`ShardedRows`
+        of batch B."""
+        h, real = self._split(preenc[0].shape[0])
+        blocks = []
+        for d, dev in enumerate(self.mesh.devices):
+            be, r0 = self._be(dev), d * h
+            parts = [self._pad(be._rows_up(a, r0, r0 + real[d]), h)
+                     for a in preenc]
+            blocks.append(parts[0] if len(parts) == 1 else torch.cat(parts))
+        return ShardedRows(blocks, real, len(preenc))
 
-    def rs_encode_batch(self, msgs, k: int, n: int):
-        coeffs = self._map(msgs[0], lambda be, b: be.intt(b, k))
-        return [coeffs], self.ntt_and_canon(coeffs, n)
+    def rs_encode_batch(self, msgs: ShardedRows, k: int, n: int):
+        """:meth:`upload_messages`'s batch -> ``([coeffs of each proof],
+        canonical codewords of all)``: one iNTT_k and one NTT_n a device
+        for the batch."""
+        coeffs = self._map(msgs, lambda be, b: be.intt(b, k))
+        return ([coeffs.proof(b) for b in range(coeffs.batch)],
+                self.ntt_and_canon(coeffs, n))
 
-    def zk_blind_batch(self, msgs, rows_seeds: list, blind_t: int, d2: int,
-                       mask3s: list):
-        """:meth:`TorchBackend.zk_blind_rows` on each block: its message
-        rows' iNTT_k and their s draws (taken on the controller from the
-        one ``rows_seed`` stream, in row order, and sent to the block's
-        device) -> ``([coeffs (4m, k + b)], committed rows (4m + 3, d2))``,
-        the three mask rows after the last block's data rows."""
-        sr, b, L = msgs[0], blind_t, self.L
-        s_all = self.rand_field_mont(sr.rows * b, rows_seeds[0]).reshape(
-            sr.rows, b, L)
-        coeffs, rows = [], []
-        for d, (blk, start, real) in enumerate(zip(sr.blocks, sr.starts,
-                                                   sr.real)):
-            dev, h, k = blk.device, blk.shape[0], blk.shape[1]
-            be = self._be(dev)
-            with _on(dev):
-                s = blk.new_zeros((h, b, L))
-                s[:real] = s_all[start:start + real].to(dev)
-                c = torch.cat([be.intt(blk, k), s], dim=1)
-                # the regions [0, b) and [k, k + b) overlap when b > k
-                c[:, :b] = be.sub(c[:, :b], s)
-                del s
-                last = d == self.D - 1
-                r = blk.new_zeros((h + (3 if last else 0), d2, L))
-                r[:real, :k + b] = c[:real]
-                if last:
-                    r[real:real + 3] = be.asarray(mask3s[0])
-            coeffs.append(c)
-            rows.append(r)
-        del s_all
-        real = list(sr.real)
+    def zk_blind_batch(self, msgs: ShardedRows, rows_seeds: list,
+                       blind_t: int, d2: int, mask3s: list):
+        """:meth:`TorchBackend.zk_blind_rows` on each block of each proof:
+        its message rows' iNTT_k and their s draws (taken on the controller
+        from the proof's one ``rows_seed`` stream, in row order, and sent
+        to the block's device) -> ``([coeffs (4m, k + b) of each proof],
+        committed rows (4m + 3, d2) of all)``, each proof's three mask rows
+        after its last block's data rows."""
+        b, L, B, last = blind_t, self.L, msgs.batch, self.D - 1
+        rows = [torch.zeros((B * (msgs.part(d).shape[0] + 3 * (d == last)),
+                             d2, L), dtype=torch.int32, device=blk.device)
+                for d, blk in enumerate(msgs.blocks)]
+        coeffs = []
+        for p in range(B):
+            s_all = self.rand_field_mont(msgs.rows * b, rows_seeds[p]).reshape(
+                msgs.rows, b, L)
+            mine = []
+            for d, (start, real) in enumerate(zip(msgs.starts, msgs.real)):
+                blk = msgs.part(d, p)
+                dev, h, k = blk.device, blk.shape[0], blk.shape[1]
+                be = self._be(dev)
+                with on_device(dev):
+                    s = blk.new_zeros((h, b, L))
+                    s[:real] = s_all[start:start + real].to(dev)
+                    c = torch.cat([be.intt(blk, k), s], dim=1)
+                    # the regions [0, b) and [k, k + b) overlap when b > k
+                    c[:, :b] = be.sub(c[:, :b], s)
+                    del s
+                    hd = h + 3 * (d == last)
+                    r = rows[d][p * hd:(p + 1) * hd]
+                    r[:real, :k + b] = c[:real]
+                    if d == last:
+                        r[real:real + 3] = be.asarray(mask3s[p])
+                mine.append(c)
+            del s_all
+            coeffs.append(ShardedRows(mine, msgs.real))
+        real = list(msgs.real)
         real[-1] += 3
-        return [ShardedRows(coeffs, sr.real)], ShardedRows(rows, real)
+        return coeffs, ShardedRows(rows, real, B)
 
     # ------------------------------------------------------------------
     # transforms
@@ -334,27 +503,34 @@ class ShardedBackend(TorchBackend):
         return super().intt(evals, n)
 
     def ntt_and_canon(self, coeffs, n: int):
-        return self._map(coeffs, lambda be, b: be.ntt_and_canon(b, n))
+        if isinstance(coeffs, ShardedRows):
+            return self._map(coeffs, lambda be, b: be.ntt_and_canon(b, n))
+        return super().ntt_and_canon(coeffs, n)
 
     def ntt_columns(self, coeffs, n: int, js) -> torch.Tensor:
         """Each block's n-point NTTs at the columns ``js``, its real rows
-        gathered on the controller in row order."""
-        js = np.asarray(js, dtype=np.int64)
-        parts = self._map(coeffs, lambda be, b: be.ntt(b, n).index_select(
-            1, torch.from_numpy(js).to(b.device)))
-        return self.gather_rows(parts)
+        gathered on the controller in row order (a chunked matrix: a chunk
+        at a time where it lies)."""
+        if not isinstance(coeffs, ShardedRows):
+            return super().ntt_columns(coeffs, n, js)
+        js = torch.from_numpy(np.asarray(js, dtype=np.int64))
+        return self.gather_rows(self._map(coeffs, lambda be, b: be.ntt(
+            b, n).index_select(1, js.to(b.device))))
 
     # ------------------------------------------------------------------
-    # commitment and openings
+    # openings
     # ------------------------------------------------------------------
     def gather_columns_batch(self, u_canon, idx) -> np.ndarray:
-        idx = np.asarray(idx, dtype=np.int64)
-        if idx.shape[0] != 1:
-            raise ValueError("the mesh opens one proof at a time")
-        return np.concatenate([
-            self.to_numpy(blk.index_select(1, torch.from_numpy(idx[0]).to(
-                blk.device))[:real])
-            for blk, real in zip(u_canon.blocks, u_canon.real)])[None]
+        """Per proof b, the columns ``idx[b]`` of each block's real rows,
+        in row order -> (B, rows, t, L) host uint32."""
+        if not isinstance(u_canon, ShardedRows):
+            return super().gather_columns_batch(u_canon, idx)
+        idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
+        return np.stack([np.concatenate([
+            self.to_numpy(u_canon.part(d, b)[:real].index_select(
+                1, idx[b].to(u_canon.blocks[d].device)))
+            for d, real in enumerate(u_canon.real)])
+            for b in range(idx.shape[0])])
 
     # ------------------------------------------------------------------
     # partial sums
@@ -368,26 +544,47 @@ class ShardedBackend(TorchBackend):
         parts = []
         for blk, start, real in zip(mat.blocks, mat.starts, mat.real):
             if real:
-                with _on(blk.device):
+                with on_device(blk.device):
                     parts.append(self._be(blk.device).row_combine(
                         r[start:start + real].to(blk.device), blk[:real]))
         return self._reduce(parts)
 
     def row_combine_batch(self, r, mats):
-        return torch.stack([self.row_combine(r[b], mats[b])
-                            for b in range(len(mats))])
+        """Per-proof combinations: a :class:`ShardedRows` of batch B (one
+        launch a block for all B, each proof's slice of ``r`` sent to the
+        block's device), a list of one proof's blocks each, or a chunked
+        handle (streaming)."""
+        if isinstance(mats, (list, tuple)):
+            return torch.stack([self.row_combine(r[b], mat)
+                                for b, mat in enumerate(mats)])
+        if not isinstance(mats, ShardedRows):
+            return super().row_combine_batch(r, mats)
+        r, B = self.asarray(r), mats.batch
+        parts = []
+        for d, (blk, start, real) in enumerate(zip(mats.blocks, mats.starts,
+                                                   mats.real)):
+            if real:
+                h = blk.shape[0] // B
+                with on_device(blk.device):
+                    rb = blk.new_zeros((B, h, self.L))
+                    rb[:, :real] = r[:, start:start + real].to(blk.device)
+                    parts.append(cuda_lc.row_combine_batch(
+                        self.field, rb, blk.reshape(B, h, *blk.shape[1:])))
+        return self._reduce(parts)
 
     def linear_combination_poly(self, u_coeffs, r_coeffs, d2: int):
         """Each device's two blocks on the d2 domain and their row
         combination; the partials added on the controller, one iNTT
-        there."""
+        there (chunked matrices: a chunk pair at a time where it lies)."""
+        if not isinstance(u_coeffs, ShardedRows):
+            return super().linear_combination_poly(u_coeffs, r_coeffs, d2)
         if (not isinstance(r_coeffs, ShardedRows)
                 or r_coeffs.real != u_coeffs.real):
             raise ValueError("linear_combination_poly: u and r blocks are "
                              "not row-aligned")
         parts = []
         for ub, rb in zip(u_coeffs.blocks, r_coeffs.blocks):
-            with _on(ub.device):
+            with on_device(ub.device):
                 be = self._be(ub.device)
                 eu, er = be.ntt(ub, d2), be.ntt(rb, d2)
                 parts.append(cuda_lc.row_combine(self.field, er, eu))
@@ -400,7 +597,11 @@ class ShardedBackend(TorchBackend):
         row's three: device d gathers rows [d c, (d + 1) c) of each region
         (c = ceil(m / D); copies from the blocks that hold them), takes
         their products on the d2 domain and its partial sum; the partials
-        are added on the controller, one iNTT there."""
+        are added on the controller, one iNTT there (a chunked matrix: in
+        blocks where the x rows lie)."""
+        if not isinstance(xyz_coeffs, ShardedRows):
+            return super().quadratic_combination_poly(xyz_coeffs, r_quad,
+                                                      d2, m)
         m = xyz_coeffs.rows // 3 if m is None else m
         r_quad = self.asarray(r_quad)
         c = -(-m // self.D)
@@ -409,7 +610,7 @@ class ShardedBackend(TorchBackend):
             i0, i1 = d * c, min(m, (d + 1) * c)
             if i0 >= i1:
                 continue
-            with _on(dev):
+            with on_device(dev):
                 be = self._be(dev)
                 ex, ey, ez = (be.ntt(self._row_range(
                     xyz_coeffs, base + i0, base + i1, dev), d2)
@@ -419,3 +620,4 @@ class ShardedBackend(TorchBackend):
                 parts.append(be.row_combine(r_quad[i0:i1].to(dev), term))
                 del term
         return self.intt(self._reduce(parts)[None], d2)[0]
+

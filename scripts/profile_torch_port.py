@@ -5,7 +5,7 @@
                                           [--field bn254_fr] [--zk]
                                           [--mt default|poseidon]
                                           [--lambda 128] [--batch B]
-                                          [--spot] [--out FILE]
+                                          [--mesh D] [--spot] [--out FILE]
 
 Builds the synthetic circuit of ``--log2-gates`` gates (seed 0) over
 ``--field`` (BN254 Fr, or BLS12-377 Fq: the kernels' two fields), compiled
@@ -37,7 +37,11 @@ instance's mode (``encode_mode``, recorded): in direct mode
 verifiers, in streaming mode (past the direct mode's reach: 2^23 gates over
 BLS12-377, 2^24 over BN254 on an 80 GB card) ``streaming_bytes`` and
 ``streaming_verify_bytes``; the script fails where a peak exceeds its
-estimate.
+estimate.  With ``--mesh D`` the instance runs over D shards
+(``parallel.ShardedBackend``; on a host with fewer cards than D a card
+holds several), in the mode its estimates per physical device give, and
+each physical device's peak stands beside its own estimate
+(``device_bytes``, ``stream_device_bytes``).
 
 Prints one JSON object (also written to ``--out``).  Neither JAX nor the
 JAX package is ever imported.
@@ -127,10 +131,15 @@ def device_breakdown(prof) -> tuple[float | None, dict]:
     return busy / 1e3, {k: [v[0], round(v[1], 3)] for k, v in groups.items()}
 
 
-def profile_call(torch, device, lig, fn) -> dict:
+def profile_call(torch, devices, lig, fn) -> dict:
+    """``devices``: the physical devices of the instance (the first one's
+    synchronisation brackets the walls; every one's peak is read)."""
+    device = devices[0]
     fn()  # warm-up
     if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
     walls = [_wall(torch, device, fn) for _ in range(REPEATS)]
     lig.timer.reset()
     lig.timer.enabled = True
@@ -149,10 +158,11 @@ def profile_call(torch, device, lig, fn) -> dict:
     def idle(wall_s):
         return None if busy_ms is None else 1.0 - busy_ms / (wall_s * 1e3)
 
-    peak = (torch.cuda.max_memory_allocated(device) / 2**30
-            if device.type == "cuda" else None)
+    peaks = ({str(dev): torch.cuda.max_memory_allocated(dev) / 2**30
+              for dev in devices} if device.type == "cuda" else None)
     return {"walls_s": walls, "median_wall_s": median, "phases_ms": phases,
-            "peak_device_memory_gib": peak,
+            "peak_device_memory_gib": max(peaks.values()) if peaks else None,
+            "peaks_gib": peaks,
             "profiled_wall_s": wall_prof, "device_busy_ms": busy_ms,
             "idle_share_vs_profiled_wall": idle(wall_prof),
             "idle_share_vs_median_wall": idle(median),
@@ -172,6 +182,8 @@ def main() -> int:
     ap.add_argument("--lambda", dest="lambda_", type=int, default=128)
     ap.add_argument("--batch", type=int, default=0,
                     help="also profile prove_batch and verify_batch of B")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="run over a mesh of D shards of the device(s)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -180,6 +192,7 @@ def main() -> int:
     from ligero_tpu_torch import FIELDS, LigeroCircuit, test_sponge
     from ligero_tpu_torch.engine import spot
     from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
+    from ligero_tpu_torch.parallel import ShardedBackend
     from ligero_tpu_torch.synthetic import generate_random_circuit
     from ligero_tpu_torch.utils.profiling import PhaseTimer
 
@@ -187,9 +200,17 @@ def main() -> int:
     circ, outs, vars_ = generate_random_circuit(field, 1 << args.log2_gates,
                                                 seed=0)
     mt = LigeroMTPoseidonParams(field) if args.mt == "poseidon" else None
+    place = {"device": args.device}
+    if args.mesh:
+        cards = (torch.cuda.device_count() if args.device.startswith("cuda")
+                 else 0)
+        place = {"backend": ShardedBackend(field, [
+            f"cuda:{i % cards}" if cards else args.device
+            for i in range(args.mesh)])}
     lig = LigeroCircuit(circ, outs, lambda_=args.lambda_, zk=args.zk,
-                        device=args.device, timer=PhaseTimer(), mt_params=mt)
+                        timer=PhaseTimer(), mt_params=mt, **place)
     device = lig.device
+    devices = lig.backend.mesh.physical if args.mesh else [device]
     sponge = test_sponge(field)
     kw = {"zk_seed": ZK_SEED} if args.zk else {}
 
@@ -209,7 +230,23 @@ def main() -> int:
         out = {"direct_bytes_gib": be.direct_bytes(*dims, batch=batch) / 2**30,
                "verify_bytes_gib": be.verify_bytes(*dims[:4],
                                                    batch=batch) / 2**30}
-        if lig.encode_mode == "streaming":
+        if args.mesh:
+            streaming = lig.encode_mode == "streaming"
+            part = min(batch, max(1, be.max_verify_batch(*dims[:4],
+                                                         lig.chunk_rows)))
+            prover = (be.stream_device_bytes(*dims, chunk_rows=lig.chunk_rows)
+                      if streaming else be.device_bytes(*dims, batch=batch))
+            verifier = (be.stream_device_bytes(
+                *dims[:4], chunk_rows=lig.chunk_rows, verifier=True,
+                batch=part) if streaming
+                else be.device_bytes(*dims[:4], verifier=True, batch=batch))
+            out["prover_estimates_gib"] = {d: v / 2**30
+                                           for d, v in prover.items()}
+            out["verifier_estimates_gib"] = {d: v / 2**30
+                                             for d, v in verifier.items()}
+            out["prover_estimate_gib"] = max(prover.values()) / 2**30
+            out["verifier_estimate_gib"] = max(verifier.values()) / 2**30
+        elif lig.encode_mode == "streaming":
             part = min(batch, max(1, be.max_verify_batch(*dims[:4],
                                                          lig.chunk_rows)))
             out["prover_estimate_gib"] = be.streaming_bytes(
@@ -225,13 +262,14 @@ def main() -> int:
         "field": field.name, "log2_gates": args.log2_gates, "zk": args.zk,
         "mt": args.mt, "encode_mode": lig.encode_mode,
         "chunk_rows": lig.chunk_rows, **estimates(),
+        "mesh": ([str(d) for d in be.mesh.devices] if args.mesh else None),
         "m": lig.m, "k": lig.k,
         "n": lig.n, "t": lig.t, "blind_t": lig.blind_t, "d2": lig.d2,
         "device": str(device),
         "nvidia_smi": nvidia_smi_line() if device.type == "cuda" else None,
         "torch": torch.__version__,
-        "prove": profile_call(torch, device, lig, prove),
-        "verify": profile_call(torch, device, lig,
+        "prove": profile_call(torch, devices, lig, prove),
+        "verify": profile_call(torch, devices, lig,
                                lambda: lig.verify(proof, sponge.clone())),
     }
     record["peak_device_memory_gib"] = (
@@ -244,7 +282,7 @@ def main() -> int:
             lig.field, lig.backend.asarray(coeffs), js, n)
         try:
             record["verify_spot_eval"] = profile_call(
-                torch, device, lig, lambda: lig.verify(proof, sponge.clone()))
+                torch, devices, lig, lambda: lig.verify(proof, sponge.clone()))
         finally:
             del lig.backend.ntt_columns
     if args.batch:
@@ -254,10 +292,10 @@ def main() -> int:
         record["batch"] = B
         record["batch_estimates"] = estimates(B)
         record["prove_batch"] = profile_call(
-            torch, device, lig,
+            torch, devices, lig,
             lambda: lig.prove_batch([vars_] * B, sponge, zk_seeds=seeds))
         record["verify_batch"] = profile_call(
-            torch, device, lig, lambda: lig.verify_batch(proofs, sponge))
+            torch, devices, lig, lambda: lig.verify_batch(proofs, sponge))
         for single, batched in (("prove", "prove_batch"),
                                 ("verify", "verify_batch")):
             record[batched]["per_second"] = B / record[batched]["median_wall_s"]
@@ -277,21 +315,25 @@ def main() -> int:
             f.write(text + "\n")
     print(text)
     if device.type == "cuda":
-        # each call's peak against the estimate of its live set
+        # each call's peak against the estimate of its live set (a mesh:
+        # each physical device's against its own)
         for call, key, est in (
-                ("prove", "prover_estimate_gib", record),
-                ("verify", "verifier_estimate_gib", record),
-                ("prove_batch", "prover_estimate_gib",
+                ("prove", "prover_estimate", record),
+                ("verify", "verifier_estimate", record),
+                ("prove_batch", "prover_estimate",
                  record.get("batch_estimates")),
-                ("verify_batch", "verifier_estimate_gib",
+                ("verify_batch", "verifier_estimate",
                  record.get("batch_estimates"))):
-            if call in record and (record[call]["peak_device_memory_gib"]
-                                   > est[key]):
-                print(f"profile_torch_port: the {call} peak "
-                      f"{record[call]['peak_device_memory_gib']:.2f} GiB "
-                      f"exceeds the estimate {est[key]:.2f} GiB",
-                      file=sys.stderr)
-                return 1
+            if call not in record:
+                continue
+            for dev, peak in record[call]["peaks_gib"].items():
+                limit = (est[key + "s_gib"][dev] if args.mesh
+                         else est[key + "_gib"])
+                if peak > limit:
+                    print(f"profile_torch_port: the {call} peak on {dev}, "
+                          f"{peak:.2f} GiB, exceeds the estimate "
+                          f"{limit:.2f} GiB", file=sys.stderr)
+                    return 1
     return 0
 
 

@@ -48,7 +48,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     assert len(names) >= 35 and "ligero_tpu_torch.engine.cuda_tree" in names
     for new in ("engine.spot", "engine.poseidon_cols", "engine.cuda_poseidon",
                 "engine.devmatrix", "circuit.r1cs", "cli", "server",
-                "parallel", "parallel.sharded_backend", "__main__"):
+                "parallel", "parallel.sharded_backend", "parallel.core_step",
+                "__main__"):
         assert f"ligero_tpu_torch.{new}" in names
     names.remove("ligero_tpu_torch.__main__")    # importing it runs the CLI
     out = run_blocked(
@@ -211,6 +212,45 @@ def test_sharded_backend_proves_and_verifies_with_both_blocked():
         "               for m in sys.modules)\n"
         "print('sharded ok')\n")
     assert "sharded ok" in out
+
+
+def test_core_and_mesh_streaming_run_with_both_blocked():
+    """The prover core, single and over a mesh of two CPU shards, and the
+    mesh's streaming mode (forced by a budget under its direct estimate)
+    with a batch of verdicts."""
+    out = run_blocked(
+        PROVE +
+        "import numpy as np, torch\n"
+        "from ligero_tpu_torch.engine.backend import TorchBackend\n"
+        "from ligero_tpu_torch.parallel import (RowMesh, ShardedBackend,\n"
+        "    make_prover_core, make_sharded_prover_core)\n"
+        "rng = np.random.default_rng(0)\n"
+        "preenc = F.ints_to_mont_limbs([int(x) for x in rng.integers(\n"
+        "    0, 2**62, 16 * 16)]).reshape(16, 16, -1)\n"
+        "r = F.ints_to_mont_limbs([int(x) for x in rng.integers(0, 2**62, 16)])\n"
+        "one = make_prover_core(F, 16, 16, 128, device='cpu')(preenc, r)\n"
+        "two = make_sharded_prover_core(F, ['cpu'] * 2, 16, 16, 128)(preenc, r)\n"
+        "assert torch.equal(torch.cat(two[1]), one[1])\n"
+        "assert torch.equal(two[2], one[2]) and torch.equal(two[3], one[3])\n"
+        "c, outs, vs = generate_random_circuit(F, 96, num_vars=4, seed=3)\n"
+        "want = LigeroCircuit(c, outs, lambda_=10, device='cpu').prove(\n"
+        "    vs, sp.clone()).to_bytes(F)\n"
+        "be = ShardedBackend(F, RowMesh(['cpu'] * 2))\n"
+        "direct = LigeroCircuit(c, outs, lambda_=10, backend=be)\n"
+        "dims = (direct.num_rows, direct.k, direct.n,\n"
+        "        len(direct.state.a_vals), 0, direct.d2)\n"
+        "budget = be.streaming_bytes(*dims, chunk_rows=12)\n"
+        "assert budget < be.direct_bytes(*dims)\n"
+        "TorchBackend.memory_budget = lambda self: budget\n"
+        "lig = LigeroCircuit(c, outs, lambda_=10, backend=be)\n"
+        "assert lig.encode_mode == 'streaming', lig.encode_mode\n"
+        "proof = lig.prove(vs, sp.clone())\n"
+        "assert proof.to_bytes(F) == want\n"
+        "assert lig.verify_batch([proof, proof], sp) == [True, True]\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ligero_tpu')\n"
+        "               for m in sys.modules)\n"
+        "print('core and mesh streaming ok')\n")
+    assert "core and mesh streaming ok" in out
 
 
 def test_batch_proves_and_verifies_with_both_blocked():
