@@ -64,7 +64,9 @@ It runs every phase, in order; any failure exits non-zero:
                path on the same card tensors, its RS-encode + Merkle-commit
                elements a second beside the card; the sharded core at
                2048 x 512 -> 4096 over two and four shards, every stage,
-               bit-equal to the single core.
+               bit-equal to the single core; the same core over a
+               process group of one rank on NCCL
+               (``parallel.multihost``), every stage bit-equal.
 4. parity   -- port proofs on the card byte-equal to the port's proofs on
                the CPU (plain versions) and to SHA-256 digests of the JAX
                package's proofs kept in ``testdata/golden_proofs.json``:
@@ -128,12 +130,29 @@ It runs every phase, in order; any failure exits non-zero:
                equal to the service's.  Then a BLS12-377 service in a
                thread: /circuits, /prove, /verify on a 2^10-squarings
                ``.r1cs`` over that field.
+7. ranks    -- (run before BLS12-377's main path, after BN254's 2^18 one)
+               two ranks of ``scripts/torch_multihost_worker.py`` on the
+               one card over gloo, asked for by name (NCCL refuses two
+               ranks on one GPU), started once the kernels are built: the
+               sharded core at the headline shape in both fields (root and
+               lc equal to the single core's), a BN254 2^20-gate plain
+               prove -> verify in direct mode and a 2^18-gate one in
+               streaming mode forced by the budget, each byte-equal to this
+               run's single-device proof, verified on both ranks; each
+               rank's walls, peaks against its estimates (a peak above
+               fails), launches and the bytes staged through the host.  On
+               one card this is the cost of the staged collectives, not
+               scaling.  Then ``python -m ligero_tpu_torch.bench`` at the
+               ``large`` scale in both fields (canary, one JSON line),
+               ``graft_entry.entry()`` on the card and
+               ``graft_entry.dryrun_multichip(2)`` with both mesh devices on
+               the card.
 
 The last two stdout lines are the kernels' JSON record (BN254 Fr's numbers
 in each entry, BLS12-377 Fq's under its ``bls12_377_fq`` key; the Poseidon
 sponge has BN254's only; beside them the streaming and sharded paths'
-walls and peaks, the prover core's times and rates, and the run's total
-seconds) and
+walls and peaks, the prover core's times and rates, the process mesh's
+ranks, the bench's values, and the run's total seconds) and
 ``{"ok": true, "device": {...}}``.  Neither JAX nor the JAX package
 ``ligero_tpu`` is ever imported.
 """
@@ -281,6 +300,14 @@ CORE_PLAIN_COL_STEP = 16
 #: inside the NTT kernel; no streaming, no Poseidon)
 NOT_ON_CORE = ("mont_mul", "poseidon_cols", "blake2s_stream",
                "poseidon_stream")
+
+
+#: the process mesh's phase: ranks of scripts/torch_multihost_worker.py on
+#: the one card over gloo (NCCL refuses two ranks on one GPU), started once
+#: the kernels are built, and the most their run may take
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORKER = os.path.join("scripts", "torch_multihost_worker.py")
+PROCESS_RANKS, WORKER_TIMEOUT_S = 2, 420
 
 
 #: the TPU kernel each BLS12-377 instantiation replaces, where it differs:
@@ -2500,6 +2527,290 @@ def phase_serve(torch, field) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the process mesh, the bench and the graft entry points
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_launches(launches: dict, path: str, absent) -> dict:
+    """:func:`read_counts`'s check on counts read elsewhere (a rank's)."""
+    log(f"kernel launches on the {path} path: {launches}")
+    require(all((v == 0) == (name in absent) for name, v in launches.items()),
+            f"on the {path} path a kernel was not launched, or one of "
+            f"{absent} was: {launches}")
+    return launches
+
+
+def worker_module():
+    """``scripts/torch_multihost_worker.py`` as a module: its seeded core
+    inputs are the ranks' inputs."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_multihost_worker", os.path.join(REPO, WORKER))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_nccl_world(torch, field) -> dict:
+    """A process group of one rank over NCCL (``multihost.initialize``
+    with the backend named; the path of a host with several cards, one
+    rank a card): the sharded core over its ``ProcessRowMesh`` at the
+    headline shape, every stage bit-equal to the single core, timed beside
+    it; the full stage's launches counted."""
+    from ligero_tpu_torch.parallel import (make_prover_core,
+                                           make_sharded_prover_core,
+                                           multihost)
+    from ligero_tpu_torch.parallel.core_step import STAGES
+
+    four_m, k, n = CORE_SHAPES[-1]
+    preenc, r = (torch.from_numpy(a.view("int32")).cuda() for a in
+                 worker_module().core_inputs(field, four_m, k))
+    single = make_prover_core(field, four_m, k, n)
+    u, leaves, root, lc = single(preenc, r)
+    multihost.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl",
+                         device="cuda:0")
+    try:
+        mesh = multihost.global_row_mesh("cuda:0")
+        require(mesh.size == 1 and mesh.comm.backend == "nccl"
+                and not mesh.comm.staged, f"not an NCCL world of one: {mesh}")
+        for stage in STAGES:
+            fn = make_sharded_prover_core(field, mesh, four_m, k, n,
+                                          stage=stage)
+            if stage == "full":
+                fn(preenc, r)                             # warm
+                wraps = wrappers()
+                reset_counts(torch, wraps)
+            out = fn(preenc, r)
+            torch.cuda.synchronize()
+            if stage == "full":
+                launches = read_counts(wraps, "nccl core",
+                                       absent=NOT_ON_CORE)
+            same = [torch.equal(out[0][0], u)]
+            if stage == "encode+a2a":
+                same.append(torch.equal(out[1][0], u))
+            if stage in ("encode+a2a+hash", "full"):
+                same.append(torch.equal(out[1][0], leaves))
+            if stage == "full":
+                same += [torch.equal(out[2], root), torch.equal(out[3], lc)]
+            require(all(same), f"NCCL world of one, stage {stage}: differs "
+                    f"from the single core ({same})")
+        ms = _time_cuda(torch, lambda: fn(preenc, r), 3)
+        single_ms = _time_cuda(torch, lambda: single(preenc, r), 3)
+    finally:
+        multihost.shutdown()
+    log(f"NCCL world of one [{field.name}] {four_m} x {k} -> {n}: every "
+        f"stage bit-equal to the single core; {ms:.3f} ms a call against "
+        f"the single core's {single_ms:.3f} ms")
+    return {"launches": launches, "ms": ms, "single_ms": single_ms}
+
+
+def phase_process_mesh(torch, field, want_direct: bytes,
+                       want_streaming: bytes) -> dict:
+    """A world of two ranks on the one card over gloo, asked for by name
+    (NCCL refuses two ranks on one GPU): two ``torch_multihost_worker.py``
+    processes on ``cuda:0``, started once the kernels are built.  Each
+    runs the sharded core at the headline shape in both fields (root and
+    lc equal to the single core's on the same inputs), a BN254 2^20-gate
+    plain prove -> verify in direct mode and a 2^18-gate one in streaming
+    mode forced by the budget, each after a warm-up prove and verify,
+    each proof byte-equal to the single-device proof of this run
+    (``want_*``) and verified on both ranks.  Per rank: walls, launches,
+    the device peak against ``device_bytes`` / ``stream_device_bytes`` (a
+    peak above fails) and the bytes the collectives staged through host
+    memory.  On one card this is the cost of the host-staged collectives,
+    not scaling.  A rank that exits non-zero fails the phase, its stderr
+    tail printed."""
+    four_m, k, n = CORE_SHAPES[-1]
+    bls = "bls12_377_fq"
+    port, tmp = free_port(), tempfile.mkdtemp(prefix="ligero_ranks_")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs, outs, errs = [], [], []
+    t0 = time.perf_counter()
+    try:
+        for pid in range(PROCESS_RANKS):
+            out = os.path.join(tmp, f"rank{pid}.json")
+            err = open(os.path.join(tmp, f"rank{pid}.err"), "w+")
+            outs.append(out)
+            errs.append(err)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(REPO, WORKER), str(pid),
+                 str(PROCESS_RANKS), str(port), out, "--field", field.name,
+                 "--mode", f"core,core:{bls},direct,streaming",
+                 "--device", "cuda:0", "--backend", "gloo",
+                 "--core", f"{four_m},{k},{n}",
+                 "--gates", str(1 << LOG2_GATES),
+                 "--stream-gates", str(1 << BATCH_LOG2_GATES),
+                 "--stream-chunk", str(FORCED_CHUNK_ROWS),
+                 "--num-vars", "64", "--circuit-seed", str(SEED), "--warm"],
+                cwd=REPO, env=env, stdout=err, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + WORKER_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"the ranks ran past {WORKER_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, err) in enumerate(zip(procs, errs)):
+        err.seek(0)
+        tail = err.read()[-3000:]
+        err.close()
+        if p.returncode != 0:
+            print(tail, file=sys.stderr, flush=True)
+        require(p.returncode == 0, f"rank {pid} exited {p.returncode}")
+    recs = []
+    for out in outs:
+        with open(out) as f:
+            recs.append(json.load(f))
+    log(f"process mesh: {PROCESS_RANKS} ranks on cuda:0 over "
+        f"{recs[0]['backend']}, {wall:.1f} s from start to exit (one card: "
+        "these numbers are the host-staged collectives' cost, not scaling)")
+
+    # the single core on the ranks' inputs, in both fields
+    import numpy as np
+    from ligero_tpu_torch.fields import FIELDS
+    from ligero_tpu_torch.parallel import make_prover_core
+    inputs = worker_module().core_inputs
+    for run, fname in (("core", field.name), (f"core:{bls}", bls)):
+        f = FIELDS[fname]
+        preenc, r = (torch.from_numpy(a.view("int32")).cuda()
+                     for a in inputs(f, four_m, k))
+        _, _, root, lc = make_prover_core(f, four_m, k, n)(preenc, r)
+        want = (root.cpu().numpy().view(np.uint32).astype(">u4")
+                .tobytes().hex(),
+                lc.cpu().numpy().view(np.uint32).astype("<u4").tobytes().hex())
+        for rec in recs:
+            got = rec["runs"][run]
+            require((got["root"], got["lc"]) == want,
+                    f"process mesh {run}, rank {rec['rank']}: root or lc "
+                    "differs from the single core")
+        log(f"process mesh core [{fname}] {four_m} x {k} -> {n}: root and lc "
+            "of both ranks bit-equal to the single core; rank walls "
+            + ", ".join(f"{rec['runs'][run]['wall_s'] * 1e3:.1f} ms"
+                        for rec in recs) + "; staged through the host "
+            + ", ".join(f"{rec['runs'][run]['staged_bytes'] / 2**20:.1f} MiB"
+                        for rec in recs))
+    for run, want in (("direct", want_direct), ("streaming", want_streaming)):
+        digest = hashlib.sha256(want).hexdigest()
+        for rec in recs:
+            got = rec["runs"][run]
+            require(got["sha256"] == digest and got["bytes"] == len(want),
+                    f"process mesh {run}, rank {rec['rank']}: the proof "
+                    "differs from the single-device proof")
+            require(got["verified"], f"process mesh {run}, rank "
+                    f"{rec['rank']}: verify rejected the honest proof")
+            require(got["peak_bytes"] <= got["estimate_bytes"]
+                    and got["verify_peak_bytes"]
+                    <= got["verify_estimate_bytes"],
+                    f"process mesh {run}, rank {rec['rank']}: a peak lies "
+                    "above its estimate")
+            log(f"process mesh {run} 2^{got['gates'].bit_length() - 1} "
+                f"rank {rec['rank']}: proof byte-equal to the single-device "
+                f"proof ({got['bytes']} bytes), verify True; warm prove "
+                f"{got['wall_s']:.3f} s, verify {got['verify_wall_s']:.3f} s; "
+                f"peaks {got['peak_bytes'] / 2**30:.3f} / "
+                f"{got['verify_peak_bytes'] / 2**30:.3f} GiB against "
+                f"{got['estimate_bytes'] / 2**30:.3f} / "
+                f"{got['verify_estimate_bytes'] / 2**30:.3f} GiB; staged "
+                f"{got['staged_bytes'] / 2**30:.3f} / "
+                f"{got['verify_staged_bytes'] / 2**30:.3f} GiB"
+                + (f"; chunks of {got['chunk_rows']} rows"
+                   if run == "streaming" else ""))
+    paths = {"process core": ("core", NOT_ON_CORE),
+             "bls process core": (f"core:{bls}", NOT_ON_CORE),
+             "process direct": ("direct", NOT_ON_DEFAULT),
+             "process streaming": ("streaming", NOT_ON_STREAMING)}
+    launches = {}
+    for path, (run, absent) in paths.items():
+        counts = {}
+        for rec in recs:
+            for key in ("launches", "verify_launches"):
+                for name, v in rec["runs"][run].get(key, {}).items():
+                    counts[name] = counts.get(name, 0) + v
+        launches[path] = check_launches(counts, path + " (both ranks)",
+                                        absent)
+    return {"launches": launches, "wall_s": wall,
+            "ranks": [{run: {key: val for key, val in got.items()
+                             if key not in ("launches", "verify_launches",
+                                            "lc", "root")}
+                       for run, got in rec["runs"].items()} for rec in recs]}
+
+
+def phase_bench(torch) -> dict:
+    """``python -m ligero_tpu_torch.bench`` at the ``large`` scale in both
+    fields, in this process: its canary passes, one JSON line of under
+    2000 characters; the core's launches counted."""
+    import contextlib
+    import io
+    from ligero_tpu_torch import bench
+
+    lines, launches = {}, {}
+    wraps = wrappers()
+    for fname, path in (("bn254_fr", "bench"), ("bls12_377_fq", "bls bench")):
+        buf = io.StringIO()
+        reset_counts(torch, wraps)
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--field", fname, "--scale", "large"])
+        torch.cuda.synchronize()
+        launches[path] = read_counts(wraps, path, absent=NOT_ON_CORE)
+        text = buf.getvalue().strip()
+        require(rc == 0 and len(text.splitlines()) == 1 and len(text) < 2000,
+                f"bench [{fname}]: exit {rc}, output {text[:500]!r}")
+        lines[fname] = json.loads(text)
+        log(f"bench [{fname}]: {text}")
+    return {"launches": launches, "lines": lines}
+
+
+def phase_graft(torch) -> dict:
+    """``graft_entry.entry()`` on the card (its core's outputs bit-equal
+    to the backend path on the same tensors) and ``dryrun_multichip(2)``
+    with both mesh devices on the card (its proofs byte-equal to one
+    device's, direct and streaming); launches counted on each."""
+    from ligero_tpu_torch import graft_entry
+    from ligero_tpu_torch.engine.backend import TorchBackend
+    from ligero_tpu_torch.fields import BN254_FR
+
+    wraps = wrappers()
+    fn, (preenc, r) = graft_entry.entry()
+    require(preenc.device.type == "cuda", "entry() did not take the card")
+    four_m, k, n = graft_entry.CARD_SHAPE
+    reset_counts(torch, wraps)
+    u, leaves, root, lc = fn(preenc, r)
+    torch.cuda.synchronize()
+    launches = {"entry": read_counts(wraps, "entry", absent=NOT_ON_CORE)}
+    be = TorchBackend(BN254_FR)
+    require(torch.equal(u, be.rs_encode_and_canon(preenc, k, n)[1])
+            and torch.equal(lc, be.row_combine(r, preenc))
+            and tuple(leaves.shape) == (n, 8) and tuple(root.shape) == (8,),
+            "entry(): the core differs from the backend path")
+    reset_counts(torch, wraps)
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["dryrun"] = read_counts(
+        wraps, "dryrun_multichip(2)",
+        absent=("poseidon_cols", "poseidon_stream"))
+    require(res["devices"] == mesh_devices(torch, 2), "dryrun_multichip(2) "
+            f"ran on {res['devices']}")
+    log(f"entry(): {four_m} x {k} -> {n} on the card, bit-equal to the "
+        f"backend path; dryrun_multichip(2) on {res['devices']}: sharded "
+        "core, direct and streaming proofs (chunks of "
+        f"{res['chunk_rows']} rows) byte-equal to one device's, {secs:.1f} s")
+    return {"launches": launches, "dryrun_s": secs,
+            "chunk_rows": res["chunk_rows"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2553,9 +2864,11 @@ def main() -> int:
     kernel_cases_2e22(torch, field, gen, results)
     host_hash_context(lig.n)
     core = {field.name: phase_core(torch, field, gen, smi)}
+    nccl = phase_nccl_world(torch, field)
     phase_parity()
     by_path = {"plain": phase_main(torch, field, lig, vars_)}
     ref = single_reference(torch, lig, vars_)
+    want_2e20 = ref["want"]          # the process mesh's direct proof
     del lig
     torch.cuda.empty_cache()
     # the same instance over a mesh of two shards
@@ -2630,7 +2943,14 @@ def main() -> int:
         streaming[path] = phase_streaming_forced(torch, field, circ, outs,
                                                  vars_, zk)
         by_path[path] = streaming[path]["launches"]
+    # two ranks on the card: the 2^20 direct and this size's streaming
+    # proofs against this run's single-device ones
+    want_2e18 = single_instance_reference(torch, field, circ, outs, vars_,
+                                          False)["want"]
     del circ, outs, vars_
+    drop_cached_tables(torch)
+    process = phase_process_mesh(torch, field, want_2e20, want_2e18)
+    by_path.update(process["launches"])
 
     # the same synthetic circuit over BLS12-377 Fq, the kernels' second field
     bls = BLS12_377_FQ
@@ -2676,6 +2996,11 @@ def main() -> int:
         by_path[path] = res["launches"]
     for res in core.values():
         by_path.update(res["launches"])
+    by_path["nccl core"] = nccl["launches"]
+    bench = phase_bench(torch)
+    by_path.update(bench["launches"])
+    graft = phase_graft(torch)
+    by_path.update(graft["launches"])
     by_path["serve"] = phase_serve(torch, field)
     by_path["bls serve"] = phase_serve_bls(torch, bls)
     for mod in ("jax", "ligero_tpu"):
@@ -2722,6 +3047,15 @@ def main() -> int:
                                 if key != "launches"}
                          for path, res in sharded.items()}
     record["core"] = {name: res["rates"] for name, res in core.items()}
+    record["nccl_world"] = {key: val for key, val in nccl.items()
+                            if key != "launches"}
+    record["process_mesh"] = {key: val for key, val in process.items()
+                              if key != "launches"}
+    record["bench"] = {name: {"value": line["value"],
+                              "step_s": line["config"]["step_s"]}
+                       for name, line in bench["lines"].items()}
+    record["graft"] = {key: val for key, val in graft.items()
+                       if key != "launches"}
     record["total_s"] = time.perf_counter() - start
     log(f"chip_smoke: every phase passed in {record['total_s']:.1f} s")
     print(smi, flush=True)

@@ -188,8 +188,8 @@ class TorchBackend:
         running sum, and the modular add's int64 operands, sum, carry copy
         and selection)."""
         coo = nnz * (self.L * 4 + 16)    # stays on the device between proofs
-        enc, enc_t, later, pair = self._direct_phases(rows, k, n, blind_t,
-                                                      d2, batch)
+        enc, enc_t, later, pair, _ = self._direct_phases(rows, k, n, blind_t,
+                                                         d2, batch)
         msg = rows * k * self.L * 4      # the r^T A coefficient rows
         linear = self._linear_transients(rows, k, nnz)
         return int(max(coo + enc + enc_t,
@@ -201,11 +201,15 @@ class TorchBackend:
         """:meth:`direct_bytes`'s pieces for ``rows`` rows, without A's
         COO and the linear transients: ``(the encode's resident matrices,
         its NTT scratch, the later phases' resident matrices, one proof's
-        products on the d2 domain)``.  Resident: the message, coefficient
-        and codeword matrices (and the zk row matrix) of the batch; the
-        products: two (rows, d2) evaluation matrices and their scratch,
-        beside the r^T A coefficient rows (without zk they stay under the
-        linear transients)."""
+        products on the d2 domain, the commit's resident matrices)``.
+        Resident: the message, coefficient and codeword matrices (and the
+        zk row matrix) of the batch; the products: two (rows, d2)
+        evaluation matrices and their scratch, beside the r^T A coefficient
+        rows (without zk they stay under the linear transients).  The
+        commit holds the codewords and coefficients of the batch, and
+        without zk the message rows too (the interleaved combination takes
+        them after it); under zk the message and row matrices are gone by
+        then."""
         L = self.L
         d2 = 2 * k if d2 is None else d2
         u, msg = rows * n * L * 4, rows * k * L * 4
@@ -221,7 +225,9 @@ class TorchBackend:
             enc = batch * (2 * msg + u)
             enc_t = max(scratch(batch * rows, k, k),
                         scratch(batch * rows, k, n))
-        return enc, enc_t, batch * (u + coeffs), pair
+        later = batch * (u + coeffs)
+        return enc, enc_t, later, pair, later + (0 if blind_t
+                                                 else batch * msg)
 
     def _linear_transients(self, rows: int, k: int, nnz: int) -> int:
         """One proof's linear-phase transients (see :meth:`direct_bytes`)."""
@@ -533,6 +539,11 @@ class TorchBackend:
         device."""
         return self.device
 
+    def holds_chunk(self, i: int) -> bool:
+        """Whether this process holds chunk ``i`` of a streaming matrix:
+        here every chunk (over a process mesh, rank i mod D's)."""
+        return True
+
     @contextlib.contextmanager
     def _on(self, device):
         """A context, with ``device`` current for the kernels' launches,
@@ -550,6 +561,26 @@ class TorchBackend:
         r^T A coefficient chunks) moved to :meth:`_chunk_device`, beside
         the coefficient chunk it pairs with."""
         return chunk.to(self._chunk_device(i))
+
+    def _join_chunks(self, parts: dict, rcm: RowChunkedMatrix, inner: tuple,
+                     device) -> torch.Tensor:
+        """Per chunk i of ``rcm`` held here, a (real rows of chunk i,
+        *inner) result -> every chunk's, in row order, on ``device`` (over
+        a process mesh gathered from the ranks)."""
+        return torch.cat([parts[i].to(device) for i in range(len(rcm.chunks))])
+
+    def _combine_ranks(self, total, count: int, shape):
+        """A partial sum over the chunks of ``count`` held here -> the sum
+        over all (over a process mesh the ranks' sums added mod p)."""
+        return total
+
+    def column_digests(self, u_canon, batch: int, digest) -> torch.Tensor:
+        """``digest(block)`` ((batch, columns, W)) of each column block of
+        :meth:`column_blocks`, joined in column order on the device:
+        every column's digests, (batch, n, W)."""
+        return torch.cat([digest(block).to(self.device)
+                          for block in self.column_blocks(u_canon, batch)],
+                         dim=1)
 
     def _rows_up(self, preenc, r0: int, r1: int) -> torch.Tensor:
         """Host message rows [r0, r1) as int32 limbs on the device: 16-bit
@@ -577,9 +608,12 @@ class TorchBackend:
         is never whole on the device (``Backend.intt_resident``)."""
         rows, chunks = preenc.shape[0], []
         for i, r0 in enumerate(range(0, rows, chunk_rows)):
+            if not self.holds_chunk(i):
+                chunks.append(None)
+                continue
             with self._on(self._chunk_device(i)) as be:
                 chunks.append(be.intt(be._chunk_up(preenc, r0, chunk_rows), k))
-        return RowChunkedMatrix(chunks, rows, chunk_rows)
+        return RowChunkedMatrix(chunks, rows, chunk_rows, k)
 
     def zk_blind_chunks(self, preenc, rows_seed: bytes, blind_t: int,
                         chunk_rows: int) -> RowChunkedMatrix:
@@ -595,9 +629,14 @@ class TorchBackend:
         chunks = []
         for i, r0 in enumerate(range(0, rows4, cr)):
             real = min(cr, rows4 - r0)
+            # every chunk's draws, in row order, wherever the chunk lies
+            s = stream.take(real * b).reshape(real, b, L)
+            if not self.holds_chunk(i):
+                chunks.append(None)
+                continue
             with self._on(self._chunk_device(i)) as be:
                 msg = be.intt(be._rows_up(preenc, r0, r0 + real), k)
-                s = stream.take(real * b).reshape(real, b, L).to(be.device)
+                s = s.to(be.device)
                 chunk = torch.zeros((cr, k + b, L), dtype=torch.int32,
                                     device=be.device)
                 chunk[:real, :k] = msg
@@ -607,7 +646,7 @@ class TorchBackend:
                 # in zk_blind_rows, subtract from the concatenated layout
                 chunk[:real, :b] = be.sub(chunk[:real, :b], s)
             chunks.append(chunk)
-        return RowChunkedMatrix(chunks, rows4, cr)
+        return RowChunkedMatrix(chunks, rows4, cr, k + b)
 
     def ntt_columns(self, coeffs, n: int, js) -> torch.Tensor:
         """All rows' n-point NTTs at the columns ``js`` only: (B, k, L) ->
@@ -616,13 +655,16 @@ class TorchBackend:
         the chunk lies, so that one chunk's transform is live."""
         idx = torch.from_numpy(np.asarray(js, dtype=np.int64))
         if isinstance(coeffs, RowChunkedMatrix):
-            out = []
+            out = {}
             for i, c in enumerate(coeffs.chunks):
+                if c is None:
+                    continue
                 with self._on(c.device) as be:
-                    out.append(be.ntt(c, n).index_select(
+                    out[i] = be.ntt(c, n).index_select(
                         1, idx.to(c.device))[:coeffs.real_rows(i)].to(
-                            self.device))
-            return torch.cat(out)
+                            self.device)
+            return self._join_chunks(out, coeffs, (len(idx), self.L),
+                                     self.device)
         return self.ntt(coeffs, n).index_select(1, idx.to(self.device))
 
     def ntt_columns_batch(self, coeffs_b, n: int, idx) -> torch.Tensor:
@@ -653,11 +695,10 @@ class TorchBackend:
                 raise ValueError("streaming mode commits one proof at a time")
             return [self.commit_columns_streaming(u_canon)]
         n = u_canon.shape[1]
-        leaves_le = torch.cat([
-            cuda_hash.blake2s_columns(
+        leaves_le = self.column_digests(
+            u_canon, batch, lambda block: cuda_hash.blake2s_columns(
                 self.field, block.reshape(-1, *block.shape[2:]), batch)
-            .reshape(batch, -1, 8).to(self.device)
-            for block in self.column_blocks(u_canon, batch)], dim=1)
+            .reshape(batch, -1, 8))
         flat = self.to_numpy(cuda_tree.forest_flat(leaves_le))
         return [hashops.digest_lists(flat[b], n) for b in range(batch)]
 
@@ -697,13 +738,20 @@ class TorchBackend:
         if isinstance(u_canon, StreamedCodewords):
             if idx.shape[0] != 1:
                 raise ValueError("streaming mode opens one proof at a time")
-            parts = []
-            for coeffs, real in u_canon.parts():
+            rcm, parts = u_canon.coeffs, {}
+            for i, coeffs in enumerate(rcm.chunks):
+                if coeffs is None:
+                    continue
                 with self._on(coeffs.device) as be:
-                    parts.append(self.to_numpy(
-                        be.ntt_and_canon(coeffs, u_canon.n).index_select(
-                            1, idx[0].to(coeffs.device))[:real]))
-            return np.concatenate(parts)[None]
+                    parts[i] = be.ntt_and_canon(
+                        coeffs, u_canon.n).index_select(1, idx[0].to(
+                            coeffs.device))[:rcm.real_rows(i)].cpu()
+            cols = [self._join_chunks(parts, rcm, (idx.shape[1], self.L),
+                                      "cpu")]
+            if u_canon.tail is not None:
+                cols.append(self.ntt_and_canon(u_canon.tail, u_canon.n)
+                            .index_select(1, idx[0].to(self.device)).cpu())
+            return self.to_numpy(torch.cat(cols))[None]
         idx = idx.to(self.device)
         batch, t = idx.shape
         u4 = u_canon.reshape(batch, -1, *u_canon.shape[1:])
@@ -744,12 +792,16 @@ class TorchBackend:
         r = self.asarray(r)
         total = None
         for i, chunk in enumerate(rcm.chunks):
+            if chunk is None:
+                continue
             r0, real = i * rcm.chunk_rows, rcm.real_rows(i)
             with self._on(chunk.device) as be:
                 part = be.row_combine(r[r0:r0 + real].to(chunk.device),
                                       chunk[:real]).to(self.device)
             total = part if total is None else fieldops.add(self.field,
                                                             total, part)
+        total = self._combine_ranks(total, len(rcm.chunks),
+                                    (rcm.width, self.L))
         if isinstance(mat, MessageRows):
             return self.ntt(total[None], rcm.width)[0]
         return total
@@ -773,7 +825,7 @@ class TorchBackend:
                                           [0, len(rowids)], num_cols))
 
     def sparse_rA_blocks(self, rowids, colids, vals_mont, r_mont,
-                         bounds: list[int], block_cols: int):
+                         bounds: list[int], block_cols: int, only=None):
         """r^T A in column blocks (``Backend.sparse_rA_mont_blocked``):
         A's entries sorted by column, ``bounds[j]`` the first entry of block
         j (columns [j block_cols, (j + 1) block_cols)); yields each block's
@@ -781,8 +833,13 @@ class TorchBackend:
         go through the mont_mul kernel and an exact int64 ``index_add_`` of
         the limbs ``block_cols`` at a time (order-independent), then one
         :func:`fieldops.fold_wide`: the same values as the whole product.
-        Columns past A's run (the last block's padding) are zeros."""
+        Columns past A's run (the last block's padding) are zeros.  With
+        ``only``, a block j where ``only(j)`` is false yields None (over a
+        process mesh: a chunk another rank holds)."""
         for j in range(len(bounds) - 1):
+            if only is not None and not only(j):
+                yield None
+                continue
             c0 = j * block_cols
             sums = torch.zeros((block_cols, self.L), dtype=torch.int64,
                                device=self.device)
@@ -811,6 +868,8 @@ class TorchBackend:
                                  "are not row-aligned")
             total = None
             for uc, rc in zip(u_coeffs.chunks, r_coeffs.chunks):
+                if uc is None:
+                    continue
                 with self._on(uc.device) as be:
                     eu = be.ntt(uc, d2)
                     er = be.ntt(rc.to(uc.device), d2)
@@ -819,6 +878,8 @@ class TorchBackend:
                     del eu, er
                 total = part if total is None else fieldops.add(
                     self.field, total, part)
+            total = self._combine_ranks(total, len(u_coeffs.chunks),
+                                        (d2, self.L))
             return self.intt(total[None], d2)[0]
         eu = self.ntt(u_coeffs, d2)
         er = self.ntt(r_coeffs, d2)

@@ -11,7 +11,8 @@ opened columns of each.  The r^T A coefficient rows of the linear phase are
 a :class:`RowChunkedMatrix` too, row-aligned with the codeword chunks.
 Over a mesh (``parallel.ShardedBackend``) the chunks of one matrix lie on
 several devices: chunk i on mesh device i mod D, the block-cyclic layout of
-the JAX package's ``ShardedCoeffs``.
+the JAX package's ``ShardedCoeffs`` (over a process mesh, in rank i mod D's
+process).
 
 The backend's bulk steps take either a tensor (direct mode) or one of these
 handles, and dispatch on the type, as the JAX package does.
@@ -27,17 +28,24 @@ class RowChunkedMatrix:
     rows each: ``chunks[i]`` holds rows ``[i chunk_rows, (i + 1)
     chunk_rows)``.  Rows at and past ``rows`` in the last chunk are exact
     zeros (padding), so a sum or a transform over whole chunks is that of
-    the real rows."""
+    the real rows.  Over a process mesh a chunk that another rank holds is
+    None here (``width`` names the width where this rank holds none)."""
 
-    def __init__(self, chunks: list[torch.Tensor], rows: int, chunk_rows: int):
+    def __init__(self, chunks: list, rows: int, chunk_rows: int,
+                 width: int | None = None):
+        held = [c for c in chunks if c is not None]
         if not chunks:
             raise ValueError("RowChunkedMatrix: no chunks")
         if len(chunks) != -(-rows // chunk_rows) or any(
-                c.shape[0] != chunk_rows for c in chunks):
+                c.shape[0] != chunk_rows for c in held):
             raise ValueError(f"RowChunkedMatrix: {len(chunks)} chunks do not "
                              f"hold {rows} rows in chunks of {chunk_rows}")
+        if not held and width is None:
+            raise ValueError("RowChunkedMatrix: no chunk held here and no "
+                             "width")
         self.chunks, self.rows, self.chunk_rows = chunks, rows, chunk_rows
-        self.width, self.L = chunks[0].shape[1], chunks[0].shape[2]
+        self.width = held[0].shape[1] if held else width
+        self.L = held[0].shape[2] if held else None
 
     @property
     def shape(self) -> tuple[int, int, int]:

@@ -475,18 +475,21 @@ class LigeroCircuit:
         cr = self.chunk_rows
         with ph("linear.expand"):
             r = be.rand_field_mont(four_mk, seed, segment=cr * self.k)
-        blocks = be.sparse_rA_blocks(*coo[:3], r, coo[3], cr * self.k)
+        count = len(coo[3]) - 1
+        blocks = be.sparse_rA_blocks(*coo[:3], r, coo[3], cr * self.k,
+                                     only=be.holds_chunk)
         chunks = []
-        while True:
+        for i in range(count):
             with ph("linear.sparse_rA"):
-                block = next(blocks, None)
-            if block is None:
-                break
+                block = next(blocks)
+            if block is None:               # another rank's chunk
+                chunks.append(None)
+                continue
             with ph("linear.intt"):
-                chunks.append(be.place_chunk(len(chunks), be.intt(
+                chunks.append(be.place_chunk(i, be.intt(
                     block.reshape(cr, self.k, -1), self.k)))
             del block
-        return RowChunkedMatrix(chunks, 4 * self.m, cr)
+        return RowChunkedMatrix(chunks, 4 * self.m, cr, self.k)
 
     def _opened(self, cols: np.ndarray, tree, idx_sets):
         """One proof's gathered columns (rows, sum of the sets, L) ->

@@ -103,14 +103,12 @@ class LigeroMTPoseidonParams:
         or launch failure raises), the plain version on the CPU.  Matrix
         after matrix, bit-identical to :meth:`col_hash` of each column.
         Over a mesh, one launch a device for its block of whole columns
-        (``backend.column_blocks``).  A ``StreamedCodewords`` (the
+        (``backend.column_digests``).  A ``StreamedCodewords`` (the
         streaming mode's U, one proof) is re-encoded a part at a time
         (``backend.ntt_and_canon``) and its real rows absorbed into the
         columns' sponge states (``cuda_poseidon.PoseidonColumnStream``, the
         chunked kernel entry), as the default commitment's streamed Blake2s
         absorbs them."""
-        import torch
-
         from ..engine import cuda_poseidon, poseidon_cols
         from ..engine.devmatrix import StreamedCodewords
         cfg = self.check_backend(backend)
@@ -123,10 +121,9 @@ class LigeroMTPoseidonParams:
             for coeffs, real in u_source.parts():
                 stream.absorb(backend.ntt_and_canon(coeffs, n), real)
             return poseidon_cols.digests_to_bytes(stream.digests())
-        return poseidon_cols.digests_to_bytes(torch.cat(
-            [poseidon_cols.poseidon_columns(self.field, cfg, block)
-             .to(backend.device)
-             for block in backend.column_blocks(u_source, batch)], dim=1))
+        return poseidon_cols.digests_to_bytes(backend.column_digests(
+            u_source, batch, lambda block: poseidon_cols.poseidon_columns(
+                self.field, cfg, block)))
 
     def device_tree_levels(self, backend, leaves: list[bytes],
                            batch: int = 1) -> list:

@@ -29,7 +29,14 @@ with no communication; a row -> column re-shard (the all_to_all) hands
 device d columns [d n/D, (d + 1) n/D) of every row; each device hashes its
 columns and reduces its subtree with the tree kernel; the controller
 finishes the top log2 D levels over the D subtree roots and adds the D
-partial combinations mod p.  Its outputs are the single core's.
+partial combinations mod p.  Its outputs are the single core's.  Over a
+:class:`~.sharded_backend.ProcessRowMesh` (one device a process,
+``parallel.multihost``) every rank runs the same function on the same
+inputs and does its own device's part: it encodes its row block, the
+re-shard is an all_to_all, it hashes its columns and reduces its subtree,
+and an all_gather of the D subtree roots and of the D partial combinations
+lets every rank finish the top levels and the sum in rank order: root and
+lc replicated on every rank, as the JAX function's are.
 """
 
 from __future__ import annotations
@@ -97,8 +104,10 @@ def make_sharded_prover_core(field: FieldSpec, mesh, four_m: int, k: int,
       lc on the controller.
 
     Concatenated, the blocks are :func:`make_prover_core`'s outputs, bit
-    for bit.  As the JAX function asserts: 4m and n divisible by D, D and
-    n/D powers of two."""
+    for bit.  Over a process mesh a sharded output lists this rank's block
+    alone, and the subtree roots, root and lc are on every rank.  As the
+    JAX function asserts: 4m and n divisible by D, D and n/D powers of
+    two."""
     mesh = mesh if isinstance(mesh, RowMesh) else RowMesh(mesh)
     D = mesh.size
     if stage not in STAGES:
@@ -117,11 +126,12 @@ def make_sharded_prover_core(field: FieldSpec, mesh, four_m: int, k: int,
         _check(preenc, r, four_m, k, be.L)
         rows = be.row_matrix(preenc)           # row block d on device d
         u = be.ntt_and_canon(be.intt(rows, k), n)
+        u_blocks = [blk for blk in u.blocks if blk is not None]
         if stage == "encode":
-            return (u.blocks,)
+            return (u_blocks,)
         blocks = be.column_blocks(u)        # the re-shard, a device at a time
         if stage == "encode+a2a":
-            return u.blocks, [blk[0] for blk in blocks]
+            return u_blocks, [blk[0] for blk in blocks]
         leaves, roots = [], []
         for blk in blocks:
             with on_device(blk.device):
@@ -131,12 +141,13 @@ def make_sharded_prover_core(field: FieldSpec, mesh, four_m: int, k: int,
                              .to(be.device))
             leaves.append(lv)
             del blk
-        roots = torch.stack(roots)                            # (D, 8) BE
+        roots = (torch.stack(roots) if be.comm is None          # (D, 8) BE
+                 else torch.stack(be.comm.all_gather(roots[0])))
         if stage == "encode+a2a+hash":
-            return u.blocks, leaves, roots
+            return u_blocks, leaves, roots
         with on_device(be.device):
             root = (roots[0] if D == 1 else
                     cuda_tree.tree_root(hashops.byteswap_words(roots)))
-        return u.blocks, leaves, root, be.row_combine(be.asarray(r), rows)
+        return u_blocks, leaves, root, be.row_combine(be.asarray(r), rows)
 
     return fn

@@ -249,8 +249,11 @@ def main() -> int:
         elif lig.encode_mode == "streaming":
             part = min(batch, max(1, be.max_verify_batch(*dims[:4],
                                                          lig.chunk_rows)))
+            # the mode's own estimate: under the Poseidon commitment the
+            # sponge states stand beside a chunk's re-encode
             out["prover_estimate_gib"] = be.streaming_bytes(
-                *dims, chunk_rows=lig.chunk_rows) / 2**30
+                *dims, chunk_rows=lig.chunk_rows,
+                poseidon=args.mt == "poseidon") / 2**30
             out["verifier_estimate_gib"] = be.streaming_verify_bytes(
                 *dims[:4], lig.chunk_rows, part) / 2**30
         else:

@@ -1,6 +1,7 @@
 """The port is a package of its own: it runs with ``jax`` and the JAX package
 ``ligero_tpu`` made unimportable, and no source of it imports either."""
 
+import json
 import os
 import pkgutil
 import re
@@ -49,7 +50,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     for new in ("engine.spot", "engine.poseidon_cols", "engine.cuda_poseidon",
                 "engine.devmatrix", "circuit.r1cs", "cli", "server",
                 "parallel", "parallel.sharded_backend", "parallel.core_step",
-                "__main__"):
+                "parallel.multihost", "parallel.collectives", "bench",
+                "graft_entry", "__main__"):
         assert f"ligero_tpu_torch.{new}" in names
     names.remove("ligero_tpu_torch.__main__")    # importing it runs the CLI
     out = run_blocked(
@@ -253,6 +255,51 @@ def test_core_and_mesh_streaming_run_with_both_blocked():
     assert "core and mesh streaming ok" in out
 
 
+def test_multihost_worker_and_bench_run_with_both_blocked(tmp_path):
+    """``parallel.multihost`` and ``parallel.collectives`` through the
+    worker script (a process group of one, gloo, on the CPU: the sharded
+    core and a direct, a streaming and a zk proof, each verified), and the
+    port's bench at the small scale after its canary."""
+    worker = os.path.join(REPO, "scripts", "torch_multihost_worker.py")
+    out = tmp_path / "rank0.json"
+    res = run_blocked(
+        "import json, runpy, socket\n"
+        "with socket.socket() as s:\n"
+        "    s.bind(('localhost', 0))\n"
+        "    port = s.getsockname()[1]\n"
+        f"sys.argv = ['worker', '0', '1', str(port), {str(out)!r},\n"
+        "            '--device', 'cpu', '--backend', 'gloo', '--gates', '96']\n"
+        "try:\n"
+        f"    runpy.run_path({worker!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"rec = json.load(open({str(out)!r}))\n"
+        "assert rec['size'] == 1 and rec['backend'] == 'gloo'\n"
+        "assert all(rec['runs'][r]['verified'] for r in\n"
+        "           ('direct', 'streaming', 'zk'))\n"
+        "assert rec['runs']['streaming']['mode'] == 'streaming'\n"
+        "from ligero_tpu_torch import bench\n"
+        "assert bench.main(['--device', 'cpu', '--scale', 'small']) == 0\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ligero_tpu')\n"
+        "               for m in sys.modules)\n"
+        "print('multihost and bench ok')\n")
+    assert "multihost and bench ok" in res
+    assert json.loads(res.splitlines()[-2])["metric"].startswith("RS-encode")
+
+
+def test_graft_entry_runs_with_both_blocked():
+    out = run_blocked(
+        "from ligero_tpu_torch import graft_entry\n"
+        "fn, (preenc, r) = graft_entry.entry('cpu')\n"
+        "assert tuple(fn(preenc, r)[2].shape) == (8,)\n"
+        "res = graft_entry.dryrun_multichip(2, device='cpu')\n"
+        "assert res['devices'] == ['cpu', 'cpu'] and res['proof']\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ligero_tpu')\n"
+        "               for m in sys.modules)\n"
+        "print('graft entry ok')\n")
+    assert "graft entry ok" in out
+
+
 def test_batch_proves_and_verifies_with_both_blocked():
     out = run_blocked(
         PROVE +
@@ -304,7 +351,8 @@ IMPORT_LINE = re.compile(
 
 def port_sources() -> list[str]:
     paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "profile_torch_port.py")]
+             os.path.join(REPO, "scripts", "profile_torch_port.py"),
+             os.path.join(REPO, "scripts", "torch_multihost_worker.py")]
     for dirpath, _, files in os.walk(os.path.join(REPO, "ligero_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -316,6 +364,10 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert any(path.endswith("server.py") for path in paths)
     for new in ("poseidon_cols.py", "cuda_poseidon.py"):
         assert os.path.join(REPO, "ligero_tpu_torch", "engine", new) in paths
+    for new in (("parallel", "multihost.py"), ("parallel", "collectives.py"),
+                ("bench.py",), ("graft_entry.py",)):
+        assert os.path.join(REPO, "ligero_tpu_torch", *new) in paths
+    assert os.path.join(REPO, "scripts", "torch_multihost_worker.py") in paths
     for path in paths:
         with open(path) as f:
             found = IMPORT_LINE.findall(f.read())

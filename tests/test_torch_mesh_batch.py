@@ -24,7 +24,7 @@ from ligero_tpu.ligero.types import LigeroMTPoseidonParams as RefParams
 from ligero_tpu.sponge import test_sponge
 from ligero_tpu.synthetic import generate_random_circuit
 from ligero_tpu_torch import LigeroCircuit, LigeroProof, convert
-from ligero_tpu_torch.engine.backend import TorchBackend
+from ligero_tpu_torch.engine.backend import ESTIMATE_MARGIN, TorchBackend
 from ligero_tpu_torch.fields import FIELDS as PORT_FIELDS
 from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
 from ligero_tpu_torch.parallel import RowMesh, ShardedBackend, ShardedRows
@@ -197,3 +197,53 @@ def test_mesh_batch_estimates_take_the_batch(monkeypatch):
     monkeypatch.setattr(TorchBackend, "memory_budget",
                         lambda self: be.verify_bytes(*dims, batch=2))
     assert be.max_verify_batch(*dims) == 2
+
+
+# the BN254 2^18-gate synthetic instance (seed 0) of the card's batch
+# paths: committed rows, k, n, nnz of A, b, d2 (zk; plain: 2052 rows, b = 0,
+# d2 = 2k)
+ZK_18 = (2055, 1024, 8192, 2362371, 468, 4096)
+
+
+@pytest.mark.parametrize("zk", [False, True], ids=["plain", "zk"])
+def test_mesh_batch_estimate_counts_the_commit_resident_set(zk):
+    """``device_bytes`` term by term for a batch of 2 over two shards of
+    one device, at the 2^18 instance's dimensions: the commit holds each
+    shard's codewords and coefficients (and, without zk, its message rows,
+    which the interleaved combination takes later; under zk the message
+    and d2-wide row matrices are freed before it) beside two column blocks
+    of the re-shard; the estimate is the largest phase, plus A's COO, with
+    the margin.  Under zk the commit now dominates at 4.692 GiB, against
+    5.984 while it counted the encode's matrices (the card's measured
+    peak: 4.38 GiB)."""
+    rows, k, n, nnz, b, d2 = ZK_18 if zk else (2052, 1024, 8192, 2362371,
+                                                0, 2048)
+    B, D, E = 2, 2, 4 * F.num_limbs
+    be = ShardedBackend(F, ["cpu"] * D)
+    data = rows - 3 if zk else rows
+    h = -(-data // D)
+    heights = [h, h + 3] if zk else [h, h]
+    msg = [s * k * E for s in heights]
+    u = [s * n * E for s in heights]
+    coeffs = [s * (k + b) * E for s in heights]
+    commit = (sum(B * (ui + ci) for ui, ci in zip(u, coeffs))
+              + (0 if zk else sum(B * m for m in msg))
+              + 2 * B * rows * (n // D) * E)
+    phases = [be._direct_phases(s, k, n, b, d2, B) for s in heights]
+    assert [p[4] for p in phases] == [
+        B * (ui + ci) + (0 if zk else B * m)
+        for ui, ci, m in zip(u, coeffs, msg)]
+    enc = sum(p[0] for p in phases) + max(p[1] for p in phases)
+    linear = be._linear_transients(data, k, nnz) + data * k * E
+    later = sum(p[2] for p in phases) + max(
+        sum(s * k * E for s in heights) + max(p[3] for p in phases), linear)
+    want = int((max(enc, commit, later) + nnz * (E + 16)) * ESTIMATE_MARGIN)
+    assert be.device_bytes(rows, k, n, nnz, b, d2, batch=B) == {"cpu": want}
+    if zk:
+        assert commit > max(enc, later)
+        assert round(want / 2**30, 3) == 4.692
+        # the encode's matrices, the message and d2-wide row matrices
+        # included, are more than the commit holds
+        assert sum(p[0] for p in phases) > sum(p[4] for p in phases)
+        # within the single-proof estimates' 7-18 % above the card's peak
+        assert 1.0 < want / (4.38 * 2**30) < 1.18
