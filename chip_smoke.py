@@ -26,8 +26,8 @@ It runs every phase, in order; any failure exits non-zero:
                (``engine/spot.py``, which the verifier does not call yet)
                against the NTT kernel and its plain version; the Poseidon
                sponge (``csrc/poseidon_cols.cu``) at every compiled lane
-               count against its plain version at full width and 64 / 67
-               rows, against the host sponge at the commit's full heights
+               count at full width and 64 / 67 rows, its first 256 columns
+               against its plain version, against the host sponge at the commit's full heights
                and at the verifier's launch (3t columns), each lane count
                timed there and at a tree level and the root, its tree
                levels against the host tree with their bound, three full
@@ -55,7 +55,8 @@ It runs every phase, in order; any failure exits non-zero:
                by side from the kernel's states (it takes ~0.19 s a pair of
                rows on the card); at the same patterns cut in depth (68 /
                71 rows in 16-row chunks, 40 in 12) at the full width of
-               16384 columns, row after row; against the whole-column
+               16384 columns, its first 256 against the plain version row
+               after row; against the whole-column
                kernel and the host sponge on sampled columns; timed at
                4100 x 16384 in 1024-row chunks beside the whole-column
                kernel.  The prover core (``parallel.core_step``) in both
@@ -117,9 +118,28 @@ It runs every phase, in order; any failure exits non-zero:
                every kernel but the whole-column Blake2s and the sponge
                launched, each peak under its streaming estimate; then
                BLS12-377 at 2^23 gates, which direct mode refuses on an
-               80 GB card (~99 GiB): streaming by the card's own budget,
-               one prove and verify (True), a flipped byte rejected, the
-               peaks beside the estimates.
+               80 GB card (~99 GiB): resident mode by the card's own
+               budget, one prove and verify (True), a flipped byte
+               rejected, the peaks beside the estimates, a warm prove and
+               verify; then the same compiled instance in streaming mode
+               under a budget at its streaming estimate: proof byte-equal
+               to the resident one, both modes' warm walls, ``rs_encode``,
+               ``commit`` and ``open.gather`` beside each other.
+               Resident mode (every RS-encoded chunk held, coefficients
+               and codewords) forced by the budget at its estimate for
+               1024-row chunks: BN254 2^20 plain and zk (against the main
+               paths' direct proofs), the Poseidon commitment at 2^18,
+               BLS12-377 at 2^18: proof byte-equal to direct mode's,
+               verify True, a flipped byte and a tampered witness
+               rejected, peaks under ``resident_bytes`` and
+               ``streaming_verify_bytes``, no whole-column Blake2s, the
+               streamed absorb at least once a part, no NTT in the
+               ``open`` phase (streaming mode: one a part).  Each phase's
+               seconds are printed; the kernels phase holds each NTT case
+               against its plain version on the first 256 rows of the
+               kernel's launch, and the Blake2s columns and the Poseidon
+               sponge at full width on the first 256 columns of theirs,
+               at full depth.
 6. serve    -- a repeated-squaring ``.r1cs`` (2^14 squarings) and its
                witness written here; the port's HTTP service in a thread on
                an ephemeral port with no device named (it must take the
@@ -150,9 +170,10 @@ It runs every phase, in order; any failure exits non-zero:
 
 The last two stdout lines are the kernels' JSON record (BN254 Fr's numbers
 in each entry, BLS12-377 Fq's under its ``bls12_377_fq`` key; the Poseidon
-sponge has BN254's only; beside them the streaming and sharded paths'
-walls and peaks, the prover core's times and rates, the process mesh's
-ranks, the bench's values, and the run's total seconds) and
+sponge has BN254's only; beside them the resident, streaming and sharded
+paths' walls and peaks, the prover core's times and rates, the process
+mesh's ranks, the bench's values, each phase's and the run's total
+seconds) and
 ``{"ok": true, "device": {...}}``.  Neither JAX nor the JAX package
 ``ligero_tpu`` is ever imported.
 """
@@ -244,6 +265,12 @@ NOT_ON_POSEIDON_STREAMING = ("blake2s_cols", "sha256_tree", "blake2s_stream")
 #: (4m = 2052 rows) in chunks of at most this many rows; the one direct
 #: mode refuses is BLS12-377 at 2^23 gates, with the card's own budget
 FORCED_CHUNK_ROWS, STREAM_LOG2_GATES = 512, 23
+#: the part of a kernel case that its plain version computes: the NTT
+#: cases at full width on their first PLAIN_ROWS rows, the column hashes
+#: (Blake2s, the Poseidon sponge) at full depth on their first PLAIN_COLUMNS
+#: columns; the kernel is launched (and timed) at the whole shape, and the
+#: same part of its result is held against the plain version's
+PLAIN_ROWS, PLAIN_COLUMNS = 256, 256
 #: chunk rows of the streamed absorb's kernel cases (the streaming mode's
 #: largest chunk, backend.STREAM_MAX_CHUNK_ROWS)
 STREAM_CHUNK = 1024
@@ -282,9 +309,9 @@ STREAM_PLAIN_CASES = ((128,) * 4 + (4,), (128,) * 4 + (4, 3),
 POSEIDON_STREAM_CASES = (((4100, STREAM_CHUNK), (4103, STREAM_CHUNK)),
                          ((2052, 536), (2055, 528)))
 POSEIDON_DEEP_COLS, POSEIDON_SEGMENT = 256, 16
-#: the same chunk patterns cut in depth, at the commit's full width (n =
-#: 16384, so the path's lanes a column) with the plain version row after
-#: row: 68 rows in 16-row chunks (four full, a last of 4), 71 (a last of 7,
+#: the same chunk patterns cut in depth, the kernel at the commit's full
+#: width (n = 16384, so the path's lanes a column), its first PLAIN_COLUMNS
+#: columns held against the plain version row after row: 68 rows in 16-row chunks (four full, a last of 4), 71 (a last of 7,
 #: odd), 40 in 12-row chunks (three full, a last of 4)
 POSEIDON_PLAIN_CASES = ((68, 16), (71, 16), (40, 12))
 
@@ -494,12 +521,15 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
                                      device="cuda").to(torch.int32)
 
     def ntt_case(label, batch, w, size, inverse=False, canon=False):
+        # rows are independent: the kernel's launch at all ``batch`` rows is
+        # held against the plain version on its first PLAIN_ROWS rows
         return ("ntt", f"{label}, {batch} x {w} -> {size} "
                 f"[route {route_text(cuda_ntt.route(w, size, batch))}]",
                 elems(batch, w),
                 lambda x: cuda_ntt.ntt(field, x, size, inverse, canon),
                 lambda x: ntt.ntt_ref(field, x, size, inverse, canon),
-                ntt_work(field, batch, w, size, inverse or canon))
+                ntt_work(field, batch, w, size, inverse or canon),
+                lambda x: x[:PLAIN_ROWS])
 
     cases = [
         # (kernel, label, input maker, kernel call, plain call, (bytes, ops))
@@ -518,10 +548,14 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
          pair(elems(nnz, below_r=True), elems(nnz)),
          lambda ab: mm(*ab), lambda ab: fieldops.mont_mul(field, *ab),
          (3 * nnz * elem, nnz * mont_mul_ops(field))),
+        # columns are independent, and the plain version's time grows with
+        # the rows (a column's blocks one after another): it hashes the
+        # first PLAIN_COLUMNS columns at full depth
         ("blake2s_cols", f"Blake2s columns {rows} x 1024", elems(rows, 1024),
          lambda u: cuda_hash.blake2s_columns(field, u),
          hashops.blake2s_columns_ref,
-         blake2s_work(field, rows, 1024)),
+         blake2s_work(field, rows, 1024),
+         lambda u: u[:, :PLAIN_COLUMNS], lambda d: d[:PLAIN_COLUMNS]),
         ("row_combine", f"row_combine {rows} x {k}",
          pair(elems(rows), elems(rows, k)),
          lambda rm: cuda_lc.row_combine(field, *rm),
@@ -536,25 +570,34 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
          cuda_tree.tree_flat, hashops.tree_flat, tree_work(n)),
     ]
     results: dict = {}
-    for name, label, make, kern, plain, work in cases:
+    for name, label, make, kern, plain, work, *cut in cases:
+        # a cut (of the input, then of the result where that differs): the
+        # plain version on part of the input (rows or columns that the
+        # kernel treats independently), held against the same part of the
+        # kernel's whole-input result
         inp = make()
         got, _ = _time_once(torch, lambda: kern(inp))
-        want, plain_ms = _time_once(torch, lambda: plain(inp))
+        part = cut[0](inp) if cut else inp
+        want, plain_ms = _time_once(torch, lambda: plain(part))
+        if cut:
+            got = cut[-1](got)
         require(got.shape == want.shape and got.dtype == want.dtype,
                 f"{label}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
                 f"{tuple(want.shape)} {want.dtype}")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         ms = _time_cuda(torch, lambda: kern(inp), iters=5)
         bound_ms, bound_by = bound(*work)
+        on = (f" on {tuple(part.shape[:2])}"
+              if cut and part.shape != inp.shape else "")
         log(f"kernel [{field.name}] {label}: max_abs_err={err} kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-            f"{bound_by}")
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms{on}, bound "
+            f"{bound_ms:.4f} ms by {bound_by}")
         require(err == 0, f"{label}: kernel disagrees with its plain version")
         res = results.setdefault(name, {
             "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by})
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        del got, want, inp
+        del got, want, inp, part
         torch.cuda.empty_cache()
     results["ntt"]["max_abs_err"] = max(
         results["ntt"]["max_abs_err"], ntt_route_cases(torch, field, gen))
@@ -843,7 +886,8 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     Fr): against its plain version on the same card tensors, at the
     streaming paths' row counts and chunkings (POSEIDON_STREAM_CASES, by
     segments), and at POSEIDON_PLAIN_CASES at the commit's full width ``n``
-    row after row (the 71-row case takes the plain states after the 68-row
+    against the plain version row after row on the first PLAIN_COLUMNS
+    columns (the 71-row case takes the plain states after the 68-row
     case's 64 shared rows); every state between chunks and every digest
     bit-equal; over the commit's full width, ``rows`` x ``n`` in
     STREAM_CHUNK-row chunks, bit-equal to the whole-column kernel on the
@@ -865,31 +909,33 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     (r1, c1), (r2, _), (r3, c3) = POSEIDON_PLAIN_CASES
     u = _rand_elems(torch, gen, (r2, n), field)
     v = _rand_elems(torch, gen, (r3, n), field)
+    pu, pv, pc = u[:, :PLAIN_COLUMNS], v[:, :PLAIN_COLUMNS], PLAIN_COLUMNS
     t0 = time.perf_counter()
-    plain = {r1: poseidon_stream_run(field, u, r1, c1, True),
-             r3: poseidon_stream_run(field, v, r3, c3, True)}
+    plain = {r1: poseidon_stream_run(field, pu, r1, c1, True),
+             r3: poseidon_stream_run(field, pv, r3, c3, True)}
     shared = (r1 // c1) * c1 if r1 % c1 else r1 - c1
     plain[r2] = ([], poseidon_stream_run(
-        field, u, r2, c1, True, plain[r1][0][shared // c1 - 1], shared)[1])
+        field, pu, r2, c1, True, plain[r1][0][shared // c1 - 1], shared)[1])
     torch.cuda.synchronize()
     short_ms = (time.perf_counter() - t0) * 1e3
     for (nrows, cr), mat in zip(POSEIDON_PLAIN_CASES, (u, u, v)):
         states, digests = poseidon_stream_run(field, mat, nrows, cr, False)
         want_states, want = plain[nrows]
-        case = max([diff(digests, want)] + [diff(a, b) for a, b in
-                                            zip(states, want_states)])
+        case = max([diff(digests[:pc], want)] + [
+            diff(a[:pc], b) for a, b in zip(states, want_states)])
         require(torch.equal(digests, whole(mat[:nrows])), f"Poseidon chunked "
                 f"{nrows} x {n} in chunks of {cr}: differs from the "
                 "whole-column kernel")
         log(f"kernel [{field.name}] Poseidon chunked absorb {nrows} x {n} in "
             f"chunks of {cr}, {cuda_poseidon.lanes_for(n)} lane(s) a column: "
-            f"max_abs_err={case} against its plain version "
-            f"({len(want_states)} states between chunks and the digests)")
+            f"max_abs_err={case} against its plain version on its first "
+            f"{pc} columns ({len(want_states)} states between chunks and the "
+            "digests)")
         require(case == 0, f"Poseidon chunked {nrows} x {n} in chunks of "
                 f"{cr}: the kernel disagrees with its plain version")
         err = max(err, case)
     log(f"kernel [{field.name}] Poseidon chunked absorb: plain version "
-        f"{short_ms:.1f} ms over the three cases at {n} columns")
+        f"{short_ms:.1f} ms over the three cases at {pc} of {n} columns")
     del u, v
     w = _rand_elems(torch, gen, (rows, n), field)
     require(torch.equal(poseidon_stream_run(field, w, rows, STREAM_CHUNK,
@@ -916,8 +962,8 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
             "shape": f"{rows} x {n} in {launches} chunks of {STREAM_CHUNK}; "
                      f"plain at {first} x {POSEIDON_DEEP_COLS} by "
                      f"{POSEIDON_SEGMENT}-row segments (plain_ms), and at "
-                     f"{POSEIDON_PLAIN_CASES} x {n} row after row "
-                     "(short_plain_ms)"}
+                     f"{POSEIDON_PLAIN_CASES} x {n} row after row on "
+                     f"{pc} columns (short_plain_ms)"}
 
 
 def host_hash_context(n: int) -> None:
@@ -1162,9 +1208,9 @@ def poseidon_levels_work(field, n: int):
 
 def poseidon_cases(torch, field, gen, rows: int, n: int, t: int) -> dict:
     """The Poseidon sponge kernel (BN254 Fr), every compiled lane count G
-    (``cuda_poseidon.LANES``): against its plain version on the card,
-    bit-equal, at full width (n columns) and heights of 64 and 67 rows (67:
-    the odd tail of zk columns); at the commit's full heights (4m and
+    (``cuda_poseidon.LANES``): launched at full width (n columns) and
+    heights of 64 and 67 rows (67: the odd tail of zk columns), its first
+    PLAIN_COLUMNS columns bit-equal to its plain version's on the card; at the commit's full heights (4m and
     4m + 3 rows) and at the verifier's launch (its 3t opened columns of 4m
     rows) against the port's host sponge (``col_hash``) on 8 sampled
     columns, all G bit-equal to each other, each G timed there, at the tree
@@ -1197,15 +1243,17 @@ def poseidon_cases(torch, field, gen, rows: int, n: int, t: int) -> dict:
     for h in (64, 67):
         u = _rand_elems(torch, gen, (h, n), field)
         want, plain_ms = _time_once(
-            torch, lambda: poseidon_cols.poseidon_columns_plain(field, cfg, u))
+            torch, lambda: poseidon_cols.poseidon_columns_plain(
+                field, cfg, u[:, :PLAIN_COLUMNS]))
         bound_ms, by = bound(*poseidon_work(field, h, n))
         for g in lanes:
-            got = kern(u, g)
+            got = kern(u, g)[:PLAIN_COLUMNS]
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             ms = _time_cuda(torch, lambda: kern(u, g), 3)
             log(f"kernel [{field.name}] Poseidon columns {h} x {n}, G = {g}: "
                 f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.1f} "
-                f"ms, bound {bound_ms:.3f} ms by {by}")
+                f"ms on {PLAIN_COLUMNS} columns, bound {bound_ms:.3f} ms by "
+                f"{by}")
             require(got.shape == want.shape and err == 0, f"Poseidon columns "
                     f"{h} x {n} at G = {g}: the kernel disagrees with its "
                     "plain version")
@@ -1318,9 +1366,9 @@ def kernel_cases_2e22(torch, field, gen, results: dict) -> None:
     full transform's first 256 rows equal to the 256-row launch's (the
     route may differ with the row count); Blake2s over the 8196 x 32768
     canonical codewords, 16 sampled columns equal to the host's hashlib
-    column hash (``hashes.column_hash``; the plain version would take ~40 s
-    for its ~4100 dependent block steps, and holds the kernel at 4100 rows
-    in the kernels phase).  Times go into ``results[...]["2^22"]``."""
+    column hash (``hashes.column_hash``; the plain version would take tens
+    of seconds for its ~4100 dependent block steps, and holds the kernel at
+    the 2^20 commit's 4100 rows, on 256 columns, in the kernels phase).  Times go into ``results[...]["2^22"]``."""
     from ligero_tpu_torch.engine import cuda_lc, cuda_ntt, cuda_tree, hashops, ntt
     from ligero_tpu_torch.hashes import column_hash
     from ligero_tpu_torch.ligero.compile import calculate_t, zk_parameters
@@ -1851,61 +1899,91 @@ def phase_batch(torch, field, lig, vars_, full: bool = True,
     return launches
 
 
+def count_open_ntts(lig):
+    """Count the NTT launches of each prove's openings: the ``open``
+    phase's device work is the backend's ``gather_columns_batch`` alone,
+    wrapped here (an attribute of the instance's backend; ``del`` it to
+    unwrap); returns the list of counts, one a call."""
+    from ligero_tpu_torch.engine import cuda_ntt
+    be, counts = lig.backend, []
+    gather = be.gather_columns_batch
+
+    def counted(u_canon, idx):
+        before = cuda_ntt.launches.count
+        out = gather(u_canon, idx)
+        counts.append(cuda_ntt.launches.count - before)
+        return out
+
+    be.gather_columns_batch = counted
+    return counts
+
+
 def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
-                    tampered_witness: bool = True) -> dict:
-    """Drive a streaming-mode path: one ``prove`` and one ``verify``
-    (True), their launch counts (the default commitment: every kernel but
-    the whole-column Blake2s and the Poseidon sponge's; Poseidon: every
-    kernel but Blake2s's and the SHA-256 tree), each call's peak against
-    its streaming estimate and the card's memory, the proof byte-equal to
-    ``want`` (the direct-mode proof) where given, a flipped byte and (with
-    ``tampered_witness``) a tampered witness rejected; with ``want``, also
-    a second, warm prove and verify, timed."""
+                    tampered_witness: bool = True, warm: bool = False) -> dict:
+    """Drive a resident- or streaming-mode path (``lig.encode_mode``): one
+    ``prove`` and one ``verify`` (True), their launch counts (the default
+    commitment: every kernel but the whole-column Blake2s and the Poseidon
+    sponge's; Poseidon: every kernel but Blake2s's and the SHA-256 tree;
+    the streamed absorb once a part at least), the openings' NTT launches
+    (resident mode: none; streaming: one a part), each call's peak against
+    its mode's estimate (``resident_bytes`` or ``streaming_bytes``; the
+    verifier's ``streaming_verify_bytes``) and the card's memory, the
+    proof byte-equal to ``want`` (the direct-mode proof) where given, a
+    flipped byte and (with ``tampered_witness``) a tampered witness
+    rejected; with ``want`` or ``warm``, also a second, warm prove and
+    verify, timed, with the warm prove's phases."""
     from ligero_tpu_torch import LigeroProof, test_sponge
 
-    require(lig.encode_mode == "streaming", "the instance is not in "
-            f"streaming mode but {lig.encode_mode}")
+    mode = lig.encode_mode
+    require(mode in ("resident", "streaming"), "the instance is in "
+            f"{mode} mode")
+    resident = mode == "resident"
     poseidon = is_poseidon(lig)
-    tag = path_tag(field, lig.zk, poseidon) + "streaming"
+    tag = path_tag(field, lig.zk, poseidon) + mode
     sponge, wraps, timer = test_sponge(field), wrappers(), lig.timer
     kw = {"zk_seed": ZK_SEED} if lig.zk else {}
     be = lig.backend
     dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals))
     data = lig.num_rows - (3 if lig.zk else 0)
+    chunks = -(-data // lig.chunk_rows)
     # the tables earlier paths cached (NTT twiddles and twists of their
     # sizes and fields) go, so that each peak below holds this instance's
     # own tables, made again in the run, and nothing of another path's
     drop_cached_tables(torch)
     others = torch.cuda.memory_allocated()
     log(f"{tag}: {lig.num_rows} rows in chunks of {lig.chunk_rows} "
-        f"({-(-data // lig.chunk_rows)} chunks, the last of "
-        f"{data - (-(-data // lig.chunk_rows) - 1) * lig.chunk_rows} rows); "
-        f"the device's budget {be.memory_budget() / 2**30:.2f} GiB")
+        f"({chunks} chunks, the last of {data - (chunks - 1) * lig.chunk_rows}"
+        f" rows); the device's budget {be.memory_budget() / 2**30:.2f} GiB")
 
-    reset_counts(torch, wraps)
-    timer.reset()
-    t0 = time.perf_counter()
-    proof = lig.prove(vars_, sponge.clone(), **kw)
-    torch.cuda.synchronize()
-    prove_s = time.perf_counter() - t0
-    prove_peak = torch.cuda.max_memory_allocated()
-    prove_phases = dict(timer.totals)
-    torch.cuda.reset_peak_memory_stats()
-    timer.reset()
-    t0 = time.perf_counter()
-    ok = lig.verify(proof, sponge.clone())
-    torch.cuda.synchronize()
-    verify_s = time.perf_counter() - t0
-    verify_peak = torch.cuda.max_memory_allocated()
-    launches = read_counts(wraps, tag, absent=(
-        NOT_ON_POSEIDON_STREAMING if poseidon else NOT_ON_STREAMING))
-    estimate = be.streaming_bytes(*dims, lig.blind_t, lig.d2,
-                                  chunk_rows=lig.chunk_rows, poseidon=poseidon)
+    opens = count_open_ntts(lig)
+    try:
+        reset_counts(torch, wraps)
+        timer.reset()
+        t0 = time.perf_counter()
+        proof = lig.prove(vars_, sponge.clone(), **kw)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        prove_peak = torch.cuda.max_memory_allocated()
+        prove_phases = dict(timer.totals)
+        torch.cuda.reset_peak_memory_stats()
+        timer.reset()
+        t0 = time.perf_counter()
+        ok = lig.verify(proof, sponge.clone())
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
+        verify_peak = torch.cuda.max_memory_allocated()
+        launches = read_counts(wraps, tag, absent=(
+            NOT_ON_POSEIDON_STREAMING if poseidon else NOT_ON_STREAMING))
+    finally:
+        del be.gather_columns_batch
+    estimate = (be.resident_bytes if resident else be.streaming_bytes)(
+        *dims, lig.blind_t, lig.d2, chunk_rows=lig.chunk_rows,
+        poseidon=poseidon)
     vestimate = be.streaming_verify_bytes(*dims, lig.chunk_rows)
     direct = be.direct_bytes(*dims, lig.blind_t, lig.d2)
     card = torch.cuda.get_device_properties(0).total_memory
     log(f"{tag} prove #1 (with A's one-time upload): {prove_s:.3f} s, peak "
-        f"{prove_peak / 2**30:.3f} GiB (streaming estimate "
+        f"{prove_peak / 2**30:.3f} GiB ({mode} estimate "
         f"{estimate / 2**30:.3f} GiB; direct mode would need "
         f"{direct / 2**30:.2f} GiB); verify: {ok} ({verify_s:.3f} s), peak "
         f"{verify_peak / 2**30:.3f} GiB (estimate {vestimate / 2**30:.3f} "
@@ -1917,17 +1995,30 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
         log(f"  {tag} verify {name:22s} {secs * 1e3:10.1f} ms")
     require(ok, f"{tag}: verify rejected the honest proof")
     require(prove_peak <= estimate and verify_peak <= vestimate,
-            f"{tag}: a measured peak lies above its streaming estimate")
+            f"{tag}: a measured peak lies above its {mode} estimate")
     require(max(prove_peak, verify_peak) < card, f"{tag}: peak past the card")
+    parts = chunks + (1 if lig.zk else 0)
+    absorbs = launches["poseidon_stream" if poseidon else "blake2s_stream"]
+    log(f"{tag}: the openings launched {opens} NTT(s); the streamed absorb "
+        f"{absorbs} time(s) for {parts} part(s)")
+    require(absorbs >= parts, f"{tag}: fewer streamed absorbs than parts")
+    require(opens == [0] if resident else opens == [parts],
+            f"{tag}: the openings launched {opens} NTTs")
     data_bytes = proof.to_bytes(field)
-    warm = {}
-    if want is not None:
-        require(data_bytes == want, f"{tag}: the proof differs from the "
-                "direct-mode proof")
-        warm = warm_walls(torch, lig, vars_, kw)
-        log(f"{tag}: proof byte-equal to the direct-mode proof "
-            f"({len(data_bytes)} bytes); warm prove {warm['prove_s']:.3f} s, "
-            f"verify {warm['verify_s']:.3f} s")
+    warm_res = {}
+    if want is not None or warm:
+        if want is not None:
+            require(data_bytes == want, f"{tag}: the proof differs from the "
+                    "direct-mode proof")
+        warm_res = warm_walls(torch, lig, vars_, kw)
+        log(f"{tag}: proof of {len(data_bytes)} bytes"
+            + (", byte-equal to the direct-mode proof" if want else "")
+            + f"; warm prove {warm_res['prove_s']:.3f} s, verify "
+            f"{warm_res['verify_s']:.3f} s")
+        for name in ("rs_encode", "zk_blind", "commit", "open.gather"):
+            if name in warm_res["phases"]:
+                log(f"  {tag} warm prove {name:14s} "
+                    f"{warm_res['phases'][name] * 1e3:10.1f} ms")
     flip_ok = lig.verify(LigeroProof.from_bytes(flip_byte(data_bytes), field),
                          sponge.clone())
     log(f"{tag} flipped byte: verify={flip_ok} (expect False)")
@@ -1940,15 +2031,19 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
         bad_ok = lig.verify(bad, sponge.clone())
         log(f"{tag} tampered witness: verify={bad_ok} (expect False)")
         require(not bad_ok, f"{tag}: a proof of a tampered witness verified")
-    return {"launches": launches, "prove_s": prove_s, "verify_s": verify_s,
-            "warm_prove_s": warm.get("prove_s"),
-            "warm_verify_s": warm.get("verify_s"),
+    return {"launches": launches, "mode": mode, "prove_s": prove_s,
+            "verify_s": verify_s, "open_ntts": opens[0],
+            "warm_prove_s": warm_res.get("prove_s"),
+            "warm_verify_s": warm_res.get("verify_s"),
+            "warm_phases_ms": {name: secs * 1e3 for name, secs in
+                               warm_res.get("phases", {}).items()},
             "prove_peak_gib": prove_peak / 2**30,
             "verify_peak_gib": verify_peak / 2**30,
             "allocated_before_gib": others / 2**30,
             "estimate_gib": estimate / 2**30,
             "verify_estimate_gib": vestimate / 2**30,
-            "direct_bytes_gib": direct / 2**30, "chunk_rows": lig.chunk_rows}
+            "direct_bytes_gib": direct / 2**30, "chunk_rows": lig.chunk_rows,
+            "proof": data_bytes}
 
 
 def drop_cached_tables(torch) -> None:
@@ -1965,20 +2060,23 @@ def drop_cached_tables(torch) -> None:
 
 def warm_walls(torch, lig, vars_, kw) -> dict:
     """Host-clock walls of one more ``prove`` and ``verify`` (True) of an
-    instance whose one-time work (A's upload, the tables) is done, and that
-    proof's bytes."""
+    instance whose one-time work (A's upload, the tables) is done, that
+    proof's bytes and the prove's phase times (where the instance's timer
+    is on)."""
     from ligero_tpu_torch import test_sponge
     sponge = test_sponge(lig.field)
     torch.cuda.synchronize()
+    lig.timer.reset()
     t0 = time.perf_counter()
     proof = lig.prove(vars_, sponge.clone(), **kw)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
+    phases = dict(lig.timer.totals)
     t0 = time.perf_counter()
     require(lig.verify(proof, sponge.clone()), "a warm verify failed")
     torch.cuda.synchronize()
     return {"prove_s": prove_s, "verify_s": time.perf_counter() - t0,
-            "want": proof.to_bytes(lig.field)}
+            "want": proof.to_bytes(lig.field), "phases": phases}
 
 
 def single_reference(torch, lig, vars_) -> dict:
@@ -2011,12 +2109,14 @@ def single_instance_reference(torch, field, circ, outs, vars_, zk: bool,
 def phase_streaming_forced(torch, field, circ, outs, vars_, zk: bool,
                            poseidon: bool = False,
                            chunk_rows: int = FORCED_CHUNK_ROWS,
-                           reference: dict | None = None) -> dict:
-    """Streaming mode forced by the memory budget on an instance direct
-    mode takes: the direct-mode proof first (``reference``, or a direct
-    instance built, warmed and proved here), then the instance built under
-    a budget at its streaming estimate for chunks of ``chunk_rows`` (below
-    the direct estimate), driven by :func:`phase_streaming`."""
+                           reference: dict | None = None,
+                           mode: str = "streaming") -> dict:
+    """Streaming (or resident) mode forced by the memory budget on an
+    instance direct mode takes: the direct-mode proof first
+    (``reference``, or a direct instance built, warmed and proved here),
+    then the instance built under a budget at its streaming (resident)
+    estimate for chunks of ``chunk_rows`` (below the direct estimate),
+    driven by :func:`phase_streaming`."""
     from ligero_tpu_torch.engine.backend import TorchBackend
 
     if reference is None:
@@ -2024,14 +2124,17 @@ def phase_streaming_forced(torch, field, circ, outs, vars_, zk: bool,
                                               vars_, zk, poseidon)
     log(f"{path_tag(field, zk, poseidon)}direct mode at this size: warm prove "
         f"{reference['prove_s']:.3f} s, verify {reference['verify_s']:.3f} s")
-    budget = TorchBackend(field).streaming_bytes(
+    be = TorchBackend(field)
+    budget = (be.resident_bytes if mode == "resident" else be.streaming_bytes)(
         *reference["dims"], chunk_rows=chunk_rows, poseidon=poseidon)
-    require(budget < reference["direct_bytes"], "the streaming estimate does "
+    require(budget < reference["direct_bytes"], f"the {mode} estimate does "
             "not lie below the direct one")
     card_budget = TorchBackend.memory_budget
     TorchBackend.memory_budget = lambda self: budget
     try:
         lig = build_instance(circ, outs, zk=zk, poseidon=poseidon)
+        require(lig.encode_mode == mode, f"{lig.encode_mode} mode under the "
+                f"{mode} budget")
         res = phase_streaming(torch, field, lig, vars_,
                               want=reference["want"])
     finally:
@@ -2336,16 +2439,80 @@ def phase_core(torch, field, gen, smi: str) -> dict:
 
 def phase_streaming_reach(torch, field) -> dict:
     """BLS12-377 at 2^23 gates, which direct mode refuses on this card:
-    streaming mode by the card's own budget, one prove and verify, a
-    flipped byte rejected, the peaks beside the estimates."""
+    resident mode by the card's own budget (one prove and verify, a
+    flipped byte rejected, the peaks beside the estimates, a warm prove
+    and verify); then the same compiled instance
+    (``LigeroCircuit.from_compiled``, no second compile; A's
+    column-sorted upload and the witness layout, the same at one chunking,
+    handed over, so that its first prove is a warm one) in streaming mode
+    under a budget at its streaming estimate: the proof byte-equal to the
+    resident one, its walls, phases and peaks."""
+    from ligero_tpu_torch import LigeroCircuit
+    from ligero_tpu_torch.engine.backend import TorchBackend
+    from ligero_tpu_torch.utils.profiling import PhaseTimer
+
     circ, outs, vars_ = make_circuit(field, STREAM_LOG2_GATES, SEED)
     lig = build_instance(circ, outs, zk=False)
+    del circ, outs
     be = lig.backend
-    direct = be.direct_bytes(lig.num_rows, lig.k, lig.n,
-                             len(lig.state.a_vals))
-    require(direct > be.memory_budget(), "direct mode fits this instance")
-    res = phase_streaming(torch, field, lig, vars_, tampered_witness=False)
-    del lig, circ, outs, vars_
+    dims = (lig.num_rows, lig.k, lig.n, len(lig.state.a_vals))
+    require(be.direct_bytes(*dims) > be.memory_budget(),
+            "direct mode fits this instance")
+    require(lig.encode_mode == "resident", f"{lig.encode_mode} mode by the "
+            "card's budget, not resident")
+    res = phase_streaming(torch, field, lig, vars_, tampered_witness=False,
+                          warm=True)
+    budget = be.streaming_bytes(*dims, chunk_rows=lig.chunk_rows)
+    card_budget = TorchBackend.memory_budget
+    TorchBackend.memory_budget = lambda self: budget
+    try:
+        lig_s = LigeroCircuit.from_compiled(lig.state,
+                                            timer=PhaseTimer(enabled=True))
+    finally:
+        TorchBackend.memory_budget = card_budget
+    require((lig_s.encode_mode, lig_s.chunk_rows)
+            == ("streaming", lig.chunk_rows), "the streaming budget gave "
+            f"{lig_s.encode_mode} mode in chunks of {lig_s.chunk_rows}")
+    # the instance's one-time work, the same in both modes at one
+    # chunking: A's column-sorted upload and the witness layout
+    lig_s._coo, lig_s._witness = lig._coo, lig._witness
+    del lig
+    torch.cuda.empty_cache()
+    wraps = wrappers()
+    opens = count_open_ntts(lig_s)
+    try:
+        reset_counts(torch, wraps)
+        warm = warm_walls(torch, lig_s, vars_, {})
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_counts(wraps, f"bls streaming 2^{STREAM_LOG2_GATES}",
+                               absent=NOT_ON_STREAMING)
+    finally:
+        del lig_s.backend.gather_columns_batch
+    require(warm["want"] == res["proof"], "the streaming proof differs from "
+            "the resident proof of the same instance")
+    estimate = lig_s.backend.streaming_bytes(*dims,
+                                             chunk_rows=lig_s.chunk_rows)
+    log(f"bls streaming 2^{STREAM_LOG2_GATES} (the same instance, A's upload "
+        f"and the witness layout handed over): proof byte-equal to the "
+        f"resident one; prove "
+        f"{warm['prove_s']:.3f} s, verify {warm['verify_s']:.3f} s (resident "
+        f"warm: {res['warm_prove_s']:.3f} / {res['warm_verify_s']:.3f} s); "
+        f"peak {peak / 2**30:.3f} GiB (streaming estimate "
+        f"{estimate / 2**30:.3f} GiB; resident: {res['prove_peak_gib']:.3f} "
+        f"under {res['estimate_gib']:.3f}); the openings launched {opens} "
+        "NTT(s)")
+    for name in ("rs_encode", "commit", "open.gather"):
+        log(f"  {name:12s} resident {res['warm_phases_ms'].get(name, 0):10.1f}"
+            f" ms, streaming {warm['phases'].get(name, 0) * 1e3:10.1f} ms")
+    require(peak <= estimate, "the streaming peak lies above its estimate")
+    require(opens[0] > 0, "the streaming openings launched no NTT")
+    res["streaming"] = {"launches": launches,
+        "prove_s": warm["prove_s"], "verify_s": warm["verify_s"],
+        "peak_gib": peak / 2**30, "estimate_gib": estimate / 2**30,
+        "open_ntts": opens[0],
+        "phases_ms": {name: secs * 1e3
+                      for name, secs in warm["phases"].items()}}
+    del lig_s, vars_
     torch.cuda.empty_cache()
     return res
 
@@ -2811,6 +2978,21 @@ def phase_graft(torch) -> dict:
             "chunk_rows": res["chunk_rows"]}
 
 
+class Laps:
+    """Each phase's seconds on the host clock: ``laps(name)`` closes the
+    phase that ran since the last call, logs it and keeps it."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self.last = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.last
+        log(f"phase [{name}]: {now - self.last:.1f} s")
+        self.last = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2823,6 +3005,7 @@ def main() -> int:
 
     field = BN254_FR
     start = time.perf_counter()
+    laps = Laps()
     smi = nvidia_smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
@@ -2844,6 +3027,7 @@ def main() -> int:
             f"{where['last_load']}: {where['lead']} instructions ahead of the "
             "branch to the product that uses them")
 
+    laps("build")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
     circ, outs, vars_ = make_circuit(field, LOG2_GATES, SEED)
@@ -2863,14 +3047,23 @@ def main() -> int:
                                                        lig.n)
     kernel_cases_2e22(torch, field, gen, results)
     host_hash_context(lig.n)
+    laps("kernels bn254")
     core = {field.name: phase_core(torch, field, gen, smi)}
     nccl = phase_nccl_world(torch, field)
+    laps("core bn254, nccl")
     phase_parity()
+    laps("parity")
     by_path = {"plain": phase_main(torch, field, lig, vars_)}
     ref = single_reference(torch, lig, vars_)
     want_2e20 = ref["want"]          # the process mesh's direct proof
     del lig
     torch.cuda.empty_cache()
+    # resident mode forced by the budget at this size, 1024-row chunks,
+    # against this instance's direct proof
+    resident = {"resident": phase_streaming_forced(
+        torch, field, circ, outs, vars_, False, chunk_rows=STREAM_CHUNK,
+        reference=ref, mode="resident")}
+    laps("main 2^20 plain, resident")
     # the same instance over a mesh of two shards
     sharded = {"sharded": phase_sharded(torch, field, circ, outs, vars_,
                                         False, False, 2, ref)}
@@ -2883,8 +3076,13 @@ def main() -> int:
     require((lig.blind_t, lig.d2) == zk_dims, "zk kernel shapes were not the "
             f"zk path's: {zk_dims} vs {(lig.blind_t, lig.d2)}")
     by_path["zk"] = phase_main(torch, field, lig, vars_)
+    ref_zk = single_reference(torch, lig, vars_)
     del lig
     torch.cuda.empty_cache()
+    resident["zk resident"] = phase_streaming_forced(
+        torch, field, circ, outs, vars_, True, chunk_rows=STREAM_CHUNK,
+        reference=ref_zk, mode="resident")
+    laps("sharded 2^20, zk, zk resident")
     # the same circuit committed with the Poseidon params, then in streaming
     # mode forced by the budget into STREAM_CHUNK-row chunks
     streaming = {}
@@ -2900,6 +3098,7 @@ def main() -> int:
             chunk_rows=STREAM_CHUNK, reference=ref)
         by_path[path] = streaming[path]["launches"]
     del circ, outs, vars_
+    laps("poseidon 2^20, streaming")
     circ, outs, vars_ = make_circuit(field, BATCH_LOG2_GATES, SEED)
     for zk, path in ((False, "batch"), (True, "zk batch")):
         lig = build_instance(circ, outs, zk=zk)
@@ -2937,6 +3136,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded["poseidon sharded"] = phase_sharded(torch, field, circ, outs,
                                                 vars_, False, True, 2, ref)
+    # the Poseidon commit over the held codeword chunks: resident mode
+    # forced at this size, 1024-row chunks (the last of 4 rows)
+    resident["poseidon resident"] = phase_streaming_forced(
+        torch, field, circ, outs, vars_, False, poseidon=True,
+        chunk_rows=STREAM_CHUNK, reference=ref, mode="resident")
     # streaming mode, forced by the budget at this size, plain and zk
     for zk in (False, True):
         path = path_tag(field, zk) + "streaming"
@@ -2948,9 +3152,11 @@ def main() -> int:
     want_2e18 = single_instance_reference(torch, field, circ, outs, vars_,
                                           False)["want"]
     del circ, outs, vars_
+    laps("2^18 batches, mesh, poseidon resident, streaming")
     drop_cached_tables(torch)
     process = phase_process_mesh(torch, field, want_2e20, want_2e18)
     by_path.update(process["launches"])
+    laps("process mesh")
 
     # the same synthetic circuit over BLS12-377 Fq, the kernels' second field
     bls = BLS12_377_FQ
@@ -2964,6 +3170,7 @@ def main() -> int:
         torch, bls, gen, BATCH, 4 * lig.m, lig.n)
     bls_results["row_combine"]["batched"] = row_combine_batch_case(
         torch, bls, gen, 2, 4 * lig.m, lig.k)   # the bls batch path's B
+    laps("kernels bls12_377")
     core[bls.name] = phase_core(torch, bls, gen, smi)
     by_path["bls plain"] = phase_main(torch, bls, lig, vars_)
     by_path["bls batch"] = phase_batch(torch, bls, lig, vars_, full=False)
@@ -2982,15 +3189,25 @@ def main() -> int:
     sharded["bls sharded streaming"] = phase_sharded(
         torch, bls, circ, outs, vars_, False, False, 2, ref,
         chunk_rows=FORCED_CHUNK_ROWS)
+    resident["bls resident"] = phase_streaming_forced(
+        torch, bls, circ, outs, vars_, False, chunk_rows=STREAM_CHUNK,
+        reference=ref, mode="resident")
     for zk in (False, True):
         path = path_tag(bls, zk) + "streaming"
         streaming[path] = phase_streaming_forced(torch, bls, circ, outs,
                                                  vars_, zk)
         by_path[path] = streaming[path]["launches"]
     del circ, outs, vars_
-    path = f"bls streaming 2^{STREAM_LOG2_GATES}"
-    streaming[path] = phase_streaming_reach(torch, bls)
-    by_path[path] = streaming[path]["launches"]
+    laps("bls12_377 2^20, 2^18 mesh, resident, streaming")
+    path = f"bls resident 2^{STREAM_LOG2_GATES}"
+    resident[path] = phase_streaming_reach(torch, bls)
+    by_path[path] = resident[path]["launches"]
+    by_path[f"bls streaming 2^{STREAM_LOG2_GATES}"] = resident[path][
+        "streaming"].pop("launches")
+    for path, res in resident.items():
+        if path != f"bls resident 2^{STREAM_LOG2_GATES}":
+            by_path[path] = res["launches"]
+    laps(f"bls12_377 2^{STREAM_LOG2_GATES} resident and streaming")
 
     for path, res in sharded.items():
         by_path[path] = res["launches"]
@@ -3001,8 +3218,10 @@ def main() -> int:
     by_path.update(bench["launches"])
     graft = phase_graft(torch)
     by_path.update(graft["launches"])
+    laps("bench, graft entry")
     by_path["serve"] = phase_serve(torch, field)
     by_path["bls serve"] = phase_serve_bls(torch, bls)
+    laps("serve, CLI")
     for mod in ("jax", "ligero_tpu"):
         require(sys.modules.get(mod) is None, f"{mod} was imported")
 
@@ -3040,9 +3259,10 @@ def main() -> int:
                 "launches_by_path": paths(name, True),
                 **timings(bls_results[name])}
         record["kernels"].append(entry)
-    record["streaming"] = {path: {key: val for key, val in res.items()
-                                  if key != "launches"}
-                           for path, res in streaming.items()}
+    for group, paths_ in (("streaming", streaming), ("resident", resident)):
+        record[group] = {path: {key: val for key, val in res.items()
+                                if key not in ("launches", "proof")}
+                         for path, res in paths_.items()}
     record["sharded"] = {path: {key: val for key, val in res.items()
                                 if key != "launches"}
                          for path, res in sharded.items()}
@@ -3056,6 +3276,7 @@ def main() -> int:
                        for name, line in bench["lines"].items()}
     record["graft"] = {key: val for key, val in graft.items()
                        if key != "launches"}
+    record["phase_s"] = laps.seconds
     record["total_s"] = time.perf_counter() - start
     log(f"chip_smoke: every phase passed in {record['total_s']:.1f} s")
     print(smi, flush=True)

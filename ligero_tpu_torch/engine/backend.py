@@ -12,18 +12,22 @@ Merkle tree (``cuda_tree``) and row combinations (``cuda_lc``); ChaCha20,
 modular add/sub, gathers and segment sums are PyTorch ops.  On the CPU the
 same calls take the kernels' plain versions.
 
-Two modes, chosen per instance by :meth:`TorchBackend.encode_mode` from
-the live-set estimates before any allocation.  In "direct" mode the whole
-codeword matrix U is one device tensor (:meth:`TorchBackend.direct_bytes`).
-In "streaming" mode, where that does not fit, U is never held: only its
-coefficient rows stay on the device, in row chunks (``devmatrix``); the
-commit re-encodes a chunk at a time into per-column Blake2s (or, under the
-Poseidon commitment, sponge) states, the
-openings re-encode chunks to gather the opened columns, and the linear
-phase's challenges, sparse product and products run in blocks aligned with
-the chunks (:meth:`TorchBackend.streaming_bytes`).  The bulk steps take a
-tensor or a chunked handle and dispatch on its type.  An instance that fits
-neither mode raises :class:`DeviceMemoryError`.
+Three modes, chosen per instance by :meth:`TorchBackend.encode_mode` from
+the live-set estimates before any allocation, in the JAX package's order.
+In "direct" mode the whole codeword matrix U is one device tensor
+(:meth:`TorchBackend.direct_bytes`).  Where that does not fit, U and its
+coefficient rows stay on the device in row chunks (``devmatrix``), and the
+linear phase's challenges, sparse product and products run in blocks
+aligned with the chunks.  In "resident" mode each chunk is encoded once and
+its codewords are held (:meth:`TorchBackend.resident_bytes`): the commit
+absorbs each codeword chunk into per-column Blake2s (or, under the
+Poseidon commitment, sponge) states and the openings gather the opened
+columns from the chunks.  In "streaming" mode, where that does not fit
+either, U is never held: only the coefficient chunks stay, and the commit
+and the openings re-encode a chunk at a time
+(:meth:`TorchBackend.streaming_bytes`).  The bulk steps take a tensor or a
+chunked handle and dispatch on its type.  An instance that fits no mode
+raises :class:`DeviceMemoryError`.
 
 The ``*_batch`` methods serve ``LigeroCircuit.prove_batch`` and
 ``verify_batch``: B proofs of one circuit share one launch per bulk step
@@ -67,9 +71,9 @@ STREAM_ROW_QUANTUM = 4
 
 
 class DeviceMemoryError(RuntimeError):
-    """The instance fits the device in neither direct nor streaming mode
-    (or, where :meth:`TorchBackend.check_direct_fits` raises it, not in
-    direct mode)."""
+    """The instance fits the device in no mode (or, where
+    :meth:`TorchBackend.check_direct_fits` raises it, not in direct
+    mode)."""
 
 
 class MessageRows:
@@ -98,6 +102,11 @@ def resolve_device(device) -> torch.device:
 
 class TorchBackend:
     """Bulk limb arithmetic for one field on one device."""
+
+    #: whether :meth:`encode_mode` may take resident mode (one device: a
+    #: mesh never does, as in the JAX package, whose mesh sets
+    #: ``resident_u_ok = False``)
+    RESIDENT = True
 
     def __init__(self, field: FieldSpec, device=None):
         self.field = field
@@ -318,6 +327,13 @@ class TorchBackend:
         scratch = functools.partial(cuda_ntt.scratch_bytes, self.field)
         sponge = n * (3 * (self.L // 2) * 4 + E) if poseidon else 0
         return {
+            # the column sponges' states and digests (Poseidon)
+            "sponge": sponge,
+            # one chunk's n-wide transform and its NTT scratch
+            "transform": cr * n * E + scratch(cr, k + b, n),
+            # a chunk's opened columns (3t of them: fewer than 512 at any
+            # security level the port runs)
+            "opened": cr * min(n, 512) * E,
             "coo": nnz * (E + 16),
             "coeffs": padded * (k + b) * E + (3 * d2 * E if b else 0),
             "r": data * k * E,
@@ -330,9 +346,8 @@ class TorchBackend:
             # chunk and the subtraction
             "encode": 5 * cr * k * E // 2 + scratch(cr, k, k) + (
                 3 * cr * b * E + self._segment_bytes(seg) if b else 0),
-            # one chunk's n-wide transform and its opened columns (3t of
-            # them: fewer than 512 at any security level the port runs);
-            # under Poseidon the column sponges' states and digests
+            # one chunk's re-encode (commit, openings) and its opened
+            # columns, beside the sponges
             "reencode": cr * n * E + scratch(cr, k + b, n)
             + cr * min(n, 512) * E + sponge,
             "sampler": self._segment_bytes(seg),
@@ -379,9 +394,35 @@ class TorchBackend:
             p["upload"], p["encode"], p["reencode"], linear,
             p["r_coeffs"] + p["pair"], p["quad"])) * ESTIMATE_MARGIN)
 
+    def resident_bytes(self, rows: int, k: int, n: int, nnz: int,
+                       blind_t: int = 0, d2: int | None = None,
+                       chunk_rows: int = STREAM_MAX_CHUNK_ROWS,
+                       poseidon: bool = False) -> int:
+        """Estimate of the resident prover's largest live set for one
+        proof: what :meth:`streaming_bytes` holds throughout (A's COO, the
+        coefficient chunks) and U's real rows (4m, and the three mask rows
+        under zk) n wide, beside the largest of: A's upload; a chunk's
+        encode, its n-wide transform and NTT scratch, its opened columns
+        and, under ``poseidon``, the column sponges' states and digests
+        (the encode, the commit and the openings, summed: an estimate that
+        takes every term of :meth:`streaming_bytes` and adds U, so that it
+        lies above it at every chunking); the linear phase; the linear
+        product's chunk pair with the r^T A chunks; or a block of the
+        quadratic product.  Nothing is re-encoded."""
+        d2 = 2 * k if d2 is None else d2
+        p = self._stream_parts(rows, k, n, nnz, blind_t, d2, chunk_rows,
+                               poseidon)
+        u = rows * n * self.L * 4
+        linear = p["r"] + max(p["sampler"], p["r_coeffs"] + p["block"])
+        return int((p["coo"] + p["coeffs"] + u + max(
+            p["upload"],
+            p["encode"] + p["transform"] + p["opened"] + p["sponge"],
+            linear, p["r_coeffs"] + p["pair"], p["quad"])) * ESTIMATE_MARGIN)
+
     def streaming_verify_bytes(self, rows: int, k: int, n: int, nnz: int,
                                chunk_rows: int, batch: int = 1) -> int:
-        """Estimate of the streaming verifier's largest live set for
+        """Estimate of the streaming (and resident: the verifier holds no
+        U) verifier's largest live set for
         ``batch`` proofs: A's COO and each proof's r^T A coefficient
         chunks, beside the upload, one proof's challenge vector with a
         sampler segment or a sparse block, or one chunk's n-point
@@ -413,24 +454,37 @@ class TorchBackend:
     def encode_mode(self, rows: int, k: int, n: int, nnz: int,
                     blind_t: int = 0, d2: int | None = None,
                     poseidon: bool = False) -> tuple[str, int]:
-        """``("direct", 0)`` where :meth:`direct_bytes` fits the device,
-        else ``("streaming", chunk rows)`` where a chunking fits
-        (:meth:`stream_chunk_rows`; ``poseidon``: under the Poseidon
-        commitment); raises :class:`DeviceMemoryError`, naming both
-        estimates, where neither fits."""
+        """``("direct", 0)`` where :meth:`direct_bytes` fits the device;
+        else the chunking streaming mode fits (:meth:`stream_chunk_rows`;
+        ``poseidon``: under the Poseidon commitment), and
+        ``("resident", chunk rows)`` where :meth:`resident_bytes` fits at
+        that chunking too (on one device: :data:`RESIDENT`), else
+        ``("streaming", chunk rows)``.  Resident mode holds U beside the
+        chunks streaming mode would take and never takes smaller ones to
+        make room for it: smaller chunks slow every chunked step, and a
+        budget at a streaming estimate gives streaming mode, since
+        :meth:`resident_bytes` lies above :meth:`streaming_bytes` at every
+        chunking.  Raises :class:`DeviceMemoryError`, naming the estimates,
+        where no chunking fits."""
         direct = self.direct_bytes(rows, k, n, nnz, blind_t, d2)
         budget = self.memory_budget()
         if direct <= budget:
             return "direct", 0
         cr = self.stream_chunk_rows(rows, k, n, nnz, blind_t, d2, poseidon)
+        if cr and self.RESIDENT and self.resident_bytes(
+                rows, k, n, nnz, blind_t, d2, cr, poseidon) <= budget:
+            return "resident", cr
         if cr:
             return "streaming", cr
-        least = self.streaming_bytes(rows, k, n, nnz, blind_t, d2,
-                                     STREAM_ROW_QUANTUM, poseidon)
+        least = []
+        for mode in (["resident"] if self.RESIDENT else []) + ["streaming"]:
+            need = getattr(self, f"{mode}_bytes")(
+                rows, k, n, nnz, blind_t, d2, STREAM_ROW_QUANTUM, poseidon)
+            least.append(f"~{need / 2**30:.1f} GiB in {mode} mode")
         raise DeviceMemoryError(
             f"instance needs ~{direct / 2**30:.1f} GiB on {self.device} in "
-            f"direct mode and ~{least / 2**30:.1f} GiB in streaming mode at "
-            f"its smallest chunks (budget {budget / 2**30:.1f} GiB)")
+            f"direct mode, {', '.join(least)} at its smallest chunks "
+            f"(budget {budget / 2**30:.1f} GiB)")
 
     # ------------------------------------------------------------------
     # transforms
@@ -615,6 +669,36 @@ class TorchBackend:
                 chunks.append(be.intt(be._chunk_up(preenc, r0, chunk_rows), k))
         return RowChunkedMatrix(chunks, rows, chunk_rows, k)
 
+    def resident_codewords(self, coeffs: RowChunkedMatrix, n: int,
+                           tail: torch.Tensor | None = None
+                           ) -> StreamedCodewords:
+        """Resident encode (``Backend.rs_encode_resident``, and the
+        ``RowChunkedMatrix`` branch of ``_zk_encode_streamed``): the
+        coefficient chunks of :meth:`encode_chunks` (zk: the blinded chunks
+        of :meth:`zk_blind_chunks`) and the mask rows' ``tail`` (3, d2, L)
+        below them, each encoded once to canonical n-point codewords and
+        held beside them; of the last chunk only its real rows (the
+        padding's transform is dropped).  One device only
+        (:data:`RESIDENT`)."""
+        canon = []
+        for i, c in enumerate(coeffs.chunks):
+            u, real = self.ntt_and_canon(c, n), coeffs.real_rows(i)
+            canon.append(u if real == u.shape[0] else u[:real].clone())
+        return StreamedCodewords(
+            coeffs, n, tail, RowChunkedMatrix(canon, coeffs.rows,
+                                              coeffs.chunk_rows, n),
+            None if tail is None else self.ntt_and_canon(tail, n))
+
+    def part_codewords(self, coeffs, real: int, held, n: int) -> torch.Tensor:
+        """A part of a :class:`StreamedCodewords` (``parts()``) as the
+        canonical codewords of its real rows: ``held`` in resident mode,
+        else its coefficient block re-encoded (``ntt_and_canon``) where it
+        lies."""
+        if held is not None:
+            return held
+        with self._on(coeffs.device) as be:
+            return be.ntt_and_canon(coeffs, n)[:real]
+
     def zk_blind_chunks(self, preenc, rows_seed: bytes, blind_t: int,
                         chunk_rows: int) -> RowChunkedMatrix:
         """Streaming :meth:`zk_blind_rows`: the blinded (k + b)-wide
@@ -688,8 +772,8 @@ class TorchBackend:
         a column block (:meth:`column_blocks`: here all batch * n columns
         at once, over a mesh one block a device), one tree launch per proof
         on one stream, one transfer of the flat trees, host unpacking.  A
-        :class:`StreamedCodewords` (one proof) takes
-        :meth:`commit_columns_streaming`."""
+        :class:`StreamedCodewords` (one proof, resident or streaming mode)
+        takes :meth:`commit_columns_streaming`."""
         if isinstance(u_canon, StreamedCodewords):
             if batch != 1:
                 raise ValueError("streaming mode commits one proof at a time")
@@ -703,10 +787,11 @@ class TorchBackend:
         return [hashops.digest_lists(flat[b], n) for b in range(batch)]
 
     def commit_columns_streaming(self, sc: StreamedCodewords):
-        """The commitment of a never-materialised U
-        (``Backend.commit_columns_streaming``): each coefficient chunk
-        re-encoded to canonical codewords (``ntt_and_canon``) where it
-        lies, and its real rows absorbed into per-column Blake2s states
+        """The commitment of U in row chunks
+        (``Backend.commit_columns_streaming``; resident mode: the
+        ``RowChunkedMatrix`` branch of ``commit_columns``): each part's
+        codewords (:meth:`part_codewords`: held, or the coefficient chunk
+        re-encoded where it lies) absorbed into per-column Blake2s states
         (``cuda_hash.ColumnHashStream``, the streamed kernel entry) in row
         order, each block of :meth:`_column_split` on its device (over a
         mesh: the row -> column re-shard of each part); the last part's
@@ -716,12 +801,11 @@ class TorchBackend:
         blocks = [(dev, c0, c1, cuda_hash.ColumnHashStream(
             self.field, c1 - c0, sc.rows, dev))
             for dev, c0, c1 in self._column_split(n)]
-        for coeffs, real in sc.parts():
-            with self._on(coeffs.device) as be:
-                canon = be.ntt_and_canon(coeffs, n)
+        for coeffs, real, held in sc.parts():
+            canon = self.part_codewords(coeffs, real, held, n)
             for dev, c0, c1, hs in blocks:
                 with self._on(dev):
-                    hs.absorb(canon[:real, c0:c1].to(dev), real)
+                    hs.absorb(canon[:, c0:c1].to(dev), real)
             del canon
         leaves = torch.cat([hs.digests().to(self.device)
                             for _, _, _, hs in blocks])
@@ -731,27 +815,28 @@ class TorchBackend:
     def gather_columns_batch(self, u_canon, idx) -> np.ndarray:
         """Per-proof openings: (B * rows, n, L) and ``idx`` (B, t) ->
         (B, rows, t, L) host uint32: proof b's columns ``idx[b]``.  A
-        :class:`StreamedCodewords` (one proof) re-encodes each part and
+        :class:`StreamedCodewords` (one proof) takes each part's codewords
+        (:meth:`part_codewords`: held in resident mode, an ``index_select``
+        as the JAX package's ``xp.take``; re-encoded in streaming mode) and
         copies the opened columns of its real rows to the host
         (``Backend.gather_columns``), each part where it lies."""
         idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
         if isinstance(u_canon, StreamedCodewords):
             if idx.shape[0] != 1:
                 raise ValueError("streaming mode opens one proof at a time")
-            rcm, parts = u_canon.coeffs, {}
-            for i, coeffs in enumerate(rcm.chunks):
+            rcm, n, parts = u_canon.coeffs, u_canon.n, {}
+            for i, (coeffs, real, held) in enumerate(u_canon.parts()):
                 if coeffs is None:
                     continue
-                with self._on(coeffs.device) as be:
-                    parts[i] = be.ntt_and_canon(
-                        coeffs, u_canon.n).index_select(1, idx[0].to(
-                            coeffs.device))[:rcm.real_rows(i)].cpu()
+                canon = self.part_codewords(coeffs, real, held, n)
+                parts[i] = canon.index_select(1, idx[0].to(
+                    canon.device)).cpu()
+                del canon
+            tail = parts.pop(len(rcm.chunks), None)      # the zk mask rows
             cols = [self._join_chunks(parts, rcm, (idx.shape[1], self.L),
                                       "cpu")]
-            if u_canon.tail is not None:
-                cols.append(self.ntt_and_canon(u_canon.tail, u_canon.n)
-                            .index_select(1, idx[0].to(self.device)).cpu())
-            return self.to_numpy(torch.cat(cols))[None]
+            return self.to_numpy(torch.cat(
+                cols if tail is None else cols + [tail]))[None]
         idx = idx.to(self.device)
         batch, t = idx.shape
         u4 = u_canon.reshape(batch, -1, *u_canon.shape[1:])

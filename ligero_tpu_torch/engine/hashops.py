@@ -85,26 +85,39 @@ def _blake2s_g(a, b, c, d, x, y):
     return a, b, c, d
 
 
-def _blake2s_compress(h: torch.Tensor, m: torch.Tensor, t: int,
-                      last: bool) -> torch.Tensor:
-    """h: (B, 8), m: (B, 16) int64 words; G runs on the four columns (then
-    the four diagonals) of the 4x4 state at once."""
-    iv = torch.tensor(_IV, dtype=torch.int64, device=h.device)
-    lo = iv[4:].clone()
-    lo[0] ^= t & M32
-    lo[1] ^= (t >> 32) & M32
-    if last:
-        lo[2] ^= M32
-    a, b = h[:, 0:4], h[:, 4:8]
-    c = iv[0:4].expand_as(a)
-    d = lo.expand_as(a)
-    for r in range(10):
-        s = _SIGMA[r]
-        a, b, c, d = _blake2s_g(a, b, c, d, m[:, s[0:8:2]], m[:, s[1:8:2]])
-        b, c, d = b.roll(-1, 1), c.roll(-2, 1), d.roll(-3, 1)
-        a, b, c, d = _blake2s_g(a, b, c, d, m[:, s[8:16:2]], m[:, s[9:16:2]])
-        b, c, d = b.roll(1, 1), c.roll(2, 1), d.roll(3, 1)
-    return h ^ torch.cat([a ^ c, b ^ d], dim=1)
+#: each round's message words in the order G takes them: the four columns'
+#: x and y words, then the four diagonals'
+_SCHEDULE = [i for s in _SIGMA
+             for i in s[0:8:2] + s[1:8:2] + s[8:16:2] + s[9:16:2]]
+
+
+def _blake2s_blocks(h: torch.Tensor, msg: torch.Tensor,
+                    counters: list[tuple[int, bool]]) -> torch.Tensor:
+    """h: (B, 8) chaining values, msg: (B, 16 len(counters)) int64 words,
+    ``counters`` each block's (byte count t, last) -> the chaining values
+    after the blocks.  The constants go to the device once a call, and a
+    block's message schedule is one gather; G runs on the four columns
+    (then the four diagonals) of the 4x4 state at once."""
+    dev = h.device
+    iv = torch.tensor(_IV, dtype=torch.int64, device=dev)
+    sched = torch.tensor(_SCHEDULE, dtype=torch.int64, device=dev)
+    lows = torch.tensor([[_IV[4] ^ (t & M32), _IV[5] ^ ((t >> 32) & M32),
+                          _IV[6] ^ (M32 if last else 0), _IV[7]]
+                         for t, last in counters], dtype=torch.int64,
+                        device=dev)
+    for blk in range(len(counters)):
+        m = msg[:, 16 * blk:16 * blk + 16].index_select(1, sched).view(
+            -1, 10, 4, 4)
+        a, b = h[:, 0:4], h[:, 4:8]
+        c = iv[0:4].expand_as(a)
+        d = lows[blk].expand_as(a)
+        for r in range(10):
+            a, b, c, d = _blake2s_g(a, b, c, d, m[:, r, 0], m[:, r, 1])
+            b, c, d = b.roll(-1, 1), c.roll(-2, 1), d.roll(-3, 1)
+            a, b, c, d = _blake2s_g(a, b, c, d, m[:, r, 2], m[:, r, 3])
+            b, c, d = b.roll(1, 1), c.roll(2, 1), d.roll(3, 1)
+        h = h ^ torch.cat([a ^ c, b ^ d], dim=1)
+    return h
 
 
 def blake2s_columns_ref(u_canon: torch.Tensor) -> torch.Tensor:
@@ -123,11 +136,8 @@ def blake2s_columns_ref(u_canon: torch.Tensor) -> torch.Tensor:
     msg[:, 2:2 + words.shape[1]] = words
     h = torch.tensor(_IV, dtype=torch.int64, device=u.device).repeat(n, 1)
     h[:, 0] ^= 0x01010020
-    for blk in range(nblocks):
-        last = blk == nblocks - 1
-        t = byte_len if last else 64 * (blk + 1)
-        h = _blake2s_compress(h, msg[:, 16 * blk:16 * blk + 16], t, last)
-    return _to_i32(h)
+    counters = [(64 * (blk + 1), False) for blk in range(nblocks - 1)]
+    return _to_i32(_blake2s_blocks(h, msg, counters + [(byte_len, True)]))
 
 
 #: words of a streamed column state: the chaining value, then two carried
@@ -179,11 +189,10 @@ def blake2s_absorb_ref(chunk: torch.Tensor, rows: int, state: torch.Tensor,
                              f"periods of {period_rows(L)}")
         nblocks = nw // 16
     byte_len = 8 + total_rows * L * 2
-    h = s[:, :8]
-    for blk in range(nblocks):
-        last = final and blk == nblocks - 1
-        t = byte_len if last else 64 * (block0 + blk + 1)
-        h = _blake2s_compress(h, msg[:, 16 * blk:16 * blk + 16], t, last)
+    counters = [(64 * (block0 + blk + 1), False) for blk in range(nblocks)]
+    if final:
+        counters[-1] = (byte_len, True)
+    h = _blake2s_blocks(s[:, :8], msg, counters)
     carry = s[:, 8:] if final else msg[:, 16 * nblocks:]
     return _to_i32(torch.cat([h, carry], dim=1))
 

@@ -3,14 +3,16 @@
 The port's counterpart of ``LigeroCircuit`` in ``ligero_tpu/ligero/core.py``
 for the single-device path.  The mode is chosen per instance from the
 backend's live-set estimates (``encode_mode``): "direct", where the whole
-codeword matrix U lives on ``device`` as one tensor, or "streaming", where
-it does not fit: U is never held, only its coefficient rows in row chunks
-(``engine/devmatrix.py``), re-encoded a chunk at a time for the commit and
-the openings (the commit absorbs each re-encoded chunk into per-column
-Blake2s or Poseidon states), and the linear phase runs in column blocks
-aligned with the chunks.  Streaming proofs are byte-identical to direct
-ones.  Over a mesh of devices (``backend=parallel.ShardedBackend(field,
-mesh)``) the bulk steps run row-sharded, in either mode and for batches;
+codeword matrix U lives on ``device`` as one tensor; past it U and its
+coefficient rows in row chunks (``engine/devmatrix.py``), the commit
+absorbing a codeword chunk at a time into per-column Blake2s or Poseidon
+states and the linear phase in column blocks aligned with the chunks:
+"resident", where the codeword chunks fit beside the rest and are encoded
+once, or "streaming", where only the coefficient chunks are held and the
+commit and the openings re-encode them.  Resident and streaming proofs are
+byte-identical to direct ones.  Over a mesh of devices
+(``backend=parallel.ShardedBackend(field, mesh)``) the bulk steps run
+row-sharded, in direct or streaming mode and for batches;
 the core passes the backend's row blocks and chunks on without opening
 them.  The commitment is
 pluggable
@@ -121,15 +123,18 @@ class LigeroCircuit:
     (``LigeroMTTestParams``), or params with ``device_col_digests``,
     ``device_tree_levels`` and ``check_backend`` (``LigeroMTPoseidonParams``;
     over BLS12-377 Fq it raises ``ValueError`` here).  ``encode_mode`` is
-    "direct" or "streaming" (``chunk_rows`` rows a chunk), from the
-    device's memory (under either commitment); an instance that fits
-    neither raises ``DeviceMemoryError``.
+    "direct", "resident" or "streaming" (``chunk_rows`` rows a chunk; 0
+    in direct mode), the first whose estimate fits the device's memory
+    (under either commitment); an instance that fits none raises
+    ``DeviceMemoryError``.  Resident and streaming mode prove one witness
+    at a time.
 
     ``backend`` takes the place of ``device``: a :class:`TorchBackend` of
     the circuit's field, such as ``parallel.ShardedBackend(field, mesh)``,
     whose bulk steps run row-sharded over a mesh of devices (proofs and
     verdicts byte-identical to one device's, in direct and streaming
-    mode, batches included; the Poseidon commitment in direct mode only).
+    mode, batches included, never in resident mode; the Poseidon
+    commitment in direct mode only).
     Giving both raises ``ValueError``."""
 
     def __init__(self, circuit, outputs: list[int],
@@ -204,8 +209,8 @@ class LigeroCircuit:
         proofs are byte-identical to B ``prove(a, sponge.clone())`` calls
         (under zk: with ``zk_seed=zk_seeds[i]``; fresh seeds when None).
         A batch larger than ``TorchBackend.max_batch`` allows is proved in
-        parts; where not even two proofs fit the device together, one at a
-        time."""
+        parts; where not even two proofs fit the device together (as in
+        resident and streaming mode), one at a time."""
         if not assignments:
             return []
         if not self.zk:
@@ -226,7 +231,10 @@ class LigeroCircuit:
         return out
 
     def _max_batch(self) -> int:
-        """Proofs of this instance that go through the device together."""
+        """Proofs of this instance that go through the device together:
+        one in resident and streaming mode."""
+        if self.chunk_rows:
+            return 1
         return max(1, self.backend.max_batch(
             self.num_rows, self.k, self.n, len(self.state.a_vals),
             self.blind_t, self.d2))
@@ -333,29 +341,35 @@ class LigeroCircuit:
         i: proof i), the rows its interleaved combination takes, and the
         canonical codewords the commit and the openings take.  Direct mode:
         the backend's batch of all B proofs (tensors; over a mesh, row
-        blocks: ``parallel.ShardedBackend``).  Streaming mode (one proof;
-        its message rows stay on the host): the coefficient chunks (over a
-        mesh dealt over its devices), the
+        blocks: ``parallel.ShardedBackend``).  Resident and streaming mode
+        (one proof; its message rows stay on the host): the coefficient
+        chunks (in streaming mode over a mesh dealt over its devices), the
         message rows as their coefficients (zk: the coefficient rows
         themselves), and the codewords as :class:`StreamedCodewords` over
-        the chunks (zk: the mask rows' coefficients below them)."""
+        the chunks (zk: the mask rows' coefficients below them), in
+        resident mode with the codeword chunks, each encoded once
+        (``_rs_encode_streamed`` and ``_zk_encode_streamed`` of the JAX
+        package)."""
         be, ph, B = self.backend, self.timer.phase, len(masks)
         with ph("witness+preenc"):
             preenc = [self._witness.preenc(a) for a in assignments]
-        if self.encode_mode == "streaming":
+        if self.chunk_rows:
             if B != 1:
-                raise ValueError("streaming mode proves one witness at a time")
+                raise ValueError(f"{self.encode_mode} mode proves one "
+                                 "witness at a time")
+            tail = None
             if self.zk:
                 with ph("zk_blind"):
                     chunks = be.zk_blind_chunks(preenc[0], masks[0][4],
                                                 self.blind_t, self.chunk_rows)
                     tail = be.asarray(masks[0][3])
-                return ([chunks], chunks,
-                        StreamedCodewords(chunks, self.n, tail))
             with ph("rs_encode"):
-                chunks = be.encode_chunks(preenc[0], self.k, self.chunk_rows)
-            return ([chunks], MessageRows(chunks),
-                    StreamedCodewords(chunks, self.n))
+                if not self.zk:
+                    chunks = be.encode_chunks(preenc[0], self.k,
+                                              self.chunk_rows)
+                sc = (be.resident_codewords if self.encode_mode == "resident"
+                      else StreamedCodewords)(chunks, self.n, tail)
+            return [chunks], chunks if self.zk else MessageRows(chunks), sc
         with ph("witness+preenc"):                  # (B, 4m, k, L)
             msgs = be.upload_messages(preenc)
             del preenc
@@ -429,15 +443,15 @@ class LigeroCircuit:
 
     def _device_coo(self):
         """A's nonzeros on the device: row ids, column ids, Montgomery
-        values (one-time upload).  In streaming mode sorted by column
-        (stable, on the device) with the first entry of each column block
-        (:meth:`_r_a_coeff_rows`) beside them."""
+        values (one-time upload).  In resident and streaming mode sorted by
+        column (stable, on the device) with the first entry of each column
+        block (:meth:`_r_a_coeff_rows`) beside them."""
         if self._coo is None:
             with self.timer.phase("linear.coo_upload"):
                 st, dev = self.state, self.device
                 vals = _mont_values(self.field, st.a_vals)
                 cols = torch.from_numpy(st.a_cols).to(dev)
-                if self.encode_mode != "streaming":
+                if not self.chunk_rows:
                     self._coo = (torch.from_numpy(st.a_rows).to(dev), cols,
                                  self.backend.asarray(vals))
                     return self._coo
@@ -453,8 +467,9 @@ class LigeroCircuit:
 
     def _r_a_coeff_rows(self, seed: bytes):
         """r_linear -> r^T A in 4m rows of k -> iNTT_k (Montgomery): one
-        tensor in direct mode (over a mesh, row blocks); in streaming mode
-        a :class:`RowChunkedMatrix` row-aligned with the coefficient
+        tensor in direct mode (over a mesh, row blocks); in resident and
+        streaming mode a :class:`RowChunkedMatrix` row-aligned with the
+        coefficient
         chunks, each chunk placed beside its coefficient chunk
         (``place_chunk``), r drawn a segment at a time and the sparse
         product run in column blocks of a chunk's rows (``_r_a_coeff_rows``
@@ -463,7 +478,7 @@ class LigeroCircuit:
         be, ph = self.backend, self.timer.phase
         four_mk = 4 * self.m * self.k
         coo = self._device_coo()
-        if self.encode_mode != "streaming":
+        if not self.chunk_rows:
             with ph("linear.expand"):
                 r = be.rand_field_mont(four_mk, seed)
             with ph("linear.sparse_rA"):

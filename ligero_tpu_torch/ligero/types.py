@@ -104,8 +104,9 @@ class LigeroMTPoseidonParams:
         after matrix, bit-identical to :meth:`col_hash` of each column.
         Over a mesh, one launch a device for its block of whole columns
         (``backend.column_digests``).  A ``StreamedCodewords`` (the
-        streaming mode's U, one proof) is re-encoded a part at a time
-        (``backend.ntt_and_canon``) and its real rows absorbed into the
+        resident or streaming mode's U, one proof) goes a part at a time,
+        its codewords held (resident) or re-encoded (streaming;
+        ``backend.part_codewords``), their real rows absorbed into the
         columns' sponge states (``cuda_poseidon.PoseidonColumnStream``, the
         chunked kernel entry), as the default commitment's streamed Blake2s
         absorbs them."""
@@ -118,8 +119,9 @@ class LigeroMTPoseidonParams:
             n = u_source.n
             stream = cuda_poseidon.PoseidonColumnStream(
                 self.field, cfg, n, u_source.rows, backend.device)
-            for coeffs, real in u_source.parts():
-                stream.absorb(backend.ntt_and_canon(coeffs, n), real)
+            for coeffs, real, held in u_source.parts():
+                stream.absorb(backend.part_codewords(coeffs, real, held, n),
+                              real)
             return poseidon_cols.digests_to_bytes(stream.digests())
         return poseidon_cols.digests_to_bytes(backend.column_digests(
             u_source, batch, lambda block: poseidon_cols.poseidon_columns(

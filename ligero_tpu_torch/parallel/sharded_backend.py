@@ -26,7 +26,8 @@ Direct mode, where every device's estimate fits (:meth:`device_bytes`):
   (as in the JAX package, which inherits them from ``Backend``).
 
 Streaming mode, where the direct estimate passes a device's memory and a
-chunking fits (:meth:`stream_device_bytes`): the coefficient rows in
+chunking fits (:meth:`stream_device_bytes`; a mesh never takes resident
+mode, as in the JAX package): the coefficient rows in
 chunks of c rows, chunk i on mesh device i mod D.  That is the block-cyclic
 layout of the JAX package's ``ShardedCoeffs`` (``_to_cyclic``: global row g
 on device (g mod c D) // c), and it is what makes every step of c D rows
@@ -210,6 +211,10 @@ class ShardedBackend(TorchBackend):
     ``mesh.devices[0]``, keeps the sampler, the sparse product, the trees
     and everything small (over a process mesh every rank is its own
     controller, on its own device)."""
+
+    #: resident mode runs on one device only, as in the JAX package (its
+    #: mesh sets ``resident_u_ok = False``): past direct mode a mesh streams
+    RESIDENT = False
 
     def __init__(self, field: FieldSpec, mesh):
         mesh = mesh if isinstance(mesh, RowMesh) else RowMesh(mesh)

@@ -5,7 +5,8 @@
                                           [--field bn254_fr] [--zk]
                                           [--mt default|poseidon]
                                           [--lambda 128] [--batch B]
-                                          [--mesh D] [--spot] [--out FILE]
+                                          [--mesh D] [--spot] [--vs-streaming]
+                                          [--out FILE]
 
 Builds the synthetic circuit of ``--log2-gates`` gates (seed 0) over
 ``--field`` (BN254 Fr, or BLS12-377 Fq: the kernels' two fields), compiled
@@ -32,12 +33,18 @@ peak device memory.  With
 copies of the witness (under zk: B different seeds) and of ``verify_batch``
 over the B proofs, with proofs per second beside the single calls'.  Each
 call's peak device memory stands beside the port's estimate of it in the
-instance's mode (``encode_mode``, recorded): in direct mode
-``TorchBackend.direct_bytes`` for the provers and ``verify_bytes`` for the
-verifiers, in streaming mode (past the direct mode's reach: 2^23 gates over
-BLS12-377, 2^24 over BN254 on an 80 GB card) ``streaming_bytes`` and
-``streaming_verify_bytes``; the script fails where a peak exceeds its
-estimate.  With ``--mesh D`` the instance runs over D shards
+instance's mode (``encode_mode`` and ``chunk_rows``, recorded): in direct
+mode ``TorchBackend.direct_bytes`` for the provers and ``verify_bytes`` for
+the verifiers; past the direct mode's reach (2^23 gates over BLS12-377,
+2^24 over BN254 on an 80 GB card) ``resident_bytes`` in resident mode and
+``streaming_bytes`` in streaming mode for the prover, and
+``streaming_verify_bytes`` for the verifier; the resident and streaming
+estimates at the instance's chunking are recorded beside them in either
+mode.  The script fails where a peak exceeds its estimate.  With
+``--vs-streaming``, an instance in resident mode is profiled again in
+streaming mode (the same compiled instance, ``LigeroCircuit.from_compiled``
+under a budget at its streaming estimate), its proof byte-equal to the
+resident one.  With ``--mesh D`` the instance runs over D shards
 (``parallel.ShardedBackend``; on a host with fewer cards than D a card
 holds several), in the mode its estimates per physical device give, and
 each physical device's peak stands beside its own estimate
@@ -184,6 +191,8 @@ def main() -> int:
                     help="also profile prove_batch and verify_batch of B")
     ap.add_argument("--mesh", type=int, default=0,
                     help="run over a mesh of D shards of the device(s)")
+    ap.add_argument("--vs-streaming", action="store_true",
+                    help="in resident mode, profile streaming mode too")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -191,6 +200,7 @@ def main() -> int:
 
     from ligero_tpu_torch import FIELDS, LigeroCircuit, test_sponge
     from ligero_tpu_torch.engine import spot
+    from ligero_tpu_torch.engine.backend import TorchBackend
     from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
     from ligero_tpu_torch.parallel import ShardedBackend
     from ligero_tpu_torch.synthetic import generate_random_circuit
@@ -230,6 +240,11 @@ def main() -> int:
         out = {"direct_bytes_gib": be.direct_bytes(*dims, batch=batch) / 2**30,
                "verify_bytes_gib": be.verify_bytes(*dims[:4],
                                                    batch=batch) / 2**30}
+        if lig.chunk_rows and not args.mesh:
+            for mode in ("resident", "streaming"):
+                out[f"{mode}_bytes_gib"] = getattr(be, f"{mode}_bytes")(
+                    *dims, chunk_rows=lig.chunk_rows,
+                    poseidon=args.mt == "poseidon") / 2**30
         if args.mesh:
             streaming = lig.encode_mode == "streaming"
             part = min(batch, max(1, be.max_verify_batch(*dims[:4],
@@ -246,14 +261,13 @@ def main() -> int:
                                              for d, v in verifier.items()}
             out["prover_estimate_gib"] = max(prover.values()) / 2**30
             out["verifier_estimate_gib"] = max(verifier.values()) / 2**30
-        elif lig.encode_mode == "streaming":
+        elif lig.encode_mode in ("resident", "streaming"):
             part = min(batch, max(1, be.max_verify_batch(*dims[:4],
                                                          lig.chunk_rows)))
             # the mode's own estimate: under the Poseidon commitment the
-            # sponge states stand beside a chunk's re-encode
-            out["prover_estimate_gib"] = be.streaming_bytes(
-                *dims, chunk_rows=lig.chunk_rows,
-                poseidon=args.mt == "poseidon") / 2**30
+            # sponge states stand beside a chunk's codewords
+            out["prover_estimate_gib"] = out[
+                f"{lig.encode_mode}_bytes_gib"]
             out["verifier_estimate_gib"] = be.streaming_verify_bytes(
                 *dims[:4], lig.chunk_rows, part) / 2**30
         else:
@@ -311,6 +325,39 @@ def main() -> int:
         print("profile_torch_port: the honest proof did not verify",
               file=sys.stderr)
         return 1
+    if args.vs_streaming and lig.encode_mode == "resident":
+        # the same compiled instance in streaming mode, at the same chunking
+        budget = be.streaming_bytes(*dims, chunk_rows=lig.chunk_rows,
+                                    poseidon=args.mt == "poseidon")
+        card = TorchBackend.memory_budget
+        TorchBackend.memory_budget = lambda self: budget
+        try:
+            lig_s = LigeroCircuit.from_compiled(lig.state, timer=PhaseTimer(),
+                                                mt_params=mt, **place)
+        finally:
+            TorchBackend.memory_budget = card
+        del lig
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        lig = lig_s
+        record["streaming"] = {
+            "encode_mode": lig.encode_mode, "chunk_rows": lig.chunk_rows,
+            "prover_estimate_gib": budget / 2**30,
+            "verifier_estimate_gib": record["verifier_estimate_gib"],
+            "prove": profile_call(torch, devices, lig, prove),
+            "verify": profile_call(torch, devices, lig,
+                                   lambda: lig.verify(proof, sponge.clone()))}
+        if prove().to_bytes(field) != proof.to_bytes(field):
+            print("profile_torch_port: the streaming proof differs from the "
+                  "resident one", file=sys.stderr)
+            return 1
+    # the mode and its estimates beside the prove's peak, on stderr
+    print(f"profile_torch_port: {record['encode_mode']} mode, chunks of "
+          f"{record['chunk_rows']} rows; prove peak "
+          f"{record['prove']['peak_device_memory_gib']} GiB, prover estimate "
+          f"{record['prover_estimate_gib']} GiB (resident_bytes "
+          f"{record.get('resident_bytes_gib')}, streaming_bytes "
+          f"{record.get('streaming_bytes_gib')})", file=sys.stderr)
     text = json.dumps(record, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -329,6 +376,15 @@ def main() -> int:
                  record.get("batch_estimates"))):
             if call not in record:
                 continue
+            if call in ("prove", "verify") and "streaming" in record:
+                stream = record["streaming"]
+                for dev, peak in stream[call]["peaks_gib"].items():
+                    if peak > stream[key + "_gib"]:
+                        print(f"profile_torch_port: the streaming {call} peak "
+                              f"on {dev}, {peak:.2f} GiB, exceeds the "
+                              f"estimate {stream[key + '_gib']:.2f} GiB",
+                              file=sys.stderr)
+                        return 1
             for dev, peak in record[call]["peaks_gib"].items():
                 limit = (est[key + "s_gib"][dev] if args.mesh
                          else est[key + "_gib"])

@@ -167,6 +167,37 @@ def test_streaming_proves_and_verifies_with_both_blocked():
     assert "streaming ok" in out
 
 
+def test_resident_proves_and_verifies_with_both_blocked():
+    """Resident mode, forced by a budget under the direct estimate at the
+    resident one: U's codeword chunks held, the commit and the openings
+    reading them, plain and zk."""
+    out = run_blocked(
+        PROVE +
+        "from ligero_tpu_torch.engine import backend\n"
+        "from ligero_tpu_torch.engine.backend import TorchBackend\n"
+        "c, outs, vs = generate_random_circuit(F, 96, num_vars=4, seed=3)\n"
+        "seed = bytes(range(32))\n"
+        "for zk, cr in ((False, 12), (True, 8)):\n"
+        "    backend.STREAM_MAX_CHUNK_ROWS = cr   # the streaming chunking\n"
+        "    kw = {'zk_seed': seed} if zk else {}\n"
+        "    direct = LigeroCircuit(c, outs, lambda_=10, zk=zk, device='cpu')\n"
+        "    want = direct.prove(vs, sp.clone(), **kw).to_bytes(F)\n"
+        "    dims = (direct.num_rows, direct.k, direct.n,\n"
+        "            len(direct.state.a_vals), direct.blind_t, direct.d2)\n"
+        "    budget = direct.backend.resident_bytes(*dims, chunk_rows=cr)\n"
+        "    assert budget < direct.backend.direct_bytes(*dims)\n"
+        "    TorchBackend.memory_budget = lambda self: budget\n"
+        "    lig = LigeroCircuit(c, outs, lambda_=10, zk=zk, device='cpu')\n"
+        "    assert (lig.encode_mode, lig.chunk_rows) == ('resident', cr)\n"
+        "    proof = lig.prove(vs, sp.clone(), **kw)\n"
+        "    assert proof.to_bytes(F) == want\n"
+        "    assert lig.verify(proof, sp.clone())\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ligero_tpu')\n"
+        "               for m in sys.modules)\n"
+        "print('resident ok')\n")
+    assert "resident ok" in out
+
+
 def test_poseidon_streaming_proves_and_verifies_with_both_blocked():
     """The Poseidon commitment in streaming mode: the column sponges absorb
     U a re-encoded chunk at a time, their states kept between chunks."""

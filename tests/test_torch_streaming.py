@@ -251,8 +251,9 @@ def test_blocked_pieces_equal_the_whole_forms(streamed):
 
 
 def test_mode_choice_follows_the_budget(monkeypatch):
-    """Direct where it fits; streaming where only that fits; neither:
-    DeviceMemoryError naming both estimates; the Poseidon commitment past
+    """Direct where it fits; resident where that does not and a resident
+    chunking does; streaming only below the least resident estimate; none:
+    DeviceMemoryError naming the estimates; the Poseidon commitment past
     direct mode: streaming too, in chunks no larger (its estimate counts
     the column sponges' states)."""
     be = TorchBackend(pf(BN254_FR), "cpu")
@@ -261,6 +262,9 @@ def test_mode_choice_follows_the_budget(monkeypatch):
     monkeypatch.setattr(be, "memory_budget", lambda: direct)
     assert be.encode_mode(*shape) == ("direct", 0)
     monkeypatch.setattr(be, "memory_budget", lambda: direct - 1)
+    assert be.encode_mode(*shape) == ("resident", 1024)
+    below = be.resident_bytes(*shape, chunk_rows=STREAM_ROW_QUANTUM) - 1
+    monkeypatch.setattr(be, "memory_budget", lambda: below)
     mode, cr = be.encode_mode(*shape)
     assert mode == "streaming" and cr == 1024
     assert be.streaming_bytes(*shape, chunk_rows=cr) < direct
