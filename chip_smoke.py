@@ -17,7 +17,11 @@ It runs every phase, in order; any failure exits non-zero:
                instruction rate) beside them.  Then the NTT at the edges of
                every route (one pass, cosets, two passes; each with inverse
                and canon_out on and off, the route printed) and the
-               full-width commit kernels.  For BN254 Fr: the tree at the
+               full-width commit kernels; the 16-bit entries (the
+               resident and streaming modes' chunks in 16-bit limbs: the
+               NTT reading and writing them, row_combine reading them) at
+               a 1024-row chunk, the NTT's plain version on its first 256
+               rows.  For BN254 Fr: the tree at the
                sizes around its 64-node groups and 100 times on one input,
                the tree's chain floor from a timed chain of dependent
                hashes; the serving path's pieces: the batched Blake2s and
@@ -40,14 +44,16 @@ It runs every phase, in order; any failure exits non-zero:
                three full matrices in one launch, and row_combine over
                two matrices in one launch (the bls batch path's).  The
                streaming commit's Blake2s entry (``blake2s_absorb``, a
-               column's rows a chunk at a time) in both fields: against
+               column's rows a chunk at a time, on 16-bit chunks as the
+               paths give it) in both fields: against
                its plain version and the whole-column kernel at rows of
                every residue mod 4 and the zk path's odd count, chunked
                raggedly, at the paths' own chunk patterns (the 2^20 one
                cut in depth, see STREAM_PLAIN_CASES), timed at the 2^20
                shapes (4m x n in 1024-row chunks, against the whole-column
                kernel) and at the 2^22 shapes (8196 x 32768).  The Poseidon streaming commit's
-               chunked entry (``poseidon_absorb``): against its plain
+               chunked entry (``poseidon_absorb``, on 16-bit chunks):
+               against its plain
                version, every state between chunks and the digests, at the
                paths' own chunkings (4100 / 4103 x 256 in 1024-row chunks,
                2052 / 2055 in 536 / 528) at one lane a column (the path's)
@@ -134,7 +140,12 @@ It runs every phase, in order; any failure exits non-zero:
                rejected, peaks under ``resident_bytes`` and
                ``streaming_verify_bytes``, no whole-column Blake2s, the
                streamed absorb at least once a part, no NTT in the
-               ``open`` phase (streaming mode: one a part).  Each phase's
+               ``open`` phase (streaming mode: one a part), the chunks'
+               dtype (16-bit limbs) and the openings' bytes copied to the
+               host printed, those bytes measured on the int16 host
+               tensors that left the card (two a limb required); no direct
+               path launches a 16-bit entry.
+               Each phase's
                seconds are printed; the kernels phase holds each NTT case
                against its plain version on the first 256 rows of the
                kernel's launch, and the Blake2s columns and the Poseidon
@@ -209,10 +220,19 @@ ZK_SEED = bytes(range(32))
 # operations per FMA on 128 lanes per SM; integer has 64 lanes, one each)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.75e12
-# 32-bit integer operations: one Blake2s block (10 rounds x 8 G x 14
-# operations, plus state set-up); one SHA-256 two-to-one (128 rounds x ~24,
-# plus 48 schedule words x 13).  A Montgomery product: mont_mul_ops.
-BLAKE2S_BLOCK_OPS, SHA256_NODE_OPS = 1160, 3700
+# 32-bit integer operations as the card issues them at the least (a
+# three-input add is one IADD3, a three-input XOR one LOP3, a rotation one
+# SHF.W, or one PRMT by 16 or 8 bits): one Blake2s block is 10 rounds x 8 G
+# x 12 (two IADD3, two adds, four XORs, four rotations) and 8 LOP3s that
+# fold the state into h, the counter and flag words folded into the first
+# round's XORs; one SHA-256 two-to-one is two compressions of 64 rounds x
+# 14 (six rotations, four LOP3s for the two sigmas' XORs, Ch and Maj, four
+# adds) and 8 adds, the first with 48 schedule words x 10 (six rotations
+# or shifts, two LOP3s, two IADD3s), the second, a constant padding block,
+# with none.  Loads, addresses and loop control are not
+# counted.  A Montgomery product: mont_mul_ops.
+BLAKE2S_BLOCK_OPS = 10 * 8 * 12 + 8
+SHA256_NODE_OPS = 2 * (64 * 14 + 8) + 48 * 10
 # a Poseidon permutation of the test sponge: 8 full rounds of three S-boxes
 # and 31 partial rounds of one, an S-box x^17 five products; 39 rounds of
 # three constant adds and three MDS adds
@@ -251,14 +271,26 @@ KERNELS = {
     "poseidon_stream": ("cuda_poseidon",
                         "ligero_tpu_torch/csrc/poseidon_cols.cu",
                         "ligero_tpu/engine/pallas_kernels.py:30"),
+    # the 16-bit entries of ntt.cu and row_combine.cu: the resident and
+    # streaming modes' chunks in 16-bit limbs (the JAX package's narrow16,
+    # ligero_tpu/engine/backend.py:657), read and written as they lie
+    "ntt16": ("cuda_ntt", "ligero_tpu_torch/csrc/ntt.cu",
+              "ligero_tpu/engine/mxu_ntt.py:535"),
+    "row_combine16": ("cuda_lc", "ligero_tpu_torch/csrc/row_combine.cu",
+                      "ligero_tpu/engine/mxu_lc.py:137"),
 }
 #: the wrapper's launch counter of a kernel, where it is not ``launches``
 COUNTERS = {"blake2s_stream": "stream_launches",
-            "poseidon_stream": "stream_launches"}
+            "poseidon_stream": "stream_launches",
+            "ntt16": "launches16", "row_combine16": "launches16"}
+#: the 16-bit entries, which only the chunked (resident, streaming) paths
+#: launch
+ENTRIES16 = ("ntt16", "row_combine16")
 #: the kernels a path of each commitment and mode never launches
-NOT_ON_DEFAULT = ("poseidon_cols", "blake2s_stream", "poseidon_stream")
+NOT_ON_DEFAULT = ("poseidon_cols", "blake2s_stream",
+                  "poseidon_stream") + ENTRIES16
 NOT_ON_POSEIDON = ("blake2s_cols", "sha256_tree", "blake2s_stream",
-                   "poseidon_stream")
+                   "poseidon_stream") + ENTRIES16
 NOT_ON_STREAMING = ("poseidon_cols", "blake2s_cols", "poseidon_stream")
 NOT_ON_POSEIDON_STREAMING = ("blake2s_cols", "sha256_tree", "blake2s_stream")
 #: streaming mode: the paths forced by the budget run at BATCH_LOG2_GATES
@@ -326,7 +358,7 @@ CORE_PLAIN_COL_STEP = 16
 #: the kernels the prover core never launches (its transforms' twists are
 #: inside the NTT kernel; no streaming, no Poseidon)
 NOT_ON_CORE = ("mont_mul", "poseidon_cols", "blake2s_stream",
-               "poseidon_stream")
+               "poseidon_stream") + ENTRIES16
 
 
 #: the process mesh's phase: ranks of scripts/torch_multihost_worker.py on
@@ -339,7 +371,8 @@ PROCESS_RANKS, WORKER_TIMEOUT_S = 2, 420
 
 #: the TPU kernel each BLS12-377 instantiation replaces, where it differs:
 #: the JAX package runs every BLS12-377 transform through pallas_ntt
-BLS_REPLACES = {"ntt": "ligero_tpu/engine/pallas_ntt.py:69"}
+BLS_REPLACES = {"ntt": "ligero_tpu/engine/pallas_ntt.py:69",
+                "ntt16": "ligero_tpu/engine/pallas_ntt.py:69"}
 
 
 def elem_bytes(field) -> int:
@@ -404,6 +437,13 @@ def _rand_elems(torch, gen, shape, field, below_r=False):
     return limbs
 
 
+def _rand_elems16(torch, gen, shape, field):
+    """:func:`_rand_elems` (reduced below p) in 16-bit limbs: the resident
+    and streaming modes' chunk storage (``fieldops.narrow16``)."""
+    from ligero_tpu_torch.engine import fieldops
+    return fieldops.narrow16(_rand_elems(torch, gen, shape, field))
+
+
 def _time_cuda(torch, fn, iters: int) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
@@ -446,28 +486,32 @@ def ntt_products(w: int, n: int, epilogue: bool) -> int:
     return c * butterflies + w * (c if epilogue else c - 1)
 
 
-def ntt_work(field, rows: int, w: int, n: int, epilogue: bool):
+def ntt_work(field, rows: int, w: int, n: int, epilogue: bool,
+             in16: bool = False, out16: bool = False):
     """Bytes and operations of a batched NTT: w-wide rows and the twiddles
-    in, n-wide rows out; :func:`ntt_products` products a row."""
+    in, n-wide rows out (``in16`` / ``out16``: in 16-bit limbs, half the
+    bytes); :func:`ntt_products` products a row."""
     products = rows * ntt_products(w, n, epilogue)
     elem = elem_bytes(field)
-    return (rows * (w + n) * elem + (n // 2) * elem // 2,
-            products * mont_mul_ops(field))
+    return (rows * (w * (elem // 2 if in16 else elem)
+                    + n * (elem // 2 if out16 else elem))
+            + (n // 2) * elem // 2, products * mont_mul_ops(field))
 
 
-def blake2s_work(field, rows: int, cols: int):
+def blake2s_work(field, rows: int, cols: int, in16: bool = False):
     """Bytes and operations of the column hash: 2 L-byte canonical elements
-    a block of 64 message bytes after the 8-byte prefix."""
+    a block of 64 message bytes after the 8-byte prefix (``in16``: the
+    elements read in 16-bit limbs)."""
     blocks = -(-(8 + 2 * field.num_limbs * rows) // 64)
-    return (rows * cols * elem_bytes(field) + cols * 32,
+    return (rows * cols * elem_bytes(field) // (2 if in16 else 1) + cols * 32,
             cols * blocks * BLAKE2S_BLOCK_OPS)
 
 
-def row_combine_work(field, rows: int, k: int):
+def row_combine_work(field, rows: int, k: int, m16: bool = False):
     """A product and a modular add (W adds and a compare-select, ~W + 2
-    operations) a term."""
-    W = field.num_limbs // 2
-    return ((rows * k + rows + k) * elem_bytes(field),
+    operations) a term (``m16``: the matrix read in 16-bit limbs)."""
+    W, elem = field.num_limbs // 2, elem_bytes(field)
+    return (rows * k * (elem // 2 if m16 else elem) + (rows + k) * elem,
             rows * k * (mont_mul_ops(field) + W + 2))
 
 
@@ -481,16 +525,18 @@ def field_add_ops(field) -> int:
     return 3 * (field.num_limbs // 2)
 
 
-def poseidon_work(field, rows: int, cols: int):
+def poseidon_work(field, rows: int, cols: int, in16: bool = False):
     """Bytes and operations of the column sponges: every element read once,
-    one digest written a column; a column of h rows is ceil(h / 2)
+    one digest written a column (``in16``: the elements read in 16-bit
+    limbs); a column of h rows is ceil(h / 2)
     permutations (275 products, 234 modular adds each), h to-Montgomery
     products and rate adds, and one from-Montgomery product.  The adds
     are counted (~13 % of the operations)."""
     perms = (rows + 1) // 2
     products = perms * POSEIDON_PRODUCTS + rows + 1
     adds = perms * POSEIDON_ADDS + rows
-    return ((rows + 1) * cols * elem_bytes(field),
+    elem = elem_bytes(field)
+    return ((rows * elem // (2 if in16 else 1) + elem) * cols,
             cols * (products * mont_mul_ops(field) + adds * field_add_ops(field)))
 
 
@@ -512,6 +558,9 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
     def elems(*shape, below_r=False):
         return lambda: _rand_elems(torch, gen, shape, field, below_r)
 
+    def elems16(*shape):
+        return lambda: _rand_elems16(torch, gen, shape, field)
+
     def pair(f, g):
         return lambda: (f(), g())
 
@@ -529,6 +578,21 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
                 lambda x: cuda_ntt.ntt(field, x, size, inverse, canon),
                 lambda x: ntt.ntt_ref(field, x, size, inverse, canon),
                 ntt_work(field, batch, w, size, inverse or canon),
+                lambda x: x[:PLAIN_ROWS])
+
+    def ntt16_case(label, w, size, in16, out16, inverse=False, canon=False):
+        # the 16-bit entry at a chunk of the resident and streaming modes
+        # (STREAM_CHUNK rows), against its plain version (widen, ntt_ref,
+        # narrow) on the chunk's first PLAIN_ROWS rows
+        batch = STREAM_CHUNK
+        return ("ntt16", f"{label}, {batch} x {w} -> {size} "
+                f"[route {route_text(cuda_ntt.route(w, size, batch))}]",
+                (elems16 if in16 else elems)(batch, w),
+                lambda x: cuda_ntt.ntt(field, x, size, inverse, canon, out16),
+                lambda x: cuda_ntt.ntt16_ref(field, x, size, inverse, canon,
+                                             out16),
+                ntt_work(field, batch, w, size, inverse or canon, in16,
+                         out16),
                 lambda x: x[:PLAIN_ROWS])
 
     cases = [
@@ -568,6 +632,27 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
          row_combine_work(field, rows, kb)),
         ("sha256_tree", f"SHA-256 tree n={n}", leaves(n),
          cuda_tree.tree_flat, hashops.tree_flat, tree_work(n)),
+        # the 16-bit entries on a chunk: the resident encode's NTT_n from a
+        # coefficient chunk into a codeword chunk (16 bits in and out; the
+        # streaming re-encode too), iNTT_k of a message chunk into a
+        # coefficient chunk, the linear product's NTT_2k of a chunk
+        ntt16_case(f"NTT_n n={n} canon_out, 16 bits in and out", k, n, True,
+                   True, canon=True),
+        ntt16_case(f"iNTT_k k={k}, 16 bits in and out", k, k, True, True,
+                   inverse=True),
+        ntt16_case(f"NTT_2k 2k={2 * k}, 16 bits in", k, 2 * k, True, False),
+        ntt16_case(f"zk NTT_n n={n} canon_out, w = k + b, 16 bits in and "
+                   "out", kb, n, True, True, canon=True),
+        ("row_combine16", f"row_combine {STREAM_CHUNK} x {k}, 16-bit matrix",
+         pair(elems(STREAM_CHUNK), elems16(STREAM_CHUNK, k)),
+         lambda rm: cuda_lc.row_combine(field, *rm),
+         lambda rm: cuda_lc.row_combine16_ref(field, *rm),
+         row_combine_work(field, STREAM_CHUNK, k, m16=True)),
+        ("row_combine16", f"zk row_combine {STREAM_CHUNK} x {kb}, 16-bit "
+         "matrix", pair(elems(STREAM_CHUNK), elems16(STREAM_CHUNK, kb)),
+         lambda rm: cuda_lc.row_combine(field, *rm),
+         lambda rm: cuda_lc.row_combine16_ref(field, *rm),
+         row_combine_work(field, STREAM_CHUNK, kb, m16=True)),
     ]
     results: dict = {}
     for name, label, make, kern, plain, work, *cut in cases:
@@ -684,11 +769,11 @@ def blake2s_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     commit's full width, ``rows`` x ``n`` in STREAM_CHUNK-row chunks,
     bit-equal to the whole-column kernel on the same matrix, timed with its
     bound."""
-    from ligero_tpu_torch.engine import cuda_hash
+    from ligero_tpu_torch.engine import cuda_hash, fieldops
     err, plain_ms = 0, None
     for cuts in STREAM_PLAIN_CASES:
         nrows = sum(cuts)
-        u = _rand_elems(torch, gen, (nrows, 256), field)
+        u = _rand_elems16(torch, gen, (nrows, 256), field)
         got = stream_digests(field, u, cuts)
         want, case_ms = _time_once(torch, lambda: stream_digests_plain(
             field, u, cuts))
@@ -699,19 +784,21 @@ def blake2s_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
         require(case_err == 0, f"streamed Blake2s {nrows} x 256 in absorbs "
                 f"of {cuts}: the kernel disagrees with its plain version")
         err, plain_ms = max(err, case_err), plain_ms or case_ms
-    u = _rand_elems(torch, gen, (rows, n), field)
+    u = _rand_elems16(torch, gen, (rows, n), field)
+    u32 = fieldops.widen16(u)          # the whole-column kernel's int32
     require(torch.equal(stream_digests(field, u, STREAM_CHUNK),
-                        cuda_hash.blake2s_columns(field, u)),
+                        cuda_hash.blake2s_columns(field, u32)),
             f"streamed Blake2s {rows} x {n}: differs from the whole-column "
             "kernel")
     ms = _time_cuda(torch, lambda: stream_digests(field, u, STREAM_CHUNK), 3)
-    whole_ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u),
+    whole_ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u32),
                           3)
-    bound_ms, by = bound(*blake2s_work(field, rows, n))
+    bound_ms, by = bound(*blake2s_work(field, rows, n, in16=True))
     log(f"kernel [{field.name}] streamed Blake2s {rows} x {n} in chunks of "
-        f"{STREAM_CHUNK}: bit-equal to the whole-column kernel; {ms:.3f} ms "
-        f"(whole-column {whole_ms:.3f} ms), bound {bound_ms:.3f} ms by {by}")
-    del u
+        f"{STREAM_CHUNK}, 16-bit limbs: bit-equal to the whole-column kernel "
+        f"on their int32 widening; {ms:.3f} ms (whole-column {whole_ms:.3f} "
+        f"ms), bound {bound_ms:.3f} ms by {by}")
+    del u, u32
     torch.cuda.empty_cache()
     first = STREAM_PLAIN_CASES[0]
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -727,15 +814,15 @@ def blake2s_stream_cases(torch, field, gen, zk_rows: int) -> None:
     version and the whole-column kernel; the zk path's own count
     ``zk_rows`` in chunks of 128 and STREAM_CHUNK rows against the
     whole-column kernel."""
-    from ligero_tpu_torch.engine import cuda_hash, hashops
+    from ligero_tpu_torch.engine import cuda_hash, fieldops, hashops
     E = hashops.period_rows(field.num_limbs)
     small, large = (E, 2 * E, 3 * E, 32), (128, STREAM_CHUNK)
     for nrows, chunkings, plains in (
             (100, small, (False, True)), (101, small, (False, True)),
             (102, small, (False, True)), (103, small, (False, True)),
             (zk_rows, large, (False,))):
-        u = _rand_elems(torch, gen, (nrows, 256), field)
-        whole = cuda_hash.blake2s_columns(field, u)
+        u = _rand_elems16(torch, gen, (nrows, 256), field)
+        whole = cuda_hash.blake2s_columns(field, fieldops.widen16(u))
         for cr in chunkings:
             for plain in plains:
                 digests = stream_digests_plain if plain else stream_digests
@@ -824,13 +911,14 @@ def poseidon_deep_cases(torch, field, gen, cases, diff) -> tuple[int, float]:
     states; each digest set also against the whole-column kernel, and four
     columns of it against the host sponge.  (max_abs_err, the plain
     version's ms)."""
-    from ligero_tpu_torch.engine import cuda_poseidon, poseidon_cols
+    from ligero_tpu_torch.engine import cuda_poseidon, fieldops, poseidon_cols
     from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
     from ligero_tpu_torch.sponge import test_poseidon_config
     cfg = test_poseidon_config(field)
     width = POSEIDON_DEEP_COLS
     top = max(r for r, _ in cases)
-    u = _rand_elems(torch, gen, (top, width), field)
+    u = _rand_elems16(torch, gen, (top, width), field)
+    u32 = fieldops.widen16(u)      # for the whole-column kernel and host
     cuts = {r: list(range(cr, r, cr)) for r, cr in cases}
     points = sorted(set(range(POSEIDON_SEGMENT, top, POSEIDON_SEGMENT))
                     | {c for r in cuts for c in cuts[r]})
@@ -865,10 +953,10 @@ def poseidon_deep_cases(torch, field, gen, cases, diff) -> tuple[int, float]:
                     "plain version")
             err = max(err, case)
         require(torch.equal(want, cuda_poseidon.poseidon_columns(
-            field, cfg, u[:r])), f"Poseidon {r} x {width}: the plain chunked "
-            "digests differ from the whole-column kernel")
-        host = [mt.col_hash(field, field.limbs_to_ints(u[:r, j].cpu().numpy()))
-                for j in js]
+            field, cfg, u32[:r])), f"Poseidon {r} x {width}: the plain "
+            "chunked digests differ from the whole-column kernel")
+        host = [mt.col_hash(field, field.limbs_to_ints(
+            u32[:r, j].cpu().numpy())) for j in js]
         require([poseidon_cols.digests_to_bytes(want)[j] for j in js] == host,
                 f"Poseidon {r} x {width}: differs from the host sponge")
     log(f"kernel [{field.name}] Poseidon chunked absorb at {cases} x {width}: "
@@ -876,7 +964,7 @@ def poseidon_deep_cases(torch, field, gen, cases, diff) -> tuple[int, float]:
         f"plain version ({plain_ms:.1f} ms over {len(steps)} segments), the "
         f"digests to the whole-column kernel and, at columns {js}, to the "
         "host sponge")
-    del u, seg_states, plain
+    del u, u32, seg_states, plain
     torch.cuda.empty_cache()
     return err, plain_ms
 
@@ -892,12 +980,13 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     bit-equal; over the commit's full width, ``rows`` x ``n`` in
     STREAM_CHUNK-row chunks, bit-equal to the whole-column kernel on the
     same matrix, both timed, with the whole column's bound."""
-    from ligero_tpu_torch.engine import cuda_poseidon
+    from ligero_tpu_torch.engine import cuda_poseidon, fieldops
     from ligero_tpu_torch.sponge import test_poseidon_config
     cfg = test_poseidon_config(field)
 
     def whole(u):
-        return cuda_poseidon.poseidon_columns(field, cfg, u)
+        # the whole-column kernel, on the 16-bit chunks' int32 widening
+        return cuda_poseidon.poseidon_columns(field, cfg, fieldops.widen16(u))
 
     def diff(a, b) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
@@ -907,8 +996,8 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
         case_err, case_ms = poseidon_deep_cases(torch, field, gen, cases, diff)
         err, plain_ms = max(err, case_err), plain_ms or case_ms
     (r1, c1), (r2, _), (r3, c3) = POSEIDON_PLAIN_CASES
-    u = _rand_elems(torch, gen, (r2, n), field)
-    v = _rand_elems(torch, gen, (r3, n), field)
+    u = _rand_elems16(torch, gen, (r2, n), field)
+    v = _rand_elems16(torch, gen, (r3, n), field)
     pu, pv, pc = u[:, :PLAIN_COLUMNS], v[:, :PLAIN_COLUMNS], PLAIN_COLUMNS
     t0 = time.perf_counter()
     plain = {r1: poseidon_stream_run(field, pu, r1, c1, True),
@@ -937,22 +1026,23 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     log(f"kernel [{field.name}] Poseidon chunked absorb: plain version "
         f"{short_ms:.1f} ms over the three cases at {pc} of {n} columns")
     del u, v
-    w = _rand_elems(torch, gen, (rows, n), field)
+    w = _rand_elems16(torch, gen, (rows, n), field)
+    w32 = fieldops.widen16(w)
     require(torch.equal(poseidon_stream_run(field, w, rows, STREAM_CHUNK,
-                                            False)[1], whole(w)),
+                                            False)[1], whole(w32)),
             f"Poseidon chunked {rows} x {n}: differs from the whole-column "
             "kernel")
     ms = _time_cuda(torch, lambda: poseidon_stream_run(
         field, w, rows, STREAM_CHUNK, False), 3)
-    whole_ms = _time_cuda(torch, lambda: whole(w), 3)
-    bound_ms, by = bound(*poseidon_work(field, rows, n))
+    whole_ms = _time_cuda(torch, lambda: whole(w32), 3)
+    bound_ms, by = bound(*poseidon_work(field, rows, n, in16=True))
     launches = -(-rows // STREAM_CHUNK)
     log(f"kernel [{field.name}] Poseidon chunked absorb {rows} x {n} in "
-        f"{launches} chunks of {STREAM_CHUNK}: bit-equal to the whole-column "
-        f"kernel; {ms:.3f} ms (whole-column {whole_ms:.3f} ms, "
+        f"{launches} chunks of {STREAM_CHUNK}, 16-bit limbs: bit-equal to the "
+        f"whole-column kernel; {ms:.3f} ms (whole-column {whole_ms:.3f} ms, "
         f"{ms / whole_ms - 1:+.1%}), bound {bound_ms:.3f} ms by {by} "
         f"({bound_ms / ms:.1%})")
-    del w
+    del w, w32
     torch.cuda.empty_cache()
     first = POSEIDON_STREAM_CASES[0]
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1177,6 +1267,8 @@ def row_combine_sass(path: str) -> dict:
         if "Function : " in line:
             if name and "row_combine_partial" in name:
                 field = "bls12_377_fq" if "Bls12377Fq" in name else "bn254_fr"
+                if "Lb1E" in name:          # the 16-bit matrix's entry
+                    field += ", 16-bit"
                 instrs = [(int(a, 16), text) for a, text in body]
                 back = [(at, int(t, 16)) for at, text in instrs
                         for t in re.findall(r"BRA (0x[0-9a-f]+)", text)
@@ -1369,7 +1461,8 @@ def kernel_cases_2e22(torch, field, gen, results: dict) -> None:
     column hash (``hashes.column_hash``; the plain version would take tens
     of seconds for its ~4100 dependent block steps, and holds the kernel at
     the 2^20 commit's 4100 rows, on 256 columns, in the kernels phase).  Times go into ``results[...]["2^22"]``."""
-    from ligero_tpu_torch.engine import cuda_lc, cuda_ntt, cuda_tree, hashops, ntt
+    from ligero_tpu_torch.engine import (cuda_lc, cuda_ntt, cuda_tree,
+                                         fieldops, hashops, ntt)
     from ligero_tpu_torch.hashes import column_hash
     from ligero_tpu_torch.ligero.compile import calculate_t, zk_parameters
     m, k, n = DIMS_22
@@ -1464,17 +1557,20 @@ def kernel_cases_2e22(torch, field, gen, results: dict) -> None:
         "%.3f ms by %s" % full)
     results["blake2s_cols"].setdefault("2^22", {})[f"full {rows} x {n}"] = {
         "ms": ms, "bound_ms": full[0], "bound_by": full[1]}
-    require(torch.equal(stream_digests(field, u, STREAM_CHUNK), words),
+    u16 = fieldops.narrow16(u)
+    del u
+    require(torch.equal(stream_digests(field, u16, STREAM_CHUNK), words),
             f"2^22 streamed Blake2s {rows} x {n}: differs from the "
             "whole-column kernel")
-    ms = _time_cuda(torch, lambda: stream_digests(field, u, STREAM_CHUNK), 3)
+    ms = _time_cuda(torch, lambda: stream_digests(field, u16, STREAM_CHUNK), 3)
+    full = bound(*blake2s_work(field, rows, n, in16=True))
     log(f"kernel [{field.name}] 2^22 streamed Blake2s, full {rows} x {n} in "
-        f"chunks of {STREAM_CHUNK}: bit-equal to the whole-column kernel; "
-        f"{ms:.3f} ms, bound %.3f ms by %s" % full)
+        f"chunks of {STREAM_CHUNK}, 16-bit limbs: bit-equal to the "
+        f"whole-column kernel; {ms:.3f} ms, bound %.3f ms by %s" % full)
     results["blake2s_stream"].setdefault("2^22", {})[
         f"full {rows} x {n}, chunks of {STREAM_CHUNK}"] = {
         "ms": ms, "bound_ms": full[0], "bound_by": full[1]}
-    del u, firsts, words
+    del u16, firsts, words
     torch.cuda.empty_cache()
 
 
@@ -1903,19 +1999,52 @@ def count_open_ntts(lig):
     """Count the NTT launches of each prove's openings: the ``open``
     phase's device work is the backend's ``gather_columns_batch`` alone,
     wrapped here (an attribute of the instance's backend; ``del`` it to
-    unwrap); returns the list of counts, one a call."""
+    unwrap), and the backend's ``opened_to_host``, the one copy of opened
+    columns to the host; returns the list of counts, one a call, and beside
+    it the storage each call found: the coefficient chunks' and the held
+    codewords' dtypes (None where re-encoded), the devices the opened
+    columns left and the dtypes they reached the host in, the bytes of
+    those host tensors (``opened_bytes``) and the limbs the gather returned
+    (``opened_limbs``)."""
     from ligero_tpu_torch.engine import cuda_ntt
-    be, counts = lig.backend, []
-    gather = be.gather_columns_batch
+    be, counts, storage, crossed = lig.backend, [], [], []
+    gather, to_host = be.gather_columns_batch, be.opened_to_host
+
+    def launched():
+        return cuda_ntt.launches.count + cuda_ntt.launches16.count
+
+    def copied(cols):
+        host = to_host(cols)
+        crossed.append((cols.device.type, host.dtype, host.nbytes))
+        return host
 
     def counted(u_canon, idx):
-        before = cuda_ntt.launches.count
+        before = launched()
+        crossed.clear()
         out = gather(u_canon, idx)
-        counts.append(cuda_ntt.launches.count - before)
+        counts.append(launched() - before)
+        held = u_canon.canon if u_canon.resident else None
+        storage.append({
+            "coeffs_dtype": str(u_canon.coeffs.chunks[0].dtype),
+            "codewords_dtype": held and str(held.chunks[0].dtype),
+            "opened_from": sorted({dev for dev, _, _ in crossed}),
+            "opened_dtypes": sorted({str(dt) for _, dt, _ in crossed}),
+            "opened_bytes": sum(nb for _, _, nb in crossed),
+            "opened_limbs": out.size})
         return out
 
-    be.gather_columns_batch = counted
-    return counts
+    be.gather_columns_batch, be.opened_to_host = counted, copied
+    return counts, storage
+
+
+def require_16bit_openings(tag: str, storage: dict) -> None:
+    """The opened columns left the card and reached the host as int16, two
+    bytes for every limb the gather returned."""
+    require(storage["opened_from"] == ["cuda"]
+            and storage["opened_dtypes"] == ["torch.int16"]
+            and storage["opened_bytes"] == 2 * storage["opened_limbs"] > 0,
+            f"{tag}: the openings did not cross to the host in 16-bit "
+            f"limbs: {storage}")
 
 
 def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
@@ -1955,7 +2084,7 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
         f"({chunks} chunks, the last of {data - (chunks - 1) * lig.chunk_rows}"
         f" rows); the device's budget {be.memory_budget() / 2**30:.2f} GiB")
 
-    opens = count_open_ntts(lig)
+    opens, storage = count_open_ntts(lig)
     try:
         reset_counts(torch, wraps)
         timer.reset()
@@ -1975,7 +2104,7 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
         launches = read_counts(wraps, tag, absent=(
             NOT_ON_POSEIDON_STREAMING if poseidon else NOT_ON_STREAMING))
     finally:
-        del be.gather_columns_batch
+        del be.gather_columns_batch, be.opened_to_host
     estimate = (be.resident_bytes if resident else be.streaming_bytes)(
         *dims, lig.blind_t, lig.d2, chunk_rows=lig.chunk_rows,
         poseidon=poseidon)
@@ -2000,7 +2129,17 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
     parts = chunks + (1 if lig.zk else 0)
     absorbs = launches["poseidon_stream" if poseidon else "blake2s_stream"]
     log(f"{tag}: the openings launched {opens} NTT(s); the streamed absorb "
-        f"{absorbs} time(s) for {parts} part(s)")
+        f"{absorbs} time(s) for {parts} part(s); coefficient chunks "
+        f"{storage[0]['coeffs_dtype']}, codeword chunks "
+        f"{storage[0]['codewords_dtype'] or 're-encoded'}, the openings' copy "
+        f"to the host {storage[0]['opened_bytes']} bytes "
+        f"({', '.join(storage[0]['opened_dtypes'])}, "
+        f"{storage[0]['opened_limbs']} limbs)")
+    require_16bit_openings(tag, storage[0])
+    require(storage[0]["coeffs_dtype"] == "torch.int16"
+            and storage[0]["codewords_dtype"] in (
+                ("torch.int16",) if resident else (None,)),
+            f"{tag}: the chunks are not 16-bit limbs: {storage[0]}")
     require(absorbs >= parts, f"{tag}: fewer streamed absorbs than parts")
     require(opens == [0] if resident else opens == [parts],
             f"{tag}: the openings launched {opens} NTTs")
@@ -2033,6 +2172,7 @@ def phase_streaming(torch, field, lig, vars_, want: bytes | None = None,
         require(not bad_ok, f"{tag}: a proof of a tampered witness verified")
     return {"launches": launches, "mode": mode, "prove_s": prove_s,
             "verify_s": verify_s, "open_ntts": opens[0],
+            "storage": storage[0],
             "warm_prove_s": warm_res.get("prove_s"),
             "warm_verify_s": warm_res.get("verify_s"),
             "warm_phases_ms": {name: secs * 1e3 for name, secs in
@@ -2479,7 +2619,7 @@ def phase_streaming_reach(torch, field) -> dict:
     del lig
     torch.cuda.empty_cache()
     wraps = wrappers()
-    opens = count_open_ntts(lig_s)
+    opens, storage = count_open_ntts(lig_s)
     try:
         reset_counts(torch, wraps)
         warm = warm_walls(torch, lig_s, vars_, {})
@@ -2487,7 +2627,7 @@ def phase_streaming_reach(torch, field) -> dict:
         launches = read_counts(wraps, f"bls streaming 2^{STREAM_LOG2_GATES}",
                                absent=NOT_ON_STREAMING)
     finally:
-        del lig_s.backend.gather_columns_batch
+        del lig_s.backend.gather_columns_batch, lig_s.backend.opened_to_host
     require(warm["want"] == res["proof"], "the streaming proof differs from "
             "the resident proof of the same instance")
     estimate = lig_s.backend.streaming_bytes(*dims,
@@ -2500,16 +2640,18 @@ def phase_streaming_reach(torch, field) -> dict:
         f"peak {peak / 2**30:.3f} GiB (streaming estimate "
         f"{estimate / 2**30:.3f} GiB; resident: {res['prove_peak_gib']:.3f} "
         f"under {res['estimate_gib']:.3f}); the openings launched {opens} "
-        "NTT(s)")
+        f"NTT(s) and copied {storage[0]['opened_bytes']} bytes to the host "
+        f"(resident: {res['storage']['opened_bytes']})")
     for name in ("rs_encode", "commit", "open.gather"):
         log(f"  {name:12s} resident {res['warm_phases_ms'].get(name, 0):10.1f}"
             f" ms, streaming {warm['phases'].get(name, 0) * 1e3:10.1f} ms")
     require(peak <= estimate, "the streaming peak lies above its estimate")
     require(opens[0] > 0, "the streaming openings launched no NTT")
+    require_16bit_openings(f"bls streaming 2^{STREAM_LOG2_GATES}", storage[0])
     res["streaming"] = {"launches": launches,
         "prove_s": warm["prove_s"], "verify_s": warm["verify_s"],
         "peak_gib": peak / 2**30, "estimate_gib": estimate / 2**30,
-        "open_ntts": opens[0],
+        "open_ntts": opens[0], "storage": storage[0],
         "phases_ms": {name: secs * 1e3
                       for name, secs in warm["phases"].items()}}
     del lig_s, vars_

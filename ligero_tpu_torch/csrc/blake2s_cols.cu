@@ -36,6 +36,10 @@
 // compression with the message's full length (a 64-bit counter: nothing
 // here limits a column to 2^32 bytes).  Both entries share absorb_column,
 // so the digests are those of the whole-column kernel for every chunking.
+// The streamed entry reads the chunk's uint16 limbs: the resident and
+// streaming modes hold their codeword chunks in 16 bits (the JAX package's
+// narrow16), and a uint16 element is its packed words, the message words
+// themselves.
 //
 // Cost on the card: 10 rounds x 8 G functions per 64-byte block, i.e. about
 // 1000 dependent 32-bit operations per block and 2 (BN254) or 4/3
@@ -117,17 +121,19 @@ __host__ __device__ constexpr int gcd_int(int a, int b) {
   return b ? gcd_int(b, a % b) : a;
 }
 
-// Absorbs rows [0, rows) of one column (element r at u + r * stride) into
+// Absorbs rows [0, rows) of one column (element r: element first + r *
+// stride of u, int32 limbs or, where NARROW, uint16 limbs) into
 // the chaining value h, after the two carried words (the u64 prefix or the
 // last two words of the rows before), compressing nblocks 64-byte blocks
 // from block block0 on.  final: the last block is the message's last, with
 // byte counter byte_len, and rows past the end read as zeros.  Not final:
 // rows is a multiple of E, every block is whole, and the carry leaves with
 // the last row's last two words.
-template <class F>
+template <class F, bool NARROW>
 __device__ __forceinline__ void absorb_column(
     uint32_t h[8], uint32_t& carry0, uint32_t& carry1,
-    const int32_t* __restrict__ u, long long stride, long long rows,
+    const void* __restrict__ u, long long first, long long stride,
+    long long rows,
     long long nblocks, unsigned long long block0, bool final,
     unsigned long long byte_len) {
   constexpr int W = F::W;
@@ -137,7 +143,8 @@ __device__ __forceinline__ void absorb_column(
 #pragma unroll
     for (int j = 0; j < E; ++j) {
       const long long r = q * E + j;
-      e[j] = r < rows ? load_limbs<W>(u + r * stride) : fe_zero<W>();
+      e[j] = r < rows ? load_elem<W, NARROW>(u, first + r * stride)
+                      : fe_zero<W>();
     }
 #pragma unroll
     for (int bb = 0; bb < P; ++bb) {
@@ -176,25 +183,25 @@ __global__ void blake2s_cols_kernel(const int32_t* __restrict__ u,
                                     int32_t* __restrict__ out) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= batch * n) return;
-  const long long col = idx % n;
-  u += (idx / n) * rows * n * F::L + col * F::L;
   uint32_t h[8];
   blake_init(h);
   const unsigned long long byte_len =
       8ull + 4ull * F::W * (unsigned long long)rows;
   uint32_t carry0 = (uint32_t)rows;  // the u64 LE prefix opens block 0
   uint32_t carry1 = (uint32_t)((unsigned long long)rows >> 32);
-  absorb_column<F>(h, carry0, carry1, u, n * F::L, rows,
-                   (long long)((byte_len + 63) / 64), 0, true, byte_len);
+  absorb_column<F, false>(h, carry0, carry1, u, (idx / n) * rows * n + idx % n,
+                          n, rows, (long long)((byte_len + 63) / 64), 0, true,
+                          byte_len);
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[idx * 8 + i] = (int32_t)h[i];
 }
 
 // The streamed form: one chunk of a column's rows a launch.  state: (n, 10)
 // int32 per column, the chaining value (words 0-7) and the two carried
-// words (8-9); block0: the 64-byte blocks compressed before this chunk.
+// words (8-9); block0: the 64-byte blocks compressed before this chunk;
+// u: uint16 limbs.
 template <class F>
-__global__ void blake2s_absorb_kernel(const int32_t* __restrict__ u,
+__global__ void blake2s_absorb_kernel(const uint16_t* __restrict__ u,
                                       long long rows, long long n,
                                       int32_t* __restrict__ state,
                                       unsigned long long block0, int final,
@@ -207,9 +214,9 @@ __global__ void blake2s_absorb_kernel(const int32_t* __restrict__ u,
   for (int i = 0; i < 8; ++i) h[i] = (uint32_t)s[i];
   uint32_t carry0 = (uint32_t)s[8], carry1 = (uint32_t)s[9];
   const long long words = 2 + (long long)F::W * rows;
-  absorb_column<F>(h, carry0, carry1, u + col * F::L, n * F::L, rows,
-                   final ? (words + 15) / 16 : words / 16, block0, final != 0,
-                   byte_len);
+  absorb_column<F, true>(h, carry0, carry1, u, col, n, rows,
+                         final ? (words + 15) / 16 : words / 16, block0,
+                         final != 0, byte_len);
 #pragma unroll
   for (int i = 0; i < 8; ++i) s[i] = (int32_t)h[i];
   s[8] = (int32_t)carry0;
@@ -236,7 +243,7 @@ extern "C" int lt_blake2s_cols(int field, const void* u, long long rows,
   });
 }
 
-// field: a field id; u: (>= rows, n, L) int32 canonical limbs, rows [0,
+// field: a field id; u: (>= rows, n, L) canonical uint16 limbs, rows [0,
 // rows) absorbed; state: (n, 10) int32, updated in place; block0: blocks
 // compressed before; final: also the last compression, with byte counter
 // byte_len (not final: rows a multiple of the period's elements).
@@ -249,7 +256,7 @@ extern "C" int lt_blake2s_absorb(int field, const void* u, long long rows,
       blake2s_absorb_kernel<decltype(f)>
           <<<(unsigned)((n + threads - 1) / threads), threads, 0,
              (cudaStream_t)stream>>>(
-              (const int32_t*)u, rows, n, (int32_t*)state,
+              (const uint16_t*)u, rows, n, (int32_t*)state,
               (unsigned long long)block0, final,
               (unsigned long long)byte_len);
     }

@@ -789,6 +789,40 @@ __device__ __forceinline__ void store_packed(uint32_t* dst, const FeT<W>& a) {
                       a.w[4 * q + 3]);
 }
 
+// 2 W 16-bit limbs stored as uint16 (the resident and streaming modes'
+// chunks: half the bytes of int32 limbs).  Limbs 2j and 2j + 1 are the
+// little-endian halves of packed word j, so the limbs are the packed
+// element: W / 4 16-byte accesses.  src must be 16-byte aligned (an
+// element is 32 or 48 bytes, so every (..., L) uint16 row is).
+template <int W>
+__device__ __forceinline__ FeT<W> load_limbs16(const uint16_t* src) {
+  return load_packed<W>(reinterpret_cast<const uint32_t*>(src));
+}
+
+template <int W>
+__device__ __forceinline__ void store_limbs16(uint16_t* dst, const FeT<W>& a) {
+  store_packed<W>(reinterpret_cast<uint32_t*>(dst), a);
+}
+
+// Element e (2 W limbs) of a limb array in either storage: uint16 limbs
+// where NARROW, else int32 words of 16-bit limbs.
+template <int W, bool NARROW>
+__device__ __forceinline__ FeT<W> load_elem(const void* base, long long e) {
+  if constexpr (NARROW)
+    return load_limbs16<W>(static_cast<const uint16_t*>(base) + e * 2 * W);
+  else
+    return load_limbs<W>(static_cast<const int32_t*>(base) + e * 2 * W);
+}
+
+template <int W, bool NARROW>
+__device__ __forceinline__ void store_elem(void* base, long long e,
+                                           const FeT<W>& a) {
+  if constexpr (NARROW)
+    store_limbs16<W>(static_cast<uint16_t*>(base) + e * 2 * W, a);
+  else
+    store_limbs<W>(static_cast<int32_t*>(base) + e * 2 * W, a);
+}
+
 // The field traits the kernels are instantiated for.  ID is the field
 // argument of every C entry point (engine/cuda_build.py: KERNEL_FIELDS).
 struct Bn254Fr {

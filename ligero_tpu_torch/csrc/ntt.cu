@@ -52,6 +52,14 @@
 //    reversal folded into the addresses of the final store.  The products
 //    themselves are field.cuh's carry chains.
 //
+// Storage of x and out: int32 words of 16-bit limbs, or (template
+// parameters IN16 / OUT16) uint16 limbs, the resident and streaming modes'
+// chunks (the JAX package's narrow16): the encode writes its coefficient
+// and codeword chunks in 16 bits, the products and the openings read them,
+// and no widening pass over a chunk runs.  A uint16 element is the packed
+// element (field.cuh: load_limbs16), so it moves half the bytes; the
+// arithmetic, and so the bits, are the same.
+//
 // The host (engine/cuda_ntt.py, engine/ntt.py:ntt_plan) chooses the route
 // and launches one lt_ntt_pass per pass; engine/ntt.py:ntt_structured is the
 // same decomposition in plain PyTorch.  The route is the same for both
@@ -93,9 +101,9 @@ struct NttShape<Bls12377Fq> {
 enum Mode { COSET = 0, PASS1 = 1, PASS2 = 2 };
 
 struct PassArgs {
-  const int32_t* x;     // (rows, w, L) limbs: input of COSET and PASS1
+  const void* x;        // (rows, w, L) limbs: input of COSET and PASS1
   uint32_t* z;          // (rows, n, W) packed intermediate of the two passes
-  int32_t* out;         // (rows, n, L) limbs
+  void* out;            // (rows, n, L) limbs
   const uint32_t* tws;  // stage-major twiddles: [h + pos] = omega_{2h}^pos
   const uint32_t* pw;   // twist table omega_n^e K, e < n; null for no twist
   int w, logn, lc, l0, l1, l2, lg;
@@ -188,10 +196,12 @@ __device__ __forceinline__ void dif_group(uint32_t* sm, int pitch, int tile,
 //   PASS2  lt = l1.  Neighbours are k2: element i1 is z[i1][k2]
 //          pw[c n0 i1 k2 mod n]; output k1 goes to position k2 + n2 k1 of
 //          out's coset r (l0 = 0) or, in place, of the segment (l0 > 0).
-template <class F, int MODE>
+// IN16 / OUT16: x / out hold uint16 limbs (PASS1 reads x only, PASS2
+// writes out only).
+template <class F, int MODE, bool IN16, bool OUT16>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     ntt_pass_kernel(PassArgs a) {
-  constexpr int W = F::W, L = F::L;
+  constexpr int W = F::W;
   extern __shared__ uint32_t sm[];
   const int lt = MODE == COSET ? a.logn - a.lc : (MODE == PASS1 ? a.l2 : a.l1);
   const int lg = a.lg;
@@ -232,7 +242,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
               ? (long long)j
               : i0 + ((g + ((long long)j << a.l1)) << a.l0);
       if (i < a.w) {
-        v = load_limbs<W>(a.x + (row * a.w + i) * L);
+        v = load_elem<W, IN16>(a.x, row * a.w + i);
         if (a.pw && (rr != 0 || !a.k_is_one)) {
           const unsigned long long ex =
               ((unsigned long long)i * (unsigned)rr) & (n - 1);
@@ -265,13 +275,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const long long q = bitrev((uint32_t)(e >> lg), lt);
     const typename F::Fe v = tile_load<W>(sm, pitch, e);
     if (MODE == COSET) {
-      store_limbs<W>(a.out + (row * n + (q << a.lc) + g) * L, v);
+      store_elem<W, OUT16>(a.out, row * n + (q << a.lc) + g, v);
     } else if (MODE == PASS1) {
       store_packed<W>(a.z + ((((seg << a.l1) + g) << a.l2) + q) * W, v);
     } else {
       const long long k = g + (q << a.l2);
       if (a.l0 == 0)
-        store_limbs<W>(a.out + (row * n + (k << a.lc) + r) * L, v);
+        store_elem<W, OUT16>(a.out, row * n + (k << a.lc) + r, v);
       else
         store_packed<W>(a.z + ((seg << (a.l1 + a.l2)) + k) * W, v);
     }
@@ -281,10 +291,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 // One Cooley-Tukey stage over the packed intermediate, a thread a
 // butterfly: joins the 2^l0 interleaved two-pass transforms of a segment
 // (row, r), which sit in bit-reversed order of i0.  The last stage writes
-// the limbs of out's coset r.
-template <class F>
+// the limbs of out's coset r (uint16 limbs where OUT16).
+template <class F, bool OUT16>
 __global__ void ntt_stage_kernel(uint32_t* __restrict__ z,
-                                 int32_t* __restrict__ out,
+                                 void* __restrict__ out,
                                  const uint32_t* __restrict__ tws, int logn,
                                  int lc, int st, long long total, int last) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -306,37 +316,58 @@ __global__ void ntt_stage_kernel(uint32_t* __restrict__ z,
   if (last) {
     const long long row = seg >> lc, r = seg & ((1LL << lc) - 1);
     const long long o = (row << logn) + r;
-    store_limbs<W>(out + (o + (lo << lc)) * F::L, u);
-    store_limbs<W>(out + (o + (hi << lc)) * F::L, v);
+    store_elem<W, OUT16>(out, o + (lo << lc), u);
+    store_elem<W, OUT16>(out, o + (hi << lc), v);
   } else {
     store_packed<W>(z + (base + lo) * W, u);
     store_packed<W>(z + (base + hi) * W, v);
   }
 }
 
-template <class F, int MODE>
+template <class F, int MODE, bool IN16, bool OUT16>
 cudaError_t launch_pass(const PassArgs& a, long long blocks, int lt,
                         cudaStream_t st) {
   const int tile = 1 << (lt + a.lg);
   const size_t bytes = (size_t)pad(tile) * F::W * sizeof(uint32_t);
   if (bytes > 48 * 1024) {  // above the default limit only by opting in
     cudaError_t err = cudaFuncSetAttribute(
-        ntt_pass_kernel<F, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        ntt_pass_kernel<F, MODE, IN16, OUT16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
   int threads = tile >> NttShape<F>::RADIX_LOG;
   threads = threads < 32 ? 32 : (threads > MAX_THREADS ? MAX_THREADS : threads);
-  ntt_pass_kernel<F, MODE><<<(unsigned)blocks, threads, bytes, st>>>(a);
+  ntt_pass_kernel<F, MODE, IN16, OUT16>
+      <<<(unsigned)blocks, threads, bytes, st>>>(a);
   return cudaGetLastError();
+}
+
+// The pass's instantiation for its storage: COSET reads x and writes out,
+// PASS1 reads x only, PASS2 writes out only.
+template <class F>
+cudaError_t launch_mode(int mode, bool in16, bool out16, const PassArgs& a,
+                        long long blocks, int lt, cudaStream_t st) {
+  if (mode == COSET) {
+    if (in16)
+      return out16 ? launch_pass<F, COSET, true, true>(a, blocks, lt, st)
+                   : launch_pass<F, COSET, true, false>(a, blocks, lt, st);
+    return out16 ? launch_pass<F, COSET, false, true>(a, blocks, lt, st)
+                 : launch_pass<F, COSET, false, false>(a, blocks, lt, st);
+  }
+  if (mode == PASS1)
+    return in16 ? launch_pass<F, PASS1, true, false>(a, blocks, lt, st)
+                : launch_pass<F, PASS1, false, false>(a, blocks, lt, st);
+  return out16 ? launch_pass<F, PASS2, false, true>(a, blocks, lt, st)
+               : launch_pass<F, PASS2, false, false>(a, blocks, lt, st);
 }
 
 }  // namespace
 
 // One pass of a transform (see ntt_pass_kernel) over field id `field`
 // (field.cuh).  mode: 0 coset (the whole transform in one pass), 1 and 2
-// the first and second of two passes.  x: (rows, w, L) int32 limbs; z:
-// (rows, n, W) packed scratch (two passes only); out: (rows, n, L) int32;
+// the first and second of two passes.  x: (rows, w, L) limbs, int32 or,
+// with in16, uint16; z: (rows, n, W) packed scratch (two passes only);
+// out: (rows, n, L) limbs, int32 or, with out16, uint16;
 // tws: stage-major packed twiddles of at least 2^lt entries; pw: (n, W)
 // packed twist table, or null for none (mode 2 needs one).  n = 2^logn =
 // 2^(lc + l0 + l1 + l2); lg: log2 of the neighbouring transforms a block
@@ -345,7 +376,8 @@ cudaError_t launch_pass(const PassArgs& a, long long blocks, int lt,
 extern "C" int lt_ntt_pass(int field, int mode, const void* x, void* z,
                            void* out, const void* tws, const void* pw, int w,
                            long long rows, int logn, int lc, int l0, int l1,
-                           int l2, int lg, int k_is_one, void* stream) {
+                           int l2, int lg, int k_is_one, int in16, int out16,
+                           void* stream) {
   if (rows <= 0 || logn < 1 || lc < 0 || l0 < 0 || l1 < 0 || l2 < 0 || lg < 0 ||
       lc + l0 + l1 + l2 != logn || w < 1 || (long long)w > (1LL << (logn - lc)))
     return (int)cudaErrorInvalidValue;
@@ -357,23 +389,21 @@ extern "C" int lt_ntt_pass(int field, int mode, const void* x, void* z,
   // blocks: rows x cosets x (i0, and the other pass's index) / neighbours
   const long long blocks = rows << (logn - lt - lg);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  PassArgs a = {(const int32_t*)x, (uint32_t*)z, (int32_t*)out,
-                (const uint32_t*)tws, (const uint32_t*)pw,
-                w, logn, lc, l0, l1, l2, lg, k_is_one};
+  PassArgs a = {x, (uint32_t*)z, out, (const uint32_t*)tws,
+                (const uint32_t*)pw, w, logn, lc, l0, l1, l2, lg, k_is_one};
   cudaStream_t st = (cudaStream_t)stream;
   return with_field(field, [&](auto f) {
-    using F = decltype(f);
-    return mode == COSET   ? launch_pass<F, COSET>(a, blocks, lt, st)
-           : mode == PASS1 ? launch_pass<F, PASS1>(a, blocks, lt, st)
-                           : launch_pass<F, PASS2>(a, blocks, lt, st);
+    return launch_mode<decltype(f)>(mode, in16 != 0, out16 != 0, a, blocks,
+                                    lt, st);
   });
 }
 
 // Stage st (l1 + l2 <= st < logn - lc) of the global stages that join the
-// interleaved two-pass transforms; `last` writes out instead of z.
+// interleaved two-pass transforms; `last` writes out (uint16 limbs with
+// out16) instead of z.
 extern "C" int lt_ntt_stage(int field, void* z, void* out, const void* tws,
                             long long rows, int logn, int lc, int st,
-                            int last, void* stream) {
+                            int last, int out16, void* stream) {
   if (rows <= 0 || lc < 0 || st < 0 || st >= logn - lc)
     return (int)cudaErrorInvalidValue;
   const long long total = rows << (logn - 1);
@@ -381,10 +411,10 @@ extern "C" int lt_ntt_stage(int field, void* z, void* out, const void* tws,
   const long long blocks = (total + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   return with_field(field, [&](auto f) {
-    ntt_stage_kernel<decltype(f)>
-        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-            (uint32_t*)z, (int32_t*)out, (const uint32_t*)tws, logn, lc, st,
-            total, last);
+    using F = decltype(f);
+    auto kernel = out16 ? ntt_stage_kernel<F, true> : ntt_stage_kernel<F, false>;
+    kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)z, out, (const uint32_t*)tws, logn, lc, st, total, last);
     return cudaGetLastError();
   });
 }

@@ -90,8 +90,14 @@
 // column's; the zk height 4m + 3 leaves its odd row to the last chunk.  The
 // two entries share one kernel and its absorb loop (absorb_rows); a chunk
 // adds two 96-byte state transfers a column to a launch whose time is its
-// permutations' chains.
+// permutations' chains.  The whole-column entry reads int32 limbs, the
+// chunked entry uint16 limbs: the resident and streaming modes hold their
+// codeword chunks in 16 bits (the JAX package's narrow16), and a lane's
+// uint16 limbs are its packed words (half the bytes; strides count limbs
+// either way).
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "field.cuh"
 
@@ -284,6 +290,23 @@ struct Lanes<1> {
   __device__ __forceinline__ E canonical(const E& t) const { return t; }
 };
 
+// WG packed words of an element: 2 WG int32 limbs, or 2 WG uint16 limbs
+// (WG words as they lie)
+template <int WG>
+__device__ __forceinline__ FeT<WG> load_part(const uint16_t* src) {
+  FeT<WG> r;
+  if constexpr (WG == 1) {
+    r.w[0] = *reinterpret_cast<const uint32_t*>(src);
+  } else if constexpr (WG == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    r.w[0] = v.x;
+    r.w[1] = v.y;
+  } else {
+    r = load_limbs16<WG>(src);
+  }
+  return r;
+}
+
 template <int WG>
 __device__ __forceinline__ FeT<WG> load_part(const int32_t* src) {
   if constexpr (WG == 1) {
@@ -373,17 +396,18 @@ struct Sponge {
   }
 };
 
-// Rows [0, rows) of one column, from col (its row 0; rows row_stride int32
-// words apart) absorbed into s: add a pair (or the odd tail alone) into the
+// Rows [0, rows) of one column, from col (its row 0; rows row_stride limbs
+// apart, int32 or uint16 limbs by T) absorbed into s: add a pair (or the
+// odd tail alone) into the
 // rate, permute, until the rows run out, so that the state is "after the
 // permutation" between calls; rows = 0 is one permutation of s.  Both
 // entries run it: the whole column in one call, or a chunk of its rows a
 // call (an even count but in the column's last chunk, which keeps the pairs
 // of the whole column).  The permutation's code stands once.
-template <int G>
+template <int G, class T>
 __device__ __forceinline__ void absorb_rows(const Sponge<G>& sp,
                                             typename Lanes<G>::E s[3],
-                                            const int32_t* col, long long rows,
+                                            const T* col, long long rows,
                                             long long row_stride) {
   using E = typename Lanes<G>::E;
   constexpr int WG = Lanes<G>::WG;
@@ -408,11 +432,12 @@ __device__ __forceinline__ void absorb_rows(const Sponge<G>& sp,
 // state: null for the whole-column entry (each column's sponge starts at
 // zero and ends in its digest); else the chunked entry's (total, 3, W) words,
 // Montgomery form below p, column c's element i at state + (3 c + i) W: read
-// unless first (zero then), written unless last (the digest then).
-template <int G>
+// unless first (zero then), written unless last (the digest then).  NARROW:
+// u holds uint16 limbs.
+template <int G, bool NARROW>
 __global__ void __launch_bounds__(THREADS, G)
 poseidon_cols_kernel(const uint32_t* __restrict__ constants,
-                     const int32_t* __restrict__ u, long long rows,
+                     const void* __restrict__ u, long long rows,
                      long long n, long long total, long long row_stride,
                      long long col_stride, long long batch_stride,
                      uint32_t* state, int first, int last,
@@ -430,8 +455,9 @@ poseidon_cols_kernel(const uint32_t* __restrict__ constants,
   const long long c = tid / G < total ? tid / G : total - 1;
   const Ops o(threadIdx.x & 31);
   const Sponge<G> sp{o, consts};
-  const int32_t* col = u + (c / n) * batch_stride + (c % n) * col_stride +
-                       2 * WG * o.lig;
+  using T = std::conditional_t<NARROW, uint16_t, int32_t>;
+  const T* col = static_cast<const T*>(u) + (c / n) * batch_stride +
+                 (c % n) * col_stride + 2 * WG * o.lig;
   uint32_t* mine = state + c * 3 * W + o.lig * WG;  // (used where non-null)
   E s[3];
 #pragma unroll
@@ -462,38 +488,41 @@ poseidon_cols_kernel(const uint32_t* __restrict__ constants,
 }
 
 template <int G>
-cudaError_t launch(const void* constants, const void* u, long long rows,
-                   long long n, long long total, long long row_stride,
-                   long long col_stride, long long batch_stride, void* state,
-                   int first, int last, void* out, cudaStream_t st) {
+cudaError_t launch(bool narrow, const void* constants, const void* u,
+                   long long rows, long long n, long long total,
+                   long long row_stride, long long col_stride,
+                   long long batch_stride, void* state, int first, int last,
+                   void* out, cudaStream_t st) {
   const long long blocks = (total * G + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = narrow ? poseidon_cols_kernel<G, true>
+                       : poseidon_cols_kernel<G, false>;
   if (blocks > 0)
-    poseidon_cols_kernel<G><<<(unsigned)blocks, THREADS, 0, st>>>(
-        (const uint32_t*)constants, (const int32_t*)u, rows, n, total,
-        row_stride, col_stride, batch_stride, (uint32_t*)state, first, last,
-        (int32_t*)out);
+    kernel<<<(unsigned)blocks, THREADS, 0, st>>>(
+        (const uint32_t*)constants, u, rows, n, total, row_stride, col_stride,
+        batch_stride, (uint32_t*)state, first, last, (int32_t*)out);
   return cudaGetLastError();
 }
 
-cudaError_t launch_lanes(int lanes, const void* constants, const void* u,
-                         long long rows, long long n, long long total,
-                         long long row_stride, long long col_stride,
-                         long long batch_stride, void* state, int first,
-                         int last, void* out, cudaStream_t st) {
+cudaError_t launch_lanes(int lanes, bool narrow, const void* constants,
+                         const void* u, long long rows, long long n,
+                         long long total, long long row_stride,
+                         long long col_stride, long long batch_stride,
+                         void* state, int first, int last, void* out,
+                         cudaStream_t st) {
   switch (lanes) {
     case 1:
-      return launch<1>(constants, u, rows, n, total, row_stride, col_stride,
-                       batch_stride, state, first, last, out, st);
+      return launch<1>(narrow, constants, u, rows, n, total, row_stride,
+                       col_stride, batch_stride, state, first, last, out, st);
     case 2:
-      return launch<2>(constants, u, rows, n, total, row_stride, col_stride,
-                       batch_stride, state, first, last, out, st);
+      return launch<2>(narrow, constants, u, rows, n, total, row_stride,
+                       col_stride, batch_stride, state, first, last, out, st);
     case 4:
-      return launch<4>(constants, u, rows, n, total, row_stride, col_stride,
-                       batch_stride, state, first, last, out, st);
+      return launch<4>(narrow, constants, u, rows, n, total, row_stride,
+                       col_stride, batch_stride, state, first, last, out, st);
     case 8:
-      return launch<8>(constants, u, rows, n, total, row_stride, col_stride,
-                       batch_stride, state, first, last, out, st);
+      return launch<8>(narrow, constants, u, rows, n, total, row_stride,
+                       col_stride, batch_stride, state, first, last, out, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -514,7 +543,7 @@ extern "C" int lt_poseidon_cols(const void* constants, const void* u,
   if (rows < 0 || n < 0 || batch < 1 || (row_stride & 3) ||
       (col_stride & 3) || (batch_stride & 3) || n > (1LL << 40) / batch)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_lanes(lanes, constants, u, rows, n, n * batch,
+  return (int)launch_lanes(lanes, false, constants, u, rows, n, n * batch,
                            row_stride, col_stride, batch_stride, nullptr, 1,
                            1, out, (cudaStream_t)stream);
 }
@@ -525,17 +554,18 @@ extern "C" int lt_poseidon_cols(const void* constants, const void* u,
 // zero-started where first, the digests written to out (n, L) int32 where
 // last, else the states updated in place.  A chunk that is not the column's
 // last has an even, non-zero number of rows, so the pairs of the whole
-// column are kept; rows > 0.
+// column are kept; rows > 0.  u: uint16 limbs (strides in limbs,
+// multiples of 8: 16 bytes, as the whole-column entry's 4 int32 limbs).
 extern "C" int lt_poseidon_absorb(const void* constants, const void* u,
                                   long long rows, long long n,
                                   long long row_stride, long long col_stride,
                                   void* state, int first, int last, int lanes,
                                   void* out, void* stream) {
   if (rows < 1 || (!last && (rows & 1)) || n < 0 || n > (1LL << 40) ||
-      (row_stride & 3) || (col_stride & 3) || state == nullptr ||
+      (row_stride & 7) || (col_stride & 7) || state == nullptr ||
       (last && out == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_lanes(lanes, constants, u, rows, n, n, row_stride,
+  return (int)launch_lanes(lanes, true, constants, u, rows, n, n, row_stride,
                            col_stride, 0, state, first, last, out,
                            (cudaStream_t)stream);
 }

@@ -25,16 +25,19 @@
 // barrier stands between them and the product, or the compiler sinks them
 // below it into the next iteration's wait.  At least four blocks of four
 // warps an SM (launch bounds: 128 registers a thread) keep four warps a
-// scheduler.
+// scheduler.  M may be uint16 limbs (template parameter M16: the resident
+// and streaming modes' coefficient chunks, the JAX package's narrow16),
+// read as packed elements: half the bytes of M, which is what bounds the
+// pass, and the same sums.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
 namespace {
 
-template <class F>
+template <class F, bool M16>
 __global__ void __launch_bounds__(128, 4)
-row_combine_partial(const int32_t* __restrict__ m,
+row_combine_partial(const void* __restrict__ m,
                     const int32_t* __restrict__ r,
                     uint32_t* __restrict__ partial, long long rows,
                     long long k, long long rows_per_chunk, int r_col_stride) {
@@ -44,21 +47,22 @@ row_combine_partial(const int32_t* __restrict__ m,
   constexpr int W = F::W, L = F::L;
   using Fe = typename F::Fe;
   const long long r_row = r_col_stride ? k * L : L;
-  m += batch * rows * k * L + col * L;
+  const long long m0 = batch * rows * k + col;  // element of M's row 0
   r += batch * rows * r_row + col * r_col_stride;
   partial += batch * gridDim.y * k * W;
   const long long r0 = chunk * rows_per_chunk;
   const long long r1 = r0 + rows_per_chunk < rows ? r0 + rows_per_chunk : rows;
   Fe acc = fe_zero<W>();
   if (r0 < r1) {
-    Fe a = load_limbs<W>(r + r0 * r_row), b = load_limbs<W>(m + r0 * k * L);
+    Fe a = load_limbs<W>(r + r0 * r_row),
+       b = load_elem<W, M16>(m, m0 + r0 * k);
     for (long long i = r0; i < r1; ++i) {
       // the next row's operands (the last row's own again: no branch for
       // the compiler to sink below the product), then a barrier that keeps
       // the loads ahead of this row's product
       const long long next = i + 1 < r1 ? i + 1 : i;
       const Fe a_next = load_limbs<W>(r + next * r_row);
-      const Fe b_next = load_limbs<W>(m + next * k * L);
+      const Fe b_next = load_elem<W, M16>(m, m0 + next * k);
       asm volatile("" ::: "memory");
       acc = F::add(acc, F::mul(a, b));
       a = a_next;
@@ -85,14 +89,15 @@ __global__ void row_combine_finish(const uint32_t* __restrict__ partial,
 
 }  // namespace
 
-// field: a field id (field.cuh); m: (batch, rows, k, L) int32; r: (batch,
+// field: a field id (field.cuh); m: (batch, rows, k, L) int32, or uint16
+// with m16; r: (batch,
 // rows, L) or, with r_per_column, (batch, rows, k, L); partial: (batch,
 // chunks, k, W) int32 scratch; out: (batch, k, L) int32.
 extern "C" int lt_row_combine(int field, const void* m, const void* r,
                               void* partial, void* out, long long batch,
                               long long rows, long long k, long long chunks,
                               long long rows_per_chunk, int r_per_column,
-                              void* stream) {
+                              int m16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (k <= 0 || chunks <= 0 || chunks > 65535 || batch <= 0 || batch > 65535)
     return (int)cudaErrorInvalidValue;
@@ -101,9 +106,11 @@ extern "C" int lt_row_combine(int field, const void* m, const void* r,
     using F = decltype(f);
     dim3 grid((unsigned)((k + threads - 1) / threads), (unsigned)chunks,
               (unsigned)batch);
-    row_combine_partial<F><<<grid, threads, 0, st>>>(
-        (const int32_t*)m, (const int32_t*)r, (uint32_t*)partial, rows, k,
-        rows_per_chunk, r_per_column ? F::L : 0);
+    auto partial_kernel =
+        m16 ? row_combine_partial<F, true> : row_combine_partial<F, false>;
+    partial_kernel<<<grid, threads, 0, st>>>(
+        m, (const int32_t*)r, (uint32_t*)partial, rows, k, rows_per_chunk,
+        r_per_column ? F::L : 0);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     dim3 finish_grid((unsigned)((k + threads - 1) / threads), (unsigned)batch);

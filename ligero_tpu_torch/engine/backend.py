@@ -3,7 +3,11 @@
 
 The counterpart of ``Backend`` in ``ligero_tpu/engine/backend.py`` for the
 methods the single-device prove -> verify path calls; names and layouts
-follow it.  Limb arrays are ``(..., L)`` int32 tensors of 16-bit limbs.
+follow it.  Limb arrays are ``(..., L)`` int32 tensors of 16-bit limbs; the
+resident and streaming modes' chunked matrices hold the same limbs in 16
+bits (int16 tensors, :func:`fieldops.narrow16`: the JAX package's
+``narrow16``), which the kernels read and write as they lie, and every
+mode copies the opened columns to the host in 16 bits.
 Every bulk step runs on ``device``: on a CUDA device (BN254 Fr or
 BLS12-377 Fq, the fields the kernels are built for; any other raises) the
 five hand-written kernels carry the transforms (``cuda_ntt``), Montgomery
@@ -136,8 +140,11 @@ class TorchBackend:
     # host <-> device
     # ------------------------------------------------------------------
     def asarray(self, a) -> torch.Tensor:
-        """Host limb array (uint16/uint32/int) or tensor -> int32 on device."""
+        """Host limb array (uint16/uint32/int) or tensor -> int32 on device;
+        a 16-bit tensor (int16) stays 16-bit: the kernels read it so."""
         if isinstance(a, torch.Tensor):
+            if a.dtype == torch.int16:
+                return a.to(self.device)
             return a.to(device=self.device, dtype=torch.int32)
         # limbs are < 2^16, so the int32 cast is exact
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
@@ -145,9 +152,13 @@ class TorchBackend:
 
     @staticmethod
     def to_numpy(a) -> np.ndarray:
-        """Tensor of non-negative limbs -> host uint32 array."""
+        """Tensor of non-negative limbs (int32, or 16-bit as int16) -> host
+        uint32 array (16-bit limbs widened on the host)."""
         if isinstance(a, torch.Tensor):
-            return a.detach().cpu().numpy().view(np.uint32)
+            a = a.detach().cpu().numpy()
+            if a.dtype == np.int16:
+                return a.view(np.uint16).astype(np.uint32)
+            return a.view(np.uint32)
         return np.asarray(a)
 
     def ints_to_mont(self, ints: list[int]) -> np.ndarray:
@@ -317,8 +328,12 @@ class TorchBackend:
         """The streaming live set's pieces, in bytes, for ``rows``
         committed rows (4m, or 4m + 3 under zk) in chunks of ``chunk_rows``
         (see :meth:`streaming_bytes`); ``poseidon``: the commit's sponge
-        states (3 W words a column) and digests beside the re-encode."""
+        states (3 W words a column) and digests beside the re-encode.  The
+        chunked matrices (coefficient, r^T A and codeword chunks) and the
+        opened columns are 16-bit limbs, the transforms' int32 outputs and
+        everything else int32 limbs."""
         E = self.L * 4                              # bytes of an element
+        H = self.L * 2                              # ... in 16-bit limbs
         cr, b = chunk_rows, blind_t
         data = rows - 3 if b else rows              # 4m
         padded = -(-data // cr) * cr
@@ -326,30 +341,36 @@ class TorchBackend:
         bc = cr * k                                 # columns a sparse block
         scratch = functools.partial(cuda_ntt.scratch_bytes, self.field)
         sponge = n * (3 * (self.L // 2) * 4 + E) if poseidon else 0
+        codewords = cr * n * H + scratch(cr, k + b, n)
+        opened = cr * min(n, 512) * H
         return {
             # the column sponges' states and digests (Poseidon)
             "sponge": sponge,
-            # one chunk's n-wide transform and its NTT scratch
+            # one chunk's n-wide int32 transform and its NTT scratch (the
+            # verifier's codewords at the opened columns)
             "transform": cr * n * E + scratch(cr, k + b, n),
-            # a chunk's opened columns (3t of them: fewer than 512 at any
-            # security level the port runs)
-            "opened": cr * min(n, 512) * E,
+            # one chunk's canonical codewords, 16-bit, and the scratch
+            "codewords": codewords,
+            # a chunk's opened columns, 16-bit (3t of them: fewer than 512
+            # at any security level the port runs)
+            "opened": opened,
             "coo": nnz * (E + 16),
-            "coeffs": padded * (k + b) * E + (3 * d2 * E if b else 0),
+            "coeffs": padded * (k + b) * H + (3 * d2 * E if b else 0),
             "r": data * k * E,
-            "r_coeffs": padded * k * E,
+            "r_coeffs": padded * k * H,
             # the column sort of A's upload: keys, sorted keys, the order
             # and the sort's scratch, 8 bytes an entry each
             "upload": 40 * nnz,
-            # one message chunk up (16-bit, then widened), its iNTT_k;
-            # under zk its s draws (from a sampler segment), the blinded
-            # chunk and the subtraction
-            "encode": 5 * cr * k * E // 2 + scratch(cr, k, k) + (
-                3 * cr * b * E + self._segment_bytes(seg) if b else 0),
+            # one message chunk up (16-bit, as the iNTT_k reads it), its
+            # iNTT_k (the coefficient chunk, 16-bit; under zk int32); under
+            # zk also the blinded chunk in int32 before it is narrowed, its
+            # s draws (from a sampler segment) and the subtraction
+            "encode": cr * k * H + cr * k * (E if b else H)
+            + scratch(cr, k, k) + (cr * (k + b) * E + 3 * cr * b * E
+                                   + self._segment_bytes(seg) if b else 0),
             # one chunk's re-encode (commit, openings) and its opened
             # columns, beside the sponges
-            "reencode": cr * n * E + scratch(cr, k + b, n)
-            + cr * min(n, 512) * E + sponge,
+            "reencode": codewords + opened + sponge,
             "sampler": self._segment_bytes(seg),
             # a block's int64 sums beside a sub-batch of bc entries
             # (gathered r, products in int32 and int64, column ids), the
@@ -358,9 +379,10 @@ class TorchBackend:
                          2 * bc * E + scratch(cr, k, k)),
             # the linear product: a chunk pair on the d2 domain
             "pair": 2 * cr * d2 * E + scratch(cr, k + b, d2),
-            # the quadratic product: a block of x, y and z rows each, their
-            # transforms, the product and the subtraction's int64 operands
-            "quad": 3 * cr * (k + b) * E + 9 * cr * d2 * E
+            # the quadratic product: a block of x, y and z rows each (16-bit
+            # chunk rows), their transforms, the product and the
+            # subtraction's int64 operands
+            "quad": 3 * cr * (k + b) * H + 9 * cr * d2 * E
             + scratch(cr, k + b, d2),
         }
 
@@ -401,8 +423,8 @@ class TorchBackend:
         """Estimate of the resident prover's largest live set for one
         proof: what :meth:`streaming_bytes` holds throughout (A's COO, the
         coefficient chunks) and U's real rows (4m, and the three mask rows
-        under zk) n wide, beside the largest of: A's upload; a chunk's
-        encode, its n-wide transform and NTT scratch, its opened columns
+        under zk) n wide in 16-bit limbs, beside the largest of: A's upload;
+        a chunk's encode, its codewords and NTT scratch, its opened columns
         and, under ``poseidon``, the column sponges' states and digests
         (the encode, the commit and the openings, summed: an estimate that
         takes every term of :meth:`streaming_bytes` and adds U, so that it
@@ -412,11 +434,11 @@ class TorchBackend:
         d2 = 2 * k if d2 is None else d2
         p = self._stream_parts(rows, k, n, nnz, blind_t, d2, chunk_rows,
                                poseidon)
-        u = rows * n * self.L * 4
+        u = rows * n * self.L * 2
         linear = p["r"] + max(p["sampler"], p["r_coeffs"] + p["block"])
         return int((p["coo"] + p["coeffs"] + u + max(
             p["upload"],
-            p["encode"] + p["transform"] + p["opened"] + p["sponge"],
+            p["encode"] + p["codewords"] + p["opened"] + p["sponge"],
             linear, p["r_coeffs"] + p["pair"], p["quad"])) * ESTIMATE_MARGIN)
 
     def streaming_verify_bytes(self, rows: int, k: int, n: int, nnz: int,
@@ -425,12 +447,13 @@ class TorchBackend:
         U) verifier's largest live set for
         ``batch`` proofs: A's COO and each proof's r^T A coefficient
         chunks, beside the upload, one proof's challenge vector with a
-        sampler segment or a sparse block, or one chunk's n-point
-        transform with the columns gathered from it."""
+        sampler segment or a sparse block, or one chunk's n-point int32
+        transform with the columns gathered from it (int32: twice the
+        prover's 16-bit opened columns)."""
         p = self._stream_parts(rows, k, n, nnz, 0, 2 * k, chunk_rows)
         return int((p["coo"] + batch * p["r_coeffs"] + max(
             p["upload"], p["r"] + max(p["sampler"], p["block"]),
-            p["reencode"])) * ESTIMATE_MARGIN)
+            p["transform"] + 2 * p["opened"])) * ESTIMATE_MARGIN)
 
     def stream_chunk_rows(self, rows: int, k: int, n: int, nnz: int,
                           blind_t: int = 0, d2: int | None = None,
@@ -489,11 +512,14 @@ class TorchBackend:
     # ------------------------------------------------------------------
     # transforms
     # ------------------------------------------------------------------
-    def ntt(self, coeffs, n: int):
-        return cuda_ntt.ntt(self.field, self.asarray(coeffs), n)
+    # the transforms read int32 limbs or 16-bit ones (a chunk), and write
+    # 16-bit limbs where ``out16`` (into a chunk)
+    def ntt(self, coeffs, n: int, out16: bool = False):
+        return cuda_ntt.ntt(self.field, self.asarray(coeffs), n, out16=out16)
 
-    def intt(self, evals, n: int):
-        return cuda_ntt.ntt(self.field, self.asarray(evals), n, inverse=True)
+    def intt(self, evals, n: int, out16: bool = False):
+        return cuda_ntt.ntt(self.field, self.asarray(evals), n, inverse=True,
+                            out16=out16)
 
     def rs_encode_rows(self, preenc, k: int, n: int):
         """(B, k, L) message rows -> (coeffs (B, k, L), evals (B, n, L))."""
@@ -506,12 +532,13 @@ class TorchBackend:
         coeffs = self.intt(preenc, k)
         return coeffs, self.ntt_and_canon(coeffs, n)
 
-    def ntt_and_canon(self, coeffs, n: int):
+    def ntt_and_canon(self, coeffs, n: int, out16: bool = False):
         """(B, w, L) coefficient rows (w <= n, zero-extended) -> (B, n, L)
-        canonical codewords.  The zk prover's encode: blinded rows are in
-        coefficient space already."""
+        canonical codewords (16-bit where ``out16``: a codeword chunk).
+        The zk prover's encode: blinded rows are in coefficient space
+        already."""
         return cuda_ntt.ntt(self.field, self.asarray(coeffs), n,
-                            canon_out=True)
+                            canon_out=True, out16=out16)
 
     def zk_blind_rows(self, preenc, rows_seed: bytes, blind_t: int, d2: int,
                       mask3):
@@ -617,10 +644,10 @@ class TorchBackend:
         return chunk.to(self._chunk_device(i))
 
     def _join_chunks(self, parts: dict, rcm: RowChunkedMatrix, inner: tuple,
-                     device) -> torch.Tensor:
+                     device, dtype=torch.int32) -> torch.Tensor:
         """Per chunk i of ``rcm`` held here, a (real rows of chunk i,
-        *inner) result -> every chunk's, in row order, on ``device`` (over
-        a process mesh gathered from the ranks)."""
+        *inner) result of ``dtype`` -> every chunk's, in row order, on
+        ``device`` (over a process mesh gathered from the ranks)."""
         return torch.cat([parts[i].to(device) for i in range(len(rcm.chunks))])
 
     def _combine_ranks(self, total, count: int, shape):
@@ -636,20 +663,29 @@ class TorchBackend:
                           for block in self.column_blocks(u_canon, batch)],
                          dim=1)
 
+    def _rows_up16(self, preenc, r0: int, r1: int) -> torch.Tensor:
+        """Host message rows [r0, r1) on the device in 16-bit limbs
+        (int16), as the NTT reads them: 16-bit host limbs cross as they
+        are, with no pass over them on either side."""
+        blk = np.ascontiguousarray(preenc[r0:r1])
+        if blk.dtype != np.uint16:
+            return fieldops.narrow16(self.asarray(blk))
+        return torch.from_numpy(blk.view(np.int16)).to(self.device)
+
     def _rows_up(self, preenc, r0: int, r1: int) -> torch.Tensor:
-        """Host message rows [r0, r1) as int32 limbs on the device: 16-bit
-        limbs cross as they are and widen there (half the bytes of an
-        int32 copy, and no host pass over them)."""
+        """Host message rows [r0, r1) as int32 limbs on the device (direct
+        mode's row blocks): 16-bit limbs cross as they are and widen
+        there (half the bytes of an int32 copy, and no host pass)."""
         blk = np.ascontiguousarray(preenc[r0:r1])
         if blk.dtype != np.uint16:
             return self.asarray(blk)
-        return torch.from_numpy(blk.view(np.int16)).to(self.device).to(
-            torch.int32).bitwise_and_(0xFFFF)
+        return fieldops.widen16(self._rows_up16(blk, 0, blk.shape[0]))
 
     def _chunk_up(self, preenc, r0: int, chunk_rows: int) -> torch.Tensor:
         """Host message rows [r0, r0 + chunk_rows) (fewer at the end) on
-        the device, zero rows below them to ``chunk_rows``."""
-        blk = self._rows_up(preenc, r0, r0 + chunk_rows)
+        the device in 16-bit limbs, zero rows below them to
+        ``chunk_rows``."""
+        blk = self._rows_up16(preenc, r0, r0 + chunk_rows)
         if blk.shape[0] < chunk_rows:
             blk = torch.cat([blk, blk.new_zeros(
                 (chunk_rows - blk.shape[0],) + tuple(blk.shape[1:]))])
@@ -658,15 +694,16 @@ class TorchBackend:
     def encode_chunks(self, preenc, k: int,
                       chunk_rows: int) -> RowChunkedMatrix:
         """Streaming encode: host (rows, k, L) message rows up a chunk at a
-        time, each iNTT_k'd into a coefficient chunk; the message matrix
-        is never whole on the device (``Backend.intt_resident``)."""
+        time, each iNTT_k'd into a 16-bit coefficient chunk; the message
+        matrix is never whole on the device (``Backend.intt_resident``)."""
         rows, chunks = preenc.shape[0], []
         for i, r0 in enumerate(range(0, rows, chunk_rows)):
             if not self.holds_chunk(i):
                 chunks.append(None)
                 continue
             with self._on(self._chunk_device(i)) as be:
-                chunks.append(be.intt(be._chunk_up(preenc, r0, chunk_rows), k))
+                chunks.append(be.intt(be._chunk_up(preenc, r0, chunk_rows), k,
+                                      out16=True))
         return RowChunkedMatrix(chunks, rows, chunk_rows, k)
 
     def resident_codewords(self, coeffs: RowChunkedMatrix, n: int,
@@ -676,28 +713,28 @@ class TorchBackend:
         ``RowChunkedMatrix`` branch of ``_zk_encode_streamed``): the
         coefficient chunks of :meth:`encode_chunks` (zk: the blinded chunks
         of :meth:`zk_blind_chunks`) and the mask rows' ``tail`` (3, d2, L)
-        below them, each encoded once to canonical n-point codewords and
-        held beside them; of the last chunk only its real rows (the
-        padding's transform is dropped).  One device only
-        (:data:`RESIDENT`)."""
+        below them, each encoded once to canonical n-point codewords in
+        16-bit limbs (``narrow16``) and held beside them; of the last chunk
+        only its real rows (the padding's transform is dropped).  One
+        device only (:data:`RESIDENT`)."""
         canon = []
         for i, c in enumerate(coeffs.chunks):
-            u, real = self.ntt_and_canon(c, n), coeffs.real_rows(i)
+            u, real = self.ntt_and_canon(c, n, out16=True), coeffs.real_rows(i)
             canon.append(u if real == u.shape[0] else u[:real].clone())
         return StreamedCodewords(
             coeffs, n, tail, RowChunkedMatrix(canon, coeffs.rows,
                                               coeffs.chunk_rows, n),
-            None if tail is None else self.ntt_and_canon(tail, n))
+            None if tail is None else self.ntt_and_canon(tail, n, out16=True))
 
     def part_codewords(self, coeffs, real: int, held, n: int) -> torch.Tensor:
         """A part of a :class:`StreamedCodewords` (``parts()``) as the
-        canonical codewords of its real rows: ``held`` in resident mode,
-        else its coefficient block re-encoded (``ntt_and_canon``) where it
-        lies."""
+        canonical codewords of its real rows, 16-bit: ``held`` in resident
+        mode, else its coefficient block re-encoded (``ntt_and_canon``)
+        where it lies."""
         if held is not None:
             return held
         with self._on(coeffs.device) as be:
-            return be.ntt_and_canon(coeffs, n)[:real]
+            return be.ntt_and_canon(coeffs, n, out16=True)[:real]
 
     def zk_blind_chunks(self, preenc, rows_seed: bytes, blind_t: int,
                         chunk_rows: int) -> RowChunkedMatrix:
@@ -705,7 +742,9 @@ class TorchBackend:
         coefficient rows u_i = msg_i + (x^k - 1) s_i, a chunk at a time
         from host message rows, the s draws taken in row order from the one
         ``rows_seed`` stream (the draws of :meth:`zk_blind_rows`, bit for
-        bit).  Padding rows stay zero."""
+        bit).  The subtraction runs in int32 limbs, and each chunk is
+        narrowed to 16 bits once, as the JAX package's ``coeffs_resident``
+        stores it.  Padding rows stay zero."""
         rows4, k, L = preenc.shape
         b, cr = blind_t, chunk_rows
         stream = devsampler.FrStream(self.field, rows_seed, self.device,
@@ -719,7 +758,7 @@ class TorchBackend:
                 chunks.append(None)
                 continue
             with self._on(self._chunk_device(i)) as be:
-                msg = be.intt(be._rows_up(preenc, r0, r0 + real), k)
+                msg = be.intt(be._rows_up16(preenc, r0, r0 + real), k)
                 s = s.to(be.device)
                 chunk = torch.zeros((cr, k + b, L), dtype=torch.int32,
                                     device=be.device)
@@ -729,6 +768,8 @@ class TorchBackend:
                 # the regions [0, b) and [k, k + b) overlap when b > k: as
                 # in zk_blind_rows, subtract from the concatenated layout
                 chunk[:real, :b] = be.sub(chunk[:real, :b], s)
+                del s
+                chunk = fieldops.narrow16(chunk)
             chunks.append(chunk)
         return RowChunkedMatrix(chunks, rows4, cr, k + b)
 
@@ -819,7 +860,10 @@ class TorchBackend:
         (:meth:`part_codewords`: held in resident mode, an ``index_select``
         as the JAX package's ``xp.take``; re-encoded in streaming mode) and
         copies the opened columns of its real rows to the host
-        (``Backend.gather_columns``), each part where it lies."""
+        (``Backend.gather_columns``), each part where it lies.  In every
+        mode the columns cross to the host in 16-bit limbs (narrowed on
+        the device where U is int32, as the JAX package's
+        ``gather_columns`` does) and widen there."""
         idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
         if isinstance(u_canon, StreamedCodewords):
             if idx.shape[0] != 1:
@@ -829,19 +873,26 @@ class TorchBackend:
                 if coeffs is None:
                     continue
                 canon = self.part_codewords(coeffs, real, held, n)
-                parts[i] = canon.index_select(1, idx[0].to(
-                    canon.device)).cpu()
+                parts[i] = self.opened_to_host(canon.index_select(
+                    1, idx[0].to(canon.device)))
                 del canon
             tail = parts.pop(len(rcm.chunks), None)      # the zk mask rows
             cols = [self._join_chunks(parts, rcm, (idx.shape[1], self.L),
-                                      "cpu")]
+                                      "cpu", torch.int16)]
             return self.to_numpy(torch.cat(
                 cols if tail is None else cols + [tail]))[None]
         idx = idx.to(self.device)
         batch, t = idx.shape
         u4 = u_canon.reshape(batch, -1, *u_canon.shape[1:])
         index = idx[:, None, :, None].expand(batch, u4.shape[1], t, u4.shape[3])
-        return self.to_numpy(torch.gather(u4, 2, index))
+        return self.to_numpy(self.opened_to_host(torch.gather(u4, 2, index)))
+
+    def opened_to_host(self, cols: torch.Tensor) -> torch.Tensor:
+        """Opened columns where they lie (int32 or 16-bit limbs) -> an
+        int16 tensor on the host: narrowed on the device, so that two
+        bytes a limb cross (the JAX package's ``gather_columns`` copies
+        uint16)."""
+        return fieldops.narrow16(cols).cpu()
 
     def gather_columns(self, u_canon, js) -> np.ndarray:
         """Columns ``js`` of (rows, n, L) -> (rows, len(js), L) host uint32."""

@@ -51,12 +51,12 @@ _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "lt_mont_mul": [_i, _vp, _vp, _vp, _ll, _i, _vp],
     "lt_ntt_pass": [_i, _i, _vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
-                    _i, _i, _i, _vp],
-    "lt_ntt_stage": [_i, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
+                    _i, _i, _i, _i, _i, _vp],
+    "lt_ntt_stage": [_i, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _i, _vp],
     "lt_blake2s_cols": [_i, _vp, _ll, _ll, _ll, _vp, _vp],
     "lt_blake2s_absorb": [_i, _vp, _ll, _ll, _vp, _ll, _i, _ll, _vp],
     "lt_row_combine": [_i, _vp, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _ll, _i,
-                       _vp],
+                       _i, _vp],
     "lt_sha256_tree": [_vp, _ll, _vp, _vp, _i, _vp],
     "lt_sha256_chain_probe": [_vp, _i, _vp],
     "lt_poseidon_cols": [_vp, _vp, _ll, _ll, _ll, _ll, _ll, _ll, _i, _vp,
@@ -176,18 +176,31 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda_tensors(name: str, *tensors) -> None:
-    """Kernels take contiguous int32 tensors on one CUDA device."""
+def require_cuda_tensors(name: str, *tensors, limbs16=()) -> None:
+    """Kernels take contiguous int32 tensors on one CUDA device; those of
+    ``limbs16`` may also be int16, whose bits are 16-bit limbs (the
+    resident and streaming modes' chunks, :func:`fieldops.narrow16`)."""
     dev = tensors[0].device
-    for t in tensors:
+    for t in tensors + tuple(limbs16):
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: expected int32 limbs, got {t.dtype}")
+        ok = (torch.int32, torch.int16) if any(t is u for u in limbs16) \
+            else (torch.int32,)
+        if t.dtype not in ok:
+            raise TypeError(f"{name}: expected "
+                            f"{' or '.join(map(str, ok))} limbs, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def require_limbs16(name: str, t: torch.Tensor) -> None:
+    """The streamed entries read 16-bit limbs only (int16,
+    :func:`fieldops.narrow16`: the resident and streaming modes' chunks),
+    on either device."""
+    if t.dtype != torch.int16:
+        raise TypeError(f"{name}: expected 16-bit limbs (int16), got {t.dtype}")
 
 
 class LaunchCounter:

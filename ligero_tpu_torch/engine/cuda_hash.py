@@ -19,7 +19,9 @@ arrive chunk by chunk, as the streaming commit re-encodes them: one launch
 a chunk, one thread a column, each column's chaining value and two carried
 words kept on the device between launches; the last chunk's launch makes
 the final compression.  Its digests equal :func:`blake2s_columns`'s for
-every chunking.
+every chunking.  It reads 16-bit limbs (int16, :func:`fieldops.narrow16`):
+the resident and streaming modes hold their codeword chunks so (the JAX
+package's ``narrow16``), and a 16-bit element is its own message words.
 
 A tensor on the CPU takes the plain version
 (:func:`hashops.blake2s_columns_ref`, :func:`hashops.blake2s_absorb_ref`);
@@ -82,13 +84,15 @@ def blake2s_columns(field: FieldSpec, u_canon: torch.Tensor,
 def blake2s_absorb(field: FieldSpec, chunk: torch.Tensor, rows: int,
                    state: torch.Tensor, block0: int, final: bool,
                    total_rows: int) -> torch.Tensor:
-    """Rows [0, ``rows``) of a (>= rows, n, L) canonical chunk absorbed into
-    the (n, 10) int32 column states (:func:`hashops.blake2s_stream_start`)
-    after ``block0`` compressed blocks; ``final`` for a column's last rows
+    """Rows [0, ``rows``) of a (>= rows, n, L) canonical chunk of 16-bit
+    limbs (int16) absorbed into the (n, 10) int32 column states
+    (:func:`hashops.blake2s_stream_start`) after ``block0`` compressed
+    blocks; ``final`` for a column's last rows
     (``total_rows`` in all), otherwise ``rows`` is a multiple of
     :func:`hashops.period_rows`.  Returns the new states (on CUDA: the same
     tensor, updated in place)."""
     L = field.num_limbs
+    cuda_build.require_limbs16("blake2s_absorb", chunk)
     if (chunk.dim() != 3 or chunk.shape[-1] != L
             or not 0 <= rows <= chunk.shape[0]):
         raise ValueError(f"blake2s_absorb: bad chunk {tuple(chunk.shape)} "
@@ -104,7 +108,7 @@ def blake2s_absorb(field: FieldSpec, chunk: torch.Tensor, rows: int,
                                   total_rows)
     fid = cuda_build.kernel_field_id(field, "blake2s_absorb")
     chunk = chunk.contiguous()
-    cuda_build.require_cuda_tensors("blake2s_absorb", chunk, state)
+    cuda_build.require_cuda_tensors("blake2s_absorb", state, limbs16=(chunk,))
     lib = cuda_build.library()
     cuda_build.check(lib.lt_blake2s_absorb(
         fid, chunk.data_ptr(), rows, chunk.shape[1], state.data_ptr(), block0,

@@ -11,8 +11,13 @@ serves the per-element form sum_i r_i[c] M_i[c] (linear phase, verifier
 spot sums).  :func:`row_combine_batch` runs B combinations of one shape in
 the same two launches (the batch on the grid's third axis).
 
-A tensor on the CPU takes the plain version (:func:`row_combine_ref`); a
-CUDA tensor launches the kernel or raises.
+The matrix may be 16-bit limbs (an int16 tensor, :func:`fieldops.narrow16`:
+the resident and streaming modes' coefficient chunks), which the kernel
+reads as they lie, half the bytes of the pass, the same sums
+(:func:`row_combine16_ref` is that entry's plain version).
+
+A tensor on the CPU takes the plain version (:func:`row_combine_ref`, or
+:func:`row_combine16_ref`); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from ..fields import FieldSpec
 
 from . import cuda_build, fieldops
 
-#: kernel launches by :func:`row_combine`
+#: kernel launches by :func:`row_combine` on an int32 matrix
 launches = cuda_build.LaunchCounter()
+#: launches of the 16-bit entry: an int16 matrix
+launches16 = cuda_build.LaunchCounter()
 
 ROWS_PER_CHUNK = 64
 MAX_CHUNKS = 65535  # the grid's second axis
@@ -35,6 +42,13 @@ def row_combine_ref(field: FieldSpec, r: torch.Tensor,
     """Plain version: sum over rows of REDC(r_i M_i) mod p."""
     rr = r[:, None, :] if r.dim() == 2 else r
     return fieldops.sum_mod(field, fieldops.mont_mul(field, rr, mat), 0)
+
+
+def row_combine16_ref(field: FieldSpec, r: torch.Tensor,
+                      mat: torch.Tensor) -> torch.Tensor:
+    """Plain version of the 16-bit entry: the matrix widened to int32 limbs,
+    then :func:`row_combine_ref`."""
+    return row_combine_ref(field, r, fieldops.widen16(mat))
 
 
 def row_combine_batch_ref(field: FieldSpec, r: torch.Tensor,
@@ -61,24 +75,26 @@ def _launch(field: FieldSpec, name: str, r: torch.Tensor, mats: torch.Tensor,
     chunks = -(-rows // rows_per_chunk)
     partial = torch.empty((batch, chunks, k, L // 2), dtype=torch.int32,
                           device=mats.device)
-    cuda_build.require_cuda_tensors(name, r, mats, partial, out)
+    m16 = mats.dtype == torch.int16
+    cuda_build.require_cuda_tensors(name, r, partial, out, limbs16=(mats,))
     lib = cuda_build.library()
     cuda_build.check(
         lib.lt_row_combine(fid, mats.data_ptr(), r.data_ptr(),
                            partial.data_ptr(), out.data_ptr(), batch, rows, k,
-                           chunks, rows_per_chunk, int(per_column),
+                           chunks, rows_per_chunk, int(per_column), int(m16),
                            cuda_build.stream_handle(mats.device)),
         "lt_row_combine")
-    launches.add()
+    (launches16 if m16 else launches).add()
     return out
 
 
 def row_combine(field: FieldSpec, r: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     """(rows, k, L) x r (rows, L) or (rows, k, L) -> (k, L) int32 limbs of
     sum_i REDC(r_i M_i) mod p (Montgomery when both are Montgomery,
-    canonical when one is canonical)."""
+    canonical when one is canonical); M in int32 limbs or 16-bit ones
+    (int16)."""
     if r.device.type == "cpu" and mat.device.type == "cpu":
-        return row_combine_ref(field, r, mat)
+        return row_combine16_ref(field, r, mat)
     rows, k, L = mat.shape
     per_column = r.dim() == 3
     if r.shape != ((rows, k, L) if per_column else (rows, L)):

@@ -17,8 +17,15 @@ chooses the route from (w, n) and the tile limit alone (a lone row gets a
 lower limit, so that it spreads over the card), and this wrapper allocates
 scratch only for a route that needs it.
 
-A tensor on the CPU takes the plain version (:func:`ntt.ntt_ref`); a CUDA
-tensor launches the kernel or raises.
+Input and output may each be 16-bit limbs (int16 tensors,
+:func:`fieldops.narrow16`): the resident and streaming modes hold their
+chunks so (the JAX package's ``narrow16``), and the kernel reads and writes
+them as they lie, half the bytes, the same bits (:func:`ntt16_ref` is that
+entry's plain version: widen, :func:`ntt.ntt_ref`, narrow).
+
+A tensor on the CPU takes the plain version (:func:`ntt16_ref`, which is
+:func:`ntt.ntt_ref` on int32 limbs); a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -28,13 +35,15 @@ import torch
 
 from ..fields import FieldSpec
 
-from . import cuda_build
+from . import cuda_build, fieldops
 from .ntt import (TILE_LOG, NttRoute, check_size, ntt_plan, ntt_ref,
                   stage_twiddle_limbs, tile_log_for, twist_const, twist_limbs)
 
-#: kernel launches by :func:`ntt` (one per call; a call runs one kernel per
-#: pass of its route, back to back)
+#: kernel launches by :func:`ntt` on int32 limbs in and out (one per call;
+#: a call runs one kernel per pass of its route, back to back)
 launches = cuda_build.LaunchCounter()
+#: launches of the 16-bit entry: an int16 input or ``out16``
+launches16 = cuda_build.LaunchCounter()
 
 _MODE_COSET, _MODE_PASS1, _MODE_PASS2 = 0, 1, 2
 _TABLES: dict = {}
@@ -78,12 +87,23 @@ def scratch_bytes(field: FieldSpec, rows: int, w: int, n: int) -> int:
     return route(w, n, rows).scratch_elements(rows) * 2 * field.num_limbs
 
 
+def ntt16_ref(field: FieldSpec, x: torch.Tensor, n: int,
+              inverse: bool = False, canon_out: bool = False,
+              out16: bool = False) -> torch.Tensor:
+    """Plain version of the 16-bit entry: ``x`` widened to int32 limbs,
+    :func:`ntt.ntt_ref`, the output narrowed to int16 where ``out16``."""
+    y = ntt_ref(field, fieldops.widen16(x), n, inverse, canon_out)
+    return fieldops.narrow16(y) if out16 else y
+
+
 def ntt(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool = False,
-        canon_out: bool = False) -> torch.Tensor:
+        canon_out: bool = False, out16: bool = False) -> torch.Tensor:
     """(..., w, L) Montgomery limbs, w <= n, zero-extended -> (..., n, L);
-    ``inverse`` for omega^-1 with 1/n, ``canon_out`` for canonical output."""
+    ``inverse`` for omega^-1 with 1/n, ``canon_out`` for canonical output.
+    ``x`` holds int32 limbs or 16-bit ones (int16); the output is int32
+    limbs, or 16-bit ones where ``out16``."""
     if x.device.type == "cpu":
-        return ntt_ref(field, x, n, inverse, canon_out)
+        return ntt16_ref(field, x, n, inverse, canon_out, out16)
     check_size(field, n)
     w = x.shape[-2]
     if x.dim() < 2 or not 1 <= w <= n:
@@ -91,12 +111,12 @@ def ntt(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool = False,
     rows = x.numel() // (w * x.shape[-1])
     tile_log = tile_log_for(rows, w, n)
     return ntt_routed(field, x, n, inverse, canon_out,
-                      ntt_plan(w, n, tile_log), tile_log)
+                      ntt_plan(w, n, tile_log), tile_log, out16)
 
 
 def ntt_routed(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool,
                canon_out: bool, rt: NttRoute,
-               tile_log: int = TILE_LOG) -> torch.Tensor:
+               tile_log: int = TILE_LOG, out16: bool = False) -> torch.Tensor:
     """:func:`ntt` on a CUDA tensor by a given route (``ntt_plan(w, n,
     tile_log)``; a tile limit below the kernel's own drives every route at
     small sizes)."""
@@ -109,7 +129,9 @@ def ntt_routed(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool,
                          f"by route {rt}")
     x = x.reshape(-1, w, L).contiguous()
     B, dev = x.shape[0], x.device
-    out = torch.empty((B, n, L), dtype=torch.int32, device=dev)
+    in16 = x.dtype == torch.int16
+    out = torch.empty((B, n, L), dtype=torch.int16 if out16 else torch.int32,
+                      device=dev)
     if B == 0:
         return out.reshape(*lead, n, L)
     two_pass = rt.l1 > 0
@@ -122,14 +144,14 @@ def ntt_routed(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool,
     k_first = k_one if two_pass else k_epi
     pw_first = (_twists(field, n, inverse, k_first, dev)
                 if rt.lc or k_first != k_one else None)
-    tensors = [x, out, tws] + ([] if pw_first is None else [pw_first])
+    tensors = [tws] + ([] if pw_first is None else [pw_first])
     scratch = pw_second = None
     if two_pass:
         scratch = torch.empty((rt.scratch_elements(B), L // 2),
                               dtype=torch.int32, device=dev)
         pw_second = _twists(field, n, inverse, k_epi, dev)
         tensors += [scratch, pw_second]
-    cuda_build.require_cuda_tensors("ntt", *tensors)
+    cuda_build.require_cuda_tensors("ntt", *tensors, limbs16=(x, out))
     lib = cuda_build.library()
     stream = cuda_build.stream_handle(dev)
 
@@ -140,7 +162,8 @@ def ntt_routed(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool,
             out.data_ptr(), tws.data_ptr(),
             None if pw is None else pw.data_ptr(), w, B, logn, rt.lc, rt.l0,
             rt.l1, rt.l2, rt.group_log(sub_log, avail_log, tile_log),
-            int(k_first == k_one), stream), "lt_ntt_pass")
+            int(k_first == k_one), int(in16), int(out16), stream),
+            "lt_ntt_pass")
 
     if not two_pass:
         run_pass(_MODE_COSET, pw_first, rt.ls, rt.lc)
@@ -150,6 +173,7 @@ def ntt_routed(field: FieldSpec, x: torch.Tensor, n: int, inverse: bool,
         for st in range(rt.l1 + rt.l2, rt.ls):
             cuda_build.check(lib.lt_ntt_stage(
                 fid, scratch.data_ptr(), out.data_ptr(), tws.data_ptr(), B,
-                logn, rt.lc, st, int(st == rt.ls - 1), stream), "lt_ntt_stage")
-    launches.add()
+                logn, rt.lc, st, int(st == rt.ls - 1), int(out16), stream),
+                "lt_ntt_stage")
+    (launches16 if in16 or out16 else launches).add()
     return out.reshape(*lead, n, L)

@@ -23,7 +23,9 @@ by chunk, as the streaming commit re-encodes them: one launch a chunk,
 each column's (3, 8) state words kept on the device between launches, the
 last chunk's launch writing the digests.  Its digests equal
 :func:`poseidon_columns`'s for every chunking whose chunks but the last
-have even row counts.
+have even row counts.  It reads 16-bit limbs (int16,
+:func:`fieldops.narrow16`): the resident and streaming modes hold their
+codeword chunks so (the JAX package's ``narrow16``).
 
 A tensor on the CPU takes the plain version
 (:func:`poseidon_cols.poseidon_columns_plain`,
@@ -127,8 +129,8 @@ def poseidon_columns(field: FieldSpec, cfg, u: torch.Tensor,
 def poseidon_absorb(field: FieldSpec, cfg, chunk: torch.Tensor, rows: int,
                     state: torch.Tensor, first: bool, last: bool,
                     lanes: int | None = None) -> torch.Tensor:
-    """Rows [0, ``rows``) of a (>= rows, n, L) canonical chunk absorbed into
-    the (n, 3, 8) int32 sponge states
+    """Rows [0, ``rows``) of a (>= rows, n, L) canonical chunk of 16-bit
+    limbs (int16) absorbed into the (n, 3, 8) int32 sponge states
     (:func:`poseidon_cols.poseidon_stream_start`; taken as zero where
     ``first``).  Returns the new states (on CUDA: ``state``, updated in
     place), or where ``last`` the (n, L) canonical digests.  A chunk that
@@ -136,6 +138,7 @@ def poseidon_absorb(field: FieldSpec, cfg, chunk: torch.Tensor, rows: int,
     raises: the pairs would shift).  One launch at ``lanes`` lanes a column
     (default :func:`lanes_for` of n); the plain version on a CPU tensor."""
     L = field.num_limbs
+    cuda_build.require_limbs16("poseidon_absorb", chunk)
     if (chunk.dim() != 3 or chunk.shape[-1] != L
             or not 0 < rows <= chunk.shape[0]):
         raise ValueError(f"poseidon_absorb: bad chunk {tuple(chunk.shape)} "
@@ -160,7 +163,7 @@ def poseidon_absorb(field: FieldSpec, cfg, chunk: torch.Tensor, rows: int,
         raise ValueError(f"poseidon_absorb: {lanes} lanes a column; the "
                          f"kernel is built for {LANES}")
     chunk = chunk.contiguous()
-    cuda_build.require_cuda_tensors("poseidon_absorb", chunk, state)
+    cuda_build.require_cuda_tensors("poseidon_absorb", state, limbs16=(chunk,))
     out = (torch.empty((n, L), dtype=torch.int32, device=chunk.device)
            if last else None)
     consts = kernel_constants(field, cfg, chunk.device)

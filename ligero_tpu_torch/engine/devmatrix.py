@@ -17,6 +17,12 @@ of one matrix lie on several devices: chunk i on mesh device i mod D, the
 block-cyclic layout of the JAX package's ``ShardedCoeffs`` (over a process
 mesh, in rank i mod D's process).
 
+The chunks hold 16-bit limbs (int16 tensors whose bits are the JAX
+package's uint16 limbs, ``Backend.narrow16``): the coefficient chunks, the
+resident codeword chunks and the r^T A chunks; the kernels read and write
+them as they lie.  Only the zk mask rows' coefficients (three rows) stay
+int32.
+
 The backend's bulk steps take either a tensor (direct mode) or one of these
 handles, and dispatch on the type, as the JAX package does.
 """
@@ -28,8 +34,8 @@ import torch
 
 class RowChunkedMatrix:
     """A logical ``(rows, w, L)`` matrix stored as chunks of ``chunk_rows``
-    rows each: ``chunks[i]`` holds rows ``[i chunk_rows, (i + 1)
-    chunk_rows)``.  Rows at and past ``rows`` in the last chunk are exact
+    rows each (of any limb dtype; :meth:`row_block` keeps it):
+    ``chunks[i]`` holds rows ``[i chunk_rows, (i + 1) chunk_rows)``.  Rows at and past ``rows`` in the last chunk are exact
     zeros (padding), so a sum or a transform over whole chunks is that of
     the real rows; or the last chunk holds its real rows only (the resident
     codeword chunks, whose padding would be n-wide rows).  Over a process

@@ -24,6 +24,22 @@ MASK = 0xFFFF
 _CONST_CACHE: dict = {}
 
 
+def narrow16(a: torch.Tensor) -> torch.Tensor:
+    """int32 limbs -> the same limbs in 16 bits: an int16 tensor whose bits
+    are the JAX package's uint16 limbs (``Backend.narrow16``), half the
+    bytes.  ``t.view(torch.int32)`` of the result is the packed (..., L/2)
+    words the kernels compute on."""
+    return a.to(torch.int16)
+
+
+def widen16(a: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`narrow16`: int16 limb bits -> int32 limbs
+    (int32 limbs pass through)."""
+    if a.dtype != torch.int16:
+        return a
+    return a.to(torch.int32).bitwise_and_(MASK)
+
+
 def const_limbs(field: FieldSpec, value: int, device) -> torch.Tensor:
     """``value`` (an integer < 2^(16 L)) as an ``(L,)`` int32 limb tensor."""
     key = (field.name, value, str(device))

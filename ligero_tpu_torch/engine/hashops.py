@@ -23,6 +23,8 @@ import math
 import numpy as np
 import torch
 
+from . import fieldops
+
 M32 = 0xFFFFFFFF
 
 _IV = [0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -167,14 +169,15 @@ def blake2s_absorb_ref(chunk: torch.Tensor, rows: int, state: torch.Tensor,
                        block0: int, final: bool,
                        total_rows: int) -> torch.Tensor:
     """Plain version of the streamed absorb: rows [0, ``rows``) of the
-    (>= rows, n, L) canonical chunk into the (n, 10) states after
+    (>= rows, n, L) canonical chunk (int32 limbs, or 16-bit ones as int16:
+    widened first) into the (n, 10) states after
     ``block0`` compressed blocks -> the new states.  Not ``final``:
     ``rows`` is a multiple of :func:`period_rows` and the chunk fills whole
     blocks after the two carried words, which leave as its last row's last
     two.  ``final``: the message ends here (``total_rows`` rows in all), the
     last block takes the full byte length, and words 0-7 are the digest."""
     n, L = chunk.shape[1], chunk.shape[2]
-    u = chunk[:rows].to(torch.int64)
+    u = fieldops.widen16(chunk[:rows]).to(torch.int64)
     packed = u[..., 0::2] | (u[..., 1::2] << 16)            # (rows, n, L/2)
     words = packed.permute(1, 0, 2).reshape(n, rows * (L // 2))
     s = _words64(state)

@@ -174,7 +174,8 @@ def poseidon_absorb_plain(field: FieldSpec, cfg, chunk: torch.Tensor,
                           rows: int, state: torch.Tensor, first: bool,
                           last: bool) -> torch.Tensor:
     """Plain version of the chunked entry: rows [0, ``rows``) of a (>= rows,
-    n, L) canonical chunk absorbed into the (n, 3, W) states
+    n, L) canonical chunk (int32 limbs, or 16-bit ones as int16: widened
+    first) absorbed into the (n, 3, W) states
     (:func:`poseidon_stream_start`; zero where ``first``), a pair and a
     permutation at a time; returns the new states (canonical Montgomery
     words), or where ``last`` the (n, L) canonical digests.  Chunk after
@@ -185,7 +186,8 @@ def poseidon_absorb_plain(field: FieldSpec, cfg, chunk: torch.Tensor,
         st = (torch.zeros((3,) + tuple(chunk.shape[1:]), dtype=torch.int32,
                           device=chunk.device) if first
               else _words_to_limbs(state.permute(1, 0, 2)))
-        st = _absorb(field, _ark(field, cfg, chunk.device), st, chunk, rows)
+        st = _absorb(field, _ark(field, cfg, chunk.device), st,
+                     fieldops.widen16(chunk[:rows]), rows)
         if last:
             out = fieldops.from_mont(field, st[1], mul=fieldops.mont_mul_vec)
         else:

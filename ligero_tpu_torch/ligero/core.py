@@ -468,8 +468,8 @@ class LigeroCircuit:
     def _r_a_coeff_rows(self, seed: bytes):
         """r_linear -> r^T A in 4m rows of k -> iNTT_k (Montgomery): one
         tensor in direct mode (over a mesh, row blocks); in resident and
-        streaming mode a :class:`RowChunkedMatrix` row-aligned with the
-        coefficient
+        streaming mode a :class:`RowChunkedMatrix` of 16-bit chunks (the
+        JAX package's ``narrow16``) row-aligned with the coefficient
         chunks, each chunk placed beside its coefficient chunk
         (``place_chunk``), r drawn a segment at a time and the sparse
         product run in column blocks of a chunk's rows (``_r_a_coeff_rows``
@@ -502,13 +502,14 @@ class LigeroCircuit:
                 continue
             with ph("linear.intt"):
                 chunks.append(be.place_chunk(i, be.intt(
-                    block.reshape(cr, self.k, -1), self.k)))
+                    block.reshape(cr, self.k, -1), self.k, out16=True)))
             del block
         return RowChunkedMatrix(chunks, 4 * self.m, cr, self.k)
 
     def _opened(self, cols: np.ndarray, tree, idx_sets):
-        """One proof's gathered columns (rows, sum of the sets, L) ->
-        ``(columns, paths)`` per index set."""
+        """One proof's gathered columns (rows, sum of the sets, L; copied
+        in 16-bit limbs and widened on the host) -> ``(columns, paths)``
+        per index set."""
         out, off = [], 0
         for idx in idx_sets:
             columns = [self.field.limbs_to_ints(cols[:, off + i, :])

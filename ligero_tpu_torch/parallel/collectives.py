@@ -14,6 +14,11 @@ reach the other ranks only through it:
   quadratic product's row exchange).  One ``all_to_all_single`` over flat
   buffers with per-rank split sizes, which both NCCL and gloo run.
 
+16-bit limbs (int16 tensors: the streaming mode's chunks, the opened
+columns) travel as their int32 view, two limbs a word (every such tensor
+ends in an even limb axis): neither NCCL nor gloo carries int16, and the
+view moves the same bytes, where a widened copy would move twice as many.
+
 NCCL carries CUDA tensors and gloo carries host tensors.  Gloo over CUDA
 tensors (``initialize(backend="gloo")`` with the ranks on the card, the one
 way to run two ranks on one GPU: NCCL refuses two ranks on one device) is
@@ -75,6 +80,9 @@ class Collectives:
         order, on this rank's device."""
         import torch.distributed as dist
 
+        if t.dtype == torch.int16:
+            return [o.view(torch.int16) for o in
+                    self.all_gather(t.contiguous().view(torch.int32))]
         t = self._wire(t.contiguous())
         out = [self._empty(t.shape, t.dtype) for _ in range(self.size)]
         dist.all_gather(out, t, group=self.group)
@@ -91,6 +99,11 @@ class Collectives:
             raise ValueError(f"all_to_all: {len(send)} sends and "
                              f"{len(shapes)} shapes for {self.size} ranks")
         dtype = send[0].dtype
+        if dtype == torch.int16:
+            got = self.all_to_all([t.view(torch.int32) for t in send],
+                                  [tuple(s[:-1]) + (s[-1] // 2,)
+                                   for s in shapes])
+            return [g.view(torch.int16) for g in got]
         ins = [t.numel() for t in send]
         outs = [math.prod(s) for s in shapes]
         # one flat send buffer, each piece copied in once (the pieces may

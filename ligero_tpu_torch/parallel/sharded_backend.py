@@ -333,13 +333,15 @@ class ShardedBackend(TorchBackend):
                 parts.append(blk[a - start:b - start].to(device))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
-    def _fetch_rows(self, pieces, wants, width: int) -> torch.Tensor | None:
+    def _fetch_rows(self, pieces, wants, width: int,
+                    dtype=torch.int32) -> torch.Tensor | None:
         """Over a process mesh, one all_to_all: rank e receives the
         logical rows of its ranges ``wants[e]`` (a list of ``(r0, r1)``,
         the same list on every rank), in range order, one tensor; None
         where it wants none.  ``pieces``: ``(first row, real rows, tensor
-        or None, owner rank)`` in row order, the rows (``width`` wide) of a
-        matrix wherever they lie."""
+        or None, owner rank)`` in row order, the rows (``width`` wide, of
+        ``dtype``: int16 for a chunked matrix) of a matrix wherever they
+        lie."""
         me, D = self.mesh.rank, self.D
 
         def cuts(ranges, owner):
@@ -354,7 +356,7 @@ class ShardedBackend(TorchBackend):
         for e in range(D):
             got = [t[a:b] for t, a, b in cuts(wants[e], me)]
             send.append(torch.cat(got) if got else torch.empty(
-                (0,) + tail, dtype=torch.int32, device=self.device))
+                (0,) + tail, dtype=dtype, device=self.device))
         shapes = [(sum(b - a for _, a, b in cuts(wants[me], o)),) + tail
                   for o in range(D)]
         recv = self.comm.all_to_all(send, shapes)
@@ -397,12 +399,12 @@ class ShardedBackend(TorchBackend):
                             range(min(count, self.D)), shape)
 
     def _join_chunks(self, parts: dict, rcm: RowChunkedMatrix, inner: tuple,
-                     device) -> torch.Tensor:
+                     device, dtype=torch.int32) -> torch.Tensor:
         if self.comm is None:
-            return super()._join_chunks(parts, rcm, inner, device)
+            return super()._join_chunks(parts, rcm, inner, device, dtype)
         count, D = len(rcm.chunks), self.D
         mine = torch.zeros((-(-count // D), rcm.chunk_rows) + tuple(inner),
-                           dtype=torch.int32, device=self.device)
+                           dtype=dtype, device=self.device)
         for i, t in parts.items():
             mine[i // D, :t.shape[0]] = t
         got = self.comm.all_gather(mine)
@@ -584,7 +586,8 @@ class ShardedBackend(TorchBackend):
         streaming mode, chunks of ``chunk_rows`` rows dealt over the mesh
         (chunk i on device i mod D): the pieces of
         :meth:`TorchBackend.streaming_bytes` (``_stream_parts``) with the
-        chunks a device holds in place of all of them.  The prover: the
+        chunks a device holds in place of all of them (16-bit limbs, as the
+        re-shard's codewords).  The prover: the
         device's coefficient chunks beside the largest of a chunk's encode,
         its re-encode (with one column slice of the re-shard and the
         device's column states; over a process mesh the re-encoded chunk's
@@ -600,24 +603,24 @@ class ShardedBackend(TorchBackend):
         d2 = 2 * k if d2 is None else d2
         b = 0 if verifier else blind_t
         p = self._stream_parts(rows, k, n, nnz, b, d2, chunk_rows)
-        E, cr = self.L * 4, chunk_rows
+        E, H, cr = self.L * 4, self.L * 2, chunk_rows
         data = rows - 3 if b else rows
         count = -(-data // cr)
         held = self._shard_heights([i % self.D for i in range(count)],
                                    [cr] * count, rank)
         holds = self.mesh.holds if rank is None else rank.__eq__
         cn = -(-n // self.D)
-        reshard = cr * cn * E if self.comm is None else 2 * cr * n * E
+        reshard = cr * cn * H if self.comm is None else 2 * cr * n * H
         out = {}
         for key, hs in held.items():
             ctrl = key == str(self.device)
             share = sum(hs)
-            r_coeffs = share * k * E
+            r_coeffs = share * k * H
             if verifier:
                 linear = max(p["upload"], p["r"] + max(p["sampler"],
                                                        p["block"]))
-                need = batch * r_coeffs + max(p["reencode"],
-                                              linear if ctrl else 0)
+                need = batch * r_coeffs + max(
+                    p["transform"] + 2 * p["opened"], linear if ctrl else 0)
             else:
                 states = sum(1 for d, (dev, _, _) in
                              enumerate(self._column_split(n))
@@ -625,7 +628,7 @@ class ShardedBackend(TorchBackend):
                              ) * cn * STATE_WORDS * 4
                 linear = max(p["upload"], p["r"] + max(
                     p["sampler"], r_coeffs + p["block"]))
-                need = share * (k + b) * E + max(
+                need = share * (k + b) * H + max(
                     p["encode"], p["reencode"] + reshard + states,
                     r_coeffs + p["pair"], p["quad"], linear if ctrl else 0)
                 if ctrl and b:
@@ -727,20 +730,21 @@ class ShardedBackend(TorchBackend):
     # ------------------------------------------------------------------
     # transforms
     # ------------------------------------------------------------------
-    def ntt(self, coeffs, n: int):
+    def ntt(self, coeffs, n: int, out16: bool = False):
         if isinstance(coeffs, ShardedRows):
-            return self._map(coeffs, lambda be, b: be.ntt(b, n))
-        return super().ntt(coeffs, n)
+            return self._map(coeffs, lambda be, b: be.ntt(b, n, out16))
+        return super().ntt(coeffs, n, out16)
 
-    def intt(self, evals, n: int):
+    def intt(self, evals, n: int, out16: bool = False):
         if isinstance(evals, ShardedRows):
-            return self._map(evals, lambda be, b: be.intt(b, n))
-        return super().intt(evals, n)
+            return self._map(evals, lambda be, b: be.intt(b, n, out16))
+        return super().intt(evals, n, out16)
 
-    def ntt_and_canon(self, coeffs, n: int):
+    def ntt_and_canon(self, coeffs, n: int, out16: bool = False):
         if isinstance(coeffs, ShardedRows):
-            return self._map(coeffs, lambda be, b: be.ntt_and_canon(b, n))
-        return super().ntt_and_canon(coeffs, n)
+            return self._map(coeffs,
+                             lambda be, b: be.ntt_and_canon(b, n, out16))
+        return super().ntt_and_canon(coeffs, n, out16)
 
     def ntt_columns(self, coeffs, n: int, js) -> torch.Tensor:
         """Each block's n-point NTTs at the columns ``js``, its real rows
@@ -757,17 +761,20 @@ class ShardedBackend(TorchBackend):
     # ------------------------------------------------------------------
     def gather_columns_batch(self, u_canon, idx) -> np.ndarray:
         """Per proof b, the columns ``idx[b]`` of each block's real rows,
-        in row order -> (B, rows, t, L) host uint32."""
+        in row order -> (B, rows, t, L) host uint32 (narrowed to 16 bits on
+        each device, widened on the host, as one device's)."""
         if not isinstance(u_canon, ShardedRows):
             return super().gather_columns_batch(u_canon, idx)
         idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
+
+        def opened(b, rows):
+            return fieldops.narrow16(rows.index_select(
+                1, idx[b].to(rows.device)))
+
         if self.comm is not None:
-            return self.to_numpy(self._gather_real(
-                u_canon, lambda b, rows: rows.index_select(
-                    1, idx[b].to(rows.device))))
+            return self.to_numpy(self._gather_real(u_canon, opened))
         return np.stack([np.concatenate([
-            self.to_numpy(u_canon.part(d, b)[:real].index_select(
-                1, idx[b].to(u_canon.blocks[d].device)))
+            self.to_numpy(opened(b, u_canon.part(d, b)[:real]))
             for d, real in enumerate(u_canon.real)])
             for b in range(idx.shape[0])])
 
@@ -920,7 +927,7 @@ class ShardedBackend(TorchBackend):
             rows = self._fetch_rows(pieces, [
                 [] if s is None else [(base + s[0], base + s[1])
                                       for base in (0, m, 2 * m)]
-                for s in spans], rcm.width)
+                for s in spans], rcm.width, torch.int16)
             if rows is None:
                 continue
             i0, i1 = spans[me]
@@ -935,8 +942,8 @@ class ShardedBackend(TorchBackend):
         """The streaming commit over a process mesh: a step of D chunks at
         a time, each rank re-encodes its chunk of the step and one
         all_to_all hands rank e the column slice [e c, (e + 1) c) of every
-        chunk of the step, which it absorbs into its columns' Blake2s
-        states in row order (the zk mask rows, which every rank holds,
+        chunk of the step (16-bit codewords), which it absorbs into its
+        columns' Blake2s states in row order (the zk mask rows, which every rank holds,
         last); the leaves are gathered, and every rank builds the tree."""
         if self.comm is None:
             return super().commit_columns_streaming(sc)
@@ -953,11 +960,11 @@ class ShardedBackend(TorchBackend):
             ids, canon = list(range(step * D, step * D + D)), None
             i = ids[me]
             if i < count:
-                canon = self.ntt_and_canon(chunks[i], n)[
+                canon = self.ntt_and_canon(chunks[i], n, out16=True)[
                     :sc.coeffs.real_rows(i)]
                 send = [canon[:, a:b] for _, a, b in split]
             else:
-                send = [torch.empty((0, b - a, L), dtype=torch.int32,
+                send = [torch.empty((0, b - a, L), dtype=torch.int16,
                                     device=self.device) for _, a, b in split]
             recv = self.comm.all_to_all(send, [
                 (sc.coeffs.real_rows(j) if j < count else 0, c1 - c0, L)
@@ -968,7 +975,7 @@ class ShardedBackend(TorchBackend):
                     hs.absorb(part, sc.coeffs.real_rows(j))
             del recv
         if sc.tail is not None:
-            hs.absorb(self.ntt_and_canon(sc.tail, n)[:, c0:c1],
+            hs.absorb(self.ntt_and_canon(sc.tail, n, out16=True)[:, c0:c1],
                       sc.tail.shape[0])
         leaves = self._join_columns([hs.digests()], n, 0)
         flat = self.to_numpy(cuda_tree.forest_flat(leaves[None]))

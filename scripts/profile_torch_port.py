@@ -18,7 +18,9 @@ each of prove and verify: one warm-up call, three unprofiled walls,
 one call under the phase timer (CUDA synchronised at phase boundaries) and
 one call under ``torch.profiler``.  From the profiled call's device events
 it reports the device busy time (the union of kernel and copy intervals),
-the time and launch count per kernel group, and the device idle share
+the time and launch count per kernel group (the 16-bit entries, which the
+resident and streaming modes' 16-bit chunks take, apart), and the device
+idle share
 against both the profiled wall and the median unprofiled wall.  The
 profiler adds host time to every launch, so the share against the
 profiled wall overstates idleness; the share against the unprofiled wall
@@ -102,9 +104,13 @@ def nvidia_smi_line() -> str | None:
 
 
 def _group(name: str) -> str:
+    """A device event's group: its port kernel (the 16-bit entries, whose
+    instantiations take a ``true`` template argument, apart: "ntt_pass_kernel
+    16-bit"), a copy or set, or the torch ops."""
     for kernel in PORT_KERNELS:
         if kernel in name:
-            return kernel
+            narrow = "true" in name.split(kernel, 1)[1].split("(")[0]
+            return kernel + (" 16-bit" if narrow else "")
     if name.startswith("Memcpy") or name.startswith("Memset"):
         return name.split()[0].lower()
     return "torch ops"

@@ -62,7 +62,9 @@ COUNTERS = (("ntt", "cuda_ntt", "launches"),
             ("sha256_tree", "cuda_tree", "launches"),
             ("poseidon_cols", "cuda_poseidon", "launches"),
             ("blake2s_stream", "cuda_hash", "stream_launches"),
-            ("poseidon_stream", "cuda_poseidon", "stream_launches"))
+            ("poseidon_stream", "cuda_poseidon", "stream_launches"),
+            ("ntt16", "cuda_ntt", "launches16"),
+            ("row_combine16", "cuda_lc", "launches16"))
 
 
 def parse_args(argv=None):

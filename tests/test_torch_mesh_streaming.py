@@ -165,7 +165,8 @@ def test_mesh_streamed_leaves_equal_host_column_hashes_at_odd_rows(name, D):
 
 @pytest.mark.parametrize("D", [2, 3])
 def test_mesh_chunks_take_the_jax_cyclic_layout(D):
-    """Device d's coefficient chunks, in order, are row block d of the JAX
+    """Device d's coefficient chunks (16-bit limbs, as the JAX package's
+    uint16 ``ShardedCoeffs``), in order, are row block d of the JAX
     package's ``_to_cyclic``, and ``_from_cyclic`` gives the rows back."""
     field = pf(BN254_FR)
     gen = np.random.default_rng(7)
@@ -178,8 +179,9 @@ def test_mesh_chunks_take_the_jax_cyclic_layout(D):
     rcm = be.encode_chunks(msg, k, cr)
     assert [c.device for c in rcm.chunks] == [
         be.mesh.devices[i % D] for i in range(len(rcm.chunks))]
-    whole = one.intt(msg.astype(np.uint32), k).numpy()
-    shares = [torch.cat(rcm.chunks[d::D]).numpy() for d in range(D)]
+    whole = one.intt(msg.astype(np.uint32), k).numpy().astype(np.uint16)
+    shares = [torch.cat(rcm.chunks[d::D]).numpy().view(np.uint16)
+              for d in range(D)]
     cyc = _to_cyclic(whole, cr, D)
     for d in range(D):
         assert np.array_equal(shares[d], cyc[d][:len(shares[d])])

@@ -28,7 +28,7 @@ from ligero_tpu.sponge import test_poseidon_config as ref_poseidon_config
 from ligero_tpu.sponge import test_sponge
 from ligero_tpu.synthetic import generate_random_circuit
 from ligero_tpu_torch import LigeroCircuit, LigeroProof, convert
-from ligero_tpu_torch.engine import cuda_poseidon, poseidon_cols
+from ligero_tpu_torch.engine import cuda_poseidon, fieldops, poseidon_cols
 from ligero_tpu_torch.engine.backend import STREAM_ROW_QUANTUM, TorchBackend
 from ligero_tpu_torch.engine.devmatrix import (RowChunkedMatrix,
                                                StreamedCodewords)
@@ -72,9 +72,9 @@ def stream_digests(u: torch.Tensor, chunk_rows: int, device="cpu",
     chunks = []
     for r0 in range(0, rows, chunk_rows):
         real = min(chunk_rows, rows - r0)
-        chunk = torch.zeros((chunk_rows, n, L), dtype=torch.int32,
+        chunk = torch.zeros((chunk_rows, n, L), dtype=torch.int16,
                             device=device)
-        chunk[:real] = u[r0:r0 + real]
+        chunk[:real] = fieldops.narrow16(u[r0:r0 + real])
         chunks.append((r0, chunk, real))
     if lanes is None:
         stream = cuda_poseidon.PoseidonColumnStream(PF, CFG, n, rows, device)
@@ -144,20 +144,21 @@ def test_streamed_codewords_digests_equal_jax_package():
 
 def test_odd_chunk_before_the_last_raises():
     _, u = rand_matrix(np.random.default_rng(1), 9, 3)
+    u16 = fieldops.narrow16(u)
     stream = cuda_poseidon.PoseidonColumnStream(PF, CFG, 3, 9, "cpu")
     with pytest.raises(ValueError, match="odd"):
-        stream.absorb(u[:5], 5)
-    stream.absorb(u[:4], 4)
+        stream.absorb(u16[:5], 5)
+    stream.absorb(u16[:4], 4)
     with pytest.raises(ValueError, match="exceed"):
-        stream.absorb(u[:6], 6)
+        stream.absorb(u16[:6], 6)
     with pytest.raises(ValueError, match="absorbed"):
         stream.digests()
-    stream.absorb(u[4:], 5)                 # the last chunk may be odd
+    stream.absorb(u16[4:], 5)               # the last chunk may be odd
     assert torch.equal(stream.digests(),
                        poseidon_cols.poseidon_columns_plain(PF, CFG, u))
     state = poseidon_cols.poseidon_stream_start(PF, 3, "cpu")
     with pytest.raises(ValueError, match="odd"):
-        cuda_poseidon.poseidon_absorb(PF, CFG, u, 3, state, True, False)
+        cuda_poseidon.poseidon_absorb(PF, CFG, u16, 3, state, True, False)
 
 
 def test_streaming_estimate_counts_the_sponge_states():
@@ -265,6 +266,7 @@ def test_chunked_kernel_matches_plain_and_whole_column(cuda, lanes):
 def test_chunked_kernel_states_equal_plain_states(cuda):
     """The states between chunks, word for word (canonical Montgomery)."""
     _, u = rand_matrix(np.random.default_rng(3), 8, 300)
+    u = fieldops.narrow16(u)
     for lanes in (1, 2, 4, 8):
         dev = poseidon_cols.poseidon_stream_start(PF, 300, cuda)
         host = poseidon_cols.poseidon_stream_start(PF, 300, "cpu")

@@ -298,10 +298,11 @@ def test_resident_reprove_another_witness_and_batches(monkeypatch):
 def test_resident_estimate_lies_above_streaming_at_every_chunking():
     """At the test instances' shapes and at the card's reach, plain and zk,
     with either commitment: every chunking's resident estimate exceeds its
-    streaming estimate by at least U."""
+    streaming estimate by at least U, held in 16-bit limbs (2 L bytes an
+    element)."""
     for field in FIELDS.values():
         be = TorchBackend(pf(field), "cpu")
-        E = 4 * field.num_limbs
+        E = 2 * field.num_limbs
         for rows, k, n, nnz, b, d2 in ((44, 16, 128, 819, 0, 32),
                                        (47, 16, 128, 819, 42, 128),
                                        (11588, 4096, 32768, 60764163, 0,
@@ -320,13 +321,12 @@ def test_resident_estimate_lies_above_streaming_at_every_chunking():
 
 def test_resident_mode_at_the_reach_of_the_card():
     """On an H100's 79.18 GiB: BLS12-377 2^23 (m 2897, k 4096, n 32768,
-    nnz of A 60,764,163) takes resident mode, plain and zk, in 1024-row
-    chunks.  BN254 2^24 (m 4097, k 8192, n 65536): U alone is 64 GiB in the
-    port's int32 words of 16-bit limbs, and the resident estimate passes
-    the card, so it streams."""
+    nnz of A 60,764,163) and BN254 2^24 (m 4097, k 8192, n 65536) take
+    resident mode, plain and zk, in 1024-row chunks: U in 16-bit limbs is
+    32 GiB at BN254 2^24 (64 GiB in int32 words, which passed the card)."""
     for field, (m, k, n, nnz), want in (
             (BLS12_377_FQ, (2897, 4096, 32768, 60764163), "resident"),
-            (BN254_FR, (4097, 8192, 65536, 121531395), "streaming")):
+            (BN254_FR, (4097, 8192, 65536, 121531395), "resident")):
         be = TorchBackend(pf(field), "cpu")
         be.memory_budget = lambda: H100_BYTES
         for b in (0, 468):

@@ -20,7 +20,7 @@ from ligero_tpu.sampling import rand_field_elements_limbs
 from ligero_tpu.sponge import test_sponge
 from ligero_tpu.synthetic import generate_random_circuit
 from ligero_tpu_torch import LigeroCircuit, LigeroProof, convert
-from ligero_tpu_torch.engine import cuda_hash, devsampler, hashops
+from ligero_tpu_torch.engine import cuda_hash, devsampler, fieldops, hashops
 from ligero_tpu_torch.engine.backend import (STREAM_ROW_QUANTUM,
                                              DeviceMemoryError, MessageRows,
                                              TorchBackend)
@@ -177,8 +177,8 @@ def test_streamed_blake2s_equals_hashlib_at_every_chunking(name):
             hs = cuda_hash.ColumnHashStream(field, n, rows, "cpu")
             for r0 in range(0, rows, cr):
                 real = min(cr, rows - r0)
-                chunk = torch.zeros((cr, n, L), dtype=torch.int32)
-                chunk[:real] = u[r0:r0 + real]
+                chunk = torch.zeros((cr, n, L), dtype=torch.int16)
+                chunk[:real] = fieldops.narrow16(u[r0:r0 + real])
                 hs.absorb(chunk, real)
             got = hs.digests().numpy().astype("<u4")
             assert [got[j].tobytes() for j in range(n)] == want, (rows, cr)
@@ -188,7 +188,7 @@ def test_streamed_blake2s_refuses_a_partial_period():
     field = pf(BLS12_377_FQ)
     hs = cuda_hash.ColumnHashStream(field, 2, 10, "cpu")
     with pytest.raises(ValueError):
-        hs.absorb(torch.zeros((6, 2, field.num_limbs), dtype=torch.int32), 6)
+        hs.absorb(torch.zeros((6, 2, field.num_limbs), dtype=torch.int16), 6)
     with pytest.raises(ValueError):
         hs.digests()
 
@@ -315,8 +315,8 @@ def test_streamed_blake2s_kernel_matches_plain_and_whole_column(cuda, name):
         cpu = cuda_hash.ColumnHashStream(field, n, rows, "cpu")
         for r0 in range(0, rows, cr):
             real = min(cr, rows - r0)
-            chunk = torch.zeros((cr, n, L), dtype=torch.int32, device=cuda)
-            chunk[:real] = u[r0:r0 + real]
+            chunk = torch.zeros((cr, n, L), dtype=torch.int16, device=cuda)
+            chunk[:real] = fieldops.narrow16(u[r0:r0 + real])
             dev.absorb(chunk, real)
             cpu.absorb(chunk.cpu(), real)
         assert torch.equal(dev.digests(), whole), (rows, cr)
