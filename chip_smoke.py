@@ -7,14 +7,21 @@ It runs every phase, in order; any failure exits non-zero:
 
 1. device   -- require CUDA; print the card's nvidia-smi name and power limit.
 2. build    -- build the kernels of ``ligero_tpu_torch/csrc`` with nvcc (both
-               fields' instantiations; ptxas's register and spill lines);
-               where row_combine's row loop issues its loads (SASS).
+               fields' instantiations; ptxas's register and spill lines,
+               the Blake2s and row_combine instantiations by name); where
+               row_combine's row loop stands its cp.async copies and its
+               wide multiply-adds, and the Blake2s compression loop's
+               instructions by pipe against its bound (SASS).
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the 2^20-gate shapes of both paths (plain and zk); bit-equal
                (tolerance 0: exact integer arithmetic), both times printed,
                and the least time the card could take for the same work
                (bytes over the memory rate, or integer operations over the
-               instruction rate) beside them.  Then the NTT at the edges of
+               instruction rate) beside them, and each kernel's device
+               time (torch.profiler) beside its call's CUDA-event time.
+               The Blake2s column hash, both entries (whole-column and
+               streamed 16-bit), at the commit's full shape, against one
+               plain run.  Then the NTT at the edges of
                every route (one pass, cosets, two passes; each with inverse
                and canon_out on and off, the route printed) and the
                full-width commit kernels; the 16-bit entries (the
@@ -48,8 +55,8 @@ It runs every phase, in order; any failure exits non-zero:
                paths give it) in both fields: against
                its plain version and the whole-column kernel at rows of
                every residue mod 4 and the zk path's odd count, chunked
-               raggedly, at the paths' own chunk patterns (the 2^20 one
-               cut in depth, see STREAM_PLAIN_CASES), timed at the 2^20
+               raggedly, at the paths' own chunk patterns (cut in
+               depth, see STREAM_PLAIN_CASES), timed at the 2^20
                shapes (4m x n in 1024-row chunks, against the whole-column
                kernel) and at the 2^22 shapes (8196 x 32768).  The Poseidon streaming commit's
                chunked entry (``poseidon_absorb``, on 16-bit chunks):
@@ -217,9 +224,16 @@ BATCH_LOG2_GATES = 18
 ZK_SEED = bytes(range(32))
 # NVIDIA H100 SXM data sheet: device memory rate; 32-bit integer rate taken
 # as a quarter of the 67 TFLOP/s float32 figure (that one counts two
-# operations per FMA on 128 lanes per SM; integer has 64 lanes, one each)
+# operations per FMA on 128 lanes per SM; integer has 64 lanes, one each):
+# the rate of the products' multiply-adds, which only the FMA pipe's
+# integer half runs.  The issue rate is half the figure: the four
+# schedulers of an SM issue one warp instruction a cycle each, 128 lanes,
+# which the 64 integer lanes and the FMA pipe's 64 share; it bounds work of
+# adds, logic and shifts alone (the hashes), whose adds ptxas puts on
+# either pipe (IADD3 or IMAD).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.75e12
+INT32_ISSUE_PER_S = 33.5e12
 # 32-bit integer operations as the card issues them at the least (a
 # three-input add is one IADD3, a three-input XOR one LOP3, a rotation one
 # SHF.W, or one PRMT by 16 or 8 bits): one Blake2s block is 10 rounds x 8 G
@@ -312,17 +326,19 @@ STREAM_CHUNK = 1024
 #: last chunk of 4; over a mesh each device's columns take the same) cut 8x
 #: in depth, and under zk with the three mask rows' part after it (also
 #: the mesh zk path's 512-row pattern); the forced 2^18 paths' own
-#: chunkings at full depth (4m = 2052 in 536-row chunks; under zk in 528,
-#: then the mask rows).  The cut keeps every absorb's block phase: a column
+#: chunkings (4m = 2052 in 536-row chunks; under zk in 528, then the mask
+#: rows) cut 4x in depth, to 136 and 132 rows an absorb, which keeps the
+#: run inside its time limit.  The cuts keep every absorb's block phase: a column
 #: is the 8-byte row count, then 2 L bytes a row, so an absorb starts at
 #: byte 8 + 2 L r0 of the column and its offset in a 64-byte block depends
 #: only on r0 mod hashops.period_rows (2 BN254 rows, 4 BLS12-377 rows).
-#: 128 and 1024 are both multiples of 4, so each 128-row absorb, and the
-#: short last ones after it, start and end at the offsets of their
-#: 1024-row counterparts; only the count of whole blocks inside an absorb
-#: (the kernel's loop) is smaller.
+#: 128 and 1024 are both multiples of 4 (as are 136, 112, 132, 116 and
+#: 536, 444, 528, 468), so each cut absorb, and the short last ones after
+#: it, start and end at the offsets of their full-depth counterparts; only
+#: the count of whole blocks inside an absorb (the kernel's loop) is
+#: smaller.
 STREAM_PLAIN_CASES = ((128,) * 4 + (4,), (128,) * 4 + (4, 3),
-                      (536,) * 3 + (444,), (528,) * 3 + (468, 3))
+                      (136,) * 3 + (112,), (132,) * 3 + (116, 3))
 #: the Poseidon chunked absorb against its plain version at the streaming
 #: paths' row counts and chunkings: the 2^20 commit's 4m and 4m + 3 rows in
 #: STREAM_CHUNK-row chunks (a last chunk of 4, an odd one of 7) and the
@@ -464,11 +480,58 @@ def _time_once(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+#: the symbol of each kernel's launches in a profile (csrc/)
+KERNEL_SYMBOLS = {"ntt": "ntt", "ntt16": "ntt", "mont_mul": "mont_mul",
+                  "blake2s_cols": "blake2s_kernel",
+                  "blake2s_stream": "blake2s_kernel",
+                  "row_combine": "row_combine_kernel",
+                  "row_combine16": "row_combine_kernel",
+                  "sha256_tree": "sha256", "poseidon_cols": "poseidon",
+                  "poseidon_stream": "poseidon"}
+
+
+def _device_ms(torch, fn, symbol: str, iters: int = 3, tries: int = 3):
+    """The device time a call of ``fn`` spends in the kernels whose name
+    holds ``symbol``: the self device time of those kernels in a
+    torch.profiler trace of the device alone over ``iters`` calls (after a
+    warm-up), divided by ``iters``.  Beside the CUDA-event time of the
+    call, it separates the kernel from the call's other launches and from
+    the host's enqueue.  The profiler now and then drops a kernel's record
+    from a trace: a trace whose launches of the kernel are none, or not the
+    same number a call, is taken again, ``tries`` times in all; then None,
+    logged (only the call's CUDA-event time stands)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if symbol in ev.key:
+                t = getattr(ev, "self_device_time_total", None)
+                total += t if t is not None else ev.self_cuda_time_total
+                count += ev.count
+        if total > 0 and count % iters == 0:
+            return total / 1e3 / iters
+    log(f"device time of {symbol}: no whole trace of its launches in "
+        f"{tries} tries (not measured)")
+    return None
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
     """(least ms the card could take, what bounds it) for work that must
-    move ``nbytes`` and do ``ops`` 32-bit integer operations."""
+    move ``nbytes`` and do ``ops`` 32-bit integer operations at
+    ``ops_per_s`` (a work function's third item, where it gives one)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / INT32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -499,24 +562,40 @@ def ntt_work(field, rows: int, w: int, n: int, epilogue: bool,
 
 
 def blake2s_work(field, rows: int, cols: int, in16: bool = False):
-    """Bytes and operations of the column hash: 2 L-byte canonical elements
-    a block of 64 message bytes after the 8-byte prefix (``in16``: the
-    elements read in 16-bit limbs)."""
+    """Bytes, operations and their rate of the column hash: 2 L-byte
+    canonical elements a block of 64 message bytes after the 8-byte prefix
+    (``in16``: the elements read in 16-bit limbs); adds, logic and
+    rotations, at the issue rate."""
     blocks = -(-(8 + 2 * field.num_limbs * rows) // 64)
     return (rows * cols * elem_bytes(field) // (2 if in16 else 1) + cols * 32,
-            cols * blocks * BLAKE2S_BLOCK_OPS)
+            cols * blocks * BLAKE2S_BLOCK_OPS, INT32_ISSUE_PER_S)
+
+
+def scaled(work, times: int):
+    """A work tuple's bytes and operations ``times`` over (a batch)."""
+    return (times * work[0], times * work[1]) + tuple(work[2:])
 
 
 def row_combine_work(field, rows: int, k: int, m16: bool = False):
-    """A product and a modular add (W adds and a compare-select, ~W + 2
-    operations) a term (``m16``: the matrix read in 16-bit limbs)."""
+    """Bytes and the least operations of the combination: M, r and lc each
+    moved once (``m16``: M in 16-bit limbs); a term is a W x W-word product
+    added unreduced, W^2 wide multiply-adds and the 2 W adds that carry them
+    out (a wide multiply-add one operation, as :func:`mont_mul_ops` counts
+    them), and each column is reduced once: W adds to fold the carries,
+    W + 1 Montgomery steps of W multiply-adds, one Montgomery product.  80
+    operations a BN254 term, 168 a BLS12-377 one: below the bytes in both
+    fields, so the bytes bound the pass."""
     W, elem = field.num_limbs // 2, elem_bytes(field)
     return (rows * k * (elem // 2 if m16 else elem) + (rows + k) * elem,
-            rows * k * (mont_mul_ops(field) + W + 2))
+            rows * k * (W * W + 2 * W)
+            + k * (W + (W + 1) * W + mont_mul_ops(field)))
 
 
 def tree_work(n: int):
-    return n * 32 + (2 * n - 1) * 32, (n - 1) * SHA256_NODE_OPS
+    """Bytes, operations and their rate of the tree: adds, logic and
+    rotations, at the issue rate."""
+    return (n * 32 + (2 * n - 1) * 32, (n - 1) * SHA256_NODE_OPS,
+            INT32_ISSUE_PER_S)
 
 
 def field_add_ops(field) -> int:
@@ -612,14 +691,6 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
          pair(elems(nnz, below_r=True), elems(nnz)),
          lambda ab: mm(*ab), lambda ab: fieldops.mont_mul(field, *ab),
          (3 * nnz * elem, nnz * mont_mul_ops(field))),
-        # columns are independent, and the plain version's time grows with
-        # the rows (a column's blocks one after another): it hashes the
-        # first PLAIN_COLUMNS columns at full depth
-        ("blake2s_cols", f"Blake2s columns {rows} x 1024", elems(rows, 1024),
-         lambda u: cuda_hash.blake2s_columns(field, u),
-         hashops.blake2s_columns_ref,
-         blake2s_work(field, rows, 1024),
-         lambda u: u[:, :PLAIN_COLUMNS], lambda d: d[:PLAIN_COLUMNS]),
         ("row_combine", f"row_combine {rows} x {k}",
          pair(elems(rows), elems(rows, k)),
          lambda rm: cuda_lc.row_combine(field, *rm),
@@ -671,23 +742,26 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
                 f"{tuple(want.shape)} {want.dtype}")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         ms = _time_cuda(torch, lambda: kern(inp), iters=5)
+        dev_ms = _device_ms(torch, lambda: kern(inp), KERNEL_SYMBOLS[name])
         bound_ms, bound_by = bound(*work)
         on = (f" on {tuple(part.shape[:2])}"
               if cut and part.shape != inp.shape else "")
         log(f"kernel [{field.name}] {label}: max_abs_err={err} kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms{on}, bound "
-            f"{bound_ms:.4f} ms by {bound_by}")
+            f"{ms:.4f} ms (device {_ms(dev_ms)} ms), plain {plain_ms:.3f} "
+            f"ms{on}, bound {bound_ms:.4f} ms by {bound_by} (bytes "
+            f"{work[0] / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
+            f"{bound(0, *work[1:])[0]:.4f} ms)")
         require(err == 0, f"{label}: kernel disagrees with its plain version")
         res = results.setdefault(name, {
-            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by})
+            "max_abs_err": 0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
         res["max_abs_err"] = max(res["max_abs_err"], err)
         del got, want, inp, part
         torch.cuda.empty_cache()
     results["ntt"]["max_abs_err"] = max(
         results["ntt"]["max_abs_err"], ntt_route_cases(torch, field, gen))
-    results["blake2s_stream"] = blake2s_stream_entry(torch, field, gen, rows,
-                                                     n)
+    results["blake2s_cols"], results["blake2s_stream"] = blake2s_commit_cases(
+        torch, field, gen, rows, n)
     # the commit's full-width NTT_n, column hash and tree (all rows, all n
     # columns; zk: 4m + 3 rows from d2-wide coefficients), kernel only
     for label, key, nrows, w in (("", "", rows, k),
@@ -727,7 +801,8 @@ def stream_digests(field, u, chunk_rows):
     ``chunk_rows`` (:func:`row_cuts`; the streaming commit's launches)."""
     from ligero_tpu_torch.engine import cuda_hash
     rows, n, _ = u.shape
-    hs, r0 = cuda_hash.ColumnHashStream(field, n, rows, u.device), 0
+    hs = cuda_hash.ColumnHashStream(field, n, rows, u.device)
+    r0 = 0
     for cr in row_cuts(rows, chunk_rows):
         hs.absorb(u[r0:r0 + cr], cr)
         r0 += cr
@@ -760,51 +835,81 @@ def cuts_text(cuts) -> str:
     return " + ".join(parts)
 
 
-def blake2s_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
-    """The streamed absorb's record: the kernel against its plain version
-    on the same card tensors, 256 columns at each of STREAM_PLAIN_CASES
-    (the chunkings the streaming paths give it, the largest cut in depth;
-    the plain version takes one small step a block, so its time is its
-    launches'), and over the
-    commit's full width, ``rows`` x ``n`` in STREAM_CHUNK-row chunks,
-    bit-equal to the whole-column kernel on the same matrix, timed with its
-    bound."""
-    from ligero_tpu_torch.engine import cuda_hash, fieldops
-    err, plain_ms = 0, None
-    for cuts in STREAM_PLAIN_CASES:
-        nrows = sum(cuts)
-        u = _rand_elems16(torch, gen, (nrows, 256), field)
-        got = stream_digests(field, u, cuts)
-        want, case_ms = _time_once(torch, lambda: stream_digests_plain(
-            field, u, cuts))
-        case_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        log(f"kernel [{field.name}] streamed Blake2s {nrows} x 256 in absorbs "
-            f"of {cuts_text(cuts)} rows: max_abs_err={case_err} against its "
-            f"plain version ({case_ms:.1f} ms)")
-        require(case_err == 0, f"streamed Blake2s {nrows} x 256 in absorbs "
-                f"of {cuts}: the kernel disagrees with its plain version")
-        err, plain_ms = max(err, case_err), plain_ms or case_ms
-    u = _rand_elems16(torch, gen, (rows, n), field)
-    u32 = fieldops.widen16(u)          # the whole-column kernel's int32
-    require(torch.equal(stream_digests(field, u, STREAM_CHUNK),
-                        cuda_hash.blake2s_columns(field, u32)),
+def _diff(torch, got, want) -> int:
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def blake2s_commit_cases(torch, field, gen, rows: int, n: int):
+    """The column hash at the commit's shape, ``rows`` x ``n``, both
+    entries, against one plain run: the whole-column kernel at full width,
+    its first PLAIN_COLUMNS columns held against the plain version
+    (computed once, at full depth); the streamed 16-bit entry over the same
+    matrix in STREAM_CHUNK-row chunks, equal to it; then the streamed entry
+    against its plain version on the same card tensors at each of
+    STREAM_PLAIN_CASES (the chunkings the streaming paths give it, the
+    largest cut in depth; the plain version takes one small step a block,
+    so its time is its launches'), 256 columns.  Both entries are timed
+    (CUDA events over the call, and the profiler's device time of the
+    kernel).  Returns the whole-column and the streamed records."""
+    from ligero_tpu_torch.engine import cuda_hash, fieldops, hashops
+    u = _rand_elems(torch, gen, (rows, n), field)
+    want, plain_ms = _time_once(
+        torch, lambda: hashops.blake2s_columns_ref(u[:, :PLAIN_COLUMNS]))
+    u16 = fieldops.narrow16(u)
+    cols_bound, cols_by = bound(*blake2s_work(field, rows, n))
+    stream_bound, stream_by = bound(*blake2s_work(field, rows, n, in16=True))
+    whole = cuda_hash.blake2s_columns(field, u)
+    err = _diff(torch, whole[:PLAIN_COLUMNS], want)
+    require(err == 0, f"Blake2s columns {rows} x {n}: the kernel disagrees "
+            "with its plain version")
+    require(torch.equal(stream_digests(field, u16, STREAM_CHUNK), whole),
             f"streamed Blake2s {rows} x {n}: differs from the whole-column "
             "kernel")
-    ms = _time_cuda(torch, lambda: stream_digests(field, u, STREAM_CHUNK), 3)
-    whole_ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u32),
-                          3)
-    bound_ms, by = bound(*blake2s_work(field, rows, n, in16=True))
-    log(f"kernel [{field.name}] streamed Blake2s {rows} x {n} in chunks of "
-        f"{STREAM_CHUNK}, 16-bit limbs: bit-equal to the whole-column kernel "
-        f"on their int32 widening; {ms:.3f} ms (whole-column {whole_ms:.3f} "
-        f"ms), bound {bound_ms:.3f} ms by {by}")
-    del u, u32
+
+    def call():
+        return cuda_hash.blake2s_columns(field, u)
+
+    def streamed():
+        return stream_digests(field, u16, STREAM_CHUNK)
+
+    ms, dev_ms = _time_cuda(torch, call, 3), _device_ms(torch, call,
+                                                        "blake2s_kernel")
+    stream_ms = _time_cuda(torch, streamed, 3)
+    stream_dev_ms = _device_ms(torch, streamed, "blake2s_kernel")
+    log(f"kernel [{field.name}] Blake2s columns {rows} x {n}: first "
+        f"{PLAIN_COLUMNS} columns max_abs_err=0 against the plain version; "
+        f"{ms:.3f} ms (device {_ms(dev_ms)}), bound {cols_bound:.3f} ms by "
+        f"{cols_by}; streamed 16-bit in chunks of {STREAM_CHUNK}, equal: "
+        f"{stream_ms:.3f} ms (device {_ms(stream_dev_ms)}), bound "
+        f"{stream_bound:.3f} ms")
+    del u, u16, whole
     torch.cuda.empty_cache()
+    stream_err, stream_plain_ms = 0, None
+    for cuts in STREAM_PLAIN_CASES:
+        nrows = sum(cuts)
+        v = _rand_elems16(torch, gen, (nrows, 256), field)
+        plain, case_ms = _time_once(torch, lambda: stream_digests_plain(
+            field, v, cuts))
+        case_err = _diff(torch, stream_digests(field, v, cuts), plain)
+        require(case_err == 0, f"streamed Blake2s {nrows} x 256 in absorbs "
+                f"of {cuts}: the kernel disagrees with its plain version")
+        log(f"kernel [{field.name}] streamed Blake2s {nrows} x 256 in absorbs "
+            f"of {cuts_text(cuts)} rows: max_abs_err=0 against its plain "
+            f"version ({case_ms:.1f} ms)")
+        stream_plain_ms = stream_plain_ms or case_ms
+        del v
     first = STREAM_PLAIN_CASES[0]
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "whole_column_ms": whole_ms,
-            "shape": f"{rows} x {n} in chunks of {STREAM_CHUNK}; plain at "
-                     f"{sum(first)} x 256 in absorbs of {cuts_text(first)}"}
+    cols = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": cols_bound, "bound_by": cols_by,
+            "shape": f"{rows} x {n}; plain on its first {PLAIN_COLUMNS} "
+                     "columns"}
+    stream = {"max_abs_err": stream_err, "ms": stream_ms,
+              "device_ms": stream_dev_ms, "plain_ms": stream_plain_ms,
+              "bound_ms": stream_bound, "bound_by": stream_by,
+              "whole_column_ms": ms,
+              "shape": f"{rows} x {n} in chunks of {STREAM_CHUNK}; plain at "
+                       f"{sum(first)} x 256 in absorbs of {cuts_text(first)}"}
+    return cols, stream
 
 
 def blake2s_stream_cases(torch, field, gen, zk_rows: int) -> None:
@@ -1089,14 +1194,16 @@ def blake2s_full_batch_case(torch, field, gen, B, rows, n) -> dict:
             field, u[i * rows:(i + 1) * rows])), f"batched Blake2s {B} x "
             f"{rows} x {n}, matrix {i}: differs from its single launch")
     ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u, B), 3)
-    bound_ms, by = bound(*[B * w for w in blake2s_work(field, rows, n)])
+    dev_ms = _device_ms(torch, lambda: cuda_hash.blake2s_columns(field, u, B),
+                        "blake2s_kernel")
+    bound_ms, by = bound(*scaled(blake2s_work(field, rows, n), B))
     log(f"kernel [{field.name}] batched Blake2s, full {B} x {rows} x {n}: "
-        f"bit-equal to {B} single launches; {ms:.3f} ms, bound "
-        f"{bound_ms:.3f} ms by {by}")
+        f"bit-equal to {B} single launches; "
+        f"{ms:.3f} ms (device {_ms(dev_ms)}), bound {bound_ms:.3f} ms by {by}")
     del u, got
     torch.cuda.empty_cache()
-    return {"shape": f"{B} x {rows} x {n}", "ms": ms, "bound_ms": bound_ms,
-            "bound_by": by}
+    return {"shape": f"{B} x {rows} x {n}", "ms": ms, "device_ms": dev_ms,
+            "bound_ms": bound_ms, "bound_by": by}
 
 
 def blake2s_batch_case(torch, field, gen, B, nrows, cols) -> dict:
@@ -1120,7 +1227,7 @@ def blake2s_batch_case(torch, field, gen, B, nrows, cols) -> dict:
     ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u, B), 5)
     one = _time_cuda(
         torch, lambda: cuda_hash.blake2s_columns(field, u[:nrows]), 5)
-    bound_ms, by = bound(*[B * w for w in blake2s_work(field, nrows, cols)])
+    bound_ms, by = bound(*scaled(blake2s_work(field, nrows, cols), B))
     log(f"kernel [{field.name}] batched Blake2s {B} x {nrows} x {cols}: "
         f"max_abs_err=0, and one matrix alone; kernel {ms:.4f} ms (one "
         f"matrix {one:.4f} ms), plain {plain_ms:.3f} ms, bound "
@@ -1148,14 +1255,18 @@ def row_combine_batch_case(torch, field, gen, B, rows, k) -> dict:
         torch, lambda: cuda_lc.row_combine_batch(field, r, mats), 5)
     one = _time_cuda(
         torch, lambda: cuda_lc.row_combine(field, r[0], mats[0]), 5)
-    bound_ms, by = bound(*[B * w for w in row_combine_work(field, rows, k)])
+    dev_ms = _device_ms(torch, lambda: cuda_lc.row_combine_batch(
+        field, r, mats), "row_combine_kernel")
+    bound_ms, by = bound(*scaled(row_combine_work(field, rows, k), B))
     log(f"kernel [{field.name}] batched row_combine {B} x {rows} x {k}: "
-        f"max_abs_err=0 kernel {ms:.4f} ms (one {one:.4f} ms), plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {by}")
+        f"max_abs_err=0 kernel {ms:.4f} ms (device {_ms(dev_ms)}; one "
+        f"{one:.4f} ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+        f"{by}")
     del r, mats, got, want
     torch.cuda.empty_cache()
-    return {"shape": f"{B} x {rows} x {k}", "ms": ms, "one_ms": one,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
+    return {"shape": f"{B} x {rows} x {k}", "ms": ms, "device_ms": dev_ms,
+            "one_ms": one, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by}
 
 
 def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
@@ -1247,15 +1358,11 @@ def spot_cases(torch, field, gen, rows, k, n, t) -> None:
         torch.cuda.empty_cache()
 
 
-def row_combine_sass(path: str) -> dict:
-    """Where the row loop of each ``row_combine_partial`` instantiation
-    issues its global loads, from the library's SASS (``cuobjdump``): the
-    loop is the body of its one backward branch, and its loads fetch the
-    next row, which the product after the branch uses; ``lead`` is how many
-    of the loop's instructions stand between the last load and the branch
-    (a load sunk to the end of the loop leads by a few).  Returns
-    {instantiation: {"loads": n, "first_load": i, "last_load": j,
-    "first_multiply": k, "body": length, "lead": body - j}}."""
+def sass_loops(path: str, symbol: str) -> dict:
+    """The loops of every function of the library whose mangled name holds
+    ``symbol``, from its SASS (``cuobjdump``): {name: [loop body, ...]},
+    a body the instructions from a backward branch's target to the
+    branch."""
     import re
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                         "cuobjdump")
@@ -1265,28 +1372,131 @@ def row_combine_sass(path: str) -> dict:
     out, name, body = {}, None, []
     for line in res.stdout.splitlines() + ["Function : end"]:
         if "Function : " in line:
-            if name and "row_combine_partial" in name:
-                field = "bls12_377_fq" if "Bls12377Fq" in name else "bn254_fr"
-                if "Lb1E" in name:          # the 16-bit matrix's entry
-                    field += ", 16-bit"
+            if name and symbol in name:
                 instrs = [(int(a, 16), text) for a, text in body]
                 back = [(at, int(t, 16)) for at, text in instrs
                         for t in re.findall(r"BRA (0x[0-9a-f]+)", text)
                         if int(t, 16) < at]
-                start, end = max(back, key=lambda b: b[0] - b[1])[::-1]
-                loop = [text for at, text in instrs if start <= at <= end]
-                loads = [i for i, text in enumerate(loop) if "LDG" in text]
-                mults = [i for i, text in enumerate(loop) if "IMAD.WIDE" in text]
-                out[field] = {"loads": len(loads), "body": len(loop),
-                              "first_load": min(loads, default=None),
-                              "last_load": max(loads, default=None),
-                              "first_multiply": min(mults, default=None),
-                              "lead": len(loop) - max(loads, default=len(loop))}
+                require(back, f"SASS {name}: no loop")
+                out[name] = [[text for at, text in instrs if b[1] <= at <= b[0]]
+                             for b in back]
             name, body = line.split("Function : ")[1].strip(), []
             continue
         m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if m:
             body.append((m.group(1), m.group(2)))
+    return out
+
+
+def _instantiation(name: str, flags_text) -> str:
+    """A kernel's field and template flags (Lb1E = true) in words."""
+    import re
+    field = "bls12_377_fq" if "Bls12377Fq" in name else "bn254_fr"
+    flags = re.findall(r"Lb([01])E", name)
+    return field + "".join(f", {text}" for flag, text in zip(flags, flags_text)
+                           if flag == "1")
+
+
+def row_combine_sass(path: str) -> dict:
+    """Where the row loop of each ``row_combine_kernel`` instantiation
+    stands its copies and its products, from the library's SASS
+    (:func:`sass_loops`): the loop with the most wide multiply-adds; in it
+    the cp.async copies of the rows ahead (LDGSTS), the shared loads
+    of the staged rows (LDS), the wide multiply-adds of the unreduced
+    products (IMAD.WIDE, IMAD.HI and their carried forms) and the waits
+    for the copies (LDGDEPBAR / DEPBAR).  Returns {instantiation:
+    {"body": length, "copies": n, "first_copy": i, "last_copy": j,
+    "shared_loads": n, "multiplies": n, "first_multiply": k,
+    "last_multiply": l, "waits": n}}."""
+    import re
+    out = {}
+    for name, loops in sass_loops(path, "row_combine_kernel").items():
+        # template arguments <F, M16, PERCOL>
+        field = _instantiation(name, ("16-bit", "r per column"))
+        loop = max(loops, key=lambda body: sum(
+            bool(re.search(r"\bIMAD\.(WIDE|HI)", t)) for t in body))
+
+        def where(pattern):
+            return [i for i, text in enumerate(loop)
+                    if re.search(pattern, text)]
+        copies = where(r"\bLDGSTS\b")
+        mults = where(r"\bIMAD\.(WIDE|HI)")
+        out[field] = {"body": len(loop), "copies": len(copies),
+                      "first_copy": min(copies, default=None),
+                      "last_copy": max(copies, default=None),
+                      "shared_loads": len(where(r"\bLDS\b")),
+                      "multiplies": len(mults),
+                      "first_multiply": min(mults, default=None),
+                      "last_multiply": max(mults, default=None),
+                      "waits": len(where(r"\b(LDGDEPBAR|DEPBAR)\b"))}
+    return out
+
+
+#: opcodes that issue on the integer (ALU) pipe, and on the FMA pipe
+ALU_OPS = ("LOP3", "SHF", "IADD3", "PRMT", "LEA", "ISETP", "SEL", "VIADD",
+           "IABS", "FLO", "POPC", "BMSK", "SGXT", "LOP")
+FMA_OPS = ("IMAD", "IMUL")
+
+
+def blake2s_sass(path: str) -> dict:
+    """The compression loop of each ``blake2s_kernel`` instantiation from
+    the library's SASS (:func:`sass_loops`: the loop with the most funnel
+    shifts), its instructions by the pipe that issues them: the integer
+    pipe's (LOP3, SHF, IADD3, ...) and the FMA pipe's (IMAD and its forms,
+    adds and moves ptxas puts there).  Per scheduler a cycle the integer
+    pipe takes 16 lanes, the FMA pipe's integer half 16, the issue 32, so
+    the least cycles of a warp's pass through the loop are the larger of 2
+    x integer, 2 x FMA and all instructions; ``mix_over_issue`` is that
+    over the loop's blocks' 968 operations a block at the issue rate (one
+    cycle each).  Returns {instantiation: {"body": n, "alu": a, "fma": f,
+    "blocks": b, "mix_over_issue": x, "ops": {opcode: n}}}."""
+    import collections
+    out = {}
+    for name, loops in sass_loops(path, "blake2s_kernel").items():
+        field = _instantiation(name, ("16-bit",))
+        loop = max(loops, key=lambda body: sum(
+            t.split()[1 if t.startswith("@") else 0].startswith("SHF")
+            for t in body))
+        ops = collections.Counter(
+            t.split()[1 if t.startswith("@") else 0].split(".")[0]
+            for t in loop)
+        alu = sum(n for op, n in ops.items() if op in ALU_OPS)
+        fma = sum(n for op, n in ops.items() if op in FMA_OPS)
+        # one compression body a pass (the rotations: 4 a G, 8 G a round,
+        # 10 rounds)
+        blocks = max(1, round(ops["SHF"] / 320))
+        cycles = max(2 * alu, 2 * fma, len(loop))
+        out[field] = {"body": len(loop), "alu": alu, "fma": fma,
+                      "blocks": blocks,
+                      "mix_over_issue": cycles / (blocks * BLAKE2S_BLOCK_OPS),
+                      "ops": dict(ops.most_common(8))}
+    return out
+
+
+def ptxas_lines(log_text: str, symbols) -> list[str]:
+    """ptxas's registers, shared memory and spill lines of every compiled
+    function whose mangled name holds one of ``symbols``, each beside that
+    name (the function being compiled precedes its lines in nvcc.log)."""
+    import re
+    out, current = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            current = m.group(1)
+        if current and any(sym in current for sym in symbols) and (
+                "registers" in line or "spill" in line):
+            # _ZN..blake2s_kernelI10Bls12377FqLb1ELi4EE.. -> blake2s_kernel<
+            # Bls12377Fq, 1, 4>: the field and the template's flags
+            m = re.search(r"(%s)I\d+(\w+?)((?:L[bi]\d+E)+)E"
+                          % "|".join(symbols), current)
+            name = (f"{m.group(1)}<{m.group(2)}, "
+                    f"{', '.join(re.findall(r'L[bi](\d+)E', m.group(3)))}>"
+                    if m else current)
+            out.append(f"{name}: {line.split('ptxas info    :')[-1].strip()}")
     return out
 
 
@@ -1437,7 +1647,7 @@ def poseidon_cases(torch, field, gen, rows: int, n: int, t: int) -> dict:
                 f"batched Poseidon {B} x {rows} x {n}, matrix {i}: differs "
                 "from its single launch")
     ms = _time_cuda(torch, lambda: kern(mats), 1)
-    bound_ms, by = bound(*[B * w for w in poseidon_work(field, rows, n)])
+    bound_ms, by = bound(*scaled(poseidon_work(field, rows, n), B))
     res["batched_full"] = {"shape": f"{B} x {rows} x {n}", "ms": ms,
                            "lanes": cuda_poseidon.lanes_for(B * n),
                            "bound_ms": bound_ms, "bound_by": by}
@@ -3158,16 +3368,28 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     if os.path.exists(cuda_build.LOG_PATH):
         with open(cuda_build.LOG_PATH) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log("ptxas: " + line.strip())
+            nvcc_log = f.read()
+        for line in nvcc_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("ptxas: " + line.strip())
+        # the redesigned kernels' instantiations, each by name
+        for line in ptxas_lines(nvcc_log, ("blake2s_kernel",
+                                           "row_combine_kernel")):
+            log("ptxas [blake2s / row_combine]: " + line)
+    for name, mix in blake2s_sass(cuda_build.LIB_PATH).items():
+        log(f"SASS blake2s_kernel [{name}]: compression loop of {mix['body']} "
+            f"instructions ({mix['blocks']} block(s) a pass), {mix['alu']} on "
+            f"the integer pipe, {mix['fma']} on the FMA pipe: its least issue "
+            f"time is {mix['mix_over_issue']:.3f} x the bound's (968 "
+            f"operations a block at the issue rate); {mix['ops']}")
     rc_sass = row_combine_sass(cuda_build.LIB_PATH)
     for name, where in rc_sass.items():
-        log(f"SASS row_combine_partial [{name}]: row loop of {where['body']} "
-            f"instructions, first wide multiply at {where['first_multiply']}, "
-            f"the next row's {where['loads']} loads at {where['first_load']}.."
-            f"{where['last_load']}: {where['lead']} instructions ahead of the "
-            "branch to the product that uses them")
+        log(f"SASS row_combine_kernel [{name}]: row loop of {where['body']} "
+            f"instructions: {where['copies']} cp.async copies (LDGSTS) at "
+            f"{where['first_copy']}..{where['last_copy']}, "
+            f"{where['waits']} waits, {where['shared_loads']} shared loads, "
+            f"{where['multiplies']} wide multiply-adds at "
+            f"{where['first_multiply']}..{where['last_multiply']}")
 
     laps("build")
     gen = torch.Generator(device="cuda")
@@ -3371,7 +3593,7 @@ def main() -> int:
              "zk_full_ms", "full_bound_ms", "zk_full_bound_ms", "batch path",
              "zk batch path", "2^22", "rows_64", "rows_67", "levels", "lanes",
              "per_lanes", "verifier", "chain_floor_g1_ms", "sass",
-             "whole_column_ms", "short_plain_ms", "shape")
+             "whole_column_ms", "short_plain_ms", "shape", "device_ms")
 
     def timings(res: dict) -> dict:
         return {"max_abs_err": res["max_abs_err"], "ms": res["ms"],

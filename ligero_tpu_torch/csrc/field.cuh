@@ -18,8 +18,12 @@
 // below 2^254 and BLS12-377's below 2^377, so 2p leaves the top word room
 // in both.
 //
+// fe_mul_acc adds a product into an unreduced accumulator: row_combine.cu
+// sums a chunk's products so and reduces once.
+//
 // A kernel is a template over a field trait (Bn254Fr, Bls12377Fq at the end
-// of this file): W, L, the id the C entry points take, and the arithmetic.
+// of this file): W, L, the id the C entry points take, p's words, and the
+// arithmetic.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -471,6 +475,82 @@ __device__ __forceinline__ Fe fe_mont_sqr(const Fe& a) {
   return sub_p(r.w, d.w) ? d : r;
 }
 
+// acc += a b: the product of two W-word integers added to an accumulator
+// with no reduction (row_combine.cu's deferred sum).  The accumulator is
+// acc = e + 2^32 o + 2^32W ce + 2^32(W+1) co, each array word by word: a
+// product a_i b_j of word weight s = i + j lands on the aligned pair
+// e[s], e[s + 1] where s is even and o[s - 1], o[s] where s is odd, so
+// that each mad.lo.cc / madc.hi.cc pair is one wide multiply-add on a
+// fixed register pair (a word that took both roles would cost moves).
+// Four chains for each two words of a, as in cios_step; each chain's carry
+// out of its top word is kept aside, in ce (weight 2^32(W+x)) or co
+// (2^32(W+x+1)), at most two a product and entry, and the caller folds
+// them in once at the end.  No carry is lost whatever a and b.
+__device__ __forceinline__ void fe_mul_acc(uint32_t e[2 * W],
+                                           uint32_t o[2 * W - 2],
+                                           uint32_t ce[W + 1], uint32_t co[W],
+                                           const Fe& a, const Fe& b) {
+#pragma unroll
+  for (int i = 0; i < W; i += 2) {
+    // a_i b_j, j even: e[i + j], e[i + j + 1]
+    asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %10, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+        "madc.lo.cc.u32 %4, %9, %12, %4;\n\t"
+        "madc.hi.cc.u32 %5, %9, %12, %5;\n\t"
+        "madc.lo.cc.u32 %6, %9, %13, %6;\n\t"
+        "madc.hi.cc.u32 %7, %9, %13, %7;\n\t"
+        "addc.u32 %8, %8, 0;\n\t"
+        : "+r"(e[i]), "+r"(e[i + 1]), "+r"(e[i + 2]), "+r"(e[i + 3]),
+          "+r"(e[i + 4]), "+r"(e[i + 5]), "+r"(e[i + 6]), "+r"(e[i + 7]),
+          "+r"(ce[i])
+        : "r"(a.w[i]), "r"(b.w[0]), "r"(b.w[2]), "r"(b.w[4]), "r"(b.w[6]));
+    // a_i b_j, j odd: o[i + j - 1], o[i + j]
+    asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %10, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+        "madc.lo.cc.u32 %4, %9, %12, %4;\n\t"
+        "madc.hi.cc.u32 %5, %9, %12, %5;\n\t"
+        "madc.lo.cc.u32 %6, %9, %13, %6;\n\t"
+        "madc.hi.cc.u32 %7, %9, %13, %7;\n\t"
+        "addc.u32 %8, %8, 0;\n\t"
+        : "+r"(o[i]), "+r"(o[i + 1]), "+r"(o[i + 2]), "+r"(o[i + 3]),
+          "+r"(o[i + 4]), "+r"(o[i + 5]), "+r"(o[i + 6]), "+r"(o[i + 7]),
+          "+r"(co[i])
+        : "r"(a.w[i]), "r"(b.w[1]), "r"(b.w[3]), "r"(b.w[5]), "r"(b.w[7]));
+    // a_(i+1) b_j, j odd: e[i + j + 1], e[i + j + 2]
+    asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %10, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+        "madc.lo.cc.u32 %4, %9, %12, %4;\n\t"
+        "madc.hi.cc.u32 %5, %9, %12, %5;\n\t"
+        "madc.lo.cc.u32 %6, %9, %13, %6;\n\t"
+        "madc.hi.cc.u32 %7, %9, %13, %7;\n\t"
+        "addc.u32 %8, %8, 0;\n\t"
+        : "+r"(e[i + 2]), "+r"(e[i + 3]), "+r"(e[i + 4]), "+r"(e[i + 5]),
+          "+r"(e[i + 6]), "+r"(e[i + 7]), "+r"(e[i + 8]), "+r"(e[i + 9]),
+          "+r"(ce[i + 2])
+        : "r"(a.w[i + 1]), "r"(b.w[1]), "r"(b.w[3]), "r"(b.w[5]), "r"(b.w[7]));
+    // a_(i+1) b_j, j even: o[i + j], o[i + j + 1]
+    asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %10, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+        "madc.lo.cc.u32 %4, %9, %12, %4;\n\t"
+        "madc.hi.cc.u32 %5, %9, %12, %5;\n\t"
+        "madc.lo.cc.u32 %6, %9, %13, %6;\n\t"
+        "madc.hi.cc.u32 %7, %9, %13, %7;\n\t"
+        "addc.u32 %8, %8, 0;\n\t"
+        : "+r"(o[i]), "+r"(o[i + 1]), "+r"(o[i + 2]), "+r"(o[i + 3]),
+          "+r"(o[i + 4]), "+r"(o[i + 5]), "+r"(o[i + 6]), "+r"(o[i + 7]),
+          "+r"(co[i])
+        : "r"(a.w[i + 1]), "r"(b.w[0]), "r"(b.w[2]), "r"(b.w[4]), "r"(b.w[6]));
+  }
+}
+
 }  // namespace fr
 
 namespace fq {
@@ -728,6 +808,96 @@ __device__ __forceinline__ Fe fe_mont_mul(const Fe& a, const Fe& b) {
   return (top != 0u || ge) ? d : r;
 }
 
+// fr::fe_mul_acc over twelve words (see there).
+__device__ __forceinline__ void fe_mul_acc(uint32_t e[2 * W],
+                                           uint32_t o[2 * W - 2],
+                                           uint32_t ce[W + 1], uint32_t co[W],
+                                           const Fe& a, const Fe& b) {
+#pragma unroll
+  for (int i = 0; i < W; i += 2) {
+    // a_i b_j, j even: e[i + j], e[i + j + 1]
+    asm("mad.lo.cc.u32 %0, %13, %14, %0;\n\t"
+        "madc.hi.cc.u32 %1, %13, %14, %1;\n\t"
+        "madc.lo.cc.u32 %2, %13, %15, %2;\n\t"
+        "madc.hi.cc.u32 %3, %13, %15, %3;\n\t"
+        "madc.lo.cc.u32 %4, %13, %16, %4;\n\t"
+        "madc.hi.cc.u32 %5, %13, %16, %5;\n\t"
+        "madc.lo.cc.u32 %6, %13, %17, %6;\n\t"
+        "madc.hi.cc.u32 %7, %13, %17, %7;\n\t"
+        "madc.lo.cc.u32 %8, %13, %18, %8;\n\t"
+        "madc.hi.cc.u32 %9, %13, %18, %9;\n\t"
+        "madc.lo.cc.u32 %10, %13, %19, %10;\n\t"
+        "madc.hi.cc.u32 %11, %13, %19, %11;\n\t"
+        "addc.u32 %12, %12, 0;\n\t"
+        : "+r"(e[i]), "+r"(e[i + 1]), "+r"(e[i + 2]), "+r"(e[i + 3]),
+          "+r"(e[i + 4]), "+r"(e[i + 5]), "+r"(e[i + 6]), "+r"(e[i + 7]),
+          "+r"(e[i + 8]), "+r"(e[i + 9]), "+r"(e[i + 10]), "+r"(e[i + 11]),
+          "+r"(ce[i])
+        : "r"(a.w[i]), "r"(b.w[0]), "r"(b.w[2]), "r"(b.w[4]), "r"(b.w[6]),
+          "r"(b.w[8]), "r"(b.w[10]));
+    // a_i b_j, j odd: o[i + j - 1], o[i + j]
+    asm("mad.lo.cc.u32 %0, %13, %14, %0;\n\t"
+        "madc.hi.cc.u32 %1, %13, %14, %1;\n\t"
+        "madc.lo.cc.u32 %2, %13, %15, %2;\n\t"
+        "madc.hi.cc.u32 %3, %13, %15, %3;\n\t"
+        "madc.lo.cc.u32 %4, %13, %16, %4;\n\t"
+        "madc.hi.cc.u32 %5, %13, %16, %5;\n\t"
+        "madc.lo.cc.u32 %6, %13, %17, %6;\n\t"
+        "madc.hi.cc.u32 %7, %13, %17, %7;\n\t"
+        "madc.lo.cc.u32 %8, %13, %18, %8;\n\t"
+        "madc.hi.cc.u32 %9, %13, %18, %9;\n\t"
+        "madc.lo.cc.u32 %10, %13, %19, %10;\n\t"
+        "madc.hi.cc.u32 %11, %13, %19, %11;\n\t"
+        "addc.u32 %12, %12, 0;\n\t"
+        : "+r"(o[i]), "+r"(o[i + 1]), "+r"(o[i + 2]), "+r"(o[i + 3]),
+          "+r"(o[i + 4]), "+r"(o[i + 5]), "+r"(o[i + 6]), "+r"(o[i + 7]),
+          "+r"(o[i + 8]), "+r"(o[i + 9]), "+r"(o[i + 10]), "+r"(o[i + 11]),
+          "+r"(co[i])
+        : "r"(a.w[i]), "r"(b.w[1]), "r"(b.w[3]), "r"(b.w[5]), "r"(b.w[7]),
+          "r"(b.w[9]), "r"(b.w[11]));
+    // a_(i+1) b_j, j odd: e[i + j + 1], e[i + j + 2]
+    asm("mad.lo.cc.u32 %0, %13, %14, %0;\n\t"
+        "madc.hi.cc.u32 %1, %13, %14, %1;\n\t"
+        "madc.lo.cc.u32 %2, %13, %15, %2;\n\t"
+        "madc.hi.cc.u32 %3, %13, %15, %3;\n\t"
+        "madc.lo.cc.u32 %4, %13, %16, %4;\n\t"
+        "madc.hi.cc.u32 %5, %13, %16, %5;\n\t"
+        "madc.lo.cc.u32 %6, %13, %17, %6;\n\t"
+        "madc.hi.cc.u32 %7, %13, %17, %7;\n\t"
+        "madc.lo.cc.u32 %8, %13, %18, %8;\n\t"
+        "madc.hi.cc.u32 %9, %13, %18, %9;\n\t"
+        "madc.lo.cc.u32 %10, %13, %19, %10;\n\t"
+        "madc.hi.cc.u32 %11, %13, %19, %11;\n\t"
+        "addc.u32 %12, %12, 0;\n\t"
+        : "+r"(e[i + 2]), "+r"(e[i + 3]), "+r"(e[i + 4]), "+r"(e[i + 5]),
+          "+r"(e[i + 6]), "+r"(e[i + 7]), "+r"(e[i + 8]), "+r"(e[i + 9]),
+          "+r"(e[i + 10]), "+r"(e[i + 11]), "+r"(e[i + 12]), "+r"(e[i + 13]),
+          "+r"(ce[i + 2])
+        : "r"(a.w[i + 1]), "r"(b.w[1]), "r"(b.w[3]), "r"(b.w[5]),
+          "r"(b.w[7]), "r"(b.w[9]), "r"(b.w[11]));
+    // a_(i+1) b_j, j even: o[i + j], o[i + j + 1]
+    asm("mad.lo.cc.u32 %0, %13, %14, %0;\n\t"
+        "madc.hi.cc.u32 %1, %13, %14, %1;\n\t"
+        "madc.lo.cc.u32 %2, %13, %15, %2;\n\t"
+        "madc.hi.cc.u32 %3, %13, %15, %3;\n\t"
+        "madc.lo.cc.u32 %4, %13, %16, %4;\n\t"
+        "madc.hi.cc.u32 %5, %13, %16, %5;\n\t"
+        "madc.lo.cc.u32 %6, %13, %17, %6;\n\t"
+        "madc.hi.cc.u32 %7, %13, %17, %7;\n\t"
+        "madc.lo.cc.u32 %8, %13, %18, %8;\n\t"
+        "madc.hi.cc.u32 %9, %13, %18, %9;\n\t"
+        "madc.lo.cc.u32 %10, %13, %19, %10;\n\t"
+        "madc.hi.cc.u32 %11, %13, %19, %11;\n\t"
+        "addc.u32 %12, %12, 0;\n\t"
+        : "+r"(o[i]), "+r"(o[i + 1]), "+r"(o[i + 2]), "+r"(o[i + 3]),
+          "+r"(o[i + 4]), "+r"(o[i + 5]), "+r"(o[i + 6]), "+r"(o[i + 7]),
+          "+r"(o[i + 8]), "+r"(o[i + 9]), "+r"(o[i + 10]), "+r"(o[i + 11]),
+          "+r"(co[i])
+        : "r"(a.w[i + 1]), "r"(b.w[0]), "r"(b.w[2]), "r"(b.w[4]),
+          "r"(b.w[6]), "r"(b.w[8]), "r"(b.w[10]));
+  }
+}
+
 }  // namespace fq
 
 template <int W>
@@ -827,7 +997,18 @@ __device__ __forceinline__ void store_elem(void* base, long long e,
 // argument of every C entry point (engine/cuda_build.py: KERNEL_FIELDS).
 struct Bn254Fr {
   static constexpr int W = fr::W, L = fr::L, ID = 0;
+  static constexpr uint32_t NP0 = fr::NP0;
   using Fe = fr::Fe;
+  static __device__ __forceinline__ uint32_t p_word(int j) {
+    return fr::p_word(j);
+  }
+  static __device__ __forceinline__ void mul_acc(uint32_t e[2 * W],
+                                                 uint32_t o[2 * W - 2],
+                                                 uint32_t ce[W + 1],
+                                                 uint32_t co[W], const Fe& a,
+                                                 const Fe& b) {
+    fr::fe_mul_acc(e, o, ce, co, a, b);
+  }
   static __device__ __forceinline__ Fe add(const Fe& a, const Fe& b) {
     return fr::fe_add(a, b);
   }
@@ -844,7 +1025,18 @@ struct Bn254Fr {
 
 struct Bls12377Fq {
   static constexpr int W = fq::W, L = fq::L, ID = 1;
+  static constexpr uint32_t NP0 = fq::NP0;
   using Fe = fq::Fe;
+  static __device__ __forceinline__ uint32_t p_word(int j) {
+    return fq::p_word(j);
+  }
+  static __device__ __forceinline__ void mul_acc(uint32_t e[2 * W],
+                                                 uint32_t o[2 * W - 2],
+                                                 uint32_t ce[W + 1],
+                                                 uint32_t co[W], const Fe& a,
+                                                 const Fe& b) {
+    fq::fe_mul_acc(e, o, ce, co, a, b);
+  }
   static __device__ __forceinline__ Fe add(const Fe& a, const Fe& b) {
     return fq::fe_add(a, b);
   }

@@ -4,23 +4,24 @@ wrapper.
 Replaces ``ligero_tpu/engine/pallas_hash.py:_blake2s_kernel_factory``
 (``blake2s_columns_pallas``), the commit's column leaves, for BN254 Fr
 (32-byte elements) and BLS12-377 Fq (48-byte elements).  On this card the
-kernel is bound by integer issue (about 1000 dependent 32-bit operations
-per 64-byte block), not by memory: one thread per column streams its
-column straight from the (rows, n, L) matrix, with no re-layout pass, and
-carries the two words that the 8-byte length prefix shifts across each
-period of blocks (:func:`hashops.column_block_words` is the kernel's word
-map).  It takes any n (the TPU kernel needed n % 1024 == 0), and a batch of
-B matrices of one shape in one launch.
+hash is bound by instruction issue (968 adds, xors and rotations a 64-byte
+block), not by memory.  One thread hashes a column; each warp stages its
+32 columns' next rows in shared memory with cp.async while it hashes the
+rows before (``csrc/stage.cuh``), so no load waits in a compression.  The
+message is the column's ark serialization: the 8-byte length prefix shifts
+two words across each period of blocks (:func:`hashops.column_block_words`
+is the kernel's word map).  It takes any n (the TPU kernel needed n % 1024
+== 0), and a batch of B matrices of one shape in one launch.
 
 The streamed entry (:class:`ColumnHashStream`, the counterpart of the JAX
 package's ``HashKernel.blake2s_stream_*`` in
 ``ligero_tpu/engine/hashops.py``) hashes the same columns when their rows
 arrive chunk by chunk, as the streaming commit re-encodes them: one launch
-a chunk, one thread a column, each column's chaining value and two carried
-words kept on the device between launches; the last chunk's launch makes
-the final compression.  Its digests equal :func:`blake2s_columns`'s for
-every chunking.  It reads 16-bit limbs (int16, :func:`fieldops.narrow16`):
-the resident and streaming modes hold their codeword chunks so (the JAX
+a chunk, each column's chaining value and two carried words kept on the
+device between launches; the last chunk's launch makes the final
+compression.  Its digests equal :func:`blake2s_columns`'s for every
+chunking.  It reads 16-bit limbs (int16, :func:`fieldops.narrow16`): the
+resident and streaming modes hold their codeword chunks so (the JAX
 package's ``narrow16``), and a 16-bit element is its own message words.
 
 A tensor on the CPU takes the plain version

@@ -2,14 +2,20 @@
 
 Replaces ``ligero_tpu/engine/mxu_lc.py:_mxu_lc_kernel_factory`` (``mxu_lc``),
 the interleaved phase's lc = sum_i r_i preenc_i, for BN254 Fr and BLS12-377
-Fq.  On this card the pass is bound by device memory (one 4 L-byte element
-per Montgomery product: 64 bytes for BN254, 96 for BLS12-377): the
-kernel gives each thread one column and a chunk of rows, so the card fills
-even at a few thousand columns, and a second launch adds the per-chunk
-partials.  Modular adds make the sum exact in any order.  The same kernel
-serves the per-element form sum_i r_i[c] M_i[c] (linear phase, verifier
-spot sums).  :func:`row_combine_batch` runs B combinations of one shape in
-the same two launches (the batch on the grid's third axis).
+Fq.  The pass reads one element of M a term (64 or 96 bytes, 32 or 48 in
+16-bit limbs), and its least arithmetic is a W x W-word product a term, so
+on this card memory bounds it.  The kernel sums each column's products of
+a chunk of rows unreduced (the TPU kernel's deferred reduction) and
+reduces once a chunk (:func:`deferred_sum_model` is its arithmetic word by
+word, with the bounds that keep the accumulator exact); a block is four
+warps of 32 columns and one chunk of rows, each warp streaming its
+columns' rows through shared memory with cp.async; the chunks are sized
+(:func:`geometry`) so that the grid holds several blocks an SM, and the
+last block of a column group to finish adds the chunks' sums (an atomic
+ticket), so a call is one launch.  The same kernel serves the
+per-element form sum_i r_i[c] M_i[c] (linear phase, verifier spot sums).
+:func:`row_combine_batch` runs B combinations of one shape in the same
+launch (the batch on the grid's third axis).
 
 The matrix may be 16-bit limbs (an int16 tensor, :func:`fieldops.narrow16`:
 the resident and streaming modes' coefficient chunks), which the kernel
@@ -33,8 +39,109 @@ launches = cuda_build.LaunchCounter()
 #: launches of the 16-bit entry: an int16 matrix
 launches16 = cuda_build.LaunchCounter()
 
-ROWS_PER_CHUNK = 64
-MAX_CHUNKS = 65535  # the grid's second axis
+#: a block's columns (four warps of 32; csrc/row_combine.cu THREADS)
+BLOCK_COLUMNS = 128
+#: rows a chunk at most: r's rows of a chunk are staged in shared memory
+#: (csrc/row_combine.cu RPC_MAX), far inside the accumulator's bound
+#: (:func:`deferred_sum_model`)
+ROWS_PER_CHUNK_MAX = 256
+#: rows a chunk at least, where the rows allow: a chunk's reduction costs
+#: about two terms' arithmetic
+ROWS_PER_CHUNK_MIN = 16
+#: blocks an SM the chunking aims at
+BLOCKS_PER_SM = 4
+MAX_GRID = 65535  # the grid's second and third axes
+
+_SMS: dict = {}
+_TICKETS: dict = {}
+
+
+def geometry(rows: int, k: int, batch: int, sms: int) -> tuple[int, int]:
+    """(chunks, rows a chunk) of a launch over ``batch`` (rows, k)
+    matrices on a card of ``sms`` SMs: enough chunks for BLOCKS_PER_SM
+    blocks an SM over the ceil(k / 128) column groups and the batch, each
+    of ROWS_PER_CHUNK_MIN rows at least (where there are so many) and
+    ROWS_PER_CHUNK_MAX at most; every row in exactly one chunk, the last
+    the short one."""
+    if rows < 1 or k < 1 or not 1 <= batch <= MAX_GRID:
+        raise ValueError(f"row_combine: no launch for {batch} x {rows} x {k}")
+    groups = -(-k // BLOCK_COLUMNS)
+    want = max(1, -(-BLOCKS_PER_SM * sms // (groups * batch)))
+    rpc = min(ROWS_PER_CHUNK_MAX, max(ROWS_PER_CHUNK_MIN, -(-rows // want)))
+    chunks = -(-rows // rpc)
+    if chunks > MAX_GRID:
+        raise ValueError(f"row_combine: {rows} rows need more than {MAX_GRID} "
+                         f"chunks of {rpc}")
+    return chunks, min(rpc, rows)
+
+
+def deferred_sum_model(field: FieldSpec, rs, ms,
+                       acc_words: int | None = None) -> int:
+    """The kernel's arithmetic for one column and one chunk, word by word
+    on Python ints: each term r_i M_i added unreduced by ``fe_mul_acc``'s
+    chains (csrc/field.cuh: for each pair of words of r, four chains over
+    M's even or odd words into the even-weighted words e or the
+    odd-weighted words o, each chain's carry out of its top word counted
+    aside in ce or co), the fold into S, ``acc_words`` words (the kernel's
+    2 W + 1; fewer drops the words above), W + 1 Montgomery steps, then the
+    product by K = 2^32 R mod p.  Returns (sum_i r_i M_i) R^-1 mod p as the
+    kernel computes it.  The kernel's bounds (r < R, M < p, at most
+    ROWS_PER_CHUNK_MAX rows) keep every word exact: a carry out of the
+    last word, or a T of R or more, raises here."""
+    W = field.num_limbs // 2
+    acc_words = 2 * W + 1 if acc_words is None else acc_words
+    m32, R, p = (1 << 32) - 1, 1 << (32 * W), field.p
+    words = lambda v: [(v >> (32 * j)) & m32 for j in range(W)]  # noqa: E731
+    e, o, ce, co = [0] * (2 * W), [0] * (2 * W - 2), [0] * (W + 1), [0] * W
+
+    def chain(arr, first, carries, at, a, bs):
+        # mad.lo.cc / madc.hi.cc over consecutive word pairs, then addc
+        cc = 0
+        for j, b in enumerate(bs):
+            prod = a * b
+            for k, part in ((2 * j, prod & m32), (2 * j + 1, prod >> 32)):
+                v = arr[first + k] + part + cc
+                arr[first + k], cc = v & m32, v >> 32
+        carries[at] += cc
+
+    for r, m in zip(rs, ms):
+        a, b = words(r), words(m)
+        for i in range(0, W, 2):
+            chain(e, i, ce, i, a[i], b[0::2])
+            chain(o, i, co, i, a[i], b[1::2])
+            chain(e, i + 2, ce, i + 2, a[i + 1], b[1::2])
+            chain(o, i, co, i, a[i + 1], b[0::2])
+    if max(ce + co) > m32:
+        raise OverflowError("row_combine: a kept carry word overflowed")
+    s, carry = [], 0
+    for x in range(2 * W + 1):
+        v = carry + (e[x] if x < 2 * W else 0)
+        v += o[x - 1] if 1 <= x <= 2 * W - 2 else 0
+        v += ce[x - W] if x >= W else 0
+        v += co[x - W - 1] if W + 1 <= x <= 2 * W - 1 else 0
+        s.append(v & m32)
+        carry = v >> 32
+    if carry:
+        raise OverflowError("row_combine: the sum passed 2 W + 1 words")
+    s = s[:acc_words] + [0] * (2 * W + 1 - acc_words)
+    np0 = (-pow(p, -1, 1 << 32)) & m32
+    pw = words(p)
+    for t in range(W + 1):
+        mq, carry = (s[t] * np0) & m32, 0
+        for j in range(W):
+            v = mq * pw[j] + s[t + j] + carry
+            s[t + j], carry = v & m32, v >> 32
+        for j in range(t + W, 2 * W + 1):
+            v = s[j] + carry
+            s[j], carry = v & m32, v >> 32
+        if carry:
+            raise OverflowError("row_combine: a reduction step passed the "
+                                "accumulator")
+    T = sum(x << (32 * j) for j, x in enumerate(s[W + 1:]))
+    if T >= R:
+        raise OverflowError("row_combine: the reduced sum is R or more")
+    K = (R << 32) % p
+    return T * K * pow(R, -1, p) % p     # fe_mont_mul(T, K): T < R, K < p
 
 
 def row_combine_ref(field: FieldSpec, r: torch.Tensor,
@@ -59,30 +166,53 @@ def row_combine_batch_ref(field: FieldSpec, r: torch.Tensor,
                         for b in range(mats.shape[0])])
 
 
+def _sms(device) -> int:
+    key = str(device)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[key]
+
+
+def _tickets(device, stream: int, count: int) -> torch.Tensor:
+    """The column groups' tickets of launches on one stream: zeroed once
+    when allocated; each launch's last blocks set theirs back to 0."""
+    key = (str(device), stream)
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < count:
+        tickets = torch.zeros(max(count, 4096), dtype=torch.int32,
+                              device=device)
+        _TICKETS[key] = tickets
+    return tickets
+
+
 def _launch(field: FieldSpec, name: str, r: torch.Tensor, mats: torch.Tensor,
             per_column: bool) -> torch.Tensor:
     """(B, rows, k, L) x r -> (B, k, L) on the kernel, counted once."""
     fid = cuda_build.kernel_field_id(field, name)
     batch, rows, k, L = mats.shape
-    out = torch.zeros((batch, k, L), dtype=torch.int32, device=mats.device)
     if rows == 0 or k == 0 or batch == 0:
-        return out
-    if batch > MAX_CHUNKS:
-        raise ValueError(f"{name}: at most {MAX_CHUNKS} combinations a launch")
+        return torch.zeros((batch, k, L), dtype=torch.int32, device=mats.device)
+    if batch > MAX_GRID:
+        raise ValueError(f"{name}: at most {MAX_GRID} combinations a launch")
     r, mats = r.contiguous(), mats.contiguous()
-    chunks = min(MAX_CHUNKS, -(-rows // ROWS_PER_CHUNK))
-    rows_per_chunk = -(-rows // chunks)
-    chunks = -(-rows // rows_per_chunk)
-    partial = torch.empty((batch, chunks, k, L // 2), dtype=torch.int32,
-                          device=mats.device)
+    chunks, rows_per_chunk = geometry(rows, k, batch, _sms(mats.device))
+    out = torch.empty((batch, k, L), dtype=torch.int32, device=mats.device)
+    stream = cuda_build.stream_handle(mats.device)
+    scratch = []
+    if chunks > 1:
+        scratch = [torch.empty((batch, chunks, k, L // 2), dtype=torch.int32,
+                               device=mats.device),
+                   _tickets(mats.device, stream,
+                            batch * -(-k // BLOCK_COLUMNS))]
     m16 = mats.dtype == torch.int16
-    cuda_build.require_cuda_tensors(name, r, partial, out, limbs16=(mats,))
+    cuda_build.require_cuda_tensors(name, r, out, *scratch, limbs16=(mats,))
+    partial, tickets = ((t.data_ptr() for t in scratch) if scratch
+                        else (None, None))
     lib = cuda_build.library()
     cuda_build.check(
-        lib.lt_row_combine(fid, mats.data_ptr(), r.data_ptr(),
-                           partial.data_ptr(), out.data_ptr(), batch, rows, k,
-                           chunks, rows_per_chunk, int(per_column), int(m16),
-                           cuda_build.stream_handle(mats.device)),
+        lib.lt_row_combine(fid, mats.data_ptr(), r.data_ptr(), partial,
+                           tickets, out.data_ptr(), batch, rows, k, chunks,
+                           rows_per_chunk, int(per_column), int(m16), stream),
         "lt_row_combine")
     (launches16 if m16 else launches).add()
     return out

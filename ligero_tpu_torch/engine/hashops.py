@@ -143,7 +143,7 @@ def blake2s_columns_ref(u_canon: torch.Tensor) -> torch.Tensor:
 
 
 #: words of a streamed column state: the chaining value, then two carried
-#: words (csrc/blake2s_cols.cu, ``blake2s_absorb_kernel``)
+#: words (csrc/blake2s_cols.cu, the streamed entry ``lt_blake2s_absorb``)
 STATE_WORDS = 10
 
 

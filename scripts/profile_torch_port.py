@@ -74,11 +74,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 REPEATS = 3
 # every __global__ function of ligero_tpu_torch/csrc (tests/test_torch_imports.py
 # holds this list against the sources)
-PORT_KERNELS = ("ntt_pass_kernel", "ntt_stage_kernel", "blake2s_cols_kernel",
-                "blake2s_absorb_kernel", "sha256_tree_kernel",
-                "sha256_chain_probe_kernel", "mont_mul_kernel",
-                "row_combine_partial", "row_combine_finish",
+PORT_KERNELS = ("ntt_pass_kernel", "ntt_stage_kernel", "blake2s_kernel",
+                "sha256_tree_kernel", "sha256_chain_probe_kernel",
+                "mont_mul_kernel", "row_combine_kernel",
                 "poseidon_cols_kernel")
+#: kernels whose first flag (the template argument after the field) is the
+#: 16-bit entry; the others are 16-bit wherever any flag is set
+FIRST_FLAG_16 = ("blake2s_kernel", "row_combine_kernel")
 ZK_SEED = bytes(range(32))
 
 
@@ -106,11 +108,14 @@ def nvidia_smi_line() -> str | None:
 def _group(name: str) -> str:
     """A device event's group: its port kernel (the 16-bit entries, whose
     instantiations take a ``true`` template argument, apart: "ntt_pass_kernel
-    16-bit"), a copy or set, or the torch ops."""
+    16-bit"; the streamed Blake2s is "blake2s_kernel 16-bit"), a copy or
+    set, or the torch ops."""
     for kernel in PORT_KERNELS:
         if kernel in name:
-            narrow = "true" in name.split(kernel, 1)[1].split("(")[0]
-            return kernel + (" 16-bit" if narrow else "")
+            args = name.split(kernel, 1)[1].split("(")[0]
+            if kernel in FIRST_FLAG_16:
+                args = (args.split(",") + ["", ""])[1]
+            return kernel + (" 16-bit" if "true" in args else "")
     if name.startswith("Memcpy") or name.startswith("Memset"):
         return name.split()[0].lower()
     return "torch ops"

@@ -291,6 +291,35 @@ def emulated_field_ops(namespace: str, field):
     return mont_mul, add, sub
 
 
+def emulated_mul_acc(namespace: str, field):
+    """fe_mul_acc of one namespace of field.cuh on Python ints: its four
+    asm chains a pair of words of a, as parsed, over the accumulator's
+    arrays e (2 W words), o (2 W - 2) and the kept carries ce (W + 1), co
+    (W), all updated in place.  Returns mul_acc and value(e, o, ce, co)."""
+    asm = field_header_asm(namespace)["fe_mul_acc"]
+    W = field.num_limbs // 2
+    words = lambda v: [(v >> (32 * j)) & M32 for j in range(W)]  # noqa: E731
+
+    def mul_acc(e, o, ce, co, a, b):
+        names = {"e": e, "o": o, "ce": ce, "co": co, "a": words(a),
+                 "b": words(b)}
+        for i in range(0, W, 2):
+            def env(expr, i=i):
+                m = re.fullmatch(r"(\w+)(?:\.w)?\[(i)?(?: \+ )?(\d*)\]",
+                                 expr.strip())
+                return [names[m.group(1)],
+                        (i if m.group(2) else 0) + int(m.group(3) or 0)]
+            for stmt in asm:
+                run_asm(stmt, env)
+
+    def value(e, o, ce, co):
+        return (sum(x << (32 * j) for j, x in enumerate(e))
+                + sum(x << (32 * (j + 1)) for j, x in enumerate(o))
+                + sum(x << (32 * (W + j)) for j, x in enumerate(ce))
+                + sum(x << (32 * (W + j + 1)) for j, x in enumerate(co)))
+    return mul_acc, value
+
+
 @pytest.mark.parametrize("namespace,field", HEADER_FIELDS,
                          ids=[ns for ns, _ in HEADER_FIELDS])
 def test_field_header_carry_chains_emulated(namespace, field):
@@ -315,6 +344,17 @@ def test_field_header_carry_chains_emulated(namespace, field):
     for a, b in sums:
         assert add(a, b) == (a + b) % p, (hex(a), hex(b))
         assert sub(a, b) == (a - b) % p, (hex(a), hex(b))
+    # fe_mul_acc: products added unreduced into the even- and odd-weighted
+    # words, every carry out of a chain's top kept aside; the pairs run in
+    # one accumulator, the largest products first
+    W = field.num_limbs // 2
+    mul_acc, acc_value = emulated_mul_acc(namespace, field)
+    acc = ([0] * (2 * W), [0] * (2 * W - 2), [0] * (W + 1), [0] * W)
+    total = 0
+    for a, b in [(R - 1, R - 1)] * 3 + pairs:
+        mul_acc(*acc, a, b)
+        total += a * b
+        assert acc_value(*acc) == total, (hex(a), hex(b))
 
 
 @pytest.mark.parametrize("namespace,field", HEADER_FIELDS,

@@ -3,6 +3,8 @@
 the JAX package's numpy Backend commit helpers."""
 
 import hashlib
+import os
+import re
 
 import numpy as np
 import pytest
@@ -159,3 +161,138 @@ def test_blake2s_kernel_matches_plain(cuda, rows, n, field):
     both = torch.cat([u, u.flip(0)])
     got = cuda_hash.blake2s_columns(pf(field), both.to(cuda), 2)
     assert torch.equal(got.cpu(), cuda_hash.blake2s_columns(pf(field), both, 2))
+
+
+# ---------------------------------------------------------------------------
+# The column kernel's staging and the streamed entry's chunkings
+# ---------------------------------------------------------------------------
+
+BLAKE_CU = os.path.join(os.path.dirname(cuda_hash.__file__), "..", "csrc",
+                        "blake2s_cols.cu")
+
+
+def test_blake2s_batch_matches_column_hash_bn254():
+    """Two stacked BN254 matrices of 5 rows (an odd count: the last block
+    holds one row and the prefix's shift): each column's digest opens with
+    its own matrix's row count."""
+    u = rand_canon(np.random.default_rng(22), (10, 3))
+    got = cuda_hash.blake2s_columns(pf(BN254_FR), t(u), 2).numpy().view(np.uint32)
+    for b in range(2):
+        for j in range(3):
+            col = BN254_FR.limbs_to_ints(u[5 * b:5 * b + 5, j])
+            assert got[3 * b + j].astype("<u4").tobytes() == column_hash(
+                BN254_FR, col)
+
+
+#: the smoke's absorb chunkings (chip_smoke.STREAM_PLAIN_CASES) cut further
+#: in depth, each absorb's rows a multiple of 4 where the smoke's are, so
+#: every absorb starts at the same offset in its 64-byte block
+STREAM_CASES = ((16,) * 4 + (4,), (16,) * 4 + (4, 3),
+                (68,) * 3 + (56,), (64,) * 3 + (60, 3))
+
+
+@pytest.mark.parametrize("field", [BN254_FR, BLS12_377_FQ], ids=lambda f: f.name)
+@pytest.mark.parametrize("cuts", STREAM_CASES, ids=lambda c: "+".join(map(str, c)))
+def test_streamed_absorb_at_smoke_chunkings_matches_hashlib(field, cuts):
+    """The plain streamed absorb of 16-bit chunks, chunk by chunk at the
+    smoke's chunkings: after every chunk but the last the carried words
+    are its last row's last two words, and the final digests are hashlib's
+    Blake2s of each column's serialization."""
+    import ligero_tpu_torch.engine.fieldops as fops
+    L, rows = field.num_limbs, sum(cuts)
+    u = rand_canon(np.random.default_rng(sum(cuts) + L), (rows, 2), field)
+    u16 = fops.narrow16(t(u))
+    state = hashops.blake2s_stream_start(2, rows, "cpu")
+    blocks = r0 = 0
+    for cr in cuts:
+        final = r0 + cr == rows
+        state = hashops.blake2s_absorb_ref(u16[r0:r0 + cr], cr, state, blocks,
+                                           final, rows)
+        if not final:
+            last = t(u[r0 + cr - 1])
+            want = (last[:, L - 4::2] | (last[:, L - 3::2] << 16))
+            assert torch.equal(state[:, 8:], want), (cuts, r0)
+        blocks += (2 + cr * L // 2) // 16
+        r0 += cr
+    got = state[:, :8].numpy().view(np.uint32)
+    for j in range(2):
+        col = field.limbs_to_ints(u[:, j])
+        assert got[j].astype("<u4").tobytes() == column_hash(field, col)
+
+
+def _kernel_block_stage(W: int, bb: int) -> int:
+    """blake2s_cols.cu HashShape::block_stage, read from the source and
+    evaluated with C's integer division."""
+    with open(BLAKE_CU) as f:
+        src = f.read()
+    m = re.search(r"int block_stage\(int bb\) \{\s*return (.*?);", src, re.S)
+    return eval(m.group(1).replace("/", "//"), {"bb": bb, "W": W})
+
+
+@pytest.mark.parametrize("field", [BN254_FR, BLS12_377_FQ], ids=lambda f: f.name)
+def test_kernel_block_stage_holds_every_word(field):
+    """The kernel's ring holds two rows a stage and compresses block bb of
+    a period in the stage where its last word arrives: every other word of
+    the block lies in that stage or the one before (the two it reads),
+    by the word map column_block_words."""
+    W = field.num_limbs // 2
+    E = hashops.period_rows(field.num_limbs)
+    P = W * E // 16
+    for bb in range(P):
+        words = hashops.column_block_words(W, bb)
+        stages = {row // 2 for row, _ in words if row >= 0}
+        stage = _kernel_block_stage(W, bb)
+        assert stage == max(stages), (bb, stages)
+        assert min(stages) >= stage - 1, (bb, stages)
+        assert 0 <= stage < E // 2
+
+
+@pytest.mark.parametrize("field", [BN254_FR, BLS12_377_FQ], ids=lambda f: f.name)
+@pytest.mark.parametrize("narrow", [False, True], ids=["int32", "16-bit"])
+def test_hash_shared_memory_fits(field, narrow):
+    """A block's ring (4 warps x 3 stages x 2 rows x 32 columns) fits the
+    card's shared memory with three blocks an SM at least."""
+    from ligero_tpu_torch.engine import staging
+    smem = staging.hash_smem_bytes(field.num_limbs // 2, narrow)
+    assert smem == 4 * 3 * 2 * 32 * (2 if narrow else 4) * field.num_limbs
+    assert staging.SMEM_MAX // smem >= 3
+
+
+@pytest.mark.parametrize("eb", [32, 48, 64, 96])
+def test_stage_swizzle_is_free_of_bank_conflicts(eb):
+    """A 16-byte read of chunk q by 8 neighbouring lanes (one phase of
+    LDS.128) lands on 8 distinct 16-byte bank groups, and each element's
+    chunks stay a permutation of its slots."""
+    from ligero_tpu_torch.engine import staging
+    for q in range(eb // 16):
+        for first in range(0, 32, 8):
+            groups = staging.phase_bank_groups(eb, q, range(first, first + 8))
+            assert len(set(groups)) == 8, (eb, q, first, groups)
+    for c in range(32):
+        assert sorted(q ^ staging.stage_swizzle(eb, c)
+                      for q in range(eb // 16)) == list(range(eb // 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [BN254_FR, BLS12_377_FQ], ids=lambda f: f.name)
+def test_blake2s_kernel_both_entries_match_plain(cuda, field):
+    """Both entries: the whole-column kernel on ragged row counts and a
+    batch of two, the streamed 16-bit entry at ragged chunkings, against
+    the plain versions."""
+    from ligero_tpu_torch.engine import fieldops as fops
+    F = pf(field)
+    for rows, n in ((1, 5), (7, 33), (103, 129), (4100, 70)):
+        u = t(rand_canon(np.random.default_rng(rows + n), (rows, n), field))
+        want = hashops.blake2s_columns_ref(u)
+        got = cuda_hash.blake2s_columns(F, u.to(cuda))
+        assert torch.equal(got.cpu(), want), (rows, n)
+        both = torch.cat([u, u.flip(0)])
+        got = cuda_hash.blake2s_columns(F, both.to(cuda), 2)
+        assert torch.equal(got.cpu(), cuda_hash.blake2s_columns(F, both, 2))
+        u16 = fops.narrow16(u)
+        E = hashops.period_rows(field.num_limbs)
+        for cr in (E, 3 * E, 1024):
+            hs = cuda_hash.ColumnHashStream(F, n, rows, cuda)
+            for r0 in range(0, rows, cr):
+                hs.absorb(u16[r0:r0 + cr].to(cuda), min(cr, rows - r0))
+            assert torch.equal(hs.digests().cpu(), want), (rows, n, cr)
