@@ -27,7 +27,7 @@ It runs every phase, in order; any failure exits non-zero:
                full-width commit kernels; the 16-bit entries (the
                resident and streaming modes' chunks in 16-bit limbs: the
                NTT reading and writing them, row_combine reading them) at
-               a 1024-row chunk, the NTT's plain version on its first 256
+               a 1024-row chunk, the NTT's plain version on its first 128
                rows.  For BN254 Fr: the tree at the
                sizes around its 64-node groups and 100 times on one input,
                the tree's chain floor from a timed chain of dependent
@@ -37,18 +37,20 @@ It runs every phase, in order; any failure exits non-zero:
                (``engine/spot.py``, which the verifier does not call yet)
                against the NTT kernel and its plain version; the Poseidon
                sponge (``csrc/poseidon_cols.cu``) at every compiled lane
-               count at full width and 64 / 67 rows, its first 256 columns
+               count at full width and 32 / 35 rows, its first 256 columns
                against its plain version, against the host sponge at the commit's full heights
                and at the verifier's launch (3t columns), each lane count
                timed there and at a tree level and the root, its tree
                levels against the host tree with their bound, three full
                matrices in one launch against three, its chain floor; the
                kernel shapes of the 2^22-gate
-               instance (plain versions at 256 rows, full size against the
-               256-row launches and hashlib).  The same
+               instance (256-row launches, plain versions on their first
+               128 rows, full size against the 256-row launches and
+               hashlib).  The same
                kernel cases run again for BLS12-377 Fq at its instance's
-               shapes, with Blake2s at row counts of every residue mod 4,
-               three full matrices in one launch, and row_combine over
+               shapes, with Blake2s at row counts of every residue mod
+               12 (the message's 4-row period, the kernel's ring of three
+               2-row stages), three full matrices in one launch, and row_combine over
                two matrices in one launch (the bls batch path's).  The
                streaming commit's Blake2s entry (``blake2s_absorb``, a
                column's rows a chunk at a time, on 16-bit chunks as the
@@ -66,8 +68,8 @@ It runs every phase, in order; any failure exits non-zero:
                2052 / 2055 in 536 / 528) at one lane a column (the path's)
                and at eight, the plain version run by 16-row segments side
                by side from the kernel's states (it takes ~0.19 s a pair of
-               rows on the card); at the same patterns cut in depth (68 /
-               71 rows in 16-row chunks, 40 in 12) at the full width of
+               rows on the card); at the same patterns cut in depth (36 /
+               39 rows in 16-row chunks, 28 in 12) at the full width of
                16384 columns, its first 256 against the plain version row
                after row; against the whole-column
                kernel and the host sponge on sampled columns; timed at
@@ -87,12 +89,22 @@ It runs every phase, in order; any failure exits non-zero:
                x^3, 2^8 and 2^10 gates, and 2^8 and 2^10 gates with zk, over
                BN254 Fr; 2^8 and 2^10 gates, plain and zk, over BLS12-377;
                2^8 gates, plain and zk, under the Poseidon commitment (the
-               CPU verifies the default-committed proofs only).
+               CPU verifies the default-committed proofs only); each card
+               proof through the opening overlap (three sets started and
+               finished).
 5. main     -- the 2^20-gate synthetic circuit through ``LigeroCircuit``'s
                ``prove`` and ``verify``, first plain, then with ``zk=True``:
                verify True, tampered witness and flipped byte rejected,
-               every kernel launched on each path; plain: a second proof,
-               byte-identical; then the same instance over a mesh of two
+               every kernel launched on each path; the first prove of every
+               direct-mode path through the opening overlap (each set's
+               gather and 16-bit copy on the backend's side stream into
+               pinned host memory; set 1's copy done before the linear
+               phase's work is), and for BN254 plain and zk and BLS12-377
+               plain a prove on the fused gather byte-equal to it; BN254
+               plain: both routes' walls in turns (fused, overlap, overlap,
+               fused; the timer off) and one timed call each (``open``,
+               ``open.gather``, ``open.to_ints``, ``open.paths``); plain: a
+               second proof, byte-identical; then the same instance over a mesh of two
                shards (``parallel.ShardedBackend``; distinct cards where
                the host has two, else the card twice): proof byte-equal to
                the single-device proof, verify True, tampering rejected,
@@ -113,9 +125,10 @@ It runs every phase, in order; any failure exits non-zero:
                ``prove`` calls with their walls, ``verify_batch`` over
                honest, tampered, flipped and truncated proofs, and the peak
                device memory against the prover's and the verifier's
-               estimates; before each, its batched Blake2s and
-               row_combine launches at its own shapes against their plain
-               versions; the same B = 3 and zk B = 2 batches over two
+               estimates; before each, its batched Blake2s launch at its
+               own shape against single launches and, on each matrix's
+               first 256 columns at full depth, the plain version, and its
+               batched row_combine against its plain version; the same B = 3 and zk B = 2 batches over two
                shards (the mesh's batches: equal to sequential calls);
                the 2^18 zk instance over three shards, direct and in
                streaming mode (512-row chunks), and the Poseidon one over
@@ -154,7 +167,7 @@ It runs every phase, in order; any failure exits non-zero:
                path launches a 16-bit entry.
                Each phase's
                seconds are printed; the kernels phase holds each NTT case
-               against its plain version on the first 256 rows of the
+               against its plain version on the first 128 rows of the
                kernel's launch, and the Blake2s columns and the Poseidon
                sponge at full width on the first 256 columns of theirs,
                at full depth.
@@ -312,33 +325,42 @@ NOT_ON_POSEIDON_STREAMING = ("blake2s_cols", "sha256_tree", "blake2s_stream")
 #: mode refuses is BLS12-377 at 2^23 gates, with the card's own budget
 FORCED_CHUNK_ROWS, STREAM_LOG2_GATES = 512, 23
 #: the part of a kernel case that its plain version computes: the NTT
-#: cases at full width on their first PLAIN_ROWS rows, the column hashes
-#: (Blake2s, the Poseidon sponge) at full depth on their first PLAIN_COLUMNS
-#: columns; the kernel is launched (and timed) at the whole shape, and the
-#: same part of its result is held against the plain version's
-PLAIN_ROWS, PLAIN_COLUMNS = 256, 256
+#: cases (and the spot evaluation's) at full width on their first
+#: PLAIN_ROWS rows (256 until the opening overlap's phases needed room: the
+#: rows of a transform are independent, and the launch stays at the whole
+#: shape), the column hashes (Blake2s, the Poseidon sponge) at full depth
+#: on their first PLAIN_COLUMNS columns; the kernel is launched (and timed)
+#: at the whole shape, and the same part of its result is held against the
+#: plain version's
+PLAIN_ROWS, PLAIN_COLUMNS = 128, 256
+#: the heights of the Poseidon sponge's lane-count cases (16384 columns,
+#: the first PLAIN_COLUMNS against the plain version, which takes ~0.2 s a
+#: row there): an even one, and an odd one, as a zk column's tail (64 and
+#: 67 until the opening overlap's phases needed room)
+POSEIDON_LANE_ROWS = (32, 35)
 #: chunk rows of the streamed absorb's kernel cases (the streaming mode's
 #: largest chunk, backend.STREAM_MAX_CHUNK_ROWS)
 STREAM_CHUNK = 1024
 #: the rows of each absorb at which the streamed absorb is held against its
 #: plain version (one small step a 64-byte block, ~3.5 ms a BN254 pair of
 #: rows): the 2^20 commit's pattern (4m = 4100 rows in 1024-row chunks, a
-#: last chunk of 4; over a mesh each device's columns take the same) cut 8x
+#: last chunk of 4; over a mesh each device's columns take the same) cut 32x
 #: in depth, and under zk with the three mask rows' part after it (also
 #: the mesh zk path's 512-row pattern); the forced 2^18 paths' own
-#: chunkings (4m = 2052 in 536-row chunks; under zk in 528, then the mask
-#: rows) cut 4x in depth, to 136 and 132 rows an absorb, which keeps the
-#: run inside its time limit.  The cuts keep every absorb's block phase: a column
-#: is the 8-byte row count, then 2 L bytes a row, so an absorb starts at
-#: byte 8 + 2 L r0 of the column and its offset in a 64-byte block depends
-#: only on r0 mod hashops.period_rows (2 BN254 rows, 4 BLS12-377 rows).
-#: 128 and 1024 are both multiples of 4 (as are 136, 112, 132, 116 and
-#: 536, 444, 528, 468), so each cut absorb, and the short last ones after
-#: it, start and end at the offsets of their full-depth counterparts; only
-#: the count of whole blocks inside an absorb (the kernel's loop) is
-#: smaller.
-STREAM_PLAIN_CASES = ((128,) * 4 + (4,), (128,) * 4 + (4, 3),
-                      (136,) * 3 + (112,), (132,) * 3 + (116, 3))
+#: chunkings (4m = 2052 in 536-row chunks, 3 x 536 + 444; under zk in 528,
+#: 3 x 528 + 468, then the mask rows) cut to 32 rows an absorb and a last
+#: of 28, which keeps the run inside its time limit (8x and 4x until the
+#: opening overlap's phases needed room).  The cuts keep every absorb's
+#: block phase: a column is the 8-byte row count, then 2 L bytes a row, so
+#: an absorb starts at byte 8 + 2 L r0 of the column and its offset in a
+#: 64-byte block depends only on r0 mod hashops.period_rows (2 BN254 rows,
+#: 4 BLS12-377 rows).  32, 28 and 1024 are multiples of 4 (as are 536, 444,
+#: 528, 468), so each cut absorb, and the short last ones after it, start
+#: and end at the offsets of their full-depth counterparts; only the count
+#: of whole blocks inside an absorb (the kernel's loop: 16 a BN254 absorb
+#: of 32 rows, 24 a BLS12-377 one) is smaller.
+STREAM_PLAIN_CASES = ((32,) * 4 + (4,), (32,) * 4 + (4, 3),
+                      (32,) * 3 + (28,), (32,) * 3 + (28, 3))
 #: the Poseidon chunked absorb against its plain version at the streaming
 #: paths' row counts and chunkings: the 2^20 commit's 4m and 4m + 3 rows in
 #: STREAM_CHUNK-row chunks (a last chunk of 4, an odd one of 7) and the
@@ -359,9 +381,11 @@ POSEIDON_STREAM_CASES = (((4100, STREAM_CHUNK), (4103, STREAM_CHUNK)),
 POSEIDON_DEEP_COLS, POSEIDON_SEGMENT = 256, 16
 #: the same chunk patterns cut in depth, the kernel at the commit's full
 #: width (n = 16384, so the path's lanes a column), its first PLAIN_COLUMNS
-#: columns held against the plain version row after row: 68 rows in 16-row chunks (four full, a last of 4), 71 (a last of 7,
-#: odd), 40 in 12-row chunks (three full, a last of 4)
-POSEIDON_PLAIN_CASES = ((68, 16), (71, 16), (40, 12))
+#: columns held against the plain version row after row: 36 rows in 16-row
+#: chunks (two full, a last of 4), 39 (a last of 7, odd), 28 in 12-row
+#: chunks (two full, a last of 4) (68, 71 and 40 rows, four and three full
+#: chunks, until the opening overlap's phases needed room)
+POSEIDON_PLAIN_CASES = ((36, 16), (39, 16), (28, 12))
 
 
 #: the prover core's shapes (4m, k, n): the JAX package's bench step
@@ -1080,8 +1104,8 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     streaming paths' row counts and chunkings (POSEIDON_STREAM_CASES, by
     segments), and at POSEIDON_PLAIN_CASES at the commit's full width ``n``
     against the plain version row after row on the first PLAIN_COLUMNS
-    columns (the 71-row case takes the plain states after the 68-row
-    case's 64 shared rows); every state between chunks and every digest
+    columns (the 39-row case takes the plain states after the 36-row
+    case's 32 shared rows); every state between chunks and every digest
     bit-equal; over the commit's full width, ``rows`` x ``n`` in
     STREAM_CHUNK-row chunks, bit-equal to the whole-column kernel on the
     same matrix, both timed, with the whole column's bound."""
@@ -1174,21 +1198,42 @@ def host_hash_context(n: int) -> None:
 
 def blake2s_residue_cases(torch, field, gen) -> None:
     """The column kernel of a 48-byte field, whose message repeats every 3
-    blocks of 4 rows, at row counts of every residue mod 4, one matrix and
-    three stacked in one launch, against the plain version (the full depth
-    is the kernels phase's 4m-row case; the zk main path hashes 4m + 3
-    rows)."""
-    for nrows in (100, 101, 102, 103):
+    blocks of 4 rows and which stages rows in a ring of three 2-row stages,
+    at row counts of every residue mod 12 (96-107: the zk main path's
+    4m + 3 = 4103 among them, whose full depth no case holds against the
+    plain version; 4m is the kernels phase's case), one matrix and three
+    stacked in one launch, against the plain version (~0.8 s a count)."""
+    for nrows in range(96, 108):
         blake2s_batch_case(torch, field, gen, BATCH, nrows, 256)
 
 
-def blake2s_full_batch_case(torch, field, gen, B, rows, n) -> dict:
-    """B full (rows, n) matrices in one launch, whose element offsets pass
-    2^31, against B single launches (held against the plain version at
-    that row count in the kernels phase); returns the time and bound."""
-    from ligero_tpu_torch.engine import cuda_hash
+def blake2s_full_batch_case(torch, field, gen, B, rows, n,
+                            plain: bool) -> dict:
+    """B full (rows, n) matrices in one launch (at the 2^20 shape their
+    element offsets pass 2^31) against B single launches, and with
+    ``plain`` each matrix's first PLAIN_COLUMNS columns at full depth
+    against the plain version (which hashes the B matrices' slices side by
+    side as one matrix; ~10-25 s, one small step a block of rows, so it
+    runs where no other case holds these rows against it: the kernel
+    stages rows in a ring of three pairs, so where a column's rows end in
+    it goes with the rows mod 6: the 2^18 batch paths' 2052 and 2055 rows
+    take residues that the 4100 and 4103 rows of the kernels phase do
+    not); returns the times and bound."""
+    from ligero_tpu_torch.engine import cuda_hash, hashops
+    L, pc = field.num_limbs, PLAIN_COLUMNS
     u = _rand_elems(torch, gen, (B * rows, n), field)
     got = cuda_hash.blake2s_columns(field, u, B)
+    err, plain_ms = None, None
+    if plain:
+        side = u.reshape(B, rows, n, L)[:, :, :pc].permute(
+            1, 0, 2, 3).reshape(rows, B * pc, L)
+        want, plain_ms = _time_once(
+            torch, lambda: hashops.blake2s_columns_ref(side))
+        err = max(_diff(torch, got[i * n:i * n + pc],
+                        want[i * pc:(i + 1) * pc]) for i in range(B))
+        require(err == 0, f"batched Blake2s {B} x {rows} x {n}: the kernel "
+                f"disagrees with its plain version on the first {pc} columns")
+        del side, want
     for i in range(B):
         require(torch.equal(got[i * n:(i + 1) * n], cuda_hash.blake2s_columns(
             field, u[i * rows:(i + 1) * rows])), f"batched Blake2s {B} x "
@@ -1197,13 +1242,18 @@ def blake2s_full_batch_case(torch, field, gen, B, rows, n) -> dict:
     dev_ms = _device_ms(torch, lambda: cuda_hash.blake2s_columns(field, u, B),
                         "blake2s_kernel")
     bound_ms, by = bound(*scaled(blake2s_work(field, rows, n), B))
+    held = (f"first {pc} columns of each max_abs_err=0 against the plain "
+            f"version ({plain_ms:.1f} ms), " if plain else "")
     log(f"kernel [{field.name}] batched Blake2s, full {B} x {rows} x {n}: "
-        f"bit-equal to {B} single launches; "
+        f"{held}bit-equal to {B} single launches; "
         f"{ms:.3f} ms (device {_ms(dev_ms)}), bound {bound_ms:.3f} ms by {by}")
     del u, got
     torch.cuda.empty_cache()
-    return {"shape": f"{B} x {rows} x {n}", "ms": ms, "device_ms": dev_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+    shape = f"{B} x {rows} x {n}" + (
+        f"; plain on the first {pc} columns of each" if plain else "")
+    return {"shape": shape, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by}
 
 
 def blake2s_batch_case(torch, field, gen, B, nrows, cols) -> dict:
@@ -1290,7 +1340,7 @@ def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
     results["blake2s_cols"]["batched"] = blake2s_batch_case(
         torch, field, gen, B, rows + 3, 256)
     results["blake2s_cols"]["batched_full"] = blake2s_full_batch_case(
-        torch, field, gen, B, rows, n)
+        torch, field, gen, B, rows, n, plain=False)
     results["row_combine"]["batched"] = row_combine_batch_case(
         torch, field, gen, B, rows, k)
     for leaves_n in (n, 64):
@@ -1313,7 +1363,8 @@ def spot_cases(torch, field, gen, rows, k, n, t) -> None:
     limb split, regroup and fold; no TPU kernel behind it; not on the
     verifier's path while it is the slower route) at the linear phase's
     shape: bit-equal to the NTT route on all rows and to its
-    plain version (the plain full transform, then a gather) on 256 rows,
+    plain version (the plain full transform, then a gather) on its first
+    PLAIN_ROWS rows,
     Montgomery and canonical output; then a row longer than K_MAX, which
     contracts in chunks.  Times of both routes and the spot route's bound
     (the int8 multiply-adds over the tensor cores' rate, or its bytes)."""
@@ -1328,11 +1379,12 @@ def spot_cases(torch, field, gen, rows, k, n, t) -> None:
             via_ntt = cuda_ntt.ntt(field, x, n, canon_out=canon).index_select(
                 1, idx)
             want, plain_ms = _time_once(torch, lambda: spot.spot_ref(
-                field, x[:256], js, n, canon_out=canon))
-            ok = torch.equal(got, via_ntt) and torch.equal(got[:256], want)
+                field, x[:PLAIN_ROWS], js, n, canon_out=canon))
+            ok = (torch.equal(got, via_ntt)
+                  and torch.equal(got[:PLAIN_ROWS], want))
             log(f"spot {nrows} x {w} at {t} of {n} columns, canon_out={canon}: "
                 f"bit-equal to the NTT route and the plain version: {ok} "
-                f"(plain, {min(nrows, 256)} rows: {plain_ms:.3f} ms)")
+                f"(plain, {min(nrows, PLAIN_ROWS)} rows: {plain_ms:.3f} ms)")
             require(ok, f"spot_eval {nrows} x {w} canon_out={canon} disagrees")
             del got, via_ntt, want
         torch.cuda.empty_cache()
@@ -1511,7 +1563,7 @@ def poseidon_levels_work(field, n: int):
 def poseidon_cases(torch, field, gen, rows: int, n: int, t: int) -> dict:
     """The Poseidon sponge kernel (BN254 Fr), every compiled lane count G
     (``cuda_poseidon.LANES``): launched at full width (n columns) and
-    heights of 64 and 67 rows (67: the odd tail of zk columns), its first
+    the heights POSEIDON_LANE_ROWS (the odd one: a zk column's tail), its first
     PLAIN_COLUMNS columns bit-equal to its plain version's on the card; at the commit's full heights (4m and
     4m + 3 rows) and at the verifier's launch (its 3t opened columns of 4m
     rows) against the port's host sponge (``col_hash``) on 8 sampled
@@ -1542,7 +1594,7 @@ def poseidon_cases(torch, field, gen, rows: int, n: int, t: int) -> dict:
         return _time_cuda(torch, lambda: kern(one, g), 2)
 
     res: dict = {"max_abs_err": 0, "per_lanes": {str(g): {} for g in lanes}}
-    for h in (64, 67):
+    for h in POSEIDON_LANE_ROWS:
         u = _rand_elems(torch, gen, (h, n), field)
         want, plain_ms = _time_once(
             torch, lambda: poseidon_cols.poseidon_columns_plain(
@@ -1564,7 +1616,7 @@ def poseidon_cases(torch, field, gen, rows: int, n: int, t: int) -> dict:
         res[f"rows_{h}"] = {"plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": by}
         del u, want
-    res["plain_ms"] = res["rows_64"]["plain_ms"]
+    res["plain_ms"] = res[f"rows_{POSEIDON_LANE_ROWS[0]}"]["plain_ms"]
     # full heights: the commit (plain, zk) and the verifier's launch
     for key, h, width in (("", rows, n), ("zk_", rows + 3, n),
                           ("verifier_", rows, 3 * t)):
@@ -1663,7 +1715,8 @@ def kernel_cases_2e22(torch, field, gen, results: dict) -> None:
     """The kernel shapes of the 2^22-gate instance (m = 2049, k = 4096,
     n = 32768; the zk d2 from the compile's own rule), held against the
     plain versions: iNTT_k, NTT_n 4096 -> 32768 canonical, NTT_2k and zk
-    NTT_d2 at 256 rows; row_combine over 8196 x 4096; the tree at 32768
+    NTT_d2 launched at 256 rows, the plain version on the first PLAIN_ROWS;
+    row_combine over 8196 x 4096; the tree at 32768
     leaves.  Then at full size: iNTT_k and NTT_n over all 8196 rows, each
     full transform's first 256 rows equal to the 256-row launch's (the
     route may differ with the row count); Blake2s over the 8196 x 32768
@@ -1702,12 +1755,14 @@ def kernel_cases_2e22(torch, field, gen, results: dict) -> None:
         x = _rand_elems(torch, gen, (256, w), field)
         got = cuda_ntt.ntt(field, x, size, inverse, canon)
         want, plain_ms = _time_once(
-            torch, lambda: ntt.ntt_ref(field, x, size, inverse, canon))
+            torch, lambda: ntt.ntt_ref(field, x[:PLAIN_ROWS], size, inverse,
+                                       canon))
         ms = _time_cuda(torch, lambda: cuda_ntt.ntt(field, x, size, inverse,
                                                      canon), 5)
         check("ntt", f"{label}, 256 x {w} [route "
-              f"{route_text(cuda_ntt.route(w, size, 256))}]", got, want,
-              plain_ms, ms, ntt_work(field, 256, w, size, inverse or canon))
+              f"{route_text(cuda_ntt.route(w, size, 256))}; plain on "
+              f"{PLAIN_ROWS} rows]", got[:PLAIN_ROWS], want, plain_ms, ms,
+              ntt_work(field, 256, w, size, inverse or canon))
         firsts[label] = (x, got)
         del want
     r = _rand_elems(torch, gen, (rows,), field)
@@ -1796,8 +1851,8 @@ def ntt_route_cases(torch, field, gen) -> int:
     w = s + 1 and a width that is no power of two at n = 16384 (cosets);
     n = 8192, 65536 and 2^17 (two passes), alone and under cosets; single
     rows, which take two passes at any size; the four-shard prover core's
-    512-row blocks (n = 512, and 512 -> 4096 under cosets).  Small batches
-    elsewhere, every
+    512-row blocks (n = 512, and 512 -> 4096 under cosets; the plain
+    version on their first PLAIN_ROWS rows).  Small batches elsewhere, every
     combination of inverse and canon_out; BLS12-377 up to n = 16384, the
     largest transform of its paths.  Returns the largest absolute
     difference seen (0 or the run fails)."""
@@ -1822,8 +1877,9 @@ def ntt_route_cases(torch, field, gen) -> int:
         for inverse in (False, True):
             for canon in (False, True):
                 got = cuda_ntt.ntt(field, x, size, inverse, canon)
-                want = ntt.ntt_ref(field, x, size, inverse, canon)
-                errs.append(int((got.to(torch.int64)
+                want = ntt.ntt_ref(field, x[:PLAIN_ROWS], size, inverse,
+                                   canon)
+                errs.append(int((got[:PLAIN_ROWS].to(torch.int64)
                                  - want.to(torch.int64)).abs().max()))
         worst = max(worst, *errs)
         log(f"kernel [{field.name}] NTT {batch} x {w} -> {size}, inverse x "
@@ -1935,7 +1991,12 @@ def phase_parity() -> None:
             kw["mt_params"] = LigeroMTPoseidonParams(field)
         on_card = LigeroCircuit(circ, outs, device="cuda", **kw)
         on_cpu = LigeroCircuit(circ, outs, device="cpu", **kw)
+        probe = OverlapProbe(on_card)
         got = prove(on_card, sponge.clone())
+        probe.remove()
+        require(len(probe.handles) == 3 and probe.finished == probe.handles,
+                f"parity {entry['name']}: the card's proof did not take the "
+                "opening overlap (three started sets, each finished)")
         data = got.to_bytes(field)
         same = data == prove(on_cpu, sponge.clone()).to_bytes(field)
         golden = (len(data) == entry["length"]
@@ -1944,7 +2005,8 @@ def phase_parity() -> None:
         # version ~0.5 min: the CPU verifies the default-committed proofs
         ok_cpu = "mt_params" in kw or on_cpu.verify(got, sponge.clone())
         ok_card = on_card.verify(got, sponge.clone())
-        log(f"parity [{field.name}] {entry['name']}: card bytes = CPU bytes: {same}, = the "
+        log(f"parity [{field.name}] {entry['name']} (opening overlap on the "
+            f"card): card bytes = CPU bytes: {same}, = the "
             f"JAX package's digest: {golden}, CPU verifies: "
             f"{'not run' if 'mt_params' in kw else ok_cpu}, card "
             f"verifies: {ok_card}")
@@ -2038,9 +2100,120 @@ def is_poseidon(lig) -> bool:
     return not is_default_mt_params(lig.mt_params)
 
 
-def phase_main(torch, field, lig, vars_) -> dict:
+#: what the opening overlap showed on each main path (OverlapProbe.check)
+#: and BN254's walls of both routes (overlap_walls), for the record
+OVERLAP: dict = {}
+
+
+class OverlapProbe:
+    """Wraps, on one instance, ``_start_open_async`` and
+    ``_finish_open_async``: keeps each started set's handle, each finished
+    one, and an event recorded on the current stream just before each start
+    (the second: the end of the linear phase, as far as the current
+    stream's work goes).  ``remove`` unwraps."""
+
+    def __init__(self, lig):
+        import torch
+        self.lig, self.handles, self.finished, self.marks = lig, [], [], []
+        start, finish = lig._start_open_async, lig._finish_open_async
+
+        def started(u_canon, idx):
+            mark = torch.cuda.Event(enable_timing=True)
+            mark.record()
+            self.marks.append(mark)
+            self.handles.append(start(u_canon, idx))
+            return self.handles[-1]
+
+        def finished(handle, tree):
+            self.finished.append(handle)
+            return finish(handle, tree)
+
+        lig._start_open_async, lig._finish_open_async = started, finished
+
+    def remove(self) -> None:
+        del self.lig._start_open_async, self.lig._finish_open_async
+
+    def check(self, torch, tag: str) -> dict:
+        """Three sets started and finished in order; each one's gather and
+        copy ran on the backend's side stream, not the current one, into
+        pinned int16 host memory; set 1's copy completed before the linear
+        phase's work on the current stream did (its event before the second
+        mark: a route that only gathers at the end fails here)."""
+        hs = self.handles
+        require(len(hs) == 3 and self.finished == hs,
+                f"{tag}the prove did not take the opening overlap: "
+                f"{len(hs)} sets started, {len(self.finished)} finished")
+        current = torch.cuda.current_stream()
+        for h in hs:
+            require(h.err is None and h.stream is not None
+                    and h.stream != current and h.host.is_pinned()
+                    and h.host.dtype == torch.int16 and h.event.query(),
+                    f"{tag}an opened set was not copied on a side stream "
+                    "into pinned 16-bit host memory")
+        lead_ms = hs[0].event.elapsed_time(self.marks[1])
+        set_ms = [mark.elapsed_time(h.event) for mark, h in zip(self.marks,
+                                                                 hs)]
+        log(f"{tag}opening overlap: 3 sets on a side stream into pinned "
+            f"memory ({sum(h.host.nbytes for h in hs)} bytes), start to "
+            f"copy done {', '.join(f'{ms:.3f}' for ms in set_ms)} ms; set "
+            f"1's copy done {lead_ms:.3f} ms before the linear phase ended")
+        require(lead_ms > 0, f"{tag}set 1's copy completed after the linear "
+                "phase, not behind it")
+        return {"set_ms": set_ms, "set1_before_linear_end_ms": lead_ms,
+                "copied_bytes": sum(h.host.nbytes for h in hs)}
+
+
+def prove_fused(lig, vars_, sponge, **kw):
+    """A prove of ``lig`` on the fused gather (every set after the
+    quadratic phase), as batches and the chunked modes take it."""
+    lig._open_overlap_ok = lambda u_canon, batch=1: False
+    try:
+        return lig.prove(vars_, sponge, **kw)
+    finally:
+        del lig._open_overlap_ok
+
+
+def overlap_walls(torch, lig, vars_) -> dict:
+    """Walls of the two routes of one warm direct-mode instance, the
+    timer off, in turns (fused, overlap, overlap, fused), then one timed
+    call each: its ``open`` phase and sub-phases (ms and counts)."""
+    from ligero_tpu_torch import test_sponge
+    sponge = test_sponge(lig.field)
+    routes = {"fused": lambda: prove_fused(lig, vars_, sponge.clone()),
+              "overlap": lambda: lig.prove(vars_, sponge.clone())}
+    walls = {"fused": [], "overlap": []}
+    lig.timer.enabled = False
+    try:
+        for route in ("fused", "overlap", "overlap", "fused"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[route]()
+            torch.cuda.synchronize()
+            walls[route].append(time.perf_counter() - t0)
+    finally:
+        lig.timer.enabled = True
+    out = {"walls_s": walls, "timed": {}}
+    for route, prove in routes.items():
+        lig.timer.reset()
+        t0 = time.perf_counter()
+        prove()
+        wall = time.perf_counter() - t0
+        timed = {name: [lig.timer.totals[name] * 1e3, lig.timer.counts[name]]
+                 for name in ("open", "open.gather", "open.to_ints",
+                              "open.paths", "linear", "quadratic")}
+        out["timed"][route] = {"wall_s": wall, "phases": timed}
+        log(f"overlap walls [{route}]: {', '.join(f'{w:.3f}' for w in walls[route])} s "
+            f"(timer off); timed {wall:.3f} s: "
+            + ", ".join(f"{name} {ms:.1f} ms x{n}"
+                        for name, (ms, n) in timed.items()))
+    return out
+
+
+def phase_main(torch, field, lig, vars_, fused_check: bool = False) -> dict:
     """Drive one main path (plain or zk, as ``lig`` was compiled); returns
-    the kernels' launch counts of its first prove + verify."""
+    the kernels' launch counts of its first prove + verify.  The first
+    prove takes the opening overlap (:class:`OverlapProbe`); with
+    ``fused_check`` a prove on the fused gather gives the same bytes."""
     from ligero_tpu_torch import LigeroProof, test_sponge
 
     timer = lig.timer
@@ -2052,9 +2225,11 @@ def phase_main(torch, field, lig, vars_) -> dict:
 
     reset_counts(torch, wraps)
     timer.reset()
+    probe = OverlapProbe(lig)
     t0 = time.perf_counter()
     proof = lig.prove(vars_, sponge.clone(), **kw)
     prove_s = time.perf_counter() - t0
+    probe.remove()
     prove_phases = dict(timer.totals)
     timer.reset()
     t0 = time.perf_counter()
@@ -2076,8 +2251,15 @@ def phase_main(torch, field, lig, vars_) -> dict:
     for name, secs in sorted(verify_phases.items(), key=lambda kv: -kv[1]):
         log(f"  {tag}verify {name:22s} {secs * 1e3:10.1f} ms")
     require(ok, "verify rejected the honest proof")
+    OVERLAP[f"{tag or 'plain '}main".strip()] = probe.check(torch, tag)
 
     data = proof.to_bytes(field)
+    if fused_check:
+        same = prove_fused(lig, vars_, sponge.clone(), **kw).to_bytes(
+            field) == data
+        log(f"{tag}fused gather's proof = the overlap route's: {same}")
+        require(same, "the fused gather's proof differs from the opening "
+                "overlap's")
     if not lig.zk:   # under zk the batch phase proves each seed twice
         timer.reset()
         t0 = time.perf_counter()
@@ -2223,8 +2405,8 @@ def count_open_ntts(lig):
     def launched():
         return cuda_ntt.launches.count + cuda_ntt.launches16.count
 
-    def copied(cols):
-        host = to_host(cols)
+    def copied(cols, **kw):
+        host = to_host(cols, **kw)
         crossed.append((cols.device.type, host.dtype, host.nbytes))
         return host
 
@@ -3417,7 +3599,9 @@ def main() -> int:
     laps("core bn254, nccl")
     phase_parity()
     laps("parity")
-    by_path = {"plain": phase_main(torch, field, lig, vars_)}
+    by_path = {"plain": phase_main(torch, field, lig, vars_,
+                                   fused_check=True)}
+    OVERLAP["walls bn254 plain"] = overlap_walls(torch, lig, vars_)
     ref = single_reference(torch, lig, vars_)
     want_2e20 = ref["want"]          # the process mesh's direct proof
     del lig
@@ -3439,7 +3623,7 @@ def main() -> int:
     lig = build_instance(circ, outs, zk=True)
     require((lig.blind_t, lig.d2) == zk_dims, "zk kernel shapes were not the "
             f"zk path's: {zk_dims} vs {(lig.blind_t, lig.d2)}")
-    by_path["zk"] = phase_main(torch, field, lig, vars_)
+    by_path["zk"] = phase_main(torch, field, lig, vars_, fused_check=True)
     ref_zk = single_reference(torch, lig, vars_)
     del lig
     torch.cuda.empty_cache()
@@ -3468,8 +3652,8 @@ def main() -> int:
         lig = build_instance(circ, outs, zk=zk)
         # the batched launches at this path's own shapes
         B = ZK_BATCH if zk else BATCH
-        results["blake2s_cols"][f"{path} path"] = blake2s_batch_case(
-            torch, field, gen, B, lig.num_rows, lig.n)
+        results["blake2s_cols"][f"{path} path"] = blake2s_full_batch_case(
+            torch, field, gen, B, lig.num_rows, lig.n, plain=True)
         results["row_combine"][f"{path} path"] = row_combine_batch_case(
             torch, field, gen, B, 4 * lig.m, lig.k + (lig.blind_t if zk else 0))
         by_path[path] = phase_batch(torch, field, lig, vars_)
@@ -3531,12 +3715,13 @@ def main() -> int:
     blake2s_residue_cases(torch, bls, gen)
     blake2s_stream_cases(torch, bls, gen, 4 * lig.m + 3)
     bls_results["blake2s_cols"]["batched_full"] = blake2s_full_batch_case(
-        torch, bls, gen, BATCH, 4 * lig.m, lig.n)
+        torch, bls, gen, BATCH, 4 * lig.m, lig.n, plain=False)
     bls_results["row_combine"]["batched"] = row_combine_batch_case(
         torch, bls, gen, 2, 4 * lig.m, lig.k)   # the bls batch path's B
     laps("kernels bls12_377")
     core[bls.name] = phase_core(torch, bls, gen, smi)
-    by_path["bls plain"] = phase_main(torch, bls, lig, vars_)
+    by_path["bls plain"] = phase_main(torch, bls, lig, vars_,
+                                      fused_check=True)
     by_path["bls batch"] = phase_batch(torch, bls, lig, vars_, full=False)
     del lig
     torch.cuda.empty_cache()
@@ -3591,9 +3776,10 @@ def main() -> int:
 
     extra = ("chain_floor_ms", "batched", "batched_full", "forest", "full_ms",
              "zk_full_ms", "full_bound_ms", "zk_full_bound_ms", "batch path",
-             "zk batch path", "2^22", "rows_64", "rows_67", "levels", "lanes",
+             "zk batch path", "2^22", "levels", "lanes",
              "per_lanes", "verifier", "chain_floor_g1_ms", "sass",
-             "whole_column_ms", "short_plain_ms", "shape", "device_ms")
+             "whole_column_ms", "short_plain_ms", "shape", "device_ms",
+             *(f"rows_{h}" for h in POSEIDON_LANE_ROWS))
 
     def timings(res: dict) -> dict:
         return {"max_abs_err": res["max_abs_err"], "ms": res["ms"],
@@ -3640,6 +3826,7 @@ def main() -> int:
                        for name, line in bench["lines"].items()}
     record["graft"] = {key: val for key, val in graft.items()
                        if key != "launches"}
+    record["overlap"] = OVERLAP
     record["phase_s"] = laps.seconds
     record["total_s"] = time.perf_counter() - start
     log(f"chip_smoke: every phase passed in {record['total_s']:.1f} s")

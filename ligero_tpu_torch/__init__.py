@@ -21,7 +21,19 @@ against the JAX package's by the tests.
 (``circuit.r1cs``).
 """
 
+import os as _os
+
 from .fields import BLS12_377_FQ, BN254_FR, FIELDS, FieldSpec
+
+if _os.environ.get("LIGERO_MALLOC_TUNE") != "0":
+    # as the JAX package does at import: keep gigabyte host allocations
+    # (witness rows, challenge vectors, opened columns) on the reused brk
+    # heap, so a fresh buffer does not pay its first-touch page faults
+    # again every proof; costs RSS (freed blocks stay mapped).
+    # LIGERO_MALLOC_TUNE=0 keeps glibc's defaults; native.MALLOC_TUNED
+    # records whether the tuning took.
+    from . import native as _native
+    _native.MALLOC_TUNED = _native.tune_malloc()
 
 __all__ = [
     "BN254_FR", "BLS12_377_FQ", "FIELDS", "FieldSpec",

@@ -89,6 +89,18 @@ class MessageRows:
         self.coeffs = coeffs
 
 
+class PendingColumns:
+    """One index set's opened columns on their way to the host
+    (:meth:`TorchBackend.gather_columns_start`): the indices ``js``, the
+    int16 host tensor (``host``, pinned on a CUDA device), the side stream
+    and the event recorded there after the copy (None on the CPU), or the
+    start's error (``err``)."""
+
+    def __init__(self, js):
+        self.js = list(js)
+        self.host = self.stream = self.event = self.err = None
+
+
 def resolve_device(device) -> torch.device:
     """``None`` is the CUDA device: an entry point runs on the card unless
     the caller asks for ``"cpu"``, and raises where there is no card."""
@@ -116,6 +128,7 @@ class TorchBackend:
         self.field = field
         self.device = resolve_device(device)
         self.L = field.num_limbs
+        self._side = None
         if self.device.type == "cuda":
             cuda_build.kernel_field_id(field, "TorchBackend")
 
@@ -881,22 +894,90 @@ class TorchBackend:
                                       "cpu", torch.int16)]
             return self.to_numpy(torch.cat(
                 cols if tail is None else cols + [tail]))[None]
-        idx = idx.to(self.device)
+        return self.to_numpy(self._gather_to_host(u_canon, idx))
+
+    def _gather_to_host(self, u_canon, idx, non_blocking: bool = False
+                        ) -> torch.Tensor:
+        """Direct mode's openings: (B * rows, n, L) on the device and
+        ``idx`` (B, t) int64 -> (B, rows, t, L) int16 on the host (see
+        :meth:`opened_to_host`)."""
+        idx = idx.to(self.device, non_blocking=non_blocking)
         batch, t = idx.shape
         u4 = u_canon.reshape(batch, -1, *u_canon.shape[1:])
         index = idx[:, None, :, None].expand(batch, u4.shape[1], t, u4.shape[3])
-        return self.to_numpy(self.opened_to_host(torch.gather(u4, 2, index)))
+        return self.opened_to_host(torch.gather(u4, 2, index),
+                                   non_blocking=non_blocking)
 
-    def opened_to_host(self, cols: torch.Tensor) -> torch.Tensor:
+    def opened_to_host(self, cols: torch.Tensor,
+                       non_blocking: bool = False) -> torch.Tensor:
         """Opened columns where they lie (int32 or 16-bit limbs) -> an
         int16 tensor on the host: narrowed on the device, so that two
         bytes a limb cross (the JAX package's ``gather_columns`` copies
-        uint16)."""
-        return fieldops.narrow16(cols).cpu()
+        uint16).  ``non_blocking`` (a CUDA tensor): into pinned host memory
+        by the copy engine, ordered on the current stream; the caller waits
+        for that stream before it reads the result."""
+        cols = fieldops.narrow16(cols)
+        if not non_blocking or cols.device.type != "cuda":
+            return cols.cpu()
+        host = torch.empty(cols.shape, dtype=torch.int16, pin_memory=True)
+        return host.copy_(cols, non_blocking=True)
 
     def gather_columns(self, u_canon, js) -> np.ndarray:
         """Columns ``js`` of (rows, n, L) -> (rows, len(js), L) host uint32."""
         return self.gather_columns_batch(u_canon, [js])[0]
+
+    def gather_columns_start(self, u_canon: torch.Tensor,
+                             js) -> "PendingColumns":
+        """Start :meth:`gather_columns` of one direct-mode matrix and hand
+        back at once (the JAX package's ``_start_open_async``): on a CUDA
+        device the index upload, the gather, the narrowing to 16 bits and
+        the copy into pinned host memory run on this backend's side stream
+        (:meth:`side_stream`), behind the work the current stream holds at
+        the call (which wrote U), and ahead of nothing the current stream
+        does later; on the CPU the gather runs here.
+        :meth:`gather_columns_finish` waits for it.  An error of the start
+        is kept and raised at the finish.  U is marked as read by the side
+        stream (``record_stream``), so the caching allocator does not hand
+        its blocks to the current stream before the gather has read them,
+        whenever U is freed; the pinned buffer lives in the handle until
+        the finish."""
+        pending = PendingColumns(js)
+        try:
+            idx = torch.tensor([list(js)], dtype=torch.int64)
+            if self.device.type != "cuda":
+                pending.host = self._gather_to_host(u_canon, idx)
+                return pending
+            side = self.side_stream()
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            u_canon.record_stream(side)
+            with torch.cuda.stream(side):
+                pending.host = self._gather_to_host(u_canon, idx.pin_memory(),
+                                                    non_blocking=True)
+                pending.event = torch.cuda.Event(enable_timing=True)
+                pending.event.record(side)
+            pending.stream = side
+        except Exception as e:  # noqa: BLE001 -- raised at the finish
+            pending.err = e
+        return pending
+
+    def gather_columns_finish(self, pending: "PendingColumns") -> np.ndarray:
+        """The columns a :meth:`gather_columns_start` gathered, (rows, t,
+        L) host uint32: waits for its copy (the event), then widens on the
+        host; raises the start's error where it had one."""
+        if pending.err is not None:
+            raise pending.err
+        if pending.event is not None:
+            pending.event.synchronize()
+        return self.to_numpy(pending.host)[0]
+
+    def side_stream(self) -> torch.cuda.Stream:
+        """This backend's side CUDA stream (made at first use; one a
+        backend and device), where the openings' gathers and copies run
+        beside the prover's later phases.  Raises where it cannot be made:
+        the openings never fall back to the current stream quietly."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        return self._side
 
     # ------------------------------------------------------------------
     # interleaved / linear / quadratic phases

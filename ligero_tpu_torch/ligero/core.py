@@ -254,7 +254,11 @@ class LigeroCircuit:
         interleaved combinations and the openings take all B proofs in one
         call each; the linear and quadratic phases go proof by proof
         (their challenges hang on each proof's own transcript, and their
-        transients are the instance's largest)."""
+        transients are the instance's largest).  A single proof in direct
+        mode on one device (:meth:`_open_overlap_ok`) starts each set's
+        gather and copy as soon as its indices are squeezed (FS #4, #7,
+        #10) and finishes the three in order at the end, as the JAX
+        package does; every other case gathers all sets at once there."""
         be, ph = self.backend, self.timer.phase
         m, p, B = self.m, self.field.p, len(assignments)
         every = range(B)
@@ -271,6 +275,11 @@ class LigeroCircuit:
         with ph("commit"):
             trees = [MerkleTree(leaves, inner_levels=levels) for leaves, levels
                      in self._commit(u_canon, B)]
+        # one proof in direct mode on one device: each set's columns are
+        # gathered and copied while the later phases run; otherwise one
+        # fused gather of all sets after the quadratic phase
+        overlap = self._open_overlap_ok(u_canon, B)
+        pending = []
 
         with ph("interleaved"):
             rs = []
@@ -287,6 +296,8 @@ class LigeroCircuit:
                 sponges[i].absorb_field_elems(lc)                # FS #3
                 idx1.append(self._sample_indices(
                     sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)))    # FS #4
+        if overlap:
+            pending.append(self._start_open_async(u_canon, idx1[0]))
 
         with ph("linear"):
             qs, idx2 = [], []
@@ -303,6 +314,8 @@ class LigeroCircuit:
                 sponges[i].absorb_field_elems(q)                 # FS #6
                 idx2.append(self._sample_indices(
                     sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)))    # FS #7
+        if overlap:
+            pending.append(self._start_open_async(u_canon, idx2[0]))
 
         with ph("quadratic"):
             p0s, idx3 = [], []
@@ -318,21 +331,26 @@ class LigeroCircuit:
                 idx3.append(self._sample_indices(
                     sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)))    # FS #10
 
-        # opened columns are proof data, never absorbed: one gather for
-        # all three index sets of all proofs (each set squeezed at its FS
-        # position above)
+        # opened columns are proof data, never absorbed: each set is
+        # squeezed at its FS position above, and only its fetch is
+        # deferred, started there (overlap) or gathered with the others
         with ph("open"):
-            with ph("open.gather"):
-                cols = be.gather_columns_batch(
-                    u_canon, [idx1[i] + idx2[i] + idx3[i] for i in every])
-            proofs = []
-            for i in every:
-                o1, o2, o3 = self._opened(cols[i], trees[i],
-                                          (idx1[i], idx2[i], idx3[i]))
-                proofs.append(LigeroProof(
-                    trees[i].root, InterleavedProof(lcs[i], *o1),
-                    LinearConstraintsProof(qs[i], *o2),
-                    QuadraticConstraintsProof(p0s[i], *o3)))
+            if overlap:
+                pending.append(self._start_open_async(u_canon, idx3[0]))
+                opened = [[self._finish_open_async(h, trees[0])
+                           for h in pending]]
+            else:
+                with ph("open.gather"):
+                    cols = be.gather_columns_batch(
+                        u_canon, [idx1[i] + idx2[i] + idx3[i] for i in every])
+                opened = [self._opened(cols[i], trees[i],
+                                       (idx1[i], idx2[i], idx3[i]))
+                          for i in every]
+            proofs = [LigeroProof(
+                trees[i].root, InterleavedProof(lcs[i], *opened[i][0]),
+                LinearConstraintsProof(qs[i], *opened[i][1]),
+                QuadraticConstraintsProof(p0s[i], *opened[i][2]))
+                for i in every]
         return proofs
 
     def _encode(self, assignments, masks):
@@ -506,18 +524,53 @@ class LigeroCircuit:
             del block
         return RowChunkedMatrix(chunks, 4 * self.m, cr, self.k)
 
+    def _open_overlap_ok(self, u_canon, batch: int = 1) -> bool:
+        """Whether the openings take the overlap route (the JAX package's
+        rule): one proof, in direct mode (U one tensor, not a chunked
+        handle), on one device (not a mesh, whose gather spans its
+        devices).  Batches, resident and streaming mode (whose gathers
+        read or re-encode every chunk) and every mesh take the one fused
+        gather."""
+        return (batch == 1 and isinstance(u_canon, torch.Tensor)
+                and getattr(self.backend, "mesh", None) is None)
+
+    def _start_open_async(self, u_canon, idx):
+        """Start the gather and the host copy of one phase's opened
+        columns (``TorchBackend.gather_columns_start``: a side stream on
+        the card), so that they run behind the later phases.  Sound for
+        the reason the fused gather is: the columns are proof data, never
+        absorbed into the transcript."""
+        return self.backend.gather_columns_start(u_canon, idx)
+
+    def _finish_open_async(self, handle, tree):
+        """``(columns, paths)`` of a started set: the wait for its copy
+        (and its error, where the start had one), then the host work."""
+        with self.timer.phase("open.gather"):
+            cols = self.backend.gather_columns_finish(handle)
+        return self._opened_set(cols, tree, handle.js)
+
     def _opened(self, cols: np.ndarray, tree, idx_sets):
         """One proof's gathered columns (rows, sum of the sets, L; copied
         in 16-bit limbs and widened on the host) -> ``(columns, paths)``
         per index set."""
         out, off = [], 0
         for idx in idx_sets:
-            columns = [self.field.limbs_to_ints(cols[:, off + i, :])
-                       for i in range(len(idx))]
-            paths = [tree.generate_proof(j) for j in idx]
-            out.append((columns, paths))
+            out.append(self._opened_set(cols[:, off:off + len(idx)], tree,
+                                        idx))
             off += len(idx)
         return out
+
+    def _opened_set(self, cols: np.ndarray, tree, idx):
+        """One index set's columns (rows, len(idx), L) -> ``(columns as
+        ints, Merkle paths)``, timed as ``open.to_ints`` and
+        ``open.paths``."""
+        ph = self.timer.phase
+        with ph("open.to_ints"):
+            columns = [self.field.limbs_to_ints(cols[:, i, :])
+                       for i in range(len(idx))]
+        with ph("open.paths"):
+            paths = [tree.generate_proof(j) for j in idx]
+        return columns, paths
 
     # ------------------------------------------------------------------
     # verifier

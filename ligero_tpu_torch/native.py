@@ -343,6 +343,10 @@ def quad_spot_mont(field: FieldSpec, x_u64, y_u64, z_u64,
 
 _sample_bufs = __import__("threading").local()
 
+#: whether ``import ligero_tpu_torch`` tuned malloc (:func:`tune_malloc`,
+#: skipped under ``LIGERO_MALLOC_TUNE=0``) and glibc took both settings
+MALLOC_TUNED = False
+
 
 def tune_malloc(mmap_threshold: int = 1 << 31) -> bool:
     """Route big allocations through the (reused, stays-faulted) brk heap.
@@ -352,7 +356,8 @@ def tune_malloc(mmap_threshold: int = 1 << 31) -> bool:
     work happens.  glibc serves allocations above M_MMAP_THRESHOLD from
     fresh mmaps (faulted every time); raising it and disabling trim keeps
     the pages resident across alloc/free cycles.  Costs RSS (freed blocks
-    stay mapped).  Never called at import: a caller opts in."""
+    stay mapped).  Called by ``import ligero_tpu_torch`` unless
+    ``LIGERO_MALLOC_TUNE=0``, as the JAX package does."""
     try:
         libc = ctypes.CDLL(None)
         M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3

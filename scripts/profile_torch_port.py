@@ -7,6 +7,7 @@
                                           [--lambda 128] [--batch B]
                                           [--mesh D] [--spot] [--vs-streaming]
                                           [--out FILE]
+    python3 scripts/profile_torch_port.py --malloc-ab [--out FILE]
 
 Builds the synthetic circuit of ``--log2-gates`` gates (seed 0) over
 ``--field`` (BN254 Fr, or BLS12-377 Fq: the kernels' two fields), compiled
@@ -50,7 +51,18 @@ resident one.  With ``--mesh D`` the instance runs over D shards
 (``parallel.ShardedBackend``; on a host with fewer cards than D a card
 holds several), in the mode its estimates per physical device give, and
 each physical device's peak stands beside its own estimate
-(``device_bytes``, ``stream_device_bytes``).
+(``device_bytes``, ``stream_device_bytes``).  The phase timer's call is
+recorded as each phase's total (``phases_ms``) and count
+(``phase_counts``).
+
+``--malloc-ab`` runs this profile (BN254 Fr on ``--device``, the other
+options at their defaults) in a subprocess at each size of
+``MALLOC_AB_GATES`` (2^20 gates, direct mode; 2^24, resident mode), in
+turns with ``LIGERO_MALLOC_TUNE=0`` and without it (off, on, on, off: the
+import-time malloc tuning of ``ligero_tpu_torch``), and prints each run's
+``witness+preenc`` (the timed call's), its prove and verify walls, and
+the host's resident memory: the process's peak (``ru_maxrss``) and what
+it holds after the last verify.
 
 Prints one JSON object (also written to ``--out``).  Neither JAX nor the
 JAX package is ever imported.
@@ -165,6 +177,7 @@ def profile_call(torch, devices, lig, fn) -> dict:
     lig.timer.enabled = False
     phases = {k: round(v * 1e3, 1) for k, v in
               sorted(lig.timer.totals.items(), key=lambda kv: -kv[1])}
+    counts = {k: lig.timer.counts[k] for k in phases}
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -179,12 +192,82 @@ def profile_call(torch, devices, lig, fn) -> dict:
     peaks = ({str(dev): torch.cuda.max_memory_allocated(dev) / 2**30
               for dev in devices} if device.type == "cuda" else None)
     return {"walls_s": walls, "median_wall_s": median, "phases_ms": phases,
+            "phase_counts": counts,
             "peak_device_memory_gib": max(peaks.values()) if peaks else None,
             "peaks_gib": peaks,
             "profiled_wall_s": wall_prof, "device_busy_ms": busy_ms,
             "idle_share_vs_profiled_wall": idle(wall_prof),
             "idle_share_vs_median_wall": idle(median),
             "device_groups": groups}
+
+
+#: the import-time malloc tuning's A/B: off, on, on, off, at 2^20 and 2^24
+#: gates
+MALLOC_TURNS = ("0", "1", "1", "0")
+MALLOC_AB_GATES = (20, 24)
+
+
+def host_rss_gib() -> dict:
+    """This process's resident host memory: its peak and its present size."""
+    import resource
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return {"peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+            "now": pages * os.sysconf("SC_PAGE_SIZE") / 2**30}
+
+
+def malloc_ab(device: str, out) -> int:
+    """``--malloc-ab``: the profile of each size in subprocesses, with and
+    without the import-time malloc tuning, in turns; one JSON record of
+    every run (also written to ``out``)."""
+    runs = []
+    for log2 in MALLOC_AB_GATES:
+        for i, tune in enumerate(MALLOC_TURNS):
+            env = dict(os.environ)
+            env.pop("LIGERO_MALLOC_TUNE", None)
+            if tune == "0":
+                env["LIGERO_MALLOC_TUNE"] = "0"
+            path = f"{out or 'profile'}.malloc{tune}.2e{log2}.{i}.json"
+            cmd = [sys.executable, os.path.abspath(__file__), "--log2-gates",
+                   str(log2), "--device", device, "--out", path]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, env=env, stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.PIPE, text=True)
+            if res.returncode != 0:
+                print(f"profile_torch_port: the 2^{log2} run with "
+                      f"LIGERO_MALLOC_TUNE={tune} failed:\n"
+                      f"{res.stderr[-3000:]}", file=sys.stderr)
+                return 1
+            with open(path) as f:
+                rec = json.load(f)
+            if rec["malloc_tuned"] != (tune == "1"):
+                print(f"profile_torch_port: LIGERO_MALLOC_TUNE={tune} but "
+                      f"malloc_tuned is {rec['malloc_tuned']}",
+                      file=sys.stderr)
+                return 1
+            run = {"log2_gates": log2, "malloc_tune": tune == "1",
+                   "process_s": time.perf_counter() - t0,
+                   "nvidia_smi": rec["nvidia_smi"],
+                   "witness_preenc_ms": rec["prove"]["phases_ms"].get(
+                       "witness+preenc"),
+                   "prove_walls_s": rec["prove"]["walls_s"],
+                   "prove_median_s": rec["prove"]["median_wall_s"],
+                   "verify_walls_s": rec["verify"]["walls_s"],
+                   "verify_median_s": rec["verify"]["median_wall_s"],
+                   "host_rss_gib": rec["host_rss_gib"]}
+            print(f"2^{log2} malloc tuning {'on ' if run['malloc_tune'] else 'off'}"
+                  f": witness+preenc {run['witness_preenc_ms']} ms, prove "
+                  f"walls {run['prove_walls_s']}, verify walls "
+                  f"{run['verify_walls_s']}, host RSS peak "
+                  f"{run['host_rss_gib']['peak']:.3f} GiB, after verify "
+                  f"{run['host_rss_gib']['now']:.3f} GiB", flush=True)
+            runs.append(run)
+    text = json.dumps({"malloc_ab": runs}, indent=1)
+    if out:
+        with open(out, "w") as f:
+            f.write(text + "\n")
+    print(text)
+    return 0
 
 
 def main() -> int:
@@ -204,12 +287,16 @@ def main() -> int:
                     help="run over a mesh of D shards of the device(s)")
     ap.add_argument("--vs-streaming", action="store_true",
                     help="in resident mode, profile streaming mode too")
+    ap.add_argument("--malloc-ab", action="store_true",
+                    help="profile with and without the malloc tuning")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    if args.malloc_ab:
+        return malloc_ab(args.device, args.out)
 
     import torch
 
-    from ligero_tpu_torch import FIELDS, LigeroCircuit, test_sponge
+    from ligero_tpu_torch import FIELDS, LigeroCircuit, native, test_sponge
     from ligero_tpu_torch.engine import spot
     from ligero_tpu_torch.engine.backend import TorchBackend
     from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
@@ -295,7 +382,7 @@ def main() -> int:
         "n": lig.n, "t": lig.t, "blind_t": lig.blind_t, "d2": lig.d2,
         "device": str(device),
         "nvidia_smi": nvidia_smi_line() if device.type == "cuda" else None,
-        "torch": torch.__version__,
+        "torch": torch.__version__, "malloc_tuned": native.MALLOC_TUNED,
         "prove": profile_call(torch, devices, lig, prove),
         "verify": profile_call(torch, devices, lig,
                                lambda: lig.verify(proof, sponge.clone())),
@@ -303,6 +390,7 @@ def main() -> int:
     record["peak_device_memory_gib"] = (
         max(record[call]["peak_device_memory_gib"]
             for call in ("prove", "verify")) if device.type == "cuda" else None)
+    record["host_rss_gib"] = host_rss_gib()
     if (args.spot and spot.spot_ok(field, lig.n)
             and lig.encode_mode == "direct"):
         # the same verify with the spot evaluation as its ntt_columns

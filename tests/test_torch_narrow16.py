@@ -112,8 +112,8 @@ class Storage:
         to_numpy = TorchBackend.to_numpy
         to_host = TorchBackend.opened_to_host
 
-        def record_crossing(be, cols):
-            host = to_host(be, cols)
+        def record_crossing(be, cols, **kw):
+            host = to_host(be, cols, **kw)
             self.crossed.append(host.dtype)
             return host
 
@@ -293,18 +293,20 @@ def test_proof_bytes_equal_jax_package_in_every_mode(name, zk, mode,
     """Direct, resident and streaming mode (chunks of 8), plain and zk,
     both fields: the proof equals the JAX package's byte for byte; every
     chunk the resident and streaming provers build is int16, and in every
-    mode the opened columns cross to the host as int16."""
+    mode the opened columns cross to the host as int16 (in direct mode
+    each set of t on its own: the opening overlap; else all 3t at once)."""
     want, _, _, vars_ = reference(name, zk)
     if mode != "direct":
         force(monkeypatch, build(name, zk), mode)
     lig = build(name, zk)
     assert (lig.encode_mode, lig.chunk_rows) == (
         (mode, CR) if mode != "direct" else ("direct", 0))
-    seen = Storage(monkeypatch, 3 * lig.t)
+    sets = 3 if mode == "direct" else 1
+    seen = Storage(monkeypatch, 3 * lig.t // sets)
     kw = {"zk_seed": ZK_SEED} if zk else {}
     got = lig.prove(vars_, test_sponge(FIELDS[name]), **kw)
     assert got.to_bytes(pf(FIELDS[name])) == want
-    assert seen.opened == [torch.int16]
+    assert seen.opened == [torch.int16] * sets
     assert seen.crossed and set(seen.crossed) == {torch.int16}
     if mode == "direct":
         assert seen.chunks == []
