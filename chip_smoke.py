@@ -8,7 +8,8 @@ It runs every phase, in order; any failure exits non-zero:
 1. device   -- require CUDA; print the card's nvidia-smi name and power limit.
 2. build    -- build the kernels of ``ligero_tpu_torch/csrc`` with nvcc (both
                fields' instantiations; ptxas's register and spill lines,
-               the Blake2s and row_combine instantiations by name); where
+               the Blake2s, row_combine and NTT instantiations by name,
+               failing where a BLS12-377 NTT instantiation spills); where
                row_combine's row loop stands its cp.async copies and its
                wide multiply-adds, and the Blake2s compression loop's
                instructions by pipe against its bound (SASS).
@@ -23,7 +24,10 @@ It runs every phase, in order; any failure exits non-zero:
                streamed 16-bit), at the commit's full shape, against one
                plain run.  Then the NTT at the edges of
                every route (one pass, cosets, two passes; each with inverse
-               and canon_out on and off, the route printed) and the
+               and canon_out on and off, the route printed), for
+               BLS12-377 rows of p - 1, of 0, of both in turns and random
+               through every route, a lone row and both storages (its
+               lazy butterflies' edges), and the
                full-width commit kernels; the 16-bit entries (the
                resident and streaming modes' chunks in 16-bit limbs: the
                NTT reading and writing them, row_combine reading them) at
@@ -37,7 +41,7 @@ It runs every phase, in order; any failure exits non-zero:
                (``engine/spot.py``, which the verifier does not call yet)
                against the NTT kernel and its plain version; the Poseidon
                sponge (``csrc/poseidon_cols.cu``) at every compiled lane
-               count at full width and 32 / 35 rows, its first 256 columns
+               count at full width and 32 / 35 rows, its first 128 columns
                against its plain version, against the host sponge at the commit's full heights
                and at the verifier's launch (3t columns), each lane count
                timed there and at a tree level and the root, its tree
@@ -70,7 +74,7 @@ It runs every phase, in order; any failure exits non-zero:
                by side from the kernel's states (it takes ~0.19 s a pair of
                rows on the card); at the same patterns cut in depth (36 /
                39 rows in 16-row chunks, 28 in 12) at the full width of
-               16384 columns, its first 256 against the plain version row
+               16384 columns, its first 128 against the plain version row
                after row; against the whole-column
                kernel and the host sponge on sampled columns; timed at
                4100 x 16384 in 1024-row chunks beside the whole-column
@@ -127,7 +131,7 @@ It runs every phase, in order; any failure exits non-zero:
                device memory against the prover's and the verifier's
                estimates; before each, its batched Blake2s launch at its
                own shape against single launches and, on each matrix's
-               first 256 columns at full depth, the plain version, and its
+               first 128 columns at full depth, the plain version, and its
                batched row_combine against its plain version; the same B = 3 and zk B = 2 batches over two
                shards (the mesh's batches: equal to sequential calls);
                the 2^18 zk instance over three shards, direct and in
@@ -169,7 +173,7 @@ It runs every phase, in order; any failure exits non-zero:
                seconds are printed; the kernels phase holds each NTT case
                against its plain version on the first 128 rows of the
                kernel's launch, and the Blake2s columns and the Poseidon
-               sponge at full width on the first 256 columns of theirs,
+               sponge at full width on the first 128 columns of theirs,
                at full depth.
 6. serve    -- a repeated-squaring ``.r1cs`` (2^14 squarings) and its
                witness written here; the port's HTTP service in a thread on
@@ -329,12 +333,16 @@ FORCED_CHUNK_ROWS, STREAM_LOG2_GATES = 512, 23
 #: PLAIN_ROWS rows (256 until the opening overlap's phases needed room: the
 #: rows of a transform are independent, and the launch stays at the whole
 #: shape), the column hashes (Blake2s, the Poseidon sponge) at full depth
-#: on their first PLAIN_COLUMNS columns; the kernel is launched (and timed)
-#: at the whole shape, and the same part of its result is held against the
-#: plain version's
-PLAIN_ROWS, PLAIN_COLUMNS = 128, 256
+#: on PLAIN_COLUMNS columns, half of them at each end of the matrix
+#: (:func:`plain_columns`; the first 256 until the BLS12-377 NTT's
+#: edge-value cases needed room: every column kernel hashes its columns
+#: independently, and a block takes 128 of them, so the two ends lie in
+#: different blocks); the kernel is launched (and timed) at the whole
+#: shape, and the same part of its result is held against the plain
+#: version's
+PLAIN_ROWS, PLAIN_COLUMNS = 128, 128
 #: the heights of the Poseidon sponge's lane-count cases (16384 columns,
-#: the first PLAIN_COLUMNS against the plain version, which takes ~0.2 s a
+#: PLAIN_COLUMNS of them against the plain version, which takes ~0.2 s a
 #: row there): an even one, and an odd one, as a zk column's tail (64 and
 #: 67 until the opening overlap's phases needed room)
 POSEIDON_LANE_ROWS = (32, 35)
@@ -380,7 +388,7 @@ POSEIDON_STREAM_CASES = (((4100, STREAM_CHUNK), (4103, STREAM_CHUNK)),
                          ((2052, 536), (2055, 528)))
 POSEIDON_DEEP_COLS, POSEIDON_SEGMENT = 256, 16
 #: the same chunk patterns cut in depth, the kernel at the commit's full
-#: width (n = 16384, so the path's lanes a column), its first PLAIN_COLUMNS
+#: width (n = 16384, so the path's lanes a column), PLAIN_COLUMNS of its
 #: columns held against the plain version row after row: 36 rows in 16-row
 #: chunks (two full, a last of 4), 39 (a last of 7, odd), 28 in 12-row
 #: chunks (two full, a last of 4) (68, 71 and 40 rows, four and three full
@@ -450,6 +458,36 @@ def nvidia_smi_line() -> str:
     require(res.returncode == 0 and res.stdout.strip(),
             f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+#: the NTT wrapper's launches on a path by shape (PERF.md's sub-rows of
+#: the NTT's kernel rows), counted where cuda_ntt counts them
+NTT_SHAPES: dict = {}
+
+
+def tally_ntt_shapes() -> None:
+    """Count every launch of ``cuda_ntt.ntt_routed`` (which ``ntt`` calls)
+    in :data:`NTT_SHAPES` under its shape: rows x w -> n, inverse,
+    canonical output, 16-bit in and out."""
+    import torch
+    from ligero_tpu_torch.engine import cuda_ntt
+    routed = cuda_ntt.ntt_routed
+
+    def counted(field, x, n, inverse, canon_out, rt, *args, **kw):
+        rows = x.numel() // (x.shape[-2] * x.shape[-1])
+        out16 = kw.get("out16", args[1] if len(args) > 1 else False)
+        key = (f"{rows} x {x.shape[-2]} -> {n}" + " inverse" * inverse
+               + " canon_out" * canon_out
+               + " 16-bit in" * (x.dtype == torch.int16)
+               + " 16-bit out" * bool(out16))
+        NTT_SHAPES[key] = NTT_SHAPES.get(key, 0) + 1
+        return routed(field, x, n, inverse, canon_out, rt, *args, **kw)
+
+    cuda_ntt.ntt_routed = counted
+
+
+def ntt_shapes_text() -> str:
+    return str(dict(sorted(NTT_SHAPES.items())))
 
 
 def wrappers():
@@ -784,6 +822,11 @@ def phase_kernels(torch, field, gen, dims, zk_dims) -> dict:
         torch.cuda.empty_cache()
     results["ntt"]["max_abs_err"] = max(
         results["ntt"]["max_abs_err"], ntt_route_cases(torch, field, gen))
+    if field.name == "bls12_377_fq":      # the lazy butterflies' edges
+        edge = ntt_edge_value_cases(torch, field, gen)
+        for key in ("ntt", "ntt16"):
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                              edge)
     results["blake2s_cols"], results["blake2s_stream"] = blake2s_commit_cases(
         torch, field, gen, rows, n)
     # the commit's full-width NTT_n, column hash and tree (all rows, all n
@@ -863,11 +906,23 @@ def _diff(torch, got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def plain_columns(torch, n: int):
+    """The columns of an n-column case that a column hash's plain version
+    computes: the first and the last PLAIN_COLUMNS / 2 (in the first and
+    the last block of a column kernel's launch), or all n where n is no
+    more than PLAIN_COLUMNS.  An index tensor on the card."""
+    if n <= PLAIN_COLUMNS:
+        return torch.arange(n, device="cuda")
+    h = PLAIN_COLUMNS // 2
+    return torch.cat([torch.arange(h, device="cuda"),
+                      torch.arange(n - h, n, device="cuda")])
+
+
 def blake2s_commit_cases(torch, field, gen, rows: int, n: int):
     """The column hash at the commit's shape, ``rows`` x ``n``, both
     entries, against one plain run: the whole-column kernel at full width,
-    its first PLAIN_COLUMNS columns held against the plain version
-    (computed once, at full depth); the streamed 16-bit entry over the same
+    its :func:`plain_columns` held against the plain version (computed
+    once, at full depth); the streamed 16-bit entry over the same
     matrix in STREAM_CHUNK-row chunks, equal to it; then the streamed entry
     against its plain version on the same card tensors at each of
     STREAM_PLAIN_CASES (the chunkings the streaming paths give it, the
@@ -877,13 +932,14 @@ def blake2s_commit_cases(torch, field, gen, rows: int, n: int):
     kernel).  Returns the whole-column and the streamed records."""
     from ligero_tpu_torch.engine import cuda_hash, fieldops, hashops
     u = _rand_elems(torch, gen, (rows, n), field)
+    pcols = plain_columns(torch, n)
     want, plain_ms = _time_once(
-        torch, lambda: hashops.blake2s_columns_ref(u[:, :PLAIN_COLUMNS]))
+        torch, lambda: hashops.blake2s_columns_ref(u[:, pcols]))
     u16 = fieldops.narrow16(u)
     cols_bound, cols_by = bound(*blake2s_work(field, rows, n))
     stream_bound, stream_by = bound(*blake2s_work(field, rows, n, in16=True))
     whole = cuda_hash.blake2s_columns(field, u)
-    err = _diff(torch, whole[:PLAIN_COLUMNS], want)
+    err = _diff(torch, whole[pcols], want)
     require(err == 0, f"Blake2s columns {rows} x {n}: the kernel disagrees "
             "with its plain version")
     require(torch.equal(stream_digests(field, u16, STREAM_CHUNK), whole),
@@ -900,8 +956,9 @@ def blake2s_commit_cases(torch, field, gen, rows: int, n: int):
                                                         "blake2s_kernel")
     stream_ms = _time_cuda(torch, streamed, 3)
     stream_dev_ms = _device_ms(torch, streamed, "blake2s_kernel")
-    log(f"kernel [{field.name}] Blake2s columns {rows} x {n}: first "
-        f"{PLAIN_COLUMNS} columns max_abs_err=0 against the plain version; "
+    log(f"kernel [{field.name}] Blake2s columns {rows} x {n}: first and "
+        f"last {PLAIN_COLUMNS // 2} columns max_abs_err=0 against the plain "
+        "version; "
         f"{ms:.3f} ms (device {_ms(dev_ms)}), bound {cols_bound:.3f} ms by "
         f"{cols_by}; streamed 16-bit in chunks of {STREAM_CHUNK}, equal: "
         f"{stream_ms:.3f} ms (device {_ms(stream_dev_ms)}), bound "
@@ -925,8 +982,8 @@ def blake2s_commit_cases(torch, field, gen, rows: int, n: int):
     first = STREAM_PLAIN_CASES[0]
     cols = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": cols_bound, "bound_by": cols_by,
-            "shape": f"{rows} x {n}; plain on its first {PLAIN_COLUMNS} "
-                     "columns"}
+            "shape": f"{rows} x {n}; plain on its first and last "
+                     f"{PLAIN_COLUMNS // 2} columns"}
     stream = {"max_abs_err": stream_err, "ms": stream_ms,
               "device_ms": stream_dev_ms, "plain_ms": stream_plain_ms,
               "bound_ms": stream_bound, "bound_by": stream_by,
@@ -1103,8 +1160,8 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     Fr): against its plain version on the same card tensors, at the
     streaming paths' row counts and chunkings (POSEIDON_STREAM_CASES, by
     segments), and at POSEIDON_PLAIN_CASES at the commit's full width ``n``
-    against the plain version row after row on the first PLAIN_COLUMNS
-    columns (the 39-row case takes the plain states after the 36-row
+    against the plain version row after row on its :func:`plain_columns`
+    (the 39-row case takes the plain states after the 36-row
     case's 32 shared rows); every state between chunks and every digest
     bit-equal; over the commit's full width, ``rows`` x ``n`` in
     STREAM_CHUNK-row chunks, bit-equal to the whole-column kernel on the
@@ -1127,7 +1184,8 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     (r1, c1), (r2, _), (r3, c3) = POSEIDON_PLAIN_CASES
     u = _rand_elems16(torch, gen, (r2, n), field)
     v = _rand_elems16(torch, gen, (r3, n), field)
-    pu, pv, pc = u[:, :PLAIN_COLUMNS], v[:, :PLAIN_COLUMNS], PLAIN_COLUMNS
+    pc = plain_columns(torch, n)
+    pu, pv = u[:, pc], v[:, pc]
     t0 = time.perf_counter()
     plain = {r1: poseidon_stream_run(field, pu, r1, c1, True),
              r3: poseidon_stream_run(field, pv, r3, c3, True)}
@@ -1139,21 +1197,21 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
     for (nrows, cr), mat in zip(POSEIDON_PLAIN_CASES, (u, u, v)):
         states, digests = poseidon_stream_run(field, mat, nrows, cr, False)
         want_states, want = plain[nrows]
-        case = max([diff(digests[:pc], want)] + [
-            diff(a[:pc], b) for a, b in zip(states, want_states)])
+        case = max([diff(digests[pc], want)] + [
+            diff(a[pc], b) for a, b in zip(states, want_states)])
         require(torch.equal(digests, whole(mat[:nrows])), f"Poseidon chunked "
                 f"{nrows} x {n} in chunks of {cr}: differs from the "
                 "whole-column kernel")
         log(f"kernel [{field.name}] Poseidon chunked absorb {nrows} x {n} in "
             f"chunks of {cr}, {cuda_poseidon.lanes_for(n)} lane(s) a column: "
-            f"max_abs_err={case} against its plain version on its first "
-            f"{pc} columns ({len(want_states)} states between chunks and the "
-            "digests)")
+            f"max_abs_err={case} against its plain version on its first and "
+            f"last {len(pc) // 2} columns ({len(want_states)} states between "
+            "chunks and the digests)")
         require(case == 0, f"Poseidon chunked {nrows} x {n} in chunks of "
                 f"{cr}: the kernel disagrees with its plain version")
         err = max(err, case)
     log(f"kernel [{field.name}] Poseidon chunked absorb: plain version "
-        f"{short_ms:.1f} ms over the three cases at {pc} of {n} columns")
+        f"{short_ms:.1f} ms over the three cases at {len(pc)} of {n} columns")
     del u, v
     w = _rand_elems16(torch, gen, (rows, n), field)
     w32 = fieldops.widen16(w)
@@ -1182,7 +1240,7 @@ def poseidon_stream_entry(torch, field, gen, rows: int, n: int) -> dict:
                      f"plain at {first} x {POSEIDON_DEEP_COLS} by "
                      f"{POSEIDON_SEGMENT}-row segments (plain_ms), and at "
                      f"{POSEIDON_PLAIN_CASES} x {n} row after row on "
-                     f"{pc} columns (short_plain_ms)"}
+                     f"{len(pc)} columns (short_plain_ms)"}
 
 
 def host_hash_context(n: int) -> None:
@@ -1202,17 +1260,19 @@ def blake2s_residue_cases(torch, field, gen) -> None:
     at row counts of every residue mod 12 (96-107: the zk main path's
     4m + 3 = 4103 among them, whose full depth no case holds against the
     plain version; 4m is the kernels phase's case), one matrix and three
-    stacked in one launch, against the plain version (~0.8 s a count)."""
+    stacked in one launch, at 2 PLAIN_COLUMNS columns (two blocks a
+    matrix), against the plain version on PLAIN_COLUMNS of them (~0.4 s a
+    count)."""
     for nrows in range(96, 108):
-        blake2s_batch_case(torch, field, gen, BATCH, nrows, 256)
+        blake2s_batch_case(torch, field, gen, BATCH, nrows, 2 * PLAIN_COLUMNS)
 
 
 def blake2s_full_batch_case(torch, field, gen, B, rows, n,
                             plain: bool) -> dict:
     """B full (rows, n) matrices in one launch (at the 2^20 shape their
     element offsets pass 2^31) against B single launches, and with
-    ``plain`` each matrix's first PLAIN_COLUMNS columns at full depth
-    against the plain version (which hashes the B matrices' slices side by
+    ``plain`` each matrix's :func:`plain_columns` at full depth against
+    the plain version (which hashes the B matrices' slices side by
     side as one matrix; ~10-25 s, one small step a block of rows, so it
     runs where no other case holds these rows against it: the kernel
     stages rows in a ring of three pairs, so where a column's rows end in
@@ -1220,19 +1280,21 @@ def blake2s_full_batch_case(torch, field, gen, B, rows, n,
     take residues that the 4100 and 4103 rows of the kernels phase do
     not); returns the times and bound."""
     from ligero_tpu_torch.engine import cuda_hash, hashops
-    L, pc = field.num_limbs, PLAIN_COLUMNS
+    L, pcols = field.num_limbs, plain_columns(torch, n)
+    pc = len(pcols)
     u = _rand_elems(torch, gen, (B * rows, n), field)
     got = cuda_hash.blake2s_columns(field, u, B)
     err, plain_ms = None, None
     if plain:
-        side = u.reshape(B, rows, n, L)[:, :, :pc].permute(
+        side = u.reshape(B, rows, n, L)[:, :, pcols].permute(
             1, 0, 2, 3).reshape(rows, B * pc, L)
         want, plain_ms = _time_once(
             torch, lambda: hashops.blake2s_columns_ref(side))
-        err = max(_diff(torch, got[i * n:i * n + pc],
-                        want[i * pc:(i + 1) * pc]) for i in range(B))
+        err = max(_diff(torch, got[i * n + pcols], want[i * pc:(i + 1) * pc])
+                  for i in range(B))
         require(err == 0, f"batched Blake2s {B} x {rows} x {n}: the kernel "
-                f"disagrees with its plain version on the first {pc} columns")
+                f"disagrees with its plain version on its first and last "
+                f"{pc // 2} columns")
         del side, want
     for i in range(B):
         require(torch.equal(got[i * n:(i + 1) * n], cuda_hash.blake2s_columns(
@@ -1242,15 +1304,16 @@ def blake2s_full_batch_case(torch, field, gen, B, rows, n,
     dev_ms = _device_ms(torch, lambda: cuda_hash.blake2s_columns(field, u, B),
                         "blake2s_kernel")
     bound_ms, by = bound(*scaled(blake2s_work(field, rows, n), B))
-    held = (f"first {pc} columns of each max_abs_err=0 against the plain "
-            f"version ({plain_ms:.1f} ms), " if plain else "")
+    held = (f"first and last {pc // 2} columns of each max_abs_err=0 against "
+            f"the plain version ({plain_ms:.1f} ms), " if plain else "")
     log(f"kernel [{field.name}] batched Blake2s, full {B} x {rows} x {n}: "
         f"{held}bit-equal to {B} single launches; "
         f"{ms:.3f} ms (device {_ms(dev_ms)}), bound {bound_ms:.3f} ms by {by}")
     del u, got
     torch.cuda.empty_cache()
     shape = f"{B} x {rows} x {n}" + (
-        f"; plain on the first {pc} columns of each" if plain else "")
+        f"; plain on the first and last {pc // 2} columns of each"
+        if plain else "")
     return {"shape": shape, "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by}
@@ -1258,21 +1321,23 @@ def blake2s_full_batch_case(torch, field, gen, B, rows, n,
 
 def blake2s_batch_case(torch, field, gen, B, nrows, cols) -> dict:
     """The column kernel over B stacked (nrows, cols) matrices in one
-    launch, and over the first alone, against the plain version (which
-    hashes the B matrices' columns side by side as one (nrows, B cols)
+    launch, and over the first alone, against the plain version on each
+    matrix's :func:`plain_columns` (which it hashes side by side as one
     matrix); returns the times and the bound of the batched launch."""
     from ligero_tpu_torch.engine import cuda_hash, hashops
-    L = field.num_limbs
+    L, pcols = field.num_limbs, plain_columns(torch, cols)
+    pc = len(pcols)
     u = _rand_elems(torch, gen, (B * nrows, cols), field)
-    side = u.reshape(B, nrows, cols, L).permute(1, 0, 2, 3).reshape(
-        nrows, B * cols, L)
+    side = u.reshape(B, nrows, cols, L)[:, :, pcols].permute(
+        1, 0, 2, 3).reshape(nrows, B * pc, L)
     want, plain_ms = _time_once(
         torch, lambda: hashops.blake2s_columns_ref(side))
     got = cuda_hash.blake2s_columns(field, u, B)
-    require(torch.equal(got, want), f"batched Blake2s {B} x {nrows} x {cols}: "
+    require(all(torch.equal(got[i * cols + pcols], want[i * pc:(i + 1) * pc])
+                for i in range(B)), f"batched Blake2s {B} x {nrows} x {cols}: "
             "kernel disagrees with its plain version")
-    require(torch.equal(cuda_hash.blake2s_columns(field, u[:nrows]),
-                        want[:cols]), f"Blake2s columns {nrows} x {cols}: "
+    require(torch.equal(cuda_hash.blake2s_columns(field, u[:nrows])[pcols],
+                        want[:pc]), f"Blake2s columns {nrows} x {cols}: "
             "kernel disagrees with its plain version")
     ms = _time_cuda(torch, lambda: cuda_hash.blake2s_columns(field, u, B), 5)
     one = _time_cuda(
@@ -1284,7 +1349,8 @@ def blake2s_batch_case(torch, field, gen, B, nrows, cols) -> dict:
         f"{bound_ms:.4f} ms by {by}")
     del u, side, want, got
     torch.cuda.empty_cache()
-    return {"shape": f"{B} x {nrows} x {cols}", "ms": ms, "one_ms": one,
+    return {"shape": f"{B} x {nrows} x {cols}; plain on {pc} columns of "
+                     "each", "ms": ms, "one_ms": one,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
 
 
@@ -1321,12 +1387,14 @@ def row_combine_batch_case(torch, field, gen, B, rows, k) -> dict:
 
 def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
     """The batched launches of the serving path, B = 3, bit-equal to their
-    per-proof versions: Blake2s over three stacked matrices of the zk
-    path's odd 4m + 3 rows against the plain version (and one matrix of
-    them in a single launch, the zk main path's case), then over three
-    full (4m, n) matrices, whose element offsets pass 2^31, against three
-    single launches (held against the plain version at that row count
-    above); row_combine over three (4m, k) matrices with their own
+    per-proof versions: Blake2s over three stacked matrices of a depth
+    with the zk path's residue of 4m + 3 rows mod 12 (the kernel's rows go
+    in a ring of three 2-row stages; the plain version takes one step a
+    block of rows, ~20 s at 4103 rows) against the plain version (and one
+    matrix of them in a single launch, the zk main path's case), then over
+    three full (4m, n) matrices, whose element offsets pass 2^31, against
+    three single launches (held against the plain version at that row
+    count in the kernels phase); row_combine over three (4m, k) matrices with their own
     challenges; three trees on one stream (at n and at 64 leaves: what B
     launches cost).  The batched times and bounds go into ``results``
     beside the single launches'."""
@@ -1338,7 +1406,7 @@ def batch_kernel_cases(torch, field, gen, results, rows, k, n) -> None:
                 f"{label}: kernel disagrees with its per-proof version")
 
     results["blake2s_cols"]["batched"] = blake2s_batch_case(
-        torch, field, gen, B, rows + 3, 256)
+        torch, field, gen, B, 96 + (rows + 3) % 12, 2 * PLAIN_COLUMNS)
     results["blake2s_cols"]["batched_full"] = blake2s_full_batch_case(
         torch, field, gen, B, rows, n, plain=False)
     results["row_combine"]["batched"] = row_combine_batch_case(
@@ -1410,19 +1478,29 @@ def spot_cases(torch, field, gen, rows, k, n, t) -> None:
         torch.cuda.empty_cache()
 
 
+_SASS: dict = {}
+
+
+def library_sass(path: str) -> str:
+    """The library's SASS (``cuobjdump -sass``), dumped once a run."""
+    if path not in _SASS:
+        tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "cuobjdump")
+        res = subprocess.run([tool, "-sass", path], capture_output=True,
+                             text=True, timeout=300)
+        require(res.returncode == 0, f"cuobjdump failed: {res.stderr[-300:]}")
+        _SASS[path] = res.stdout
+    return _SASS[path]
+
+
 def sass_loops(path: str, symbol: str) -> dict:
     """The loops of every function of the library whose mangled name holds
-    ``symbol``, from its SASS (``cuobjdump``): {name: [loop body, ...]},
-    a body the instructions from a backward branch's target to the
+    ``symbol``, from its SASS (:func:`library_sass`): {name: [loop body,
+    ...]}, a body the instructions from a backward branch's target to the
     branch."""
     import re
-    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                        "cuobjdump")
-    res = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
-                         timeout=300)
-    require(res.returncode == 0, f"cuobjdump failed: {res.stderr[-300:]}")
     out, name, body = {}, None, []
-    for line in res.stdout.splitlines() + ["Function : end"]:
+    for line in library_sass(path).splitlines() + ["Function : end"]:
         if "Function : " in line:
             if name and symbol in name:
                 instrs = [(int(a, 16), text) for a, text in body]
@@ -1552,6 +1630,20 @@ def ptxas_lines(log_text: str, symbols) -> list[str]:
     return out
 
 
+def ntt_spills(nvcc_log: str) -> list[str]:
+    """Print ptxas's registers and spill of every ``ntt.cu`` instantiation;
+    return the lines of a BLS12-377 one that spills (its lazy butterflies
+    are designed to fit 128 registers)."""
+    import re
+    lines = ptxas_lines(nvcc_log, ("ntt_pass_kernel", "ntt_stage_kernel"))
+    require(any("Bls12377Fq" in line for line in lines),
+            "nvcc.log names no BLS12-377 instantiation of ntt.cu")
+    for line in lines:
+        log("ptxas [ntt]: " + line)
+    return [line for line in lines if "Bls12377Fq" in line
+            and any(int(b) for b in re.findall(r"(\d+) bytes spill", line))]
+
+
 def poseidon_levels_work(field, n: int):
     """Bytes and operations of the Merkle levels above n leaves: one
     2-row sponge a node, summed over the levels."""
@@ -1564,7 +1656,7 @@ def poseidon_cases(torch, field, gen, rows: int, n: int, t: int) -> dict:
     """The Poseidon sponge kernel (BN254 Fr), every compiled lane count G
     (``cuda_poseidon.LANES``): launched at full width (n columns) and
     the heights POSEIDON_LANE_ROWS (the odd one: a zk column's tail), its first
-    PLAIN_COLUMNS columns bit-equal to its plain version's on the card; at the commit's full heights (4m and
+    :func:`plain_columns` bit-equal to its plain version's on the card; at the commit's full heights (4m and
     4m + 3 rows) and at the verifier's launch (its 3t opened columns of 4m
     rows) against the port's host sponge (``col_hash``) on 8 sampled
     columns, all G bit-equal to each other, each G timed there, at the tree
@@ -1594,19 +1686,21 @@ def poseidon_cases(torch, field, gen, rows: int, n: int, t: int) -> dict:
         return _time_cuda(torch, lambda: kern(one, g), 2)
 
     res: dict = {"max_abs_err": 0, "per_lanes": {str(g): {} for g in lanes}}
+    pcols = plain_columns(torch, n)
     for h in POSEIDON_LANE_ROWS:
         u = _rand_elems(torch, gen, (h, n), field)
         want, plain_ms = _time_once(
             torch, lambda: poseidon_cols.poseidon_columns_plain(
-                field, cfg, u[:, :PLAIN_COLUMNS]))
+                field, cfg, u[:, pcols]))
         bound_ms, by = bound(*poseidon_work(field, h, n))
         for g in lanes:
-            got = kern(u, g)[:PLAIN_COLUMNS]
+            got = kern(u, g)[pcols]
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             ms = _time_cuda(torch, lambda: kern(u, g), 3)
             log(f"kernel [{field.name}] Poseidon columns {h} x {n}, G = {g}: "
                 f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.1f} "
-                f"ms on {PLAIN_COLUMNS} columns, bound {bound_ms:.3f} ms by "
+                f"ms on its first and last {PLAIN_COLUMNS // 2} columns, "
+                f"bound {bound_ms:.3f} ms by "
                 f"{by}")
             require(got.shape == want.shape and err == 0, f"Poseidon columns "
                     f"{h} x {n} at G = {g}: the kernel disagrees with its "
@@ -1891,6 +1985,61 @@ def ntt_route_cases(torch, field, gen) -> int:
     return worst
 
 
+#: (n, w, tile limit) of the BLS12-377 edge-value cases: NTT_n's eight
+#: cosets of 2048, one pass of the 2048-element tile (two blocks an SM), the
+#: 4096-element tile, two passes (the zk encode's split), global stages
+EDGE_ROUTES = ((16384, 2048, 12), (2048, 2048, 12), (4096, 4096, 12),
+               (8192, 8192, 7), (1024, 1024, 3))
+#: (inverse, canon_out, 16-bit in, 16-bit out) of each edge-value call
+#: (three, to keep the plain versions' time short; the CUDA twins of
+#: tests/test_torch_ntt.py take every combination)
+EDGE_CALLS = ((False, False, False, False), (True, True, True, True),
+              (False, True, True, False))
+
+
+def ntt_edge_value_cases(torch, field, gen) -> int:
+    """BLS12-377's lazy butterflies at the edges of the field: rows of every
+    element p - 1, of 0, of 0 and p - 1 in turns, and random (three rows of
+    each kind, in one batch), through every route (by a lowered tile limit
+    where needed, as the CUDA twins do) and a lone row of each kind,
+    forward and inverse, plain and canonical output, int32 and 16-bit
+    storage in and out (:data:`EDGE_CALLS`), against ``ntt_ref`` /
+    ``ntt16_ref``.
+    Returns the largest absolute difference seen (0 or the run fails)."""
+    from ligero_tpu_torch.engine import cuda_ntt, fieldops, ntt
+    L = field.num_limbs
+    kinds = ("p-1", "zero", "alternating", "random")
+    top = torch.tensor(field.ints_to_limbs([field.p - 1])[0].astype("int32"),
+                       device="cuda")
+    errs: dict = {kind: [] for kind in kinds}
+    for n, w, tile_log in EDGE_ROUTES:
+        x = torch.zeros((3 * len(kinds), w, L), dtype=torch.int32,
+                        device="cuda")
+        x[0:3] = top
+        x[6:9, 1::2] = top
+        x[9:12] = _rand_elems(torch, gen, (3, w), field)
+        rt = ntt.ntt_plan(w, n, tile_log)
+        for inverse, canon, in16, out16 in EDGE_CALLS:
+            xin = fieldops.narrow16(x) if in16 else x
+            got = cuda_ntt.ntt_routed(field, xin, n, inverse, canon, rt,
+                                      tile_log, out16)
+            want = cuda_ntt.ntt16_ref(field, xin, n, inverse, canon, out16)
+            for i, kind in enumerate(kinds):
+                rows = slice(3 * i, 3 * i + 3)
+                lone = cuda_ntt.ntt(field, xin[3 * i:3 * i + 1], n, inverse,
+                                    canon, out16)
+                errs[kind] += [_diff(torch, got[rows], want[rows]),
+                               _diff(torch, lone, want[3 * i:3 * i + 1])]
+    for kind in kinds:
+        log(f"kernel [{field.name}] NTT edge values {kind}, 3 rows through "
+            f"{len(EDGE_ROUTES)} routes and a lone row, {len(EDGE_CALLS)} "
+            f"calls each (inverse, canon_out, 16-bit in and out): "
+            f"max_abs_err={max(errs[kind])}")
+        require(max(errs[kind]) == 0, f"NTT edge values {kind}: kernel "
+                "disagrees with its plain version")
+    return max(max(e) for e in errs.values())
+
+
 def tree_chain_floor(torch, n: int) -> float:
     """The least a tree of n leaves can take on this card, in ms: its
     log2 n levels are a chain of dependent two-to-one hashes, timed here
@@ -2064,6 +2213,7 @@ def reset_counts(torch, wraps) -> None:
     torch.cuda.reset_peak_memory_stats()
     for counter in wraps.values():
         counter.reset()
+    NTT_SHAPES.clear()
 
 
 def read_counts(wraps, path: str, earlier: dict | None = None,
@@ -2075,6 +2225,8 @@ def read_counts(wraps, path: str, earlier: dict | None = None,
     launches = {name: counter.count + (earlier or {}).get(name, 0)
                 for name, counter in wraps.items()}
     log(f"kernel launches on the {path} path: {launches}")
+    log(f"NTT launches by shape on the {path} path"
+        f"{' (its verify)' if earlier else ''}: {ntt_shapes_text()}")
     require(all((v == 0) == (name in absent) for name, v in launches.items()),
             f"on the {path} path a kernel was not launched, or one of "
             f"{absent} was: {launches}")
@@ -2334,6 +2486,7 @@ def phase_batch(torch, field, lig, vars_, full: bool = True,
         peak = torch.cuda.max_memory_allocated()
         proving = {name: counter.count for name, counter in wraps.items()}
         log(f"kernel launches of {tag}prove_batch: {proving}")
+        log(f"NTT launches by shape of {tag}prove_batch: {ntt_shapes_text()}")
         torch.cuda.empty_cache()   # as before the batch: both start cold
         t0 = time.perf_counter()
         sequential = [single(i, w) for i, w in enumerate(witnesses)]
@@ -3544,6 +3697,7 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
 
+    tally_ntt_shapes()
     t0 = time.perf_counter()
     cuda_build.library()
     log(f"kernels built from {cuda_build.CSRC} in "
@@ -3558,6 +3712,11 @@ def main() -> int:
         for line in ptxas_lines(nvcc_log, ("blake2s_kernel",
                                            "row_combine_kernel")):
             log("ptxas [blake2s / row_combine]: " + line)
+    require(os.path.exists(cuda_build.LOG_PATH),
+            f"no nvcc log at {cuda_build.LOG_PATH} to read ntt.cu's spill from")
+    spills = ntt_spills(nvcc_log)
+    require(not spills, "ntt.cu's BLS12-377 instantiations spill: "
+            + "; ".join(spills))
     for name, mix in blake2s_sass(cuda_build.LIB_PATH).items():
         log(f"SASS blake2s_kernel [{name}]: compression loop of {mix['body']} "
             f"instructions ({mix['blocks']} block(s) a pass), {mix['alu']} on "

@@ -21,6 +21,13 @@
 // fe_mul_acc adds a product into an unreduced accumulator: row_combine.cu
 // sums a chunk's products so and reduces once.
 //
+// BLS12-377 has lazy (Harvey) forms too, for the NTT's butterflies
+// (ntt.cu): values stay in [0, 2p) and are reduced to [0, p) once, at a
+// pass's store.  p < 2^377 and R = 2^384 leave the room (4p < 2^380), and
+// REDC(a b) is below a b / R + p < 2p for a < R and b < p, so a product
+// needs no conditional subtraction at all.  Each function states its
+// bounds; cuda_ntt.lazy_bound_model walks them through every route.
+//
 // A kernel is a template over a field trait (Bn254Fr, Bls12377Fq at the end
 // of this file): W, L, the id the C entry points take, p's words, and the
 // arithmetic.
@@ -806,6 +813,252 @@ __device__ __forceinline__ Fe fe_mont_mul(const Fe& a, const Fe& b) {
         "r"(y[7]), "r"(y[8]), "r"(y[9]), "r"(y[10]), "r"(y[11]));
   bool ge = sub_p(r.w, d.w);
   return (top != 0u || ge) ? d : r;
+}
+
+// The lazy forms (see the head of this file).
+
+// d = t - 2p over W words; returns true when t >= 2p.
+__device__ __forceinline__ bool sub_2p(const uint32_t t[W], uint32_t d[W]) {
+  uint32_t borrow;
+  asm(
+      "sub.cc.u32 %0, %13, 0x00000002;\n\t"
+      "subc.cc.u32 %1, %14, 0x0a118000;\n\t"
+      "subc.cc.u32 %2, %15, 0x60000001;\n\t"
+      "subc.cc.u32 %3, %16, 0x2e16ba88;\n\t"
+      "subc.cc.u32 %4, %17, 0x74129000;\n\t"
+      "subc.cc.u32 %5, %18, 0x3de6c45f;\n\t"
+      "subc.cc.u32 %6, %19, 0x01ea271e;\n\t"
+      "subc.cc.u32 %7, %20, 0x3445b3e6;\n\t"
+      "subc.cc.u32 %8, %21, 0xd9429276;\n\t"
+      "subc.cc.u32 %9, %22, 0x8c760b80;\n\t"
+      "subc.cc.u32 %10, %23, 0x2f8a21d5;\n\t"
+      "subc.cc.u32 %11, %24, 0x035c748c;\n\t"
+      "subc.u32 %12, 0, 0;\n\t"
+      : "=&r"(d[0]), "=&r"(d[1]), "=&r"(d[2]), "=&r"(d[3]), "=&r"(d[4]),
+        "=&r"(d[5]), "=&r"(d[6]), "=&r"(d[7]), "=&r"(d[8]), "=&r"(d[9]),
+        "=&r"(d[10]), "=&r"(d[11]), "=&r"(borrow)
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]),
+        "r"(t[6]), "r"(t[7]), "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]));
+  return borrow == 0u;
+}
+
+// a mod p in [0, p), for a < 2p: the one conditional subtraction of a
+// lazy value, at a pass's store.
+__device__ __forceinline__ Fe fe_reduce_p(const Fe& a) {
+  Fe d;
+  return sub_p(a.w, d.w) ? d : a;
+}
+
+// a + b, in [0, 2p), for a, b < 2p: the sum is below 4p < 2^380 (no carry
+// out of the top word), less 2p where it is 2p or more.
+__device__ __forceinline__ Fe fe_add_2p(const Fe& a, const Fe& b) {
+  Fe s = a, d;
+  asm(
+      "add.cc.u32 %0, %0, %12;\n\t"
+      "addc.cc.u32 %1, %1, %13;\n\t"
+      "addc.cc.u32 %2, %2, %14;\n\t"
+      "addc.cc.u32 %3, %3, %15;\n\t"
+      "addc.cc.u32 %4, %4, %16;\n\t"
+      "addc.cc.u32 %5, %5, %17;\n\t"
+      "addc.cc.u32 %6, %6, %18;\n\t"
+      "addc.cc.u32 %7, %7, %19;\n\t"
+      "addc.cc.u32 %8, %8, %20;\n\t"
+      "addc.cc.u32 %9, %9, %21;\n\t"
+      "addc.cc.u32 %10, %10, %22;\n\t"
+      "addc.u32 %11, %11, %23;\n\t"
+      : "+r"(s.w[0]), "+r"(s.w[1]), "+r"(s.w[2]), "+r"(s.w[3]), "+r"(s.w[4]),
+        "+r"(s.w[5]), "+r"(s.w[6]), "+r"(s.w[7]), "+r"(s.w[8]), "+r"(s.w[9]),
+        "+r"(s.w[10]), "+r"(s.w[11])
+      : "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]),
+        "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]), "r"(b.w[8]), "r"(b.w[9]),
+        "r"(b.w[10]), "r"(b.w[11]));
+  return sub_2p(s.w, d.w) ? d : s;
+}
+
+// a - b, in [0, 2p), for a, b < 2p: the difference, plus 2p where it
+// borrowed (the sum then wraps past 2^384 back into [0, 2p)).
+__device__ __forceinline__ Fe fe_sub_2p(const Fe& a, const Fe& b) {
+  Fe d = a;
+  uint32_t borrow;  // all ones when a < b
+  asm(
+      "sub.cc.u32 %0, %0, %13;\n\t"
+      "subc.cc.u32 %1, %1, %14;\n\t"
+      "subc.cc.u32 %2, %2, %15;\n\t"
+      "subc.cc.u32 %3, %3, %16;\n\t"
+      "subc.cc.u32 %4, %4, %17;\n\t"
+      "subc.cc.u32 %5, %5, %18;\n\t"
+      "subc.cc.u32 %6, %6, %19;\n\t"
+      "subc.cc.u32 %7, %7, %20;\n\t"
+      "subc.cc.u32 %8, %8, %21;\n\t"
+      "subc.cc.u32 %9, %9, %22;\n\t"
+      "subc.cc.u32 %10, %10, %23;\n\t"
+      "subc.cc.u32 %11, %11, %24;\n\t"
+      "subc.u32 %12, 0, 0;\n\t"
+      : "+r"(d.w[0]), "+r"(d.w[1]), "+r"(d.w[2]), "+r"(d.w[3]), "+r"(d.w[4]),
+        "+r"(d.w[5]), "+r"(d.w[6]), "+r"(d.w[7]), "+r"(d.w[8]), "+r"(d.w[9]),
+        "+r"(d.w[10]), "+r"(d.w[11]), "=&r"(borrow)
+      : "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]),
+        "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]), "r"(b.w[8]), "r"(b.w[9]),
+        "r"(b.w[10]), "r"(b.w[11]));
+  asm(
+      "add.cc.u32 %0, %0, %12;\n\t"
+      "addc.cc.u32 %1, %1, %13;\n\t"
+      "addc.cc.u32 %2, %2, %14;\n\t"
+      "addc.cc.u32 %3, %3, %15;\n\t"
+      "addc.cc.u32 %4, %4, %16;\n\t"
+      "addc.cc.u32 %5, %5, %17;\n\t"
+      "addc.cc.u32 %6, %6, %18;\n\t"
+      "addc.cc.u32 %7, %7, %19;\n\t"
+      "addc.cc.u32 %8, %8, %20;\n\t"
+      "addc.cc.u32 %9, %9, %21;\n\t"
+      "addc.cc.u32 %10, %10, %22;\n\t"
+      "addc.u32 %11, %11, %23;\n\t"
+      : "+r"(d.w[0]), "+r"(d.w[1]), "+r"(d.w[2]), "+r"(d.w[3]), "+r"(d.w[4]),
+        "+r"(d.w[5]), "+r"(d.w[6]), "+r"(d.w[7]), "+r"(d.w[8]), "+r"(d.w[9]),
+        "+r"(d.w[10]), "+r"(d.w[11])
+      : "r"(0x00000002u & borrow), "r"(0x0a118000u & borrow),
+        "r"(0x60000001u & borrow), "r"(0x2e16ba88u & borrow),
+        "r"(0x74129000u & borrow), "r"(0x3de6c45fu & borrow),
+        "r"(0x01ea271eu & borrow), "r"(0x3445b3e6u & borrow),
+        "r"(0xd9429276u & borrow), "r"(0x8c760b80u & borrow),
+        "r"(0x2f8a21d5u & borrow), "r"(0x035c748cu & borrow));
+  return d;
+}
+
+// a - b + 2p, in (0, 4p) and unreduced, for a, b < 2p: a + 2p < 4p <
+// 2^380 (no carry out of the top word), then less b < a + 2p (no borrow).
+// The walked operand of fe_mont_mul_2p, which takes any a < R.
+__device__ __forceinline__ Fe fe_sub_4p(const Fe& a, const Fe& b) {
+  Fe d = a;
+  asm(
+      "add.cc.u32 %0, %0, 0x00000002;\n\t"
+      "addc.cc.u32 %1, %1, 0x0a118000;\n\t"
+      "addc.cc.u32 %2, %2, 0x60000001;\n\t"
+      "addc.cc.u32 %3, %3, 0x2e16ba88;\n\t"
+      "addc.cc.u32 %4, %4, 0x74129000;\n\t"
+      "addc.cc.u32 %5, %5, 0x3de6c45f;\n\t"
+      "addc.cc.u32 %6, %6, 0x01ea271e;\n\t"
+      "addc.cc.u32 %7, %7, 0x3445b3e6;\n\t"
+      "addc.cc.u32 %8, %8, 0xd9429276;\n\t"
+      "addc.cc.u32 %9, %9, 0x8c760b80;\n\t"
+      "addc.cc.u32 %10, %10, 0x2f8a21d5;\n\t"
+      "addc.u32 %11, %11, 0x035c748c;\n\t"
+      : "+r"(d.w[0]), "+r"(d.w[1]), "+r"(d.w[2]), "+r"(d.w[3]), "+r"(d.w[4]),
+        "+r"(d.w[5]), "+r"(d.w[6]), "+r"(d.w[7]), "+r"(d.w[8]), "+r"(d.w[9]),
+        "+r"(d.w[10]), "+r"(d.w[11]));
+  asm(
+      "sub.cc.u32 %0, %0, %12;\n\t"
+      "subc.cc.u32 %1, %1, %13;\n\t"
+      "subc.cc.u32 %2, %2, %14;\n\t"
+      "subc.cc.u32 %3, %3, %15;\n\t"
+      "subc.cc.u32 %4, %4, %16;\n\t"
+      "subc.cc.u32 %5, %5, %17;\n\t"
+      "subc.cc.u32 %6, %6, %18;\n\t"
+      "subc.cc.u32 %7, %7, %19;\n\t"
+      "subc.cc.u32 %8, %8, %20;\n\t"
+      "subc.cc.u32 %9, %9, %21;\n\t"
+      "subc.cc.u32 %10, %10, %22;\n\t"
+      "subc.u32 %11, %11, %23;\n\t"
+      : "+r"(d.w[0]), "+r"(d.w[1]), "+r"(d.w[2]), "+r"(d.w[3]), "+r"(d.w[4]),
+        "+r"(d.w[5]), "+r"(d.w[6]), "+r"(d.w[7]), "+r"(d.w[8]), "+r"(d.w[9]),
+        "+r"(d.w[10]), "+r"(d.w[11])
+      : "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]),
+        "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]), "r"(b.w[8]), "r"(b.w[9]),
+        "r"(b.w[10]), "r"(b.w[11]));
+  return d;
+}
+
+// cios_reduce where p's lowest word is 1 and -p^-1 = -1 mod 2^32, as here:
+// m = -e[0], so e[0] + m p_0 = e[0] + m is 0 with a carry out where e[0] is
+// not, and the lowest word costs an add where cios_reduce has a wide
+// multiply-add.  The same sum as cios_reduce.
+__device__ __forceinline__ void cios_reduce_p1(uint32_t e[W], uint32_t o[W]) {
+  const uint32_t m = 0u - e[0];
+  asm(
+      "mad.lo.cc.u32 %0, 0x8508c000, %12, %0;\n\t"
+      "madc.hi.cc.u32 %1, 0x8508c000, %12, %1;\n\t"
+      "madc.lo.cc.u32 %2, 0x170b5d44, %12, %2;\n\t"
+      "madc.hi.cc.u32 %3, 0x170b5d44, %12, %3;\n\t"
+      "madc.lo.cc.u32 %4, 0x1ef3622f, %12, %4;\n\t"
+      "madc.hi.cc.u32 %5, 0x1ef3622f, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, 0x1a22d9f3, %12, %6;\n\t"
+      "madc.hi.cc.u32 %7, 0x1a22d9f3, %12, %7;\n\t"
+      "madc.lo.cc.u32 %8, 0xc63b05c0, %12, %8;\n\t"
+      "madc.hi.cc.u32 %9, 0xc63b05c0, %12, %9;\n\t"
+      "madc.lo.cc.u32 %10, 0x01ae3a46, %12, %10;\n\t"
+      "madc.hi.u32 %11, 0x01ae3a46, %12, %11;\n\t"
+      : "+r"(o[0]), "+r"(o[1]), "+r"(o[2]), "+r"(o[3]), "+r"(o[4]),
+        "+r"(o[5]), "+r"(o[6]), "+r"(o[7]), "+r"(o[8]), "+r"(o[9]),
+        "+r"(o[10]), "+r"(o[11])
+      : "r"(m));
+  asm(
+      "add.cc.u32 %0, %0, %13;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "madc.lo.cc.u32 %2, 0x30000000, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, 0x30000000, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, 0xba094800, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, 0xba094800, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, 0x00f5138f, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, 0x00f5138f, %13, %7;\n\t"
+      "madc.lo.cc.u32 %8, 0x6ca1493b, %13, %8;\n\t"
+      "madc.hi.cc.u32 %9, 0x6ca1493b, %13, %9;\n\t"
+      "madc.lo.cc.u32 %10, 0x17c510ea, %13, %10;\n\t"
+      "madc.hi.cc.u32 %11, 0x17c510ea, %13, %11;\n\t"
+      "addc.u32 %12, %12, 0;\n\t"
+      : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]),
+        "+r"(e[5]), "+r"(e[6]), "+r"(e[7]), "+r"(e[8]), "+r"(e[9]),
+        "+r"(e[10]), "+r"(e[11]), "+r"(o[11])
+      : "r"(m));
+}
+
+// REDC(a * b) in [0, 2p), unreduced, for a < R and b < p: fe_mont_mul's
+// steps (with cios_reduce_p1) and no conditional subtraction.  The sum
+// after the twelfth step is below a b / R + p < 2p < 2^378, so the final
+// add carries nothing out of the top word.
+__device__ __forceinline__ Fe fe_mont_mul_2p(const Fe& a, const Fe& b) {
+  uint32_t x[W], y[W];
+#pragma unroll
+  for (int j = 0; j < W; j += 2) {
+    const uint64_t ev = (uint64_t)b.w[j] * a.w[0];
+    const uint64_t od = (uint64_t)b.w[j + 1] * a.w[0];
+    x[j] = (uint32_t)ev;
+    x[j + 1] = (uint32_t)(ev >> 32);
+    y[j] = (uint32_t)od;
+    y[j + 1] = (uint32_t)(od >> 32);
+  }
+  cios_reduce_p1(x, y);
+#pragma unroll
+  for (int i = 1; i < W; i += 2) {
+    cios_step(y, x, b.w, a.w[i]);
+    cios_reduce_p1(y, x);
+    if (i + 1 < W) {
+      cios_step(x, y, b.w, a.w[i + 1]);
+      cios_reduce_p1(x, y);
+    }
+  }
+  // after the twelfth step e = y, o = x: the result is e / 2^32 + o
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.w[j] = x[j];
+  asm(
+      "add.cc.u32 %0, %0, %12;\n\t"
+      "addc.cc.u32 %1, %1, %13;\n\t"
+      "addc.cc.u32 %2, %2, %14;\n\t"
+      "addc.cc.u32 %3, %3, %15;\n\t"
+      "addc.cc.u32 %4, %4, %16;\n\t"
+      "addc.cc.u32 %5, %5, %17;\n\t"
+      "addc.cc.u32 %6, %6, %18;\n\t"
+      "addc.cc.u32 %7, %7, %19;\n\t"
+      "addc.cc.u32 %8, %8, %20;\n\t"
+      "addc.cc.u32 %9, %9, %21;\n\t"
+      "addc.cc.u32 %10, %10, %22;\n\t"
+      "addc.u32 %11, %11, 0;\n\t"
+      : "+r"(r.w[0]), "+r"(r.w[1]), "+r"(r.w[2]), "+r"(r.w[3]), "+r"(r.w[4]),
+        "+r"(r.w[5]), "+r"(r.w[6]), "+r"(r.w[7]), "+r"(r.w[8]), "+r"(r.w[9]),
+        "+r"(r.w[10]), "+r"(r.w[11])
+      : "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]), "r"(y[5]), "r"(y[6]),
+        "r"(y[7]), "r"(y[8]), "r"(y[9]), "r"(y[10]), "r"(y[11]));
+  return r;
 }
 
 // fr::fe_mul_acc over twelve words (see there).

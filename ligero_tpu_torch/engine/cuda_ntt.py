@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields import FieldSpec
+from ..fields import BLS12_377_FQ, BN254_FR, FieldSpec
 
 from . import cuda_build, fieldops
 from .ntt import (TILE_LOG, NttRoute, check_size, ntt_plan, ntt_ref,
@@ -85,6 +85,157 @@ def scratch_bytes(field: FieldSpec, rows: int, w: int, n: int) -> int:
     packed element (2 L bytes) per element of a two-pass route's
     intermediate."""
     return route(w, n, rows).scratch_elements(rows) * 2 * field.num_limbs
+
+
+#: the stages a thread of the kernel does between barriers (csrc/ntt.cu
+#: NttShape::RADIX_LOG), and the fields whose butterflies are lazy (NttArith)
+RADIX_LOG = {BN254_FR.name: 3, BLS12_377_FQ.name: 2}
+LAZY_FIELDS = (BLS12_377_FQ.name,)
+#: the reductions :func:`lazy_bound_model` can be told to leave out
+LAZY_REDUCTIONS = ("sum", "diff", "store")
+
+
+class BoundError(ValueError):
+    """A value past its bound in :func:`lazy_bound_model`."""
+
+
+def lazy_bound_model(field: FieldSpec, rt: NttRoute,
+                     skip: str | None = None) -> dict:
+    """The bounds of the kernel's arithmetic along route ``rt``, on Python
+    ints: every pass's load (the twist product, or none), its stages in
+    the kernel's groups of ``RADIX_LOG`` (a lone top stage where their
+    count is 1 mod ``RADIX_LOG``; a butterfly whose twiddle is one makes
+    no product: every butterfly of the last stage, and those at position
+    0 in the lowest group), its store, and the global stages.
+
+    Each operation checks the input range its csrc/field.cuh comment
+    states and gives the exclusive bound its output can reach: for a lazy
+    field (:data:`LAZY_FIELDS`) ``fe_add_2p`` / ``fe_sub_2p`` take a, b < 2p
+    to [0, 2p), ``fe_sub_4p`` takes a, b < 2p to (0, 4p), a product REDC(a
+    b) takes a < R and b < p to below a b / R + p, ``fe_reduce_p`` takes a
+    < 2p to [0, p); the fully reduced forms take and give [0, p).  What is
+    written to memory must be below p.  ``skip`` leaves one reduction out
+    (:data:`LAZY_REDUCTIONS`: the sum's conditional subtraction and
+    the difference's where the twiddle is one, both at the first pass's last
+    stage, or the first pass's store), which a sound sequence cannot
+    afford; a route with no such reduction raises ``ValueError``.
+
+    Returns the largest bound each kind of value reached: ``butterfly`` (a
+    butterfly's inputs and outputs), ``product_a`` / ``product_b`` (the
+    walked and the vector operand of every product), ``product`` (its
+    result), ``stored``.  Raises :class:`BoundError` where a bound fails: a
+    value of 2^384 or more, a product with a >= R or b >= p, an operation
+    given inputs outside its range, a stored value of p or more."""
+    p, R = field.p, 1 << field.r_bits
+    W = field.num_limbs // 2
+    lazy = field.name in LAZY_FIELDS
+    if skip is not None and (not lazy or skip not in LAZY_REDUCTIONS):
+        raise ValueError(f"lazy_bound_model: no reduction {skip!r} to skip")
+    radix = RADIX_LOG[field.name]
+    top = {"butterfly": 0, "product_a": 0, "product_b": 0, "product": 0,
+           "stored": 0}
+    skipped = {"sum": False, "diff": False, "store": False}
+
+    def note(key, bound):
+        if bound > 1 << (32 * W):
+            raise BoundError(f"{key}: a value of 2^{32 * W} or more")
+        top[key] = max(top[key], bound)
+        return bound
+
+    def need(what, *bounds, limit):
+        for b in bounds:
+            if b > limit:
+                raise BoundError(f"{what}: an input of up to {b - 1} where "
+                                 f"it takes below {limit}")
+
+    def skips(name):
+        if skip == name and not skipped[name]:
+            skipped[name] = True
+            return True
+        return False
+
+    def product(a, b):                      # REDC(a b): a < R, b < p
+        note("product_a", a)
+        note("product_b", b)
+        need("a product's walked operand", a, limit=R)
+        need("a product's vector operand", b, limit=p)
+        # the steps' sum stays below b + p; the result below a b / R + p
+        note("product", b + p)
+        out = ((a - 1) * (b - 1) + (R - 1) * p) // R + 1
+        return note("product", out if lazy else p)
+
+    def cond_sub(x, m):                     # x - m where x >= m
+        return max(min(x, m), x - m)
+
+    def butterfly(x, kinds, last):
+        """A stage's butterflies on inputs below x: those of ``kinds``
+        ("one": no product, "product": one); ``last`` is the first pass's
+        last stage, where a skipped sum or difference reduction falls."""
+        note("butterfly", x)
+        if not lazy:
+            need("fe_add / fe_sub", x, limit=p)
+            outs = [p] + ([product(p, p)] if "product" in kinds else [])
+            return note("butterfly", max(outs))
+        need("fe_add_2p / fe_sub_2p / fe_sub_4p", x, limit=2 * p)
+        raw = 2 * x - 1                      # x + y, both below x
+        outs = [raw if last and skips("sum") else cond_sub(raw, 2 * p)]
+        if "one" in kinds:
+            # fe_sub_2p; skipped, fe_sub_4p's x - y + 2p, below x + 2p
+            outs.append(x + 2 * p if last and skips("diff") else 2 * p)
+        if "product" in kinds:
+            outs.append(product(x + 2 * p, p))   # fe_sub_4p into REDC
+        return note("butterfly", max(outs))
+
+    def groups(lt):
+        """The kernel's groups of an lt-stage tile from the top, as (base,
+        stages): RADIX_LOG at a time, the rest at the bottom; where lt is 1
+        mod RADIX_LOG (and above 1) the top stage alone, on the way in."""
+        sizes = []
+        b = lt
+        if lt > 1 and lt % radix == 1:
+            sizes.append(1)
+            b -= 1
+        while b > 0:
+            sizes.append(min(radix, b))
+            b -= sizes[-1]
+        b = lt
+        for lr in sizes:
+            b -= lr
+            yield b, lr
+
+    def tile(x, lt, first_pass):
+        """The kernel's stages of an lt-stage tile."""
+        for b, lr in groups(lt):
+            for hb in range(b + lr - 1, b - 1, -1):
+                kinds = (("one",) if hb == 0 or b == 0 else ()) \
+                    + (("product",) if hb > 0 else ())
+                x = butterfly(x, kinds, first_pass and hb == 0)
+        return x
+
+    def store(x):
+        if lazy and not skips("store"):
+            need("fe_reduce_p", x, limit=2 * p)
+            x = p
+        if x > p:
+            raise BoundError(f"stored: a value of up to {x - 1}, not below p")
+        return note("stored", x)
+
+    def load(x, twisted):
+        return max(x, product(x, p)) if twisted else x
+
+    if rt.l1 == 0:
+        store(tile(load(p, True), rt.ls, True))
+    else:
+        z = store(tile(load(p, rt.lc > 0), rt.l2, True))    # pass 1
+        z = store(tile(load(z, True), rt.l1, False))        # pass 2
+        for _ in range(rt.l0):    # global stages: field.cuh's full forms
+            need("a global stage's fe_add / fe_sub", z, limit=p)
+            need("a global stage's product", z, limit=R)
+            z = note("stored", p)
+    if skip is not None and not skipped[skip]:
+        raise ValueError(f"lazy_bound_model: route {rt} has no {skip} "
+                         f"reduction to skip")
+    return top
 
 
 def ntt16_ref(field: FieldSpec, x: torch.Tensor, n: int,

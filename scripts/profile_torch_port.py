@@ -120,8 +120,9 @@ def nvidia_smi_line() -> str | None:
 def _group(name: str) -> str:
     """A device event's group: its port kernel (the 16-bit entries, whose
     instantiations take a ``true`` template argument, apart: "ntt_pass_kernel
-    16-bit"; the streamed Blake2s is "blake2s_kernel 16-bit"), a copy or
-    set, or the torch ops."""
+    16-bit", the passes that read 16-bit limbs, whatever they write (the
+    output's storage is a run-time flag); the streamed Blake2s is
+    "blake2s_kernel 16-bit"), a copy or set, or the torch ops."""
     for kernel in PORT_KERNELS:
         if kernel in name:
             args = name.split(kernel, 1)[1].split("(")[0]

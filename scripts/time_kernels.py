@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the port's Blake2s column hash and row combination wrappers of one
-source tree on the card, at the shapes of the kernel table in PERF.md.
+"""Times the port's NTT, Blake2s column hash and row combination wrappers
+of one source tree on the card, at the shapes of the kernel table in
+PERF.md.
 
-    python3 scripts/time_kernels.py TREE LABEL [--only blake|lc]
+    python3 scripts/time_kernels.py TREE LABEL [--only ntt|blake|lc]
                                     [--reps 3] [--blocks-per-sm B ...]
 
 TREE is the root of a checkout (this one, ``.``, or an earlier commit
@@ -13,14 +14,20 @@ case is one wrapper call at one shape; it is checked against the first
 call's result, then timed ``--reps`` times, each rep as the CUDA-event time
 over a few back-to-back calls and the device time of the kernel alone
 (torch.profiler's self device time of the kernel's launches, divided by
-the calls; null where the trace dropped some of the launches).  Beside each single int32 or 16-bit row combination, a
-PyTorch reduction (``amax``) over the same matrix gives the read rate the
-card reaches on those bytes.  ``--blocks-per-sm`` times the row
-combination once more at each given ``cuda_lc.BLOCKS_PER_SM`` (the
-chunking's aim; trees that chunk by this constant only).  Prints a line ``CASE name {json}`` a case
-and, last, one JSON object with every case, the card's name and power
-limit (nvidia-smi) and the build time.  Imports neither JAX nor the JAX
-package.
+the calls; null where the trace dropped some of the launches).  Each NTT
+case also gets the least time the card could take for its work and the
+share of it the device time reaches (``chip_smoke.ntt_work`` and
+``bound``, this checkout's, so that two trees share one count), and the
+SM clock and power draw nvidia-smi reads while the case runs; the run
+records the registers and spill ptxas gave each ``ntt.cu`` instantiation
+(the tree's ``nvcc.log``).  Beside each single int32 or 16-bit row
+combination, a PyTorch reduction (``amax``) over the same matrix gives
+the read rate the card reaches on those bytes.  ``--blocks-per-sm`` times
+the row combination once more at each given ``cuda_lc.BLOCKS_PER_SM``
+(the chunking's aim; trees that chunk by this constant only).  Prints a
+line ``CASE name {json}`` a case and, last, one JSON object with every
+case, the card's name and power limit (nvidia-smi) and the build time.
+Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -32,7 +39,26 @@ import subprocess
 import sys
 import time
 
-KERNEL_SYMBOLS = {"blake": "blake2s", "lc": "row_combine"}
+KERNEL_SYMBOLS = {"ntt": "ntt", "blake": "blake2s", "lc": "row_combine"}
+#: (label, rows, w, n, inverse, canon_out, 16-bit in, 16-bit out): the
+#: 2^20-gate transforms (m = 1025, k = 2048, n = 16384; zk: b = 468, d2 =
+#: 8192) and the 16-bit entries on a 1024-row chunk
+NTT_CASES = (("NTT_n", 4100, 2048, 16384, False, True, False, False),
+             ("iNTT_k", 4100, 2048, 2048, True, False, False, False),
+             ("NTT_2k", 4100, 2048, 4096, False, False, False, False),
+             ("zk NTT_d2 of k + b", 4100, 2516, 8192, False, False, False,
+              False),
+             ("zk NTT_d2 of k", 4100, 2048, 8192, False, False, False, False),
+             ("zk encode", 4103, 8192, 16384, False, True, False, False),
+             ("chunk NTT_n 16 in/out", 1024, 2048, 16384, False, True, True,
+              True),
+             ("chunk iNTT_k 16 in/out", 1024, 2048, 2048, True, False, True,
+              True),
+             ("chunk NTT_2k 16 in", 1024, 2048, 4096, False, False, True,
+              False),
+             ("chunk zk NTT_n 16 in/out", 1024, 2516, 16384, False, True,
+              True, True))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLAKE_CASES = ((1, 4100, 16384), (3, 4100, 16384), (1, 2052, 4096),
                (3, 2052, 4096))
 #: (batch, rows, k, 16-bit matrix, r per column)
@@ -48,7 +74,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree")
     ap.add_argument("label")
-    ap.add_argument("--only", choices=("blake", "lc"))
+    ap.add_argument("--only", choices=("ntt", "blake", "lc"))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--blocks-per-sm", type=int, nargs="*", default=[])
     args = ap.parse_args()
@@ -58,8 +84,11 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ligero_tpu_torch.engine import cuda_build, cuda_hash, cuda_lc, fieldops
+    from ligero_tpu_torch.engine import (cuda_build, cuda_hash, cuda_lc,
+                                         cuda_ntt, fieldops)
     from ligero_tpu_torch.fields import BLS12_377_FQ, BN254_FR
+    sys.path.insert(0, REPO)
+    import chip_smoke
 
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
@@ -71,6 +100,12 @@ def main() -> None:
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip(), "cases": {}}
+    if args.only in (None, "ntt"):
+        with open(cuda_build.LOG_PATH) as f:
+            out["ptxas_ntt"] = chip_smoke.ptxas_lines(
+                f.read(), ("ntt_pass_kernel", "ntt_stage_kernel"))
+        for line in out["ptxas_ntt"]:
+            print("PTXAS", line, flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
 
@@ -109,6 +144,28 @@ def main() -> None:
                          "device_ms": dev / 1e3 / calls if whole else None})
         return reps
 
+    def clocked(fn):
+        """Median SM clock (MHz) and power draw (W) that nvidia-smi reads
+        every 100 ms while fn runs back to back for 1.5 s (the second
+        half's samples: the card under the load)."""
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        t_end = time.perf_counter() + 1.5
+        while time.perf_counter() < t_end:
+            fn()
+            torch.cuda.synchronize()
+        smi.terminate()
+        rows = [line.split(",") for line in smi.communicate()[0].splitlines()
+                if line.count(",") == 1]
+        rows = rows[len(rows) // 2:]
+        if not rows:
+            return {"sm_mhz": None, "power_w": None}
+        mhz = sorted(float(r[0]) for r in rows)
+        watts = sorted(float(r[1]) for r in rows)
+        return {"sm_mhz": mhz[len(mhz) // 2], "power_w": watts[len(watts) // 2]}
+
     def record(key, reps):
         out["cases"][key] = reps
         print("CASE", key, json.dumps(reps), flush=True)
@@ -122,6 +179,29 @@ def main() -> None:
 
     for field in (BN254_FR, BLS12_377_FQ):
         f = field.name
+        if args.only in (None, "ntt"):
+            sym = KERNEL_SYMBOLS["ntt"]
+            for label, rows, w, n, inv, canon, in16, out16 in NTT_CASES:
+                x = elems(field, rows, w)
+                if in16:
+                    x = fieldops.narrow16(x)
+
+                def fn():
+                    return cuda_ntt.ntt(field, x, n, inv, canon, out16)
+                first = fn()
+                reps = timed(fn, sym, 3)
+                assert torch.equal(fn(), first), label
+                work = chip_smoke.ntt_work(field, rows, w, n, inv or canon,
+                                           in16, out16)
+                bound_ms, by = chip_smoke.bound(*work)
+                load = clocked(fn)
+                for rep in reps:
+                    rep.update(bound_ms=bound_ms, bound_by=by, share=(
+                        None if rep["device_ms"] is None
+                        else bound_ms / rep["device_ms"]), **load)
+                record(f"{f} ntt {label} {rows}x{w}->{n}", reps)
+                del x, first
+                torch.cuda.empty_cache()
         if args.only in (None, "blake"):
             sym = KERNEL_SYMBOLS["blake"]
             for B, rows, n in BLAKE_CASES:

@@ -435,6 +435,136 @@ def test_field_header_mont_sqr_emulated():
     assert len(field_header_asm("fr")["fe_mont_sqr"]) == 18
 
 
+def emulated_lazy_ops():
+    """The lazy forms of namespace fq (the NTT's butterflies) on Python
+    ints: fe_mont_mul_2p (its steps with cios_reduce_p1, no conditional
+    subtraction), fe_add_2p, fe_sub_2p, fe_sub_4p and fe_reduce_p, the asm
+    statements as parsed, the C++ around them mirrored here."""
+    asm = field_header_asm("fq")
+    W = 12
+    words = lambda v: [(v >> (32 * j)) & M32 for j in range(W)]  # noqa: E731
+    value = lambda w: sum(x << (32 * j) for j, x in enumerate(w))  # noqa: E731
+
+    def resolver(**names):
+        def env(expr):
+            expr = expr.strip()
+            m = re.fullmatch(r"(0x[0-9a-f]{8})u & (\w+)", expr)
+            if m:
+                return int(m.group(1), 16) & names[m.group(2)][0]
+            m = re.fullmatch(r"(\w+)(?:\.w)?\[(\d+)\]", expr)
+            if m:
+                return [names[m.group(1)], int(m.group(2))]
+            return [names[expr], 0]
+        return env
+
+    def cond_sub(fn, t):                    # sub_p / sub_2p
+        d, borrow = [0] * W, [0]
+        run_asm(asm[fn][0], resolver(d=d, t=t, borrow=borrow))
+        return d if borrow[0] == 0 else t
+
+    def add_2p(a, b):
+        s = words(a)
+        run_asm(asm["fe_add_2p"][0], resolver(s=s, b=words(b)))
+        return value(cond_sub("sub_2p", s))
+
+    def sub_2p(a, b):
+        d, borrow = words(a), [0]
+        env = resolver(d=d, b=words(b), borrow=borrow)
+        run_asm(asm["fe_sub_2p"][0], env)
+        run_asm(asm["fe_sub_2p"][1], env, wraps=True)  # a - b + 2^384 + 2p
+        return value(d)
+
+    def sub_4p(a, b):
+        d = words(a)
+        env = resolver(d=d, b=words(b))
+        for stmt in asm["fe_sub_4p"]:
+            run_asm(stmt, env)
+        return value(d)
+
+    def reduce_p(a):
+        return value(cond_sub("sub_p", words(a)))
+
+    def mul_2p(a, b):
+        aw, bw = words(a), words(b)
+        x, y = [0] * W, [0] * W
+        for j in range(0, W, 2):
+            ev, od = bw[j] * aw[0], bw[j + 1] * aw[0]
+            x[j], x[j + 1], y[j], y[j + 1] = ev & M32, ev >> 32, od & M32, od >> 32
+
+        def step(e, o, v, bb):
+            env = resolver(e=e, o=o, v=v, b=[bb])
+            for stmt in asm["cios_step"]:
+                run_asm(stmt, env)
+
+        def reduce(e, o):
+            env = resolver(e=e, o=o, m=[(-e[0]) & M32])
+            for stmt in asm["cios_reduce_p1"]:
+                run_asm(stmt, env)
+            assert e[0] == 0
+
+        reduce(x, y)
+        for i in range(1, W, 2):
+            step(y, x, bw, aw[i])
+            reduce(y, x)
+            if i + 1 < W:
+                step(x, y, bw, aw[i + 1])
+                reduce(x, y)
+        r = list(x)
+        run_asm(asm["fe_mont_mul_2p"][0], resolver(r=r, y=y))
+        return value(r)
+
+    return mul_2p, add_2p, sub_2p, sub_4p, reduce_p
+
+
+def test_field_header_lazy_forms_emulated():
+    """BLS12-377's lazy forms, instruction for instruction, at their
+    stated bounds and their extremes: REDC(a b) in [0, 2p) for a < R and b
+    < p with no carry lost (a up to fe_sub_4p's 4p and past it); a + b and
+    a - b in [0, 2p), and a - b + 2p exactly, for a, b < 2p; a mod p for a
+    < 2p.  cios_reduce_p1 takes p's words as cios_reduce does, less the
+    lowest (1), and the 2p forms take 2p's words."""
+    import random
+    mul_2p, add_2p, sub_2p, sub_4p, reduce_p = emulated_lazy_ops()
+    p, R = BLS12_377_FQ.p, 1 << 384
+    r_inv = pow(R, -1, p)
+    rnd = random.Random(23)
+    edges_a = [0, 1, p - 1, p, 2 * p - 1, 2 * p, 4 * p - 1, R - 1]
+    edges_b = [0, 1, p - 1, (p - 1) // 2, R % p]
+    pairs = [(a, b) for a in edges_a for b in edges_b]
+    pairs += [(rnd.randrange(4 * p), rnd.randrange(p)) for _ in range(300)]
+    pairs += [(rnd.randrange(R), p - 1 - rnd.randrange(1 << 40))
+              for _ in range(100)]
+    for a, b in pairs:
+        got = mul_2p(a, b)
+        assert got < 2 * p and got % p == a * b * r_inv % p, (hex(a), hex(b))
+    lazy = [0, 1, p - 1, p, p + 1, 2 * p - 1]
+    sums = [(a, b) for a in lazy for b in lazy]
+    sums += [(rnd.randrange(2 * p), rnd.randrange(2 * p)) for _ in range(300)]
+    for a, b in sums:
+        s, d = add_2p(a, b), sub_2p(a, b)
+        assert s < 2 * p and s % p == (a + b) % p, (hex(a), hex(b))
+        assert d < 2 * p and d % p == (a - b) % p, (hex(a), hex(b))
+        assert sub_4p(a, b) == a - b + 2 * p, (hex(a), hex(b))
+        assert reduce_p(a) == a % p, hex(a)
+    asm = field_header_asm("fq")
+    P = [(p >> (32 * j)) & M32 for j in range(12)]
+    P2 = [(2 * p >> (32 * j)) & M32 for j in range(12)]
+
+    def immediates(stmt):
+        return [int(x, 16) for i in stmt[0]
+                for x in re.findall(r"0x[0-9a-f]{8}", i)]
+
+    odd, even = asm["cios_reduce_p1"]
+    assert P[0] == 1
+    assert immediates(odd) == [w for w in P[1::2] for _ in range(2)]
+    assert immediates(even) == [w for w in P[2::2] for _ in range(2)]
+    assert immediates(asm["sub_2p"][0]) == P2
+    assert immediates(asm["fe_sub_4p"][0]) == P2
+    masked = [int(m, 16) for m in re.findall(
+        r"(0x[0-9a-f]{8})u & borrow", " ".join(asm["fe_sub_2p"][1][2]))]
+    assert masked == P2
+
+
 def test_field_header_constants_match_bls12_377():
     """The fq namespace's p words, -p^-1 mod 2^32 and widths."""
     path = os.path.join(os.path.dirname(cuda_mont.__file__), "..", "csrc",

@@ -152,7 +152,11 @@ def test_structured_twin_matches_plain_and_jax_package(n, w, tile_log):
 # BLS12-377 Fq at the edges of its routes: the tile limit (one pass of
 # 4096 elements, the 198 KB tile), cosets, two passes, global stages
 BLS_STRUCT_CASES = [(4096, 4096, 12), (4096, 2049, 12), (1024, 129, 12),
-                    (512, 512, 4), (1024, 300, 4), (256, 256, 3)]
+                    (512, 512, 4), (1024, 300, 4), (256, 256, 3),
+                    # the 2048-element tile two blocks share an SM with: one
+                    # pass, NTT_n's eight cosets, and the zk encode's split
+                    # (l1 = 6, l2 = 7)
+                    (2048, 2048, 12), (16384, 2048, 12), (8192, 8192, 7)]
 
 
 @pytest.mark.parametrize("n,w,tile_log", BLS_STRUCT_CASES)
@@ -167,6 +171,41 @@ def test_structured_twin_matches_jax_package_bls12_377(n, w, tile_log):
                                  tile_log=tile_log)
         assert np.array_equal(got.numpy(), jax_package_ntt(
             field, x, n, inverse, canon_out)), (inverse, canon_out)
+
+
+EDGE_VALUES = ("p-1", "zero", "alternating", "random")
+
+
+def edge_values(field, kind, rows, w, rng):
+    """(rows, w, L) limbs: every element p - 1 (the largest a kernel is
+    given), 0, 0 and p - 1 in turns, or random Montgomery values."""
+    if kind == "random":
+        return rand_mont(field, rng, (rows, w))
+    x = np.zeros((rows, w, field.num_limbs), dtype=np.uint32)
+    top = field.ints_to_limbs([field.p - 1])[0]
+    if kind == "p-1":
+        x[:] = top
+    elif kind == "alternating":
+        x[:, 1::2] = top
+    return x
+
+
+# (n, w, tile_log): one pass, cosets, two passes, global stages
+EDGE_ROUTES = [(64, 64, 6), (256, 24, 5), (1024, 130, 4), (256, 256, 3)]
+
+
+@pytest.mark.parametrize("kind", EDGE_VALUES)
+def test_structured_twin_edge_values_bls12_377(kind):
+    """BLS12-377 inputs at the edges of the field through every route of
+    the kernel's decomposition, against the JAX package's DomainOps."""
+    field = BLS12_377_FQ
+    for n, w, tile_log in EDGE_ROUTES:
+        x = edge_values(field, kind, 2, w, np.random.default_rng(n + w))
+        for inverse, canon_out in FLAGS:
+            got = ntt.ntt_structured(pf(field), t(x), n, inverse, canon_out,
+                                     tile_log=tile_log)
+            assert np.array_equal(got.numpy(), jax_package_ntt(
+                field, x, n, inverse, canon_out)), (n, w, inverse, canon_out)
 
 
 @pytest.mark.parametrize("inverse,canon_out", FLAGS)
@@ -280,6 +319,68 @@ def test_route_and_scratch_of_main_path_shapes(label, rows, w, n, name, split,
         assert rt.group_log(rt.l2, rt.l1, tile_log) == 0
 
 
+@pytest.mark.parametrize("label,rows,w,n,name,split", MAIN_PATH_ROUTES,
+                         ids=[c[0] for c in MAIN_PATH_ROUTES])
+def test_lazy_bound_model_main_path_routes(label, rows, w, n, name, split):
+    """BLS12-377's lazy butterflies along every main-path route: every
+    value below 2^384, every product's a < R and b < p, butterflies and
+    products in [0, 2p), what is stored in [0, p); and each reduction the
+    design keeps is one it needs (the model rejects the route without it).
+    BN254's fully reduced butterflies stay in [0, p) and skip nothing."""
+    bls, bn = pf(BLS12_377_FQ), pf(BN254_FR)
+    rt = cuda_ntt.route(w, n, rows)
+    top = cuda_ntt.lazy_bound_model(bls, rt)
+    p, R = bls.p, 1 << bls.r_bits          # the bounds are exclusive
+    assert max(top.values()) <= R
+    assert top["product_a"] <= R and top["product_b"] == p
+    assert top["butterfly"] == 2 * p and top["product"] <= 2 * p
+    assert top["stored"] == p
+    for skip in cuda_ntt.LAZY_REDUCTIONS:
+        with pytest.raises(cuda_ntt.BoundError):
+            cuda_ntt.lazy_bound_model(bls, rt, skip=skip)
+    top = cuda_ntt.lazy_bound_model(bn, rt)   # a product's steps: < 2p
+    assert top["butterfly"] == top["stored"] == bn.p
+    assert top["product"] == 2 * bn.p
+    with pytest.raises(ValueError):
+        cuda_ntt.lazy_bound_model(bn, rt, skip="sum")
+
+
+def test_lazy_bound_model_catches_a_bad_sequence():
+    """The model's checks bite: a one-stage route of an untwisted input can
+    afford an unreduced sum (it stays below 2p); a route with no stages has
+    no sum to skip; an input of 2p or more fails the first butterfly."""
+    bls = pf(BLS12_377_FQ)
+    lone = ntt.ntt_plan(1, 2)             # one coset a point: no stages
+    with pytest.raises(ValueError, match="no sum"):
+        cuda_ntt.lazy_bound_model(bls, lone, skip="sum")
+    with pytest.raises(cuda_ntt.BoundError):
+        cuda_ntt.lazy_bound_model(bls, lone, skip="store")
+    for rt in (ntt.ntt_plan(2, 2), ntt.ntt_plan(4, 4), ntt.ntt_plan(8, 8)):
+        for skip in cuda_ntt.LAZY_REDUCTIONS:
+            with pytest.raises(cuda_ntt.BoundError):
+                cuda_ntt.lazy_bound_model(bls, rt, skip=skip)
+
+
+def test_lazy_model_constants_match_the_source():
+    """cuda_ntt mirrors csrc/ntt.cu: each field's RADIX_LOG, and lazy
+    butterflies (NttArith::LAZY) for BLS12-377 only."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(cuda_ntt.__file__), "..", "csrc",
+                        "ntt.cu")
+    with open(path) as f:
+        src = f.read()
+    shapes = dict(re.findall(
+        r"struct NttShape(?:<(\w+)>)? \{\n  static constexpr int "
+        r"RADIX_LOG = (\d+);", src))
+    assert int(shapes[""]) == cuda_ntt.RADIX_LOG[BN254_FR.name]
+    assert int(shapes["Bls12377Fq"]) == cuda_ntt.RADIX_LOG[BLS12_377_FQ.name]
+    lazy = dict(re.findall(r"struct NttArith(?:<(\w+)>)? \{\n  static "
+                           r"constexpr bool LAZY = (\w+);", src))
+    assert lazy == {"": "false", "Bls12377Fq": "true"}
+    assert cuda_ntt.LAZY_FIELDS == (BLS12_377_FQ.name,)
+
+
 def test_plan_rejects_bad_shapes():
     for w, n in [(0, 8), (9, 8), (4, 12), (1, 1)]:
         with pytest.raises(ValueError):
@@ -373,6 +474,40 @@ def test_ntt_kernel_small_tile_limits(cuda, n, w, tile_log, field):
                                   tile_log=tile_log)
         assert torch.equal(got, ntt.ntt_ref(pf(field), x, n, inverse,
                                             canon)), (rt, inverse, canon)
+
+
+# (n, w, tile_log): the kernel's routes for the edge-value twins: cosets
+# (NTT_n's eight of 2048), one pass of the 2048-element tile, the 4096-element
+# tile, two passes (the zk encode's split), global stages
+EDGE_KERNEL_ROUTES = [(16384, 2048, 12), (2048, 2048, 12), (4096, 4096, 12),
+                      (8192, 8192, 7), (1024, 1024, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", EDGE_VALUES)
+def test_ntt_kernel_edge_values_bls12_377(cuda, kind):
+    """BLS12-377's lazy butterflies at the edges of the field: every route,
+    a lone row, inverse and canonical output, int32 and 16-bit storage in
+    and out, bit-equal to the plain versions."""
+    field = pf(BLS12_377_FQ)
+    for n, w, tile_log in EDGE_KERNEL_ROUTES:
+        x = t(edge_values(BLS12_377_FQ, kind, 3, w,
+                          np.random.default_rng(n + w))).to(cuda)
+        x16 = fieldops.narrow16(x)
+        rt = ntt.ntt_plan(w, n, tile_log)
+        for inverse, canon in FLAGS:
+            want = ntt.ntt_ref(field, x, n, inverse, canon)
+            got = cuda_ntt.ntt_routed(field, x, n, inverse, canon, rt,
+                                      tile_log=tile_log)
+            assert torch.equal(got, want), (rt, kind, inverse, canon)
+            assert torch.equal(cuda_ntt.ntt(field, x[:1], n, inverse, canon),
+                               want[:1]), (n, w, kind, inverse, canon)
+            for xin, out16 in ((x16, True), (x16, False), (x, True)):
+                got = cuda_ntt.ntt_routed(field, xin, n, inverse, canon, rt,
+                                          tile_log=tile_log, out16=out16)
+                assert torch.equal(got, cuda_ntt.ntt16_ref(
+                    field, xin, n, inverse, canon, out16)), (
+                        rt, kind, inverse, canon, xin.dtype, out16)
 
 
 @pytest.mark.cuda
