@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..fields import FieldSpec
+from ..utils.profiling import PhaseTimer, span
 from . import (cuda_build, cuda_hash, cuda_lc, cuda_mont, cuda_ntt, cuda_tree,
                devsampler, fieldops, hashops)
 from .devmatrix import RowChunkedMatrix, StreamedCodewords
@@ -129,6 +130,9 @@ class TorchBackend:
         self.device = resolve_device(device)
         self.L = field.num_limbs
         self._side = None
+        #: counts the bytes of every host <-> device copy (``h2d.bytes``,
+        #: ``d2h.bytes``) by phase; ``LigeroCircuit`` sets its own timer
+        self.timer = PhaseTimer()
         if self.device.type == "cuda":
             cuda_build.kernel_field_id(field, "TorchBackend")
 
@@ -154,14 +158,19 @@ class TorchBackend:
     # ------------------------------------------------------------------
     def asarray(self, a) -> torch.Tensor:
         """Host limb array (uint16/uint32/int) or tensor -> int32 on device;
-        a 16-bit tensor (int16) stays 16-bit: the kernels read it so."""
+        a 16-bit tensor (int16) stays 16-bit: the kernels read it so.  A
+        host array, or a host tensor bound for a card, counts as
+        ``h2d.bytes``."""
         if isinstance(a, torch.Tensor):
+            if a.device.type == "cpu" and self.device.type != "cpu":
+                self.timer.add("h2d.bytes", a.nbytes)
             if a.dtype == torch.int16:
                 return a.to(self.device)
             return a.to(device=self.device, dtype=torch.int32)
         # limbs are < 2^16, so the int32 cast is exact
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
-            self.device)
+        a = np.ascontiguousarray(a, dtype=np.int32)
+        self.timer.add("h2d.bytes", a.nbytes)
+        return torch.from_numpy(a).to(self.device)
 
     @staticmethod
     def to_numpy(a) -> np.ndarray:
@@ -174,14 +183,24 @@ class TorchBackend:
             return a.view(np.uint32)
         return np.asarray(a)
 
+    def _from_device(self, a) -> np.ndarray:
+        """:meth:`to_numpy` of a result of the device, or of the opened
+        columns :meth:`opened_to_host` brought over, its bytes counted as
+        ``d2h.bytes``."""
+        if isinstance(a, torch.Tensor):
+            self.timer.add("d2h.bytes", a.nbytes)
+        return self.to_numpy(a)
+
     def ints_to_mont(self, ints: list[int]) -> np.ndarray:
         return self.field.ints_to_mont_limbs(ints)
 
     def mont_to_ints(self, limbs) -> list[int]:
-        return self.field.mont_limbs_to_ints(self.to_numpy(limbs))
+        with span("ints.from_device"):
+            return self.field.mont_limbs_to_ints(self._from_device(limbs))
 
     def canon_limbs_to_ints(self, limbs) -> list[int]:
-        return self.field.limbs_to_ints(self.to_numpy(limbs))
+        with span("ints.from_device"):
+            return self.field.limbs_to_ints(self._from_device(limbs))
 
     # ------------------------------------------------------------------
     # memory budget (direct mode)
@@ -683,6 +702,7 @@ class TorchBackend:
         blk = np.ascontiguousarray(preenc[r0:r1])
         if blk.dtype != np.uint16:
             return fieldops.narrow16(self.asarray(blk))
+        self.timer.add("h2d.bytes", blk.nbytes)
         return torch.from_numpy(blk.view(np.int16)).to(self.device)
 
     def _rows_up(self, preenc, r0: int, r1: int) -> torch.Tensor:
@@ -797,12 +817,14 @@ class TorchBackend:
             for i, c in enumerate(coeffs.chunks):
                 if c is None:
                     continue
+                self.timer.add("h2d.bytes", idx.nbytes)
                 with self._on(c.device) as be:
                     out[i] = be.ntt(c, n).index_select(
                         1, idx.to(c.device))[:coeffs.real_rows(i)].to(
                             self.device)
             return self._join_chunks(out, coeffs, (len(idx), self.L),
                                      self.device)
+        self.timer.add("h2d.bytes", idx.nbytes)
         return self.ntt(coeffs, n).index_select(1, idx.to(self.device))
 
     def ntt_columns_batch(self, coeffs_b, n: int, idx) -> torch.Tensor:
@@ -837,7 +859,7 @@ class TorchBackend:
             u_canon, batch, lambda block: cuda_hash.blake2s_columns(
                 self.field, block.reshape(-1, *block.shape[2:]), batch)
             .reshape(batch, -1, 8))
-        flat = self.to_numpy(cuda_tree.forest_flat(leaves_le))
+        flat = self._from_device(cuda_tree.forest_flat(leaves_le))
         return [hashops.digest_lists(flat[b], n) for b in range(batch)]
 
     def commit_columns_streaming(self, sc: StreamedCodewords):
@@ -863,7 +885,7 @@ class TorchBackend:
             del canon
         leaves = torch.cat([hs.digests().to(self.device)
                             for _, _, _, hs in blocks])
-        flat = self.to_numpy(cuda_tree.forest_flat(leaves[None]))
+        flat = self._from_device(cuda_tree.forest_flat(leaves[None]))
         return hashops.digest_lists(flat[0], n)
 
     def gather_columns_batch(self, u_canon, idx) -> np.ndarray:
@@ -886,21 +908,23 @@ class TorchBackend:
                 if coeffs is None:
                     continue
                 canon = self.part_codewords(coeffs, real, held, n)
+                self.timer.add("h2d.bytes", idx[0].nbytes)
                 parts[i] = self.opened_to_host(canon.index_select(
                     1, idx[0].to(canon.device)))
                 del canon
             tail = parts.pop(len(rcm.chunks), None)      # the zk mask rows
             cols = [self._join_chunks(parts, rcm, (idx.shape[1], self.L),
                                       "cpu", torch.int16)]
-            return self.to_numpy(torch.cat(
+            return self._from_device(torch.cat(
                 cols if tail is None else cols + [tail]))[None]
-        return self.to_numpy(self._gather_to_host(u_canon, idx))
+        return self._from_device(self._gather_to_host(u_canon, idx))
 
     def _gather_to_host(self, u_canon, idx, non_blocking: bool = False
                         ) -> torch.Tensor:
         """Direct mode's openings: (B * rows, n, L) on the device and
         ``idx`` (B, t) int64 -> (B, rows, t, L) int16 on the host (see
         :meth:`opened_to_host`)."""
+        self.timer.add("h2d.bytes", idx.nbytes)
         idx = idx.to(self.device, non_blocking=non_blocking)
         batch, t = idx.shape
         u4 = u_canon.reshape(batch, -1, *u_canon.shape[1:])
@@ -915,7 +939,8 @@ class TorchBackend:
         bytes a limb cross (the JAX package's ``gather_columns`` copies
         uint16).  ``non_blocking`` (a CUDA tensor): into pinned host memory
         by the copy engine, ordered on the current stream; the caller waits
-        for that stream before it reads the result."""
+        for that stream before it reads the result.  The bytes count as
+        ``d2h.bytes`` where the caller reads them (:meth:`_from_device`)."""
         cols = fieldops.narrow16(cols)
         if not non_blocking or cols.device.type != "cuda":
             return cols.cpu()
@@ -968,7 +993,7 @@ class TorchBackend:
             raise pending.err
         if pending.event is not None:
             pending.event.synchronize()
-        return self.to_numpy(pending.host)[0]
+        return self._from_device(pending.host)[0]
 
     def side_stream(self) -> torch.cuda.Stream:
         """This backend's side CUDA stream (made at first use; one a

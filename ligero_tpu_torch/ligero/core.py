@@ -168,6 +168,7 @@ class LigeroCircuit:
         self.backend = backend
         self.device = self.backend.device
         self.timer = timer or PhaseTimer()
+        self.backend.timer = self.timer
         self.mt_params = LigeroMTTestParams() if mt_params is None else mt_params
         self._mt_default = is_default_mt_params(self.mt_params)
         if not self._mt_default:
@@ -188,6 +189,7 @@ class LigeroCircuit:
             self.d2, poseidon=not self._mt_default)
         self._witness = WitnessEvaluator(st)
         self._coo = None
+        self._opening = 0      # the index of the proof being opened
 
     # ------------------------------------------------------------------
     # prover
@@ -304,7 +306,7 @@ class LigeroCircuit:
             for i in every:
                 seed = sponges[i].squeeze_bytes(CHACHA_SEED_BYTES)   # FS #5
                 r_coeffs = self._r_a_coeff_rows(seed)
-                with ph("linear.polyprod"):
+                with ph(f"linear.polyprod/{i}"):
                     q_mont = be.linear_combination_poly(coeffs[i], r_coeffs,
                                                         self.d2)
                 del r_coeffs
@@ -344,7 +346,7 @@ class LigeroCircuit:
                     cols = be.gather_columns_batch(
                         u_canon, [idx1[i] + idx2[i] + idx3[i] for i in every])
                 opened = [self._opened(cols[i], trees[i],
-                                       (idx1[i], idx2[i], idx3[i]))
+                                       (idx1[i], idx2[i], idx3[i]), i)
                           for i in every]
             proofs = [LigeroProof(
                 trees[i].root, InterleavedProof(lcs[i], *opened[i][0]),
@@ -369,8 +371,10 @@ class LigeroCircuit:
         (``_rs_encode_streamed`` and ``_zk_encode_streamed`` of the JAX
         package)."""
         be, ph, B = self.backend, self.timer.phase, len(masks)
-        with ph("witness+preenc"):
-            preenc = [self._witness.preenc(a) for a in assignments]
+        preenc = []
+        for i, a in enumerate(assignments):
+            with ph(f"witness+preenc/{i}"):
+                preenc.append(self._witness.preenc(a))
         if self.chunk_rows:
             if B != 1:
                 raise ValueError(f"{self.encode_mode} mode proves one "
@@ -547,12 +551,14 @@ class LigeroCircuit:
         (and its error, where the start had one), then the host work."""
         with self.timer.phase("open.gather"):
             cols = self.backend.gather_columns_finish(handle)
+        self._opening = 0              # the overlap route opens one proof
         return self._opened_set(cols, tree, handle.js)
 
-    def _opened(self, cols: np.ndarray, tree, idx_sets):
-        """One proof's gathered columns (rows, sum of the sets, L; copied
-        in 16-bit limbs and widened on the host) -> ``(columns, paths)``
-        per index set."""
+    def _opened(self, cols: np.ndarray, tree, idx_sets, proof: int):
+        """Proof ``proof``'s gathered columns (rows, sum of the sets, L;
+        copied in 16-bit limbs and widened on the host) -> ``(columns,
+        paths)`` per index set."""
+        self._opening = proof
         out, off = [], 0
         for idx in idx_sets:
             out.append(self._opened_set(cols[:, off:off + len(idx)], tree,
@@ -562,13 +568,14 @@ class LigeroCircuit:
 
     def _opened_set(self, cols: np.ndarray, tree, idx):
         """One index set's columns (rows, len(idx), L) -> ``(columns as
-        ints, Merkle paths)``, timed as ``open.to_ints`` and
-        ``open.paths``."""
-        ph = self.timer.phase
-        with ph("open.to_ints"):
-            columns = [self.field.limbs_to_ints(cols[:, i, :])
-                       for i in range(len(idx))]
-        with ph("open.paths"):
+        ints, Merkle paths)``, timed as ``open.to_ints/<i>`` and
+        ``open.paths/<i>``, i the proof's index in the batch
+        (``_opening``, set by the callers)."""
+        ph, i = self.timer.phase, self._opening
+        with ph(f"open.to_ints/{i}"):
+            columns = [self.field.limbs_to_ints(cols[:, j, :])
+                       for j in range(len(idx))]
+        with ph(f"open.paths/{i}"):
             paths = [tree.generate_proof(j) for j in idx]
         return columns, paths
 
@@ -580,17 +587,19 @@ class LigeroCircuit:
             return False
         leaves = self._opened_leaves([proof])[0]
         sponge.absorb_bytes(proof.u_root)                        # FS #1
-        with self.timer.phase("v.interleaved"):
+        # a proof's stages carry its index in the batch, as in
+        # ``verify_batch``: this one is proof 0
+        with self.timer.phase("v.interleaved/0"):
             ok = self._verify_interleaved(proof.interleaved, proof.u_root,
                                           sponge, leaves[0])
         if not ok:
             return False
-        with self.timer.phase("v.linear"):
+        with self.timer.phase("v.linear/0"):
             ok = self._verify_linear(proof.linear, proof.u_root, sponge,
                                      leaves[1])
         if not ok:
             return False
-        with self.timer.phase("v.quadratic"):
+        with self.timer.phase("v.quadratic/0"):
             return self._verify_quadratic(proof.quadratic, proof.u_root, sponge,
                                           leaves[2])
 
@@ -617,8 +626,10 @@ class LigeroCircuit:
         of :meth:`verify` in their order on its one transcript; the
         stages stop twice, so that what all proofs need next is computed
         in one call.  A proof that fails a stage is done, at the cost
-        :meth:`verify` would have spent on it."""
-        be, n = self.backend, self.n
+        :meth:`verify` would have spent on it.  Proof i's stages are timed
+        as :meth:`verify`'s, ``v.interleaved/<i>``, ``v.linear/<i>`` and
+        ``v.quadratic/<i>``."""
+        be, n, ph = self.backend, self.n, self.timer.phase
         verdicts = [False] * len(proofs)
         # q and p0 too long are rejected as ``verify`` rejects them, and
         # kept out of the stacks
@@ -629,29 +640,34 @@ class LigeroCircuit:
             return verdicts
         leaves = self._opened_leaves([proofs[i] for i in live])
         # the transforms of proof data, which hang on no transcript
-        lc = be.ints_to_mont(
-            [c for i in live for c in proofs[i].interleaved.preenc_u_lc]
-        ).reshape(len(live), self.blind_len, -1)
-        w_evals = (be.ntt(lc, n) if self.zk
-                   else be.rs_encode_rows(lc, self.k, n)[1])
-        polys = ([proofs[i].linear.polynomial for i in live]
-                 + [proofs[i].quadratic.polynomial for i in live])
-        qp_evals = be.ntt(be.ints_to_mont(
-            [c for poly in polys for c in poly + [0] * (self.d2 - len(poly))]
-        ).reshape(2 * len(live), self.d2, -1), n)
+        with ph("v.reveal"):
+            lc = be.ints_to_mont(
+                [c for i in live for c in proofs[i].interleaved.preenc_u_lc]
+            ).reshape(len(live), self.blind_len, -1)
+            w_evals = (be.ntt(lc, n) if self.zk
+                       else be.rs_encode_rows(lc, self.k, n)[1])
+            polys = ([proofs[i].linear.polynomial for i in live]
+                     + [proofs[i].quadratic.polynomial for i in live])
+            qp_evals = be.ntt(be.ints_to_mont(
+                [c for poly in polys
+                 for c in poly + [0] * (self.d2 - len(poly))]
+            ).reshape(2 * len(live), self.d2, -1), n)
 
         # each proof up to its linear phase's openings: FS #1-#7
         pending = []     # (proof index, stack index, sponge, r_i rows, q values)
         for j, i in enumerate(live):
             pf, sp = proofs[i], sponge.clone()
             sp.absorb_bytes(pf.u_root)                           # FS #1
-            if not self._verify_interleaved(pf.interleaved, pf.u_root, sp,
-                                            leaves[j][0],
-                                            be.mont_to_ints(w_evals[j])):
+            with ph(f"v.interleaved/{i}"):
+                ok = self._verify_interleaved(pf.interleaved, pf.u_root, sp,
+                                              leaves[j][0],
+                                              be.mont_to_ints(w_evals[j]))
+            if not ok:
                 continue
-            opened = self._verify_linear_open(pf.linear, pf.u_root, sp,
-                                              leaves[j][1],
-                                              be.mont_to_ints(qp_evals[j]))
+            with ph(f"v.linear/{i}"):
+                opened = self._verify_linear_open(
+                    pf.linear, pf.u_root, sp, leaves[j][1],
+                    be.mont_to_ints(qp_evals[j]))
             if opened is not None:
                 pending.append((i, j, sp, *opened))
         if not pending:
@@ -666,11 +682,15 @@ class LigeroCircuit:
         # the rest of each proof: the linear spot check, FS #8-#10
         for slot, (i, j, sp, _, q_evals) in enumerate(pending):
             pf = proofs[i]
-            verdicts[i] = (
-                self._verify_linear_spot(pf.linear, r_evals[slot], q_evals)
-                and self._verify_quadratic(
+            with ph(f"v.linear/{i}"):
+                ok = self._verify_linear_spot(pf.linear, r_evals[slot],
+                                              q_evals)
+            if not ok:
+                continue
+            with ph(f"v.quadratic/{i}"):
+                verdicts[i] = self._verify_quadratic(
                     pf.quadratic, pf.u_root, sp, leaves[j][2],
-                    be.mont_to_ints(qp_evals[len(live) + j])))
+                    be.mont_to_ints(qp_evals[len(live) + j]))
         return verdicts
 
     def warmup(self) -> dict:

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 from ..fields import FieldSpec
 from ..merkle import MerklePath
+from ..utils.profiling import span
 
 
 @dataclass
@@ -53,6 +54,12 @@ class LigeroProof:
     # serialization (framework extension; ark-style u64-LE length prefixes)
     # ------------------------------------------------------------------
     def to_bytes(self, field: FieldSpec) -> bytes:
+        """The canonical encoding; a profiler span ``proof.to_bytes``, its
+        three column sets ``columns.to_bytes`` inside it."""
+        with span("proof.to_bytes"):
+            return self._to_bytes(field)
+
+    def _to_bytes(self, field: FieldSpec) -> bytes:
         sz = field.serialized_size
         out = bytearray()
 
@@ -75,9 +82,10 @@ class LigeroProof:
                     put_bytes(h)
 
         def put_columns(cols: list[list[int]]):
-            out.extend(struct.pack("<Q", len(cols)))
-            for c in cols:
-                put_fvec(c)
+            with span("columns.to_bytes"):
+                out.extend(struct.pack("<Q", len(cols)))
+                for c in cols:
+                    put_fvec(c)
 
         put_bytes(self.u_root)
         put_fvec(self.interleaved.preenc_u_lc)
@@ -95,7 +103,14 @@ class LigeroProof:
     def from_bytes(cls, data: bytes, field: FieldSpec) -> "LigeroProof":
         """Rejecting deserializer (ark ``CanonicalDeserialize`` discipline):
         truncated buffers and non-canonical field encodings (>= p) raise
-        ``ValueError`` instead of silently yielding malleable proofs."""
+        ``ValueError`` instead of silently yielding malleable proofs.  A
+        profiler span ``proof.from_bytes``, its three column sets
+        ``columns.from_bytes`` inside it."""
+        with span("proof.from_bytes"):
+            return cls._from_bytes(data, field)
+
+    @classmethod
+    def _from_bytes(cls, data: bytes, field: FieldSpec) -> "LigeroProof":
         sz = field.serialized_size
         pos = 0
 
@@ -140,8 +155,9 @@ class LigeroProof:
             return paths
 
         def get_columns():
-            n = get_u64()
-            return [get_fvec() for _ in range(n)]
+            with span("columns.from_bytes"):
+                n = get_u64()
+                return [get_fvec() for _ in range(n)]
 
         u_root = get_bytes()
         inter = InterleavedProof(get_fvec(), get_columns(), get_paths())

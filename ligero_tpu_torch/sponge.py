@@ -35,6 +35,7 @@ from dataclasses import dataclass
 from .chacha import ark_std_test_rng
 from .fields import FieldSpec
 from .sampling import rand_field_element_scalar
+from .utils.profiling import span
 
 _ABSORBING = 0
 _SQUEEZING = 1
@@ -136,7 +137,12 @@ class PoseidonSponge:
     NATIVE_ABSORB_THRESHOLD = 16
 
     def absorb_field_elems(self, elems: list[int]) -> None:
-        """Absorb native field elements (``Vec<F>`` in ark)."""
+        """Absorb native field elements (``Vec<F>`` in ark); a profiler
+        span ``transcript.absorb``, as every absorb goes through here."""
+        with span("transcript.absorb"):
+            self._absorb_elems(elems)
+
+    def _absorb_elems(self, elems: list[int]) -> None:
         if not elems:
             return
         elems = [e % self.p for e in elems]
@@ -209,6 +215,12 @@ class PoseidonSponge:
             rate_start = 0
 
     def squeeze_native_field_elements(self, count: int) -> list[int]:
+        """A profiler span ``transcript.squeeze``, as every squeeze goes
+        through here."""
+        with span("transcript.squeeze"):
+            return self._squeeze_elems(count)
+
+    def _squeeze_elems(self, count: int) -> list[int]:
         if count == 0:
             return []
         if self.mode == _ABSORBING:

@@ -15,17 +15,15 @@ with ``zk=True`` under ``--zk`` (proofs then share one fixed ``zk_seed``;
 small circuits need a reduced ``--lambda`` to fit the blinding) and
 committed with ``--mt`` (the default Blake2s/SHA-256 commitment, or
 ``LigeroMTPoseidonParams``: BN254 Fr only), then for
-each of prove and verify: one warm-up call, three unprofiled walls,
-one call under the phase timer (CUDA synchronised at phase boundaries) and
-one call under ``torch.profiler``.  From the profiled call's device events
-it reports the device busy time (the union of kernel and copy intervals),
-the time and launch count per kernel group (the 16-bit entries, which the
-resident and streaming modes' 16-bit chunks take, apart), and the device
-idle share
-against both the profiled wall and the median unprofiled wall.  The
-profiler adds host time to every launch, so the share against the
-profiled wall overstates idleness; the share against the unprofiled wall
-pairs a busy time and a wall from different calls.  Both are printed.
+each of prove and verify: one warm-up call, three walls, and one call
+under the phase timer, recorded as each phase's host wall (``phases_ms``;
+the timer sets no barrier, so a phase's device work is not in it) and
+count (``phase_counts``) and the timer's counters (``counters``: the
+bytes of every host -> device and device -> host copy by phase,
+``h2d.bytes@<phase>`` and ``d2h.bytes@<phase>``).  The device's busy and
+idle time, and each phase's device work, come from a trace of the
+program's spans: ``python3 benchmark/run.py --workload <cell> --seed <n>
+--seconds 51 --trace 1``, or ``utils.profiling.trace`` around a call.
 
 The verifier is profiled as it runs (its r_i codewords at the opened
 columns from the full NTT_n and a gather); with ``--spot``, where the spot
@@ -51,9 +49,7 @@ resident one.  With ``--mesh D`` the instance runs over D shards
 (``parallel.ShardedBackend``; on a host with fewer cards than D a card
 holds several), in the mode its estimates per physical device give, and
 each physical device's peak stands beside its own estimate
-(``device_bytes``, ``stream_device_bytes``).  The phase timer's call is
-recorded as each phase's total (``phases_ms``) and count
-(``phase_counts``).
+(``device_bytes``, ``stream_device_bytes``).
 
 ``--malloc-ab`` runs this profile (BN254 Fr on ``--device``, the other
 options at their defaults) in a subprocess at each size of
@@ -84,15 +80,6 @@ sys.modules["ligero_tpu"] = None
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 REPEATS = 3
-# every __global__ function of ligero_tpu_torch/csrc (tests/test_torch_imports.py
-# holds this list against the sources)
-PORT_KERNELS = ("ntt_pass_kernel", "ntt_stage_kernel", "blake2s_kernel",
-                "sha256_tree_kernel", "sha256_chain_probe_kernel",
-                "mont_mul_kernel", "row_combine_kernel",
-                "poseidon_cols_kernel")
-#: kernels whose first flag (the template argument after the field) is the
-#: 16-bit entry; the others are 16-bit wherever any flag is set
-FIRST_FLAG_16 = ("blake2s_kernel", "row_combine_kernel")
 ZK_SEED = bytes(range(32))
 
 
@@ -117,51 +104,6 @@ def nvidia_smi_line() -> str | None:
     return res.stdout.strip().splitlines()[0] if res.returncode == 0 else None
 
 
-def _group(name: str) -> str:
-    """A device event's group: its port kernel (the 16-bit entries, whose
-    instantiations take a ``true`` template argument, apart: "ntt_pass_kernel
-    16-bit", the passes that read 16-bit limbs, whatever they write (the
-    output's storage is a run-time flag); the streamed Blake2s is
-    "blake2s_kernel 16-bit"), a copy or set, or the torch ops."""
-    for kernel in PORT_KERNELS:
-        if kernel in name:
-            args = name.split(kernel, 1)[1].split("(")[0]
-            if kernel in FIRST_FLAG_16:
-                args = (args.split(",") + ["", ""])[1]
-            return kernel + (" 16-bit" if "true" in args else "")
-    if name.startswith("Memcpy") or name.startswith("Memset"):
-        return name.split()[0].lower()
-    return "torch ops"
-
-
-def device_breakdown(prof) -> tuple[float | None, dict]:
-    """(busy ms: union of device intervals, {group: [launches, ms]}) of a
-    profiled call; busy is None when the trace holds no device event."""
-    from torch.autograd import DeviceType
-
-    spans, groups = [], {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        start, end = ev.time_range.start, ev.time_range.end  # microseconds
-        spans.append((start, end))
-        g = groups.setdefault(_group(ev.name), [0, 0.0])
-        g[0] += 1
-        g[1] += (end - start) / 1e3
-    if not spans:
-        return None, groups
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    return busy / 1e3, {k: [v[0], round(v[1], 3)] for k, v in groups.items()}
-
-
 def profile_call(torch, devices, lig, fn) -> dict:
     """``devices``: the physical devices of the instance (the first one's
     synchronisation brackets the walls; every one's peak is read)."""
@@ -179,27 +121,13 @@ def profile_call(torch, devices, lig, fn) -> dict:
     phases = {k: round(v * 1e3, 1) for k, v in
               sorted(lig.timer.totals.items(), key=lambda kv: -kv[1])}
     counts = {k: lig.timer.counts[k] for k in phases}
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        wall_prof = _wall(torch, device, fn)
-    busy_ms, groups = device_breakdown(prof)
-    median = statistics.median(walls)
-
-    def idle(wall_s):
-        return None if busy_ms is None else 1.0 - busy_ms / (wall_s * 1e3)
-
     peaks = ({str(dev): torch.cuda.max_memory_allocated(dev) / 2**30
               for dev in devices} if device.type == "cuda" else None)
-    return {"walls_s": walls, "median_wall_s": median, "phases_ms": phases,
-            "phase_counts": counts,
+    return {"walls_s": walls, "median_wall_s": statistics.median(walls),
+            "phases_ms": phases, "phase_counts": counts,
+            "counters": dict(sorted(lig.timer.counters.items())),
             "peak_device_memory_gib": max(peaks.values()) if peaks else None,
-            "peaks_gib": peaks,
-            "profiled_wall_s": wall_prof, "device_busy_ms": busy_ms,
-            "idle_share_vs_profiled_wall": idle(wall_prof),
-            "idle_share_vs_median_wall": idle(median),
-            "device_groups": groups}
+            "peaks_gib": peaks}
 
 
 #: the import-time malloc tuning's A/B: off, on, on, off, at 2^20 and 2^24

@@ -224,7 +224,7 @@ def test_timed_prove_counts_the_open_sub_phases(mode, monkeypatch):
     """``open.to_ints`` and ``open.paths`` three times each in one timed
     prove, in either route; ``open.gather`` three times on the overlap
     route, once on the fused one; ``report`` lists every phase with its
-    count, the longest first."""
+    count, the longest first, then every counter."""
     _, _, _, vars_ = reference("bn254", False)
     if mode == "streaming":
         force(monkeypatch, "bn254", False, mode)
@@ -237,14 +237,19 @@ def test_timed_prove_counts_the_open_sub_phases(mode, monkeypatch):
     assert timer.counts["open"] == timer.counts["quadratic"] == 1
     assert set(timer.counts) == set(timer.totals)
     lines = timer.report().splitlines()
-    assert len(lines) == len(timer.totals)
-    ms = [float(line.split()[1]) for line in lines]
+    assert timer.counters
+    assert len(lines) == len(timer.totals) + len(timer.counters)
+    phases, counters = lines[:len(timer.totals)], lines[len(timer.totals):]
+    ms = [float(line.split()[1]) for line in phases]
     assert ms == sorted(ms, reverse=True)
-    for line in lines:
+    for line in phases:
         name = line.split()[0]
         assert line.endswith(f"x{timer.counts[name]}")
+    assert [line.split() for line in counters] == [
+        [name, str(timer.counters[name])] for name in sorted(timer.counters)]
     timer.reset()
-    assert not timer.totals and not timer.counts and timer.report() == ""
+    assert not timer.totals and not timer.counts and not timer.counters
+    assert timer.report() == ""
 
 
 def test_disabled_timer_keeps_nothing_and_trace_writes_a_chrome_trace(

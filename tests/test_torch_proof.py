@@ -239,7 +239,8 @@ def test_profile_script_runs_on_cpu():
     for call in ("prove", "verify"):
         assert len(rec[call]["walls_s"]) == 3
         assert rec[call]["phases_ms"]
-        assert rec[call]["device_busy_ms"] is None  # no device on the CPU
+        assert any(key.startswith("h2d.bytes")
+                   for key in rec[call]["counters"])
 
 
 def test_port_sources_do_not_import_jax():
