@@ -70,6 +70,7 @@ from .compile import (CHACHA_SEED_BYTES, DEFAULT_SECURITY_LEVEL,
                       CompiledInstance, compile_circuit)
 from .types import LigeroMTTestParams, is_default_mt_params
 from .proof import (
+    COLUMN_DTYPE,
     InterleavedProof,
     LigeroProof,
     LinearConstraintsProof,
@@ -557,7 +558,7 @@ class LigeroCircuit:
     def _opened(self, cols: np.ndarray, tree, idx_sets, proof: int):
         """Proof ``proof``'s gathered columns (rows, sum of the sets, L;
         copied in 16-bit limbs and widened on the host) -> ``(columns,
-        paths)`` per index set."""
+        paths)`` per index set (:meth:`_opened_set`)."""
         self._opening = proof
         out, off = [], 0
         for idx in idx_sets:
@@ -567,14 +568,24 @@ class LigeroCircuit:
         return out
 
     def _opened_set(self, cols: np.ndarray, tree, idx):
-        """One index set's columns (rows, len(idx), L) -> ``(columns as
-        ints, Merkle paths)``, timed as ``open.to_ints/<i>`` and
-        ``open.paths/<i>``, i the proof's index in the batch
-        (``_opening``, set by the callers)."""
+        """One index set's columns (rows, len(idx), L) -> ``(columns,
+        Merkle paths)``, the columns the proof's (len(idx), rows, L)
+        ``COLUMN_DTYPE`` array: column after column, each its canonical
+        16-bit limbs, which are byte for byte its elements on the wire
+        (``ligero/proof.py``).  Narrowed where they lie, then transposed
+        with each element's 2 L bytes moved as one item (a transpose of
+        the limbs themselves runs an inner loop of L limbs an element,
+        which is slower).  Timed as ``open.to_ints/<i>`` (the name it had
+        when the columns became ints) and ``open.paths/<i>``, i the
+        proof's index in the batch (``_opening``, set by the callers)."""
         ph, i = self.timer.phase, self._opening
         with ph(f"open.to_ints/{i}"):
-            columns = [self.field.limbs_to_ints(cols[:, j, :])
-                       for j in range(len(idx))]
+            limbs = cols.astype(COLUMN_DTYPE, order="C")
+            rows, t, width = limbs.shape
+            element = np.dtype((np.void, limbs.itemsize * width))
+            columns = np.ascontiguousarray(
+                limbs.view(element)[..., 0].T).view(COLUMN_DTYPE).reshape(
+                    t, rows, width)
         with ph(f"open.paths/{i}"):
             paths = [tree.generate_proof(j) for j in idx]
         return columns, paths
@@ -728,15 +739,17 @@ class LigeroCircuit:
                 "verify_s": round(time.perf_counter() - t0, 3)}
 
     def _well_formed(self, proof: LigeroProof) -> bool:
-        """Structural validation of an untrusted proof: t columns and t
-        paths a set, each column ``num_rows`` high, checked before any of
-        its columns is hashed."""
+        """Structural validation of an untrusted proof: t paths a set and
+        its columns a (t, ``num_rows``, L) ``COLUMN_DTYPE`` array, checked
+        before any of its columns is hashed."""
         if len(proof.interleaved.preenc_u_lc) != self.blind_len:
             return False
+        shape = (self.t, self.num_rows, self.field.num_limbs)
         for sub in (proof.interleaved, proof.linear, proof.quadratic):
-            if len(sub.columns) != self.t or len(sub.paths) != self.t:
-                return False
-            if any(len(col) != self.num_rows for col in sub.columns):
+            cols = sub.columns
+            if len(sub.paths) != self.t or not (
+                    isinstance(cols, np.ndarray) and cols.shape == shape
+                    and cols.dtype == COLUMN_DTYPE):
                 return False
         return True
 
@@ -747,23 +760,31 @@ class LigeroCircuit:
         subs = [sub for pf in proofs
                 for sub in (pf.interleaved, pf.linear, pf.quadratic)]
         with self.timer.phase("v.col_digests"):
-            digests = self._column_leaves(
-                [col for sub in subs for col in sub.columns])
+            digests = self._column_leaves([sub.columns for sub in subs])
         out, off = [], 0
         for sub in subs:
             out.append(digests[off:off + len(sub.columns)])
             off += len(sub.columns)
         return [tuple(out[3 * i:3 * i + 3]) for i in range(len(proofs))]
 
-    def _column_leaves(self, columns) -> list[bytes]:
-        """Leaf digests of opened columns (lists of ``num_rows`` ints)."""
-        mt = self.mt_params
+    def _column_leaves(self, sets) -> list[bytes]:
+        """Leaf digests of opened column sets, each a (ncols, ``num_rows``,
+        L) ``COLUMN_DTYPE`` array, column after column.  The default
+        params' leaf is Blake2s of the column's wire encoding, its row
+        count and then its limbs as they lie (``hashes.column_hash`` of
+        its ints); other params digest every column on the device."""
         if self._mt_default:
-            return [mt.col_hash(self.field, col) for col in columns]
-        if not columns:
+            rows, out = self.num_rows.to_bytes(8, "little"), []
+            for cols in sets:
+                for col in cols:
+                    h = hashlib.blake2s(rows)
+                    h.update(np.ascontiguousarray(col))
+                    out.append(h.digest())
+            return out
+        if not sets:
             return []
-        return mt.device_col_digests(
-            self.backend, self._columns_limbs(columns, self.num_rows))
+        limbs = self._columns_limbs(np.concatenate(sets), self.num_rows)
+        return self.mt_params.device_col_digests(self.backend, limbs)
 
     def _verify_column_openings(self, paths, u_root, sponge, leaves) -> bool:
         """``leaves``: the opened columns' leaf digests
@@ -779,12 +800,11 @@ class LigeroCircuit:
                     return False
         return True
 
-    def _columns_limbs(self, columns, rows: int) -> torch.Tensor:
-        """Opened columns (lists of ints) -> (rows, t, L) canonical limbs
-        on the device."""
-        flat = [c for col in columns for c in col[:rows]]
-        arr = self.field.ints_to_limbs(flat).reshape(len(columns), rows, -1)
-        return self.backend.asarray(arr.transpose(1, 0, 2))
+    def _columns_limbs(self, columns: np.ndarray, rows: int) -> torch.Tensor:
+        """The first ``rows`` rows of an opened column set, a (t, rows', L)
+        ``COLUMN_DTYPE`` array -> (rows, t, L) canonical limbs on the
+        device, int32 (the transpose and the widening one host copy)."""
+        return self.backend.asarray(columns[:, :rows].transpose(1, 0, 2))
 
     def _evals(self, poly: list[int]) -> list[int]:
         """n-point evaluations (canonical ints) of a polynomial given by
@@ -799,10 +819,11 @@ class LigeroCircuit:
                       mask_row: int) -> bool:
         """evals[j] == sums[i] (+ the mask row's entry of column i under
         zk) at every opened column j."""
-        p = self.field.p
+        field = self.field
         for path, col, sv in zip(proof.paths, proof.columns, sums):
             if self.zk:
-                sv = (sv + col[4 * self.m + mask_row]) % p
+                sv = (sv + field.limbs_to_int(col[4 * self.m + mask_row])
+                      ) % field.p
             if evals[path.leaf_index] != sv:
                 return False
         return True

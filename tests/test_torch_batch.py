@@ -12,6 +12,7 @@ import torch
 from ligero_tpu.engine.backend import Backend
 from ligero_tpu.fields import BN254_FR as F
 from ligero_tpu.ligero import LigeroCircuit as RefCircuit
+from ligero_tpu.ligero import LigeroProof as RefProof
 from ligero_tpu.sponge import test_sponge
 from ligero_tpu.synthetic import generate_random_circuit
 from ligero_tpu_torch import LigeroCircuit, LigeroProof, convert
@@ -154,7 +155,8 @@ def test_verify_batch_verdicts_equal_sequential(proved):
     want = [port.verify(p, sp.clone()) for p in batch]
     assert want == [True] + [False] * 9 + [True]
     assert port.verify_batch(batch, sp) == want
-    assert [ref.verify(p, sp.clone()) for p in batch] == want
+    assert [ref.verify(RefProof.from_bytes(p.to_bytes(PF), F), sp.clone())
+            for p in batch] == want
     assert port.verify_batch([], sp) == []
     assert port.verify_batch(batch[:1], sp) == [True]
     assert port.verify_batch([batch[6]], sp) == [False]

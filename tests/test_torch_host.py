@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_columns import as_ints
+
 # the suite runs in several worker processes that share the host's cores, and
 # these tests run many small tensor ops: one intra-op thread each, or the
 # workers' thread pools spin against each other
@@ -242,13 +244,18 @@ def case_expression_front_end(ns, fname):
 
 def case_proof_serialization(ns, fname):
     """The same proof object, built from plain data, through to_bytes and
-    from_bytes."""
+    from_bytes.  The port holds a column set as one (ncols, rows, L) <u2
+    limb array, the JAX package as lists of ints: the columns go in and
+    come out as ints in both."""
     f = ns.fields.FIELDS[fname]
     P = ns.ligero_proof
     rng = np.random.default_rng(17)
+    port = ns.pkg == "ligero_tpu_torch"
 
     def sub(cls, npoly):
         cols = [rand_ints(int(rng.integers(1 << 30)), 7, f.p) for _ in range(3)]
+        if port:
+            cols = np.stack([f.ints_to_limbs(c) for c in cols]).astype("<u2")
         paths = [ns.merkle.MerklePath(j, rng.bytes(32),
                                       [rng.bytes(32) for _ in range(4)])
                  for j in (1, 9, 30)]
@@ -267,7 +274,8 @@ def case_proof_serialization(ns, fname):
         except ValueError:
             rejects.append(True)
     return [data, back.to_bytes(f) == data, back.u_root,
-            back.interleaved.preenc_u_lc, back.linear.columns,
+            back.interleaved.preenc_u_lc,
+            as_ints(f, back.linear.columns) if port else back.linear.columns,
             [(p.leaf_index, p.leaf_sibling_hash, p.auth_path)
              for p in back.quadratic.paths], rejects]
 

@@ -34,6 +34,7 @@ from ligero_tpu_torch.merkle import MerkleTree
 from ligero_tpu_torch.sponge import PoseidonSponge, test_poseidon_config
 
 from fixtures import generate_lemniscate_circuit
+from torch_columns import bumped
 
 # the suite runs in several worker processes that share the host's cores, and
 # these tests run many small tensor ops: one intra-op thread each, or the
@@ -287,7 +288,7 @@ def test_synthetic_2e6_proof_bytes_equal_jax_package():
 
 def tampered_column(proof):
     bad = LigeroProof.from_bytes(proof.to_bytes(PF), PF)
-    bad.interleaved.columns[0][0] = (bad.interleaved.columns[0][0] + 1) % PF.p
+    bad.interleaved.columns = bumped(PF, bad.interleaved.columns, 0, 0)
     return bad
 
 
@@ -373,11 +374,14 @@ def test_column_count_checked_before_any_digest(lemniscate, monkeypatch,
     monkeypatch.setattr(LigeroMTPoseidonParams, "device_col_digests",
                         lambda self, backend, cols: calls.append(cols.shape))
     bad = LigeroProof.from_bytes(proof.to_bytes(PF), PF)
+    cols = bad.linear.columns
     if extra > 0:
-        bad.linear.columns.append(bad.linear.columns[0])
+        bad.linear.columns = np.concatenate([cols, cols[:1]])
         bad.linear.paths.append(bad.linear.paths[0])
     else:
-        del bad.linear.columns[-1], bad.linear.paths[-1]
+        bad.linear.columns = cols[:-1]
+        del bad.linear.paths[-1]
+    assert len(bad.linear.columns) == port.t + extra
     assert not port.verify(bad, test_sponge(F))
     assert port.verify_batch([bad, bad], test_sponge(F)) == [False, False]
     assert calls == []

@@ -4,6 +4,8 @@ and tampered proofs must be rejected."""
 
 import json
 import os
+import re
+import struct
 import subprocess
 import sys
 import warnings
@@ -20,12 +22,21 @@ from ligero_tpu.circuit import ArithmeticCircuit
 from ligero_tpu.engine.backend import Backend
 from ligero_tpu.fields import BN254_FR
 from ligero_tpu.ligero import LigeroCircuit as RefCircuit
+from ligero_tpu.ligero import LigeroProof as RefProof
 from ligero_tpu.sponge import test_sponge
 from ligero_tpu.synthetic import generate_random_circuit
 from ligero_tpu_torch import LigeroCircuit, convert
+from ligero_tpu_torch import hashes as port_hashes
 from ligero_tpu_torch import native as port_native
+from ligero_tpu_torch import synthetic as port_synthetic
+from ligero_tpu_torch import test_sponge as port_sponge
+from ligero_tpu_torch.fields import BLS12_377_FQ as PFQ
 from ligero_tpu_torch.fields import BN254_FR as PF
+from ligero_tpu_torch.fields import FieldSpec
 from ligero_tpu_torch.ligero import LigeroProof
+from ligero_tpu_torch.ligero.proof import COLUMN_DTYPE
+from ligero_tpu_torch.ligero.types import LigeroMTPoseidonParams
+from torch_columns import as_ints, bumped
 
 # the suite runs in several worker processes that share the host's cores, and
 # these tests run many small tensor ops: one intra-op thread each, or the
@@ -89,8 +100,11 @@ def test_proof_bytes_equal_jax_package(name):
     got = port.prove(vars_, sponge.clone())
     assert isinstance(got, LigeroProof)
     assert got.to_bytes(PF) == want.to_bytes(F)
-    assert port.verify(want, sponge.clone())
-    assert ref.verify(got, sponge.clone())
+    # each package verifies the other's proof as shipped: their proof
+    # objects hold the opened columns differently (arrays, lists of ints)
+    assert port.verify(LigeroProof.from_bytes(want.to_bytes(F), PF),
+                       sponge.clone())
+    assert ref.verify(RefProof.from_bytes(got.to_bytes(PF), F), sponge.clone())
 
 
 def test_prove_with_labels_and_from_reference():
@@ -131,7 +145,7 @@ def test_rejects_tampered_fields(lemniscate_proof):
     bad.linear.polynomial[0] = (bad.linear.polynomial[0] + 1) % F.p
     assert not port.verify(bad, sponge.clone())
     bad = LigeroProof.from_bytes(proof.to_bytes(F), PF)
-    bad.quadratic.columns[0][0] = (bad.quadratic.columns[0][0] + 1) % F.p
+    bad.quadratic.columns = bumped(PF, bad.quadratic.columns, 0, 0)
     assert not port.verify(bad, sponge.clone())
     bad = LigeroProof.from_bytes(proof.to_bytes(F), PF)
     bad.interleaved.preenc_u_lc = bad.interleaved.preenc_u_lc[:-1]
@@ -150,7 +164,8 @@ def test_rejects_wrong_witness():
         warnings.simplefilter("ignore")
         bad = port.prove(bad_vars, sponge.clone())
     assert not port.verify(bad, sponge.clone())
-    assert not RefCircuit(circuit, outputs).verify(bad, sponge.clone())
+    assert not RefCircuit(circuit, outputs).verify(
+        RefProof.from_bytes(bad.to_bytes(PF), F), sponge.clone())
 
 
 def test_does_not_run_jax_package_backend_bulk_methods(monkeypatch):
@@ -254,6 +269,303 @@ def test_port_sources_do_not_import_jax():
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         src = f.read()
     assert "import jax" not in src and "from jax" not in src
+
+
+# ---------------------------------------------------------------------------
+# the codec: opened columns as (ncols, rows, L) <u2 limb arrays
+# ---------------------------------------------------------------------------
+
+# (field, zk, Poseidon commitment): the port's own 2^8-gate synthetic
+# instance (2^6 under Poseidon), zk at a lambda whose blinding fits it
+CODEC_CASES = {"bn254_plain": (PF, False, False),
+               "bn254_zk": (PF, True, False),
+               "bn254_poseidon": (PF, False, True),
+               "bls12_377_plain": (PFQ, False, False),
+               "bls12_377_zk": (PFQ, True, False)}
+
+
+@pytest.fixture(scope="module", params=list(CODEC_CASES))
+def codec_proof(request):
+    field, zk, poseidon = CODEC_CASES[request.param]
+    circ, outs, vars_ = port_synthetic.generate_random_circuit(
+        field, 64 if poseidon else 256, num_vars=16 if poseidon else 64,
+        seed=8)
+    lig = LigeroCircuit(circ, outs, device="cpu", zk=zk,
+                        lambda_=20 if zk else 128,
+                        mt_params=LigeroMTPoseidonParams(field) if poseidon
+                        else None)
+    sponge = port_sponge(field)
+    kw = {"zk_seed": bytes(range(32))} if zk else {}
+    return lig, lig.prove(vars_, sponge.clone(), **kw), sponge
+
+
+def element_encoding(proof, field) -> bytes:
+    """The proof's bytes written element by element, every element of the
+    opened columns an int: the encoding the codec must keep."""
+    sz = field.serialized_size
+    out = bytearray()
+
+    def u64(v):
+        out.extend(struct.pack("<Q", v))
+
+    def put_bytes(b):
+        u64(len(b))
+        out.extend(b)
+
+    def put_fvec(v):
+        u64(len(v))
+        for x in v:
+            out.extend(int(x).to_bytes(sz, "little"))
+
+    put_bytes(proof.u_root)
+    for sub, poly in ((proof.interleaved, proof.interleaved.preenc_u_lc),
+                      (proof.linear, proof.linear.polynomial),
+                      (proof.quadratic, proof.quadratic.polynomial)):
+        put_fvec(poly)
+        u64(len(sub.columns))
+        for col in as_ints(field, sub.columns):
+            put_fvec(col)
+        u64(len(sub.paths))
+        for path in sub.paths:
+            u64(path.leaf_index)
+            put_bytes(path.leaf_sibling_hash)
+            u64(len(path.auth_path))
+            for h in path.auth_path:
+                put_bytes(h)
+    return bytes(out)
+
+
+def layout(proof, field) -> dict:
+    """Offsets in the proof's bytes: each field's start by name, and the
+    elements of each column set, (set, column, row) -> offset."""
+    sz, at, starts, elements = field.serialized_size, 0, {}, {}
+
+    def mark(name, size):
+        nonlocal at
+        starts[name] = at
+        at += size
+
+    mark("root.len", 8)
+    mark("root", len(proof.u_root))
+    for s, (sub, poly) in enumerate((
+            (proof.interleaved, proof.interleaved.preenc_u_lc),
+            (proof.linear, proof.linear.polynomial),
+            (proof.quadratic, proof.quadratic.polynomial))):
+        mark(f"{s}.poly.len", 8)
+        mark(f"{s}.poly", len(poly) * sz)
+        mark(f"{s}.ncols", 8)
+        ncols, rows = sub.columns.shape[:2]
+        for j in range(ncols):
+            mark(f"{s}.col{j}.rows", 8)
+            for r in range(rows):
+                elements[s, j, r] = at + r * sz
+            mark(f"{s}.col{j}", rows * sz)
+        mark(f"{s}.npaths", 8)
+        for j, path in enumerate(sub.paths):
+            mark(f"{s}.path{j}.index", 8)
+            mark(f"{s}.path{j}.sibling.len", 8)
+            mark(f"{s}.path{j}.sibling", len(path.leaf_sibling_hash))
+            mark(f"{s}.path{j}.auth.len", 8)
+            for i, h in enumerate(path.auth_path):
+                mark(f"{s}.path{j}.auth{i}.len", 8)
+                mark(f"{s}.path{j}.auth{i}", len(h))
+    starts["end"] = at
+    return {"starts": starts, "elements": elements}
+
+
+def test_codec_bytes_equal_element_encoding(codec_proof):
+    lig, proof, _ = codec_proof
+    field = lig.field
+    shape = (lig.t, lig.num_rows, field.num_limbs)
+    for sub in (proof.interleaved, proof.linear, proof.quadratic):
+        assert sub.columns.shape == shape
+        assert sub.columns.dtype == COLUMN_DTYPE
+    assert lig.num_rows == 4 * lig.m + (3 if lig.zk else 0)
+    data = proof.to_bytes(field)
+    assert data == element_encoding(proof, field)
+    assert len(data) == layout(proof, field)["starts"]["end"]
+
+
+def test_codec_round_trip(codec_proof):
+    lig, proof, sponge = codec_proof
+    field = lig.field
+    data = proof.to_bytes(field)
+    back = LigeroProof.from_bytes(data, field)
+    assert back.to_bytes(field) == data
+    assert back.u_root == proof.u_root
+    for got, want in ((back.interleaved, proof.interleaved),
+                      (back.linear, proof.linear),
+                      (back.quadratic, proof.quadratic)):
+        assert got.columns.dtype == COLUMN_DTYPE
+        assert np.array_equal(got.columns, want.columns)
+        assert not got.columns.flags.writeable      # a view of the bytes
+        assert [p.leaf_index for p in got.paths] == [
+            p.leaf_index for p in want.paths]
+    assert lig.verify(back, sponge.clone())
+    # from a bytearray too: the views are of a copy, never of the caller's
+    # mutable buffer
+    buf = bytearray(data)
+    again = LigeroProof.from_bytes(buf, field)
+    buf[:] = bytes(len(buf))
+    assert again.to_bytes(field) == data
+
+
+@pytest.mark.parametrize("field", [PF, PFQ], ids=["bn254", "bls12_377"])
+@pytest.mark.parametrize("value", ["p", "p+1", "all_ones"])
+@pytest.mark.parametrize("place", ["first", "middle", "last"])
+def test_from_bytes_rejects_non_canonical_column_element(codec_proofs, field,
+                                                         value, place):
+    """An element >= p anywhere in any column set raises ValueError, and
+    p - 1 in its place parses."""
+    proof = codec_proofs[field.name]
+    sz = field.serialized_size
+    bad = {"p": field.p, "p+1": field.p + 1,
+           "all_ones": (1 << (8 * sz)) - 1}[value]
+    data = proof.to_bytes(field)
+    spots = layout(proof, field)["elements"]
+    t, rows = proof.linear.columns.shape[:2]
+    col, row = {"first": (0, 0), "middle": (t // 2, rows // 2),
+                "last": (t - 1, rows - 1)}[place]
+    for s in range(3):
+        at = spots[s, col, row]
+        for v, ok in ((bad, False), (field.p - 1, True)):
+            blob = bytearray(data)
+            blob[at:at + sz] = v.to_bytes(sz, "little")
+            if ok:
+                back = LigeroProof.from_bytes(bytes(blob), field)
+                sub = (back.interleaved, back.linear, back.quadratic)[s]
+                assert field.limbs_to_int(sub.columns[col, row]) == v
+            else:
+                with pytest.raises(ValueError, match="non-canonical"):
+                    LigeroProof.from_bytes(bytes(blob), field)
+
+
+@pytest.fixture(scope="module")
+def codec_proofs():
+    """A small plain proof of each field, by field name."""
+    out = {}
+    for field in (PF, PFQ):
+        circ, outs, vars_ = port_synthetic.generate_random_circuit(
+            field, 64, num_vars=16, seed=6)
+        lig = LigeroCircuit(circ, outs, device="cpu")
+        out[field.name] = lig.prove(vars_, port_sponge(field))
+    return out
+
+
+@pytest.mark.parametrize("field", [PF, PFQ], ids=["bn254", "bls12_377"])
+def test_from_bytes_rejects_truncation_at_every_kind_of_boundary(codec_proofs,
+                                                                 field):
+    """Cut at the start of every kind of field and one byte into it, at its
+    first and its last place in the proof: ValueError each time."""
+    proof = codec_proofs[field.name]
+    data = proof.to_bytes(field)
+    kinds = {}
+    for name, at in layout(proof, field)["starts"].items():
+        if name != "end":
+            kinds.setdefault(re.sub(r"\d+", "#", name), []).append(at)
+    assert len(kinds) == 14          # root, then each set's 6 kinds + auth
+    cuts = {len(data) - 1}
+    for ats in kinds.values():
+        cuts |= {ats[0], ats[0] + 1, ats[-1], ats[-1] + 1}
+    for cut in sorted(c for c in cuts if c < len(data)):
+        with pytest.raises(ValueError, match="truncated"):
+            LigeroProof.from_bytes(data[:cut], field)
+
+
+@pytest.mark.parametrize("tail", [b"\x00", bytes(8), b"\x01" * 40])
+def test_from_bytes_rejects_trailing_bytes(codec_proofs, tail):
+    proof = codec_proofs[PF.name]
+    with pytest.raises(ValueError, match="trailing bytes"):
+        LigeroProof.from_bytes(proof.to_bytes(PF) + tail, PF)
+
+
+@pytest.mark.parametrize("field", [PF, PFQ], ids=["bn254", "bls12_377"])
+@pytest.mark.parametrize("change", [-1, 1], ids=["shorter", "longer"])
+@pytest.mark.parametrize("col", ["first", "last"])
+def test_from_bytes_rejects_ragged_column_set(codec_proofs, field, change,
+                                              col):
+    """A column one element shorter or longer than the others in its set
+    (its row count and elements consistent): one array cannot hold the set,
+    so it raises; such a proof never passed the verifier's shape check."""
+    proof = codec_proofs[field.name]
+    sz = field.serialized_size
+    data = bytearray(proof.to_bytes(field))
+    starts = layout(proof, field)["starts"]
+    rows = proof.linear.columns.shape[1]
+    j = 0 if col == "first" else len(proof.linear.columns) - 1
+    head = starts[f"1.col{j}.rows"]
+    data[head:head + 8] = struct.pack("<Q", rows + change)
+    end = starts[f"1.col{j}"] + rows * sz
+    if change < 0:
+        del data[end - sz:end]
+    else:
+        data[end:end] = (1).to_bytes(sz, "little")
+    with pytest.raises(ValueError, match="ragged column set"):
+        LigeroProof.from_bytes(bytes(data), field)
+
+
+def test_to_bytes_refuses_columns_as_ints(codec_proofs):
+    proof = codec_proofs[PF.name]
+    bad = LigeroProof.from_bytes(proof.to_bytes(PF), PF)
+    bad.linear.columns = as_ints(PF, bad.linear.columns)
+    with pytest.raises(ValueError, match="column set"):
+        bad.to_bytes(PF)
+    bad.linear.columns = proof.linear.columns.astype(np.uint32)
+    with pytest.raises(ValueError, match="column set"):
+        bad.to_bytes(PF)
+
+
+def test_verifier_leaves_equal_host_hash_of_ints(codec_proof):
+    """The verifier's leaves of the arrays, the prover's and the parsed
+    views, are the host hash of the same columns as ints: under the
+    default params ``hashes.column_hash`` (Blake2s of the wire bytes),
+    under Poseidon the params' own ``col_hash`` (the leaves then come
+    from the device's sponge)."""
+    lig, proof, _ = codec_proof
+    field = lig.field
+    if lig._mt_default:
+        def host(ints):
+            return port_hashes.column_hash(field, ints)
+    else:
+        def host(ints):
+            return lig.mt_params.col_hash(field, ints)
+    back = LigeroProof.from_bytes(proof.to_bytes(field), field)
+    want = [host(col) for col in as_ints(field, proof.linear.columns)]
+    assert lig._column_leaves([proof.linear.columns]) == want
+    leaves = lig._column_leaves([back.interleaved.columns,
+                                 back.linear.columns, back.quadratic.columns])
+    assert len(leaves) == 3 * lig.t and leaves[lig.t:2 * lig.t] == want
+
+
+def test_opened_columns_never_become_ints(monkeypatch):
+    """prove -> to_bytes -> from_bytes -> verify of a small circuit: every
+    element that goes through ``FieldSpec.limbs_to_ints`` or
+    ``ints_to_limbs`` counted, fewer than one column set holds, so no
+    opened-column element becomes a Python int on either side."""
+    circ, outs, vars_ = port_synthetic.generate_random_circuit(
+        PF, 256, num_vars=64, seed=8)
+    lig = LigeroCircuit(circ, outs, device="cpu")
+    sponge = port_sponge(PF)
+    counted = []
+    to_ints, to_limbs = FieldSpec.limbs_to_ints, FieldSpec.ints_to_limbs
+
+    def limbs_to_ints(self, limbs):
+        out = to_ints(self, limbs)
+        counted.append(len(out))
+        return out
+
+    def ints_to_limbs(self, xs):
+        out = to_limbs(self, xs)
+        counted.append(len(out))
+        return out
+
+    monkeypatch.setattr(FieldSpec, "limbs_to_ints", limbs_to_ints)
+    monkeypatch.setattr(FieldSpec, "ints_to_limbs", ints_to_limbs)
+    proof = lig.prove(vars_, sponge.clone())
+    back = LigeroProof.from_bytes(proof.to_bytes(PF), PF)
+    assert lig.verify(back, sponge.clone())
+    one_set = lig.t * lig.num_rows
+    assert sum(counted) < one_set, (sum(counted), one_set)
 
 
 @pytest.mark.cuda

@@ -12,12 +12,14 @@ import torch
 from ligero_tpu.engine.backend import Backend
 from ligero_tpu.fields import BN254_FR as F
 from ligero_tpu.ligero import LigeroCircuit as RefCircuit
+from ligero_tpu.ligero import LigeroProof as RefProof
 from ligero_tpu.sampling import rand_field_elements_limbs
 from ligero_tpu.sponge import test_sponge
 from ligero_tpu.synthetic import generate_random_circuit
 from ligero_tpu_torch import LigeroCircuit, LigeroProof, convert
 from ligero_tpu_torch.engine.backend import DeviceMemoryError, TorchBackend
 from ligero_tpu_torch.fields import BN254_FR as PF
+from torch_columns import bumped
 
 # the suite runs in several worker processes that share the host's cores, and
 # these tests run many small tensor ops: one intra-op thread each, or the
@@ -78,7 +80,7 @@ def test_zk_cross_verification(proved):
     ref, port, _, want, got = proved
     assert port.verify(got, test_sponge(F))
     assert port.verify(reparsed(want), test_sponge(F))
-    assert ref.verify(got, test_sponge(F))
+    assert ref.verify(RefProof.from_bytes(got.to_bytes(PF), F), test_sponge(F))
 
 
 def test_zk_shape_and_column_exclusion(small):
@@ -106,7 +108,8 @@ def test_zk_seed_determinism_and_masking(small):
     assert other.interleaved.preenc_u_lc != proof.interleaved.preenc_u_lc
     assert other.linear.polynomial != proof.linear.polynomial
     assert other.quadratic.polynomial != proof.quadratic.polynomial
-    assert other.interleaved.columns != proof.interleaved.columns
+    assert not np.array_equal(other.interleaved.columns,
+                              proof.interleaved.columns)
     fresh = port.prove(vars_, test_sponge(F))    # fresh os randomness
     assert port.verify(fresh, test_sponge(F))
     assert fresh.u_root not in (proof.u_root, other.u_root)
@@ -119,7 +122,8 @@ def test_zk_tampered_witness_rejected(small):
         warnings.simplefilter("ignore")
         proof = port.prove(bad, test_sponge(F), zk_seed=SEED_A)
     assert not port.verify(proof, test_sponge(F))
-    assert not ref.verify(proof, test_sponge(F))
+    assert not ref.verify(RefProof.from_bytes(proof.to_bytes(PF), F),
+                          test_sponge(F))
 
 
 def test_zk_flipped_bytes_rejected(small):
@@ -161,10 +165,9 @@ def test_zk_tampered_proof_rejected(small, tamper):
     elif tamper == "p0_value":
         bad.quadratic.polynomial[0] = (bad.quadratic.polynomial[0] + 1) % p
     elif tamper == "mask_row_entry":
-        col = bad.linear.columns[0]
-        col[4 * port.m + 1] = (col[4 * port.m + 1] + 1) % p
+        bad.linear.columns = bumped(PF, bad.linear.columns, 0, 4 * port.m + 1)
     elif tamper == "data_row_entry":
-        bad.quadratic.columns[0][0] = (bad.quadratic.columns[0][0] + 1) % p
+        bad.quadratic.columns = bumped(PF, bad.quadratic.columns, 0, 0)
     elif tamper == "message_domain_index":
         path = bad.interleaved.paths[0]
         path.leaf_index -= path.leaf_index % stride
@@ -266,4 +269,4 @@ def test_zk_proof_on_cuda_matches_cpu(cuda):
     got = dev.prove(vars_, test_sponge(F), zk_seed=SEED_A)
     assert got.to_bytes(PF) == want.to_bytes(PF)
     assert dev.verify(want, test_sponge(F)) and cpu.verify(got, test_sponge(F))
-    assert ref.verify(got, test_sponge(F))
+    assert ref.verify(RefProof.from_bytes(got.to_bytes(PF), F), test_sponge(F))
